@@ -1,0 +1,96 @@
+"""Shared runtime helpers for the kernel subpackages: backend and device
+resolution, and the nvcc build of the hand-written CUDA kernels.
+
+Kernels are built at first use, never at import: this module imports
+without ``nvcc`` or a card, so the CPU tests can import every module.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+BACKENDS = ("torch", "cuda", "auto")
+
+# compiled libraries land here (listed in .gitignore)
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+
+def resolve_backend(backend: str, x: torch.Tensor) -> str:
+    """Resolve a kernel-backend knob for tensor ``x``.
+
+    ``"torch"`` and ``"cuda"`` are explicit.  ``"auto"`` picks the
+    hand-written CUDA kernel for a CUDA tensor and the plain PyTorch
+    version for a CPU tensor.
+    """
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown kernel backend {backend!r}; "
+                         f"known: {BACKENDS}")
+    if backend == "auto":
+        return "cuda" if x.is_cuda else "torch"
+    return backend
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: the one given, else ``cuda``.
+    Without a card and without an explicit device this raises — entry
+    points never fall back to the CPU on their own."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass "
+                           "device='cpu' to run on the CPU")
+    return torch.device("cuda")
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels are built from "
+                       "source and need the CUDA toolkit")
+
+
+def build_library(source: Path) -> Path:
+    """Compile one ``.cu`` source into a shared library under
+    :data:`BUILD_DIR`, keyed by the hash of its text and flags, and return
+    its path.  A library already built from the same text is reused.
+    The compile writes to a temporary name and is renamed into place, so
+    concurrent builders never load a half-written file.  A failed build
+    raises ``RuntimeError`` with the compiler's output."""
+    source = Path(source)
+    digest = hashlib.sha256(source.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode())
+    out = BUILD_DIR / f"{source.stem}-{digest.hexdigest()[:16]}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(source)]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}) for "
+                               f"{source.name}:\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return out
+
+
+def load_library(source: Path) -> ctypes.CDLL:
+    """Build (if needed) and load a kernel library with ``ctypes``."""
+    return ctypes.CDLL(str(build_library(source)))

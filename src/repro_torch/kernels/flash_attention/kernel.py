@@ -1,0 +1,104 @@
+"""ctypes binding of the hand-written CUDA flash-attention forward
+(``csrc/flash_fwd.cu``), the Hopper counterpart of the Pallas TPU kernel
+``repro.kernels.flash_attention.kernel._attn_fwd_kernel``.
+
+The library is compiled with nvcc for ``sm_90a`` at first use (see
+:func:`repro_torch.kernels.common.build_library`).  The wrapper checks its
+inputs, allocates the outputs, launches on PyTorch's current stream without
+synchronising, and raises if the launch reports a CUDA error.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.common import load_library
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_fwd.cu"
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_lib: Optional[ctypes.CDLL] = None
+
+
+def library() -> ctypes.CDLL:
+    """Build (once per process) and load the kernel library."""
+    global _lib
+    if _lib is None:
+        lib = load_library(SOURCE)
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.flash_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p, i,
+                                  i, ctypes.c_float, p]
+        lib.flash_fwd.restype = i
+        lib.flash_fwd_error_string.argtypes = [i]
+        lib.flash_fwd_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def _check(q, k, v):
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"want q (B,Sq,H,hd) and k/v (B,Sk,Kh,hd); got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, Sq, H, hd = q.shape
+    Bk, Sk, Kh, hdk = k.shape
+    if Bk != B or hdk != hd or H % Kh:
+        raise ValueError(f"mismatched q {tuple(q.shape)} / k "
+                         f"{tuple(k.shape)}: batch and head_dim must agree "
+                         f"and H must be a multiple of Kh")
+    if hd % 16 or not 16 <= hd <= 256:
+        raise ValueError(f"head_dim {hd}: the kernel takes multiples of 16 "
+                         f"up to 256")
+    if not (1 <= B * H <= 65535 and Sq >= 1 and Sk >= 1):
+        raise ValueError(f"B*H={B * H} must lie in [1, 65535] (one grid row "
+                         f"each) and Sq={Sq}, Sk={Sk} must be >= 1")
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPES:
+        raise TypeError(f"q/k/v must share one dtype of float32 or "
+                        f"bfloat16; got {q.dtype}, {k.dtype}, {v.dtype}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_cuda or t.device != q.device:
+            raise ValueError(f"{name} must be a CUDA tensor on {q.device}")
+        # 16-byte vector loads of every row
+        step = 16 // t.element_size()
+        if (t.stride(3) != 1 or t.data_ptr() % 16
+                or any(s % step for s in t.stride()[:3])):
+            raise ValueError(f"{name}: the head dim must be contiguous and "
+                             f"every row start 16-byte aligned; got strides "
+                             f"{t.stride()}")
+
+
+def flash_attention_fwd_kernel(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, *, causal: bool,
+                               window: Optional[int]):
+    """q: (B, Sq, H, hd); k/v: (B, Sk, Kh, hd), CUDA, f32 or bf16.
+
+    Returns ``(out (B, Sq, H, hd) in q's dtype, lse (B*H, Sq) f32)``.
+    ``window`` is the sliding window in tokens, or None.  Each call that
+    launches the kernel adds one to ``flash_attention_fwd_kernel.launches``.
+    """
+    _check(q, k, v)
+    B, Sq, H, hd = q.shape
+    Sk, Kh = k.shape[1], k.shape[2]
+    lib = library()
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    lse = torch.empty((B * H, Sq), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_int64 * 12)(*q.stride()[:3], *k.stride()[:3],
+                                    *v.stride()[:3], *out.stride()[:3])
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        code = lib.flash_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), _DTYPES[q.dtype], B, H, Kh, Sq, Sk, hd,
+            ctypes.cast(strides, ctypes.c_void_p), int(causal),
+            int(window) if window is not None else 0, 1.0 / (hd ** 0.5),
+            stream)
+    if code != 0:
+        raise RuntimeError(f"flash_fwd launch failed: CUDA error {code} "
+                           f"({lib.flash_fwd_error_string(code).decode()})")
+    flash_attention_fwd_kernel.launches += 1
+    return out, lse
+
+
+flash_attention_fwd_kernel.launches = 0

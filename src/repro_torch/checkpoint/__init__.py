@@ -1,0 +1,7 @@
+from repro_torch.checkpoint.io import (CheckpointError, load_checkpoint,
+                                       read_manifest, save_checkpoint)
+from repro_torch.checkpoint.manager import (CheckpointManager,
+                                            list_checkpoints)
+
+__all__ = ["save_checkpoint", "load_checkpoint", "read_manifest",
+           "CheckpointError", "CheckpointManager", "list_checkpoints"]

@@ -4,6 +4,11 @@ scheme (``repro.checkpoint.io._flatten``): a parameter tree flattened to
 ``periods`` leaves carry a leading (n_periods,) axis.  For the dense stack
 a period is one layer, so ``periods/slot0/...`` has a leading n_layers axis
 and maps onto ``params["layers"][i]``.
+
+A bf16 leaf leaves torch as a numpy array of dtype ``V2`` (two raw bytes)
+holding its bit pattern: numpy has no bf16 type of its own, and ``V2`` is
+what ``np.load`` returns for the reference's bf16 (``ml_dtypes``) leaves,
+so both packages' checkpoints restore bitwise without ``ml_dtypes``.
 """
 from __future__ import annotations
 
@@ -17,6 +22,8 @@ from repro_torch.kernels.common import resolve_device
 from repro_torch.models.model import _require_dense
 
 _PERIOD = "periods/slot0/"
+# numpy form of a bf16 leaf: its bit pattern as two raw bytes
+BF16_NUMPY = np.dtype("V2")
 
 
 def _set(tree: dict, path: str, value) -> None:
@@ -36,8 +43,9 @@ def _items(tree: dict, prefix: str = ""):
 
 def _to_torch(arr: np.ndarray, device, dtype) -> torch.Tensor:
     arr = np.array(arr, copy=True)         # the params never alias `flat`
-    if arr.dtype.name == "bfloat16":       # ml_dtypes bf16 from the reference
-        t = torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
+    # bf16 as bits (V2), or the reference's in-memory ml_dtypes bf16
+    if arr.dtype == BF16_NUMPY or arr.dtype.name == "bfloat16":
+        t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
     else:
         t = torch.from_numpy(arr)
     t = t.to(device)
@@ -72,10 +80,10 @@ def params_from_flat(flat: Dict[str, np.ndarray], cfg: ArchConfig, *,
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
-    t = t.detach().cpu()
+    """A host copy (never a view of ``t``); bf16 as :data:`BF16_NUMPY`."""
+    t = t.detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
-        import ml_dtypes
-        return t.view(torch.uint16).numpy().view(ml_dtypes.bfloat16)
+        return t.view(torch.int16).numpy().view(BF16_NUMPY)
     return t.numpy()
 
 

@@ -6,6 +6,7 @@ without ``nvcc`` or a card, so the CPU tests can import every module.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import hashlib
 import os
@@ -89,6 +90,14 @@ def build_library(source: Path) -> Path:
         if os.path.exists(tmp):
             os.remove(tmp)
     return out
+
+
+def build_libraries(sources) -> list:
+    """Build several sources at once, one nvcc process each, all started
+    together; returns the library paths in order."""
+    sources = list(sources)
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+        return list(pool.map(build_library, sources))
 
 
 def load_library(source: Path) -> ctypes.CDLL:

@@ -1,10 +1,16 @@
-"""Public flash-attention forward on the (B, S, H, hd) layout.
+"""Public flash attention on the (B, S, H, hd) layout, differentiable.
 
-A CPU tensor goes to the plain PyTorch version (``ref.attention_ref``); a
-CUDA tensor goes to the hand-written kernel (``kernel.py``) or raises.  No
-failure on the CUDA path falls back to the plain version.  Forward only:
-the backward kernels belong to the training path, so a CUDA call that would
-need a gradient raises ``NotImplementedError``.
+A ``torch.autograd.Function`` takes the place of the reference's
+``jax.custom_vjp`` (``repro.kernels.flash_attention.ops``).  Its forward
+runs the hand-written forward kernel (K1) and keeps ``q, k, v, out`` and the
+per-row logsumexp as residuals; its backward computes ``D = rowsum(dO O)``
+as a plain tensor op and runs the backward kernels, dQ (K2) and dK/dV (K3),
+which sum dK/dV over the GQA group themselves.
+
+A CPU tensor goes to the plain PyTorch versions (``ref.attention_ref``,
+``ref.attention_bwd_ref``) through the same ``Function``; a CUDA tensor
+goes to the kernels or raises.  No failure on the CUDA path falls back to
+the plain versions.
 """
 from __future__ import annotations
 
@@ -12,9 +18,11 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.flash_attention.kernel import \
-    flash_attention_fwd_kernel
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.kernel import (
+    flash_attention_bwd_kernel, flash_attention_fwd_kernel)
+from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                     attention_ref,
+                                                     row_delta)
 
 
 def _validate(q, k, v, window):
@@ -35,21 +43,47 @@ def _validate(q, k, v, window):
                              f"(Sq={Sq}, Sk={Sk})")
 
 
+class _FlashAttention(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        if q.is_cuda:
+            out, lse = flash_attention_fwd_kernel(q, k, v, causal=causal,
+                                                  window=window)
+        else:
+            out, lse = attention_ref(q, k, v, causal=causal, window=window)
+        # residual is `out` itself, as in the reference: autograd keeps it
+        # alive anyway (it feeds the wo matmul)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        do = do.contiguous()
+        if q.is_cuda:
+            dq, dk, dv = flash_attention_bwd_kernel(
+                q, k, v, do, lse, row_delta(out, do), causal=ctx.causal,
+                window=ctx.window)
+        else:
+            dq, dk, dv = attention_bwd_ref(q, k, v, out, lse, do,
+                                           causal=ctx.causal,
+                                           window=ctx.window)
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
                     window: Optional[int] = None) -> torch.Tensor:
-    """q: (B, Sq, H, hd); k/v: (B, Sk, Kh, hd) -> (B, Sq, H, hd)."""
+    """q: (B, Sq, H, hd); k/v: (B, Sk, Kh, hd) -> (B, Sq, H, hd).
+
+    Differentiable: a gradient through this op runs the backward kernels
+    on CUDA tensors and their plain versions on CPU tensors.
+    """
     _validate(q, k, v, window)
     devices = {q.device.type, k.device.type, v.device.type}
-    if devices == {"cpu"}:
-        return attention_ref(q, k, v, causal=causal, window=window)[0]
-    if devices != {"cuda"}:
+    if devices not in ({"cpu"}, {"cuda"}):
         raise ValueError(f"q/k/v must all lie on the CPU or all on CUDA; "
                          f"got {q.device}, {k.device}, {v.device}")
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        raise NotImplementedError(
-            "the CUDA flash-attention backward is not ported yet; run "
-            "under torch.no_grad() or use attention_backend='torch'")
-    return flash_attention_fwd_kernel(q, k, v, causal=causal,
-                                      window=window)[0]
+    return _FlashAttention.apply(q, k, v, causal, window)

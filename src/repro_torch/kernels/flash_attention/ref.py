@@ -1,11 +1,13 @@
-"""Plain PyTorch version of the flash-attention forward kernel.
+"""Plain PyTorch versions of the flash-attention kernels.
 
 The CPU path of :func:`repro_torch.kernels.flash_attention.ops.
-flash_attention` and the yardstick the CUDA kernel is held against on the
-card.  It repeats the kernel's arithmetic on whole rows: scores in f32 from
-the pre-scaled query, the same masks from absolute positions, P rounded to
-V's dtype before the P V product, which accumulates in f32, and the per-row
-logsumexp ``L = m + log(max(l, 1e-30))``.
+flash_attention` and the yardstick the CUDA kernels are held against on the
+card.  They repeat the kernels' arithmetic on whole rows.  Forward: scores
+in f32 from the pre-scaled query, the same masks from absolute positions, P
+rounded to V's dtype before the P V product, which accumulates in f32, and
+the per-row logsumexp ``L = m + log(max(l, 1e-30))``.  Backward: P =
+exp(S - L) in f32 (not rounded), dP = dO V^T, dS = P (dP - D) with D =
+rowsum(dO O), and dQ, dK, dV in f32, dK/dV summed over the GQA group.
 """
 from __future__ import annotations
 
@@ -57,3 +59,45 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = (pv / l).permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).to(q.dtype)
     lse = (m + torch.log(l))[..., 0].reshape(B * H, Sq)
     return out, lse
+
+
+def row_delta(out: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """``D = rowsum(dO * O)`` in f32, as (B*H, Sq): the backward's per-row
+    term (the reference's ``ops.py::_flash_bwd``)."""
+    B, Sq, H, _ = out.shape
+    d = (do.float() * out.float()).sum(dim=-1)              # (B, Sq, H)
+    return d.permute(0, 2, 1).reshape(B * H, Sq).contiguous()
+
+
+def attention_bwd_ref(q, k, v, out, lse, do, *, causal: bool = True,
+                      window: Optional[int] = None):
+    """q/out/do: (B, Sq, H, hd); k/v: (B, Sk, Kh, hd); lse: (B*H, Sq) f32
+    from the forward.
+
+    Returns ``(dq (B,Sq,H,hd), dk, dv (B,Sk,Kh,hd))``, all f32, dk/dv
+    summed over the query heads of each kv head's group.
+    """
+    B, Sq, H, hd = q.shape
+    Sk, Kh = k.shape[1], k.shape[2]
+    rep = H // Kh
+    scale = 1.0 / (hd ** 0.5)
+
+    def groups(x):                                  # -> (B, Kh, rep, S, hd)
+        return x.float().reshape(B, Sq, Kh, rep, hd).permute(0, 2, 3, 1, 4)
+
+    qg, dog = groups(q), groups(do)
+    kg = k.float().permute(0, 2, 1, 3)[:, :, None]          # (B,Kh,1,Sk,hd)
+    vg = v.float().permute(0, 2, 1, 3)[:, :, None]
+    s = (qg * scale) @ kg.transpose(-1, -2)                 # (B,Kh,rep,Sq,Sk)
+    mask = attention_mask(Sq, Sk, causal=causal, window=window,
+                          device=q.device)
+    lse_g = lse.reshape(B, Kh, rep, Sq)[..., None]
+    p = torch.where(mask, torch.exp(s - lse_g), 0.0)
+    dp = dog @ vg.transpose(-1, -2)
+    delta = row_delta(out, do).reshape(B, Kh, rep, Sq)[..., None]
+    ds = p * (dp - delta)
+    dq = (ds @ kg) * scale                                  # (B,Kh,rep,Sq,hd)
+    dk = (ds.transpose(-1, -2) @ qg).sum(dim=2) * scale     # (B,Kh,Sk,hd)
+    dv = (p.transpose(-1, -2) @ dog).sum(dim=2)
+    dq = dq.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd)
+    return dq, dk.permute(0, 2, 1, 3), dv.permute(0, 2, 1, 3)

@@ -1,12 +1,16 @@
-"""Dense decoder assembly for inference: init, prefill, decode and the
-sampling head.  Port of the dense text path of ``repro.models.model``.
+"""Dense decoder assembly: init, the training forward and loss, prefill,
+decode and the sampling head.  Port of the dense text path of
+``repro.models.model``.
 
 The reference stacks each period's parameters and scans over periods with
 ``jax.lax.scan``; here ``params["layers"]`` is a list of per-layer dicts
-and the stack is a Python loop.  The decode state holds every layer's KV
-cache in two stacked tensors, ``{"k", "v"}`` of shape (n_layers, B, L, Kh,
-hd), updated in place by :func:`decode_step` (the reference donates it).
-Families other than ``dense`` raise ``NotImplementedError``.
+and the stack is a Python loop.  ``jax.checkpoint`` (remat) becomes one
+``torch.utils.checkpoint.checkpoint`` per layer.  The decode state holds
+every layer's KV cache in two stacked tensors, ``{"k", "v"}`` of shape
+(n_layers, B, L, Kh, hd), updated in place by :func:`decode_step` (the
+reference donates it).  Families other than ``dense`` raise
+``NotImplementedError``; a dense stack has no MoE auxiliary loss, so the
+reference's ``aux`` term is absent here.
 """
 from __future__ import annotations
 
@@ -14,6 +18,7 @@ import math
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.common import resolve_device
@@ -118,27 +123,148 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
 
 
 # --------------------------------------------------------------------------
-# forward pieces
+# forward (train / prefill)
 # --------------------------------------------------------------------------
 def embed_inputs(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor]):
-    """Text inputs only.  Returns (x (B,S,d), positions (B,S))."""
+    """Text inputs only.  Returns (x (B,S,d), positions (B,S), loss_mask
+    (B,S) bool)."""
     _require_dense(cfg)
     tokens = batch["tokens"]
     x = params["embed"]["w"][tokens.long()]
     B, S = tokens.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
-    return x, positions
+    loss_mask = torch.ones((B, S), dtype=torch.bool, device=x.device)
+    return x, positions, loss_mask
+
+
+def _head_weight(params, cfg: ArchConfig):
+    return (params["embed"]["w"].T if cfg.tie_embeddings
+            else params["head"]["w"])
+
+
+def _promote_matmul(x, w):
+    """``x @ w`` in the promoted dtype of the two, as jnp's matmul does (a
+    bf16 activation against an f32 head runs in f32)."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return x.to(dt) @ w.to(dt)
 
 
 def logits_fn(params, cfg: ArchConfig, x):
-    w = (params["embed"]["w"].T if cfg.tie_embeddings
-         else params["head"]["w"])
-    return x @ w
+    return _promote_matmul(x, _head_weight(params, cfg))
 
 
 def _ffn(layer, cfg: ArchConfig, x):
     h = L.norm_apply(cfg.norm, layer["norm2"], x)
     return x + L.mlp_apply(layer["mlp"], h, cfg.act)
+
+
+def _layer_forward(layer, x, positions, cfg: ArchConfig, spec: L.AttnSpec):
+    h = L.norm_apply(cfg.norm, layer["norm1"], x)
+    x = x + L.attn_apply(layer["attn"], h, spec, positions)
+    return _ffn(layer, cfg, x)
+
+
+def backbone(params, cfg: ArchConfig, x, positions, remat: bool = True):
+    """The layer stack and the final norm.  With ``remat`` each layer is one
+    ``checkpoint`` (the reference's ``nothing_saveable`` per period): only
+    its input is kept, and its forward runs again in the backward pass."""
+    _require_dense(cfg)
+    spec = attn_spec(cfg)
+    for layer in params["layers"]:
+        if remat:
+            # the layer draws no random numbers: no RNG state to keep
+            x = checkpoint(_layer_forward, layer, x, positions, cfg, spec,
+                           use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = _layer_forward(layer, x, positions, cfg, spec)
+    return L.norm_apply(cfg.norm, params["final_norm"], x)
+
+
+def forward(params, cfg: ArchConfig, batch, remat: bool = True):
+    """Full forward -> logits (B,S,V)."""
+    x, positions, _ = embed_inputs(params, cfg, batch)
+    x = backbone(params, cfg, x, positions, remat=remat)
+    return logits_fn(params, cfg, x)
+
+
+# --------------------------------------------------------------------------
+# loss (sequence-chunked cross entropy)
+# --------------------------------------------------------------------------
+def _xent_chunk(x, w, labels, mask):
+    """x: (B,c,d); w: (d,V); labels: (B,c); mask: (B,c) f32.  The logits
+    are taken in the operands' dtype and cast to f32 before logsumexp."""
+    logits = _promote_matmul(x, w).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    nll = (lse - gold) * mask
+    return nll.sum(), mask.sum()
+
+
+def _as_dtype(dtype) -> torch.dtype:
+    return getattr(torch, dtype) if isinstance(dtype, str) else dtype
+
+
+def cast_floating(tree, dtype):
+    """Cast every floating-point tensor of ``tree`` (dicts and lists of
+    tensors) to ``dtype``; other leaves pass through.  The cast is
+    differentiable, so gradients return in the original dtype."""
+    dtype = _as_dtype(dtype)
+    if isinstance(tree, dict):
+        return {k: cast_floating(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [cast_floating(v, dtype) for v in tree]
+    if isinstance(tree, torch.Tensor) and tree.is_floating_point():
+        return tree.to(dtype)
+    return tree
+
+
+def cast_compute_params(params, dtype):
+    """Mixed-precision compute cast: the layers and the final norm go to
+    ``dtype``; the embedding and the loss head stay in their master dtype
+    (the vocab-sized matmuls feed logsumexp)."""
+    out = dict(params)
+    for key in ("layers", "final_norm"):
+        if key in out:
+            out[key] = cast_floating(out[key], dtype)
+    return out
+
+
+def train_loss(params, cfg: ArchConfig, batch, remat: bool = True,
+               loss_chunk: int = 512, compute_dtype=None):
+    """Scalar mean next-token cross entropy, sequence-chunked so the
+    (B,S,V) logits are never materialised at once.
+
+    ``compute_dtype`` (e.g. ``"bfloat16"``) runs the backbone in that
+    dtype (see :func:`cast_compute_params`); the loss reduction stays f32.
+    Must run with gradients enabled to be differentiated: unlike
+    :func:`prefill` it is not under ``torch.no_grad()``.
+    """
+    if compute_dtype is not None:
+        params = cast_compute_params(params, compute_dtype)
+    x, positions, loss_mask = embed_inputs(params, cfg, batch)
+    if compute_dtype is not None:
+        x = x.to(_as_dtype(compute_dtype))
+    x = backbone(params, cfg, x, positions, remat=remat)
+    w = _head_weight(params, cfg)
+
+    # causal shift as in the reference: position t is scored against
+    # labels[t + 1] (or tokens[t + 1] when the batch has no labels)
+    xs = x[:, :-1]
+    ls = (batch["labels"] if "labels" in batch else batch["tokens"])[:, 1:]
+    ms = loss_mask[:, 1:].float()
+
+    S = xs.shape[1]
+    c = min(loss_chunk, S)
+    n = S // c
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    bounds = [(i * c, (i + 1) * c) for i in range(n)]
+    if S - n * c:
+        bounds.append((n * c, S))
+    for a, b in bounds:
+        s, m = _xent_chunk(xs[:, a:b], w, ls[:, a:b], ms[:, a:b])
+        tot, cnt = tot + s, cnt + m
+    return tot / cnt.clamp_min(1.0)
 
 
 # --------------------------------------------------------------------------
@@ -158,7 +284,7 @@ def prefill(params, cfg: ArchConfig, batch, cache_len: int,
     spec = attn_spec(cfg)
     dtype = param_dtype(cfg)
     attn_len = _attn_len(cfg, cache_len)
-    x, positions = embed_inputs(params, cfg, batch)
+    x, positions, _ = embed_inputs(params, cfg, batch)
     ks, vs = [], []
     for layer in params["layers"]:
         h = L.norm_apply(cfg.norm, layer["norm1"], x)

@@ -5,10 +5,10 @@
 
 Phases, each of which fails the run if it fails:
 
-1. print the card's name and power limit; build the flash-attention
-   kernels from ``src/repro_torch/.../csrc`` with nvcc (sm_90a), one nvcc
-   per source, started together: the forward (K1) and the backward (K2
-   dQ, K3 dK/dV);
+1. print the card's name and power limit; build the kernels from
+   ``src/repro_torch/.../csrc`` with nvcc (sm_90a), one nvcc per source,
+   started together: the flash-attention forward (K1) and backward (K2
+   dQ, K3 dK/dV), and the SSD chunk scan (K4);
 2. hold K1 against its plain PyTorch version on the card, in bf16 and f32,
    at granite-3-2b's prefill shape and at ragged, windowed and MHA hd=128
    shapes (one JSON line per shape: errors, kernel / plain / library ms and
@@ -33,13 +33,23 @@ Phases, each of which fails the run if it fails:
 6. run ``serve_main("granite-3-2b")`` (the reduced serve CLI) on the card;
 7. run ``train_main("stablelm-1.6b")`` (the reduced train CLI) with
    checkpoints, preempt it, resume it, and hold it bitwise against an
-   uninterrupted run, in PyTorch's deterministic mode.
+   uninterrupted run, in PyTorch's deterministic mode;
+8. hold K4 against the plain chunked scan: y and the final state, in bf16
+   and f32 at mamba2-2.7b's serving prefill shape (Bs 8, S 2048, 80 heads
+   of 64, g 1, N 128, Q 256), and in bf16 at a ragged S 1000, jamba's
+   widths (128 heads of 128, g 8) and Q 64 at S 4096;
+9. serve full-width mamba2-2.7b (64 layers, bf16, random weights from a
+   seed) through ``ServeEngine`` with phase 5's traffic; K4 must launch
+   64 x prefill calls; the prefill batch through K4 and through the plain
+   scan, each against an f32 prefill; ``torch.profiler`` over one prefill
+   and 8 decode steps; then ``serve_main("mamba2-2.7b")``.
 
 The line before the last lists each ported kernel with its launches on
-the main paths and its numbers at the training shape (K2, K3) or
-granite's prefill shape (K1); the last line is ``{"ok": true, "device":
-{...}}``.  Without a CUDA card, or without the repository beside it, the
-script exits non-zero and prints no result.
+its main path (K1-K3 training, K4 mamba2 serving) and its numbers at the
+training shape (K2, K3), granite's prefill shape (K1) or mamba2's prefill
+shape (K4); the last line is ``{"ok": true, "device": {...}}``.  Without
+a CUDA card, or without the repository beside it, the script exits
+non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -63,6 +73,8 @@ KERNELS = {
     "flash_attention_fwd": (CSRC + "flash_fwd.cu", TPU_KERNELS + ":57"),
     "flash_attention_bwd_dq": (CSRC + "flash_bwd.cu", TPU_KERNELS + ":148"),
     "flash_attention_bwd_dkv": (CSRC + "flash_bwd.cu", TPU_KERNELS + ":179"),
+    "ssd_scan": ("src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+                 "src/repro/kernels/ssd_scan/kernel.py:24"),
 }
 
 # H100 SXM published peaks (dense): bf16 tensor cores, f32 CUDA cores, HBM3
@@ -95,6 +107,32 @@ BWD_TOL = 2e-4
 # rounds P to bf16 before P V and the gradients are rounded to bf16
 FN_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 TRAIN_STEPS, TRAIN_B, TRAIN_S = 8, 8, 2048
+# name, Bs, S, nh, hp, g, N, Q, dtypes
+SSD_SHAPES = [
+    ("mamba2_prefill", 8, 2048, 80, 64, 1, 128, 256,
+     ("bfloat16", "float32")),
+    ("ragged_s1000", 2, 1000, 80, 64, 1, 128, 256, ("bfloat16",)),
+    ("jamba_widths", 1, 1024, 128, 128, 8, 128, 256, ("bfloat16",)),
+    ("chunk64_s4096", 1, 4096, 80, 64, 1, 128, 64, ("bfloat16",)),
+]
+# K4 against the plain chunked scan, (atol, rtol).  Both compute in f32
+# from the same inputs and differ by summation order, an error that scales
+# with the size of the partial sums: atol is 3e-5 of the plain version's
+# largest |value| (f32's 6e-8 over the ~400 terms of a row: 256 intra,
+# 128 inter), rtol 1e-4.  A bf16 y is also rounded to bf16 (one ulp =
+# 2**-8 relative): 2e-2 as for K1.  h_final is f32 in both.
+SSD_TOL = {"float32": {"y": ("scaled", 3e-5, 1e-4),
+                       "h": ("scaled", 3e-5, 1e-4)},
+           "bfloat16": {"y": ("fixed", 2e-2, 2e-2),
+                        "h": ("scaled", 3e-5, 1e-4)}}
+
+
+def _ssd_close(torch, got, want, tol):
+    """assert_close under one SSD_TOL entry; returns the atol used."""
+    kind, a, r = tol
+    atol = a * want.abs().max().item() if kind == "scaled" else a
+    torch.testing.assert_close(got, want, atol=atol, rtol=r)
+    return atol
 
 
 def emit(**rec):
@@ -168,6 +206,73 @@ def bwd_bounds(B, Sq, Sk, H, Kh, hd, causal, window, dtype: str,
         ms, by = least_ms(per_pair * hd * pairs, nbytes, dtype)
         out[name] = {"ms": ms, "by": by, "flops": per_pair * hd * pairs}
     return out
+
+
+def ssd_bound(Bs, S, nh, hp, g, N, Q, dtype: str, esize: int):
+    """Least time (ms) of the SSD scan.  Operations per (batch, chunk of Qc
+    rows): 2 Qc(Qc+1)/2 N per group for C B^T, and per head 2 Qc(Qc+1)/2 hp
+    (intra), 2 Qc N hp (inter) and 2 Qc N hp (state update); the peak is the
+    inputs' dtype's.  Bytes: x, dt, A, B and C read once, y and the f32
+    h_final written once."""
+    chunks = [min(Q, S - c0) for c0 in range(0, S, Q)]
+    flops = Bs * sum(g * qc * (qc + 1) * N
+                     + nh * (qc * (qc + 1) * hp + 4 * qc * N * hp)
+                     for qc in chunks)
+    nbytes = (2 * Bs * S * nh * hp * esize + 4 * Bs * S * nh + 4 * nh
+              + 2 * Bs * S * g * N * esize + 4 * Bs * nh * hp * N)
+    return (*least_ms(flops, nbytes, dtype), flops, nbytes)
+
+
+def ssd_vs_plain(torch, ssd_scan_kernel, ssd_chunked_ref):
+    """Phase 8: K4 against the plain chunked scan.  x, B and C are strided
+    views of one buffer, as the mixer hands them over.  Returns the
+    serving-shape bf16 record."""
+    records = {}
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for name, Bs, S, nh, hp, g, N, Q, dtypes in SSD_SHAPES:
+        for dtype_name in dtypes:
+            dtype = getattr(torch, dtype_name)
+            buf = torch.randn((Bs, S, nh * hp + 2 * g * N), generator=gen,
+                              device="cuda").to(dtype)
+            x = buf[..., :nh * hp].reshape(Bs, S, nh, hp)
+            B = buf[..., nh * hp:nh * hp + g * N].reshape(Bs, S, g, N)
+            C = buf[..., nh * hp + g * N:].reshape(Bs, S, g, N)
+            dt = torch.nn.functional.softplus(torch.randn(
+                (Bs, S, nh), generator=gen, device="cuda"))
+            A = -torch.exp(0.3 * torch.randn(nh, generator=gen,
+                                             device="cuda"))
+            y, h = ssd_scan_kernel(x, dt, A, B, C, chunk=Q)
+            torch.cuda.synchronize()
+            yr, hr = ssd_chunked_ref(x, dt, A, B, C, Q)
+            err_y = (y.float() - yr.float()).abs().max().item()
+            err_h = (h - hr).abs().max().item()
+            tol = SSD_TOL[dtype_name]
+            atol_y = _ssd_close(torch, y.float(), yr.float(), tol["y"])
+            atol_h = _ssd_close(torch, h, hr, tol["h"])
+            max_y, max_h = (yr.float().abs().max().item(),
+                            hr.abs().max().item())
+            del yr, hr
+            torch.cuda.empty_cache()
+            kernel_ms = cuda_ms(torch, lambda: ssd_scan_kernel(
+                x, dt, A, B, C, chunk=Q), reps=10)
+            plain_ms = cuda_ms(torch, lambda: ssd_chunked_ref(
+                x, dt, A, B, C, Q), reps=2)
+            bound_ms, bound_by, flops, nbytes = ssd_bound(
+                Bs, S, nh, hp, g, N, Q, dtype_name, x.element_size())
+            rec = dict(phase="ssd_kernel_vs_plain", shape=name,
+                       dims=[Bs, S, nh, hp, g, N, Q], dtype=dtype_name,
+                       max_abs_err_y=err_y, max_abs_err_h=err_h, tol=tol,
+                       atol_y=atol_y, atol_h=atol_h, max_abs_y=max_y,
+                       max_abs_h=max_h,
+                       kernel_ms=kernel_ms, plain_ms=plain_ms,
+                       library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+                       flops=flops, bytes=nbytes,
+                       kernel_tflops=flops / kernel_ms / 1e9)
+            emit(**rec)
+            records[(name, dtype_name)] = rec
+            del buf, x, B, C, dt, A, y, h
+            torch.cuda.empty_cache()
+    return records[("mamba2_prefill", "bfloat16")]
 
 
 def kernel_vs_plain(torch, F, fa_kernel, attention_ref):
@@ -328,14 +433,15 @@ def function_vs_plain(torch, flash_attention, naive_attention):
 
 
 class _Counts:
-    """The launch counters of the three kernels, zeroed and read around
-    one path."""
+    """The launch counters of the kernels, zeroed and read around one
+    path."""
 
-    def __init__(self, fa):
+    def __init__(self, fa, ssd):
         self.fns = {"flash_attention_fwd": fa.flash_attention_fwd_kernel,
                     "flash_attention_bwd_dq": fa.flash_attention_bwd_dq_kernel,
                     "flash_attention_bwd_dkv":
-                        fa.flash_attention_bwd_dkv_kernel}
+                        fa.flash_attention_bwd_dkv_kernel,
+                    "ssd_scan": ssd.ssd_scan_kernel}
 
     def zero(self):
         for fn in self.fns.values():
@@ -390,7 +496,7 @@ def train_full_width(torch, m, counts):
     L = cfg.n_layers
     want = {"flash_attention_fwd": 2 * L * TRAIN_STEPS,
             "flash_attention_bwd_dq": L * TRAIN_STEPS,
-            "flash_attention_bwd_dkv": L * TRAIN_STEPS}
+            "flash_attention_bwd_dkv": L * TRAIN_STEPS, "ssd_scan": 0}
     if launches != want:
         raise AssertionError(f"launches {launches} != {want} (remat runs "
                              f"each layer's forward twice a step)")
@@ -528,15 +634,24 @@ def prefill_batch(torch, prompts, S):
             torch.from_numpy(lens).cuda())
 
 
-def serve_full_width(torch, get_config, init_params, ServeEngine, Request,
-                     prefill, fa_kernel):
-    """Phase 3: full-width granite-3-2b through the engine.  Returns the
+# arch served in full -> (its prefill kernel, the engine's stat for it, the
+# config field that picks that kernel or the plain version)
+SERVED = {"granite-3-2b": ("flash_attention_fwd", "flash_attention_launches",
+                           "attention_backend"),
+          "mamba2-2.7b": ("ssd_scan", "ssd_scan_launches", "mixer_backend")}
+
+
+def serve_full_width(torch, m, counts, arch: str):
+    """Phases 5 and 9: a full-width arch through the engine.  Returns the
     kernel launches counted over the engine's run, the params and the
     prompts."""
-    cfg = get_config("granite-3-2b")
+    kernel, stat, backend_field = SERVED[arch]
+    get_config, ServeEngine, Request, prefill = (
+        m["get_config"], m["ServeEngine"], m["Request"], m["prefill"])
+    cfg = get_config(arch)
     t0 = time.perf_counter()
-    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
-                         device="cuda")
+    params = m["init_params"](
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = _param_count(params)
@@ -564,48 +679,50 @@ def serve_full_width(torch, get_config, init_params, ServeEngine, Request,
         engine.submit(r)
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
-    fa_kernel.launches = 0
+    counts.zero()
     t0 = time.perf_counter()
     done = engine.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = fa_kernel.launches
+    launches = counts.read()
 
     s = engine.stats()
     if len(done) != 16 or any(len(r.generated) != 32 for r in reqs):
         raise AssertionError(f"not every request completed with 32 tokens: "
                              f"{[len(r.generated) for r in reqs]}")
-    if (launches != cfg.n_layers * s["prefill_calls"] or launches == 0
-            or s["flash_attention_launches"] != launches):
-        raise AssertionError(f"flash-attention launches {launches} != "
-                             f"{cfg.n_layers} x {s['prefill_calls']} "
-                             f"prefill calls")
+    n = launches[kernel]
+    others = {k: v for k, v in launches.items() if k != kernel and v}
+    if (n != cfg.n_layers * s["prefill_calls"] or n == 0 or s[stat] != n
+            or others):
+        raise AssertionError(f"{kernel} launches {n} != {cfg.n_layers} x "
+                             f"{s['prefill_calls']} prefill calls, or other "
+                             f"kernels launched: {launches}")
     tokens = sum(len(r.generated) for r in reqs)
     emit(phase="serve_full_width", arch=cfg.name, params=n_params,
          init_s=init_s, requests=len(done), tokens=tokens, wall_s=wall,
          tokens_per_s=tokens / wall,
          prompt_tokens=int(sum(len(p) for p in prompts)),
          prefill_calls=s["prefill_calls"], decode_steps=s["decode_steps"],
-         flash_attention_launches=launches,
+         launches=launches,
          ttft_p50_s=s["ttft_p50_s"], ttft_p99_s=s["ttft_p99_s"],
          tpot_p50_s=s["tpot_p50_s"], tpot_p99_s=s["tpot_p99_s"],
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
 
-    # one prefill batch through the kernel and through plain attention,
+    # one prefill batch through the kernel and through its plain version,
     # both in bf16, each held against the plain path in f32
     B, S = 8, 2048
     batch, lens_d = prefill_batch(torch, prompts[:B], S)
     logits, times = {}, {}
     for backend in ("cuda", "torch"):
-        c = dataclasses.replace(cfg, attention_backend=backend)
+        c = dataclasses.replace(cfg, **{backend_field: backend})
         run = lambda: prefill(params, c, batch, 2048,  # noqa: E731
                               lengths=lens_d)
         times[backend] = cuda_ms(torch, run, reps=2)
         logits[backend] = run()[0].float()
         torch.cuda.empty_cache()
     p32 = _map(params, lambda t: t.float())
-    c32 = dataclasses.replace(cfg, attention_backend="torch",
-                              param_dtype="float32")
+    c32 = dataclasses.replace(cfg, param_dtype="float32",
+                              **{backend_field: "torch"})
     ref = prefill(p32, c32, batch, 2048, lengths=lens_d)[0]
     del p32
     torch.cuda.empty_cache()
@@ -621,7 +738,7 @@ def serve_full_width(torch, get_config, init_params, ServeEngine, Request,
     # a differing argmax is a fault only where the f32 top-2 margin
     # exceeds twice the kernel path's largest logit error
     faults = ((a.argmax(-1) != arg_ref) & (margin > 2 * max_abs)).sum().item()
-    emit(phase="prefill_cuda_vs_torch", batch=[B, S],
+    emit(phase="prefill_cuda_vs_torch", arch=cfg.name, batch=[B, S],
          prefill_ms_cuda=times["cuda"], prefill_ms_torch=times["torch"],
          rel_err_cuda_bf16_vs_f32=rel_cuda,
          rel_err_torch_bf16_vs_f32=rel_torch,
@@ -630,12 +747,36 @@ def serve_full_width(torch, get_config, init_params, ServeEngine, Request,
          argmax_agree_torch_f32=int((b.argmax(-1) == arg_ref).sum().item()),
          rows=B, argmax_faults=faults)
     # the kernel path may be no more than twice as far from f32 as the
-    # plain bf16 path (it rounds P to bf16 before P V, as the TPU kernel)
+    # plain bf16 path (K1 rounds P to bf16 before P V, as the TPU kernel)
     if rel_cuda > 2 * rel_torch or faults:
         raise AssertionError(f"prefill through the kernel strays from f32: "
                              f"rel {rel_cuda} vs plain {rel_torch}, "
                              f"faults {faults}")
-    return launches, params, prompts
+    return n, params, prompts
+
+
+def serve_path(torch, m, counts, arch: str) -> int:
+    """Phases 5-6 (granite) and 9 (mamba2): the full-width arch through the
+    engine, its profile, then the reduced serve CLI on the card with its
+    launch check.  Returns the kernel's launches over the full-width
+    engine run."""
+    launches, params, prompts = serve_full_width(torch, m, counts, arch)
+    profile_steps(torch, m["get_config"](arch), params, prompts,
+                  m["prefill"], m["decode_step"])
+    del params
+    torch.cuda.empty_cache()
+
+    kernel, stat, _ = SERVED[arch]
+    counts.zero()
+    cli = m["serve_main"](arch)
+    cli_launches = counts.read()[kernel]
+    n_layers = m["get_reduced"](arch).n_layers
+    if (cli["requests"] != 16 or cli_launches == 0
+            or cli_launches != n_layers * cli["prefill_calls"]
+            or cli[stat] != cli_launches):
+        raise AssertionError(f"serve_main: {cli}, launches {cli_launches}")
+    emit(phase="serve_main_reduced", launches=cli_launches, **cli)
+    return launches
 
 
 def device_profile(torch, run, **labels):
@@ -667,13 +808,14 @@ def device_profile(torch, run, **labels):
 
 
 def profile_steps(torch, cfg, params, prompts, prefill, decode_step):
-    """Phase 5b: device time by operation over one (8, 2048) prefill and
-    8 decode steps, and the device's busy share of the wall time."""
+    """Phases 5b and 9b: device time by operation over one (8, 2048)
+    prefill and 8 decode steps, and the device's busy share of the wall
+    time."""
     B, S = 8, 2048
     batch, lens_d = prefill_batch(torch, prompts[:B], S)
     device_profile(torch, lambda: prefill(params, cfg, batch, 2048,
                                           lengths=lens_d),
-                   what="prefill", steps=1)
+                   arch=cfg.name, what="prefill", steps=1)
     logits, state = prefill(params, cfg, batch, 2048, lengths=lens_d)
     tok = logits.argmax(-1).to(torch.int32)[:, None]
 
@@ -684,7 +826,7 @@ def profile_steps(torch, cfg, params, prompts, prefill, decode_step):
             logits, state = decode_step(params, cfg, state, tok, pos)
             tok = logits.argmax(-1).to(torch.int32)[:, None]
             pos = pos + 1
-    device_profile(torch, decode, what="decode", steps=8)
+    device_profile(torch, decode, arch=cfg.name, what="decode", steps=8)
     del state
     torch.cuda.empty_cache()
 
@@ -718,6 +860,8 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.flash_attention import ref
+    from repro_torch.kernels.ssd_scan import kernel as ssd
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked_ref
     from repro_torch.launch.serve import serve_main
     from repro_torch.launch.train import _LMDictBatches, train_main
     from repro_torch.models import init_params
@@ -737,7 +881,10 @@ def main() -> int:
              tree_leaves=tree_leaves, tree_unflatten=tree_unflatten,
              train_main=train_main, Preemption=Preemption,
              load_checkpoint=load_checkpoint,
-             list_checkpoints=list_checkpoints)
+             list_checkpoints=list_checkpoints, init_params=init_params,
+             ServeEngine=ServeEngine, Request=Request, prefill=prefill,
+             decode_step=decode_step, serve_main=serve_main,
+             get_reduced=get_reduced)
 
     # f32 products in the plain versions stay full f32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -748,9 +895,10 @@ def main() -> int:
 
     # phase 1: one nvcc per source, all started together
     t0 = time.perf_counter()
-    build_libraries([fa.SOURCE, fa.BWD_SOURCE])
+    build_libraries([fa.SOURCE, fa.BWD_SOURCE, ssd.SOURCE])
     fa.library()
     fa.bwd_library()
+    ssd.library()
     emit(phase="build", sources=sorted({v[0] for v in KERNELS.values()}),
          seconds=time.perf_counter() - t0)
 
@@ -759,32 +907,21 @@ def main() -> int:
     kb = bwd_vs_plain(torch, F, fa, ref)
     function_vs_plain(torch, flash_attention, naive_attention)
 
-    # the training path (this slice's main path)
-    counts = _Counts(fa)
+    # the training path
+    counts = _Counts(fa, ssd)
     train_launches, state, data = train_full_width(torch, m, counts)
     train_grads_vs_f32(torch, m, state.params, data)
     del state, data
     torch.cuda.empty_cache()
 
-    # the serving path
-    serve_launches, params, prompts = serve_full_width(
-        torch, get_config, init_params, ServeEngine, Request, prefill,
-        fa.flash_attention_fwd_kernel)
-    profile_steps(torch, get_config("granite-3-2b"), params, prompts,
-                  prefill, decode_step)
-    del params
-    torch.cuda.empty_cache()
-
-    fa.flash_attention_fwd_kernel.launches = 0
-    cli = serve_main("granite-3-2b")
-    cli_launches = fa.flash_attention_fwd_kernel.launches
-    n_layers = get_reduced("granite-3-2b").n_layers
-    if cli["requests"] != 16 or cli_launches != n_layers * cli[
-            "prefill_calls"] or cli_launches == 0:
-        raise AssertionError(f"serve_main: {cli}, launches {cli_launches}")
-    emit(phase="serve_main_reduced", launches=cli_launches, **cli)
+    # the dense serving path
+    serve_launches = serve_path(torch, m, counts, "granite-3-2b")
 
     train_cli_resume(torch, m, counts)
+
+    # the SSM serving path (this slice's main path)
+    k4 = ssd_vs_plain(torch, ssd.ssd_scan_kernel, ssd_chunked_ref)
+    ssd_launches = serve_path(torch, m, counts, "mamba2-2.7b")
 
     emit(phase="done", seconds=time.perf_counter() - t_start)
     k2 = dict(ms=kb["dq_kernel_ms"], bound_ms=kb["dq_bound_ms"],
@@ -807,6 +944,14 @@ def main() -> int:
                      "launches": train_launches[name],
                      "plain_ms": kb["plain_ms"],
                      "library_ms": kb["library_ms"], **rec})
+    source, replaces = KERNELS["ssd_scan"]
+    # no single PyTorch call computes the SSD scan: library_ms is null
+    rows.append({"name": "ssd_scan", "route": "cuda", "source": source,
+                 "replaces": replaces, "launches": ssd_launches,
+                 "max_abs_err": max(k4["max_abs_err_y"], k4["max_abs_err_h"]),
+                 "ms": k4["kernel_ms"], "plain_ms": k4["plain_ms"],
+                 "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"],
+                 "library_ms": None})
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -197,6 +197,7 @@ def _ensure_loaded():
         return
     from repro_torch.configs import (  # noqa: F401
         granite_3_2b,
+        mamba2_2_7b,
         stablelm_1_6b,
     )
 

@@ -1,9 +1,10 @@
 """Weights across the two packages, in the reference's checkpoint key
 scheme (``repro.checkpoint.io._flatten``): a parameter tree flattened to
 ``"/"``-joined path keys, e.g. ``"periods/slot0/attn/wq/w"``, whose
-``periods`` leaves carry a leading (n_periods,) axis.  For the dense stack
-a period is one layer, so ``periods/slot0/...`` has a leading n_layers axis
-and maps onto ``params["layers"][i]``.
+``periods`` leaves carry a leading (n_periods,) axis.  For the ported
+stacks (dense and SSM) a period is one layer, so ``periods/slot0/...``
+(``periods/slot0/attn/wq/w``, ``periods/slot0/ssm/in_z/w``, ...) has a
+leading n_layers axis and maps onto ``params["layers"][i]``.
 
 A bf16 leaf leaves torch as a numpy array of dtype ``V2`` (two raw bytes)
 holding its bit pattern: numpy has no bf16 type of its own, and ``V2`` is
@@ -19,7 +20,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.common import resolve_device
-from repro_torch.models.model import _require_dense
+from repro_torch.models.model import require_ported
 
 _PERIOD = "periods/slot0/"
 # numpy form of a bf16 leaf: its bit pattern as two raw bytes
@@ -61,7 +62,7 @@ def params_from_flat(flat: Dict[str, np.ndarray], cfg: ArchConfig, *,
     ``dtype`` (optional) casts every floating leaf; by default each leaf
     keeps its dtype.  ``device`` defaults to ``cuda``.
     """
-    _require_dense(cfg)
+    require_ported(cfg)
     device = resolve_device(device)
     params: dict = {"layers": [{} for _ in range(cfg.n_layers)]}
     for key, arr in flat.items():

@@ -1,6 +1,7 @@
 """Serving launcher: batched decoding over synthetic requests.
 
 ``python -m repro_torch.launch.serve --arch granite-3-2b --requests 16``
+``python -m repro_torch.launch.serve --arch mamba2-2.7b``
 
 Port of the static-batch mode of ``repro.launch.serve``: every request is
 queued up front and the :class:`~repro_torch.serve.ServeEngine` drains
@@ -65,6 +66,7 @@ def serve_main(arch: str, *, requests: int = 16, slots: int = 4,
         "decode_steps": s["decode_steps"],
         "prefill_calls": s["prefill_calls"],
         "flash_attention_launches": s["flash_attention_launches"],
+        "ssd_scan_launches": s["ssd_scan_launches"],
         "host_transfer_bytes": s["host_transfer_bytes"],
         **_timing_metrics(s),
     }

@@ -1,21 +1,28 @@
-"""Dense decoder assembly: init, the training forward and loss, prefill,
-decode and the sampling head.  Port of the dense text path of
-``repro.models.model``.
+"""Model assembly: init, the training forward and loss, prefill, decode
+and the sampling head.  Port of the text path of ``repro.models.model`` for
+the two one-slot stacks: dense decoders (every layer attention + a dense
+MLP) and Mamba2 SSM stacks (every layer an SSD mixer, no FFN).
 
 The reference stacks each period's parameters and scans over periods with
 ``jax.lax.scan``; here ``params["layers"]`` is a list of per-layer dicts
 and the stack is a Python loop.  ``jax.checkpoint`` (remat) becomes one
-``torch.utils.checkpoint.checkpoint`` per layer.  The decode state holds
-every layer's KV cache in two stacked tensors, ``{"k", "v"}`` of shape
-(n_layers, B, L, Kh, hd), updated in place by :func:`decode_step` (the
-reference donates it).  Families other than ``dense`` raise
-``NotImplementedError``; a dense stack has no MoE auxiliary loss, so the
+``torch.utils.checkpoint.checkpoint`` per layer.  The decode state stacks
+every layer's state along a leading n_layers axis: the KV caches
+``{"k", "v"}`` (n_layers, B, L, Kh, hd) of a dense stack, or the SSM states
+``{"h": (n_layers, B, nh, hp, N) f32, "conv": (n_layers, B, W-1, C)}`` of
+an SSM stack; :func:`decode_step` updates it in place (the reference
+donates it).  Every other family (moe, hybrid, vlm, audio) raises
+``NotImplementedError``; neither stack has an MoE auxiliary loss, so the
 reference's ``aux`` term is absent here.
+
+An SSM layer keeps ``norm2``, as the reference's slot does, although with
+no FFN nothing reads it; :func:`unused_leaves` marks those leaves, whose
+gradient is zero.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -23,17 +30,26 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as SSM
+from repro_torch.tree import tree_leaves, tree_map
 
 
 # --------------------------------------------------------------------------
 # structure helpers
 # --------------------------------------------------------------------------
-def _require_dense(cfg: ArchConfig) -> None:
-    """Every layer must be attention + a dense MLP: the only stack ported."""
-    if cfg.family != "dense" or _slot_plan(cfg) != [("attn", False, True)]:
+# the ported stacks: family -> its one-slot plan [(kind, has_moe, has_dense)]
+PORTED_PLANS = {"dense": [("attn", False, True)],
+                "ssm": [("ssm", False, False)]}
+
+
+def require_ported(cfg: ArchConfig) -> None:
+    """Every layer must be attention + a dense MLP (dense) or an SSD mixer
+    alone (ssm): the only stacks ported."""
+    if (cfg.family not in PORTED_PLANS
+            or _slot_plan(cfg) != PORTED_PLANS[cfg.family]):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet; the port "
-            f"serves dense decoders")
+            f"runs dense decoders and SSM stacks")
 
 
 def period_len(cfg: ArchConfig) -> int:
@@ -96,24 +112,25 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
     the reference's weights, convert them with
     :func:`repro_torch.convert.params_from_flat`.
     """
-    _require_dense(cfg)
+    require_ported(cfg)
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
     dtype = param_dtype(cfg)
     d = cfg.d_model
-    spec = attn_spec(cfg)
     g = generator
     embed = (torch.randn((cfg.vocab, d), generator=g, dtype=torch.float32,
                          device=device) * L.DEFAULT_INIT_SCALE).to(dtype)
     layers = []
     for _ in range(cfg.n_layers):
-        layers.append({
-            "norm1": L.norm_init(cfg.norm, d, dtype, device),
-            "norm2": L.norm_init(cfg.norm, d, dtype, device),
-            "attn": L.attn_init(g, d, spec, dtype, device),
-            "mlp": L.mlp_init(g, d, cfg.d_ff, cfg.act, dtype, device),
-        })
+        layer = {"norm1": L.norm_init(cfg.norm, d, dtype, device),
+                 "norm2": L.norm_init(cfg.norm, d, dtype, device)}
+        if cfg.family == "ssm":
+            layer["ssm"] = SSM.ssm_init(g, d, cfg.ssm, dtype, device)
+        else:
+            layer["attn"] = L.attn_init(g, d, attn_spec(cfg), dtype, device)
+            layer["mlp"] = L.mlp_init(g, d, cfg.d_ff, cfg.act, dtype, device)
+        layers.append(layer)
     params = {"embed": {"w": embed},
               "final_norm": L.norm_init(cfg.norm, d, dtype, device),
               "layers": layers}
@@ -128,7 +145,7 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
 def embed_inputs(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor]):
     """Text inputs only.  Returns (x (B,S,d), positions (B,S), loss_mask
     (B,S) bool)."""
-    _require_dense(cfg)
+    require_ported(cfg)
     tokens = batch["tokens"]
     x = params["embed"]["w"][tokens.long()]
     B, S = tokens.shape
@@ -154,21 +171,41 @@ def logits_fn(params, cfg: ArchConfig, x):
 
 
 def _ffn(layer, cfg: ArchConfig, x):
+    """The dense MLP after the mixer; an SSM layer has none (its norm2 is
+    unread)."""
+    if "mlp" not in layer:
+        return x
     h = L.norm_apply(cfg.norm, layer["norm2"], x)
     return x + L.mlp_apply(layer["mlp"], h, cfg.act)
 
 
 def _layer_forward(layer, x, positions, cfg: ArchConfig, spec: L.AttnSpec):
     h = L.norm_apply(cfg.norm, layer["norm1"], x)
-    x = x + L.attn_apply(layer["attn"], h, spec, positions)
-    return _ffn(layer, cfg, x)
+    if "ssm" in layer:
+        mix = SSM.ssm_apply(layer["ssm"], h, cfg.ssm,
+                            backend=cfg.mixer_backend)
+    else:
+        mix = L.attn_apply(layer["attn"], h, spec, positions)
+    return _ffn(layer, cfg, x + mix)
+
+
+def unused_leaves(params) -> List[bool]:
+    """One flag per leaf of ``tree_leaves(params)``: True for the leaves no
+    output reads (the norm2 of each SSM layer), whose gradient is zero.
+    Differentiating only the others keeps autograd's check that every
+    other parameter reaches the loss."""
+    flags = tree_map(lambda _: False, params)
+    for layer in flags["layers"]:
+        if "ssm" in layer:
+            layer["norm2"] = tree_map(lambda _: True, layer["norm2"])
+    return tree_leaves(flags)
 
 
 def backbone(params, cfg: ArchConfig, x, positions, remat: bool = True):
     """The layer stack and the final norm.  With ``remat`` each layer is one
     ``checkpoint`` (the reference's ``nothing_saveable`` per period): only
     its input is kept, and its forward runs again in the backward pass."""
-    _require_dense(cfg)
+    require_ported(cfg)
     spec = attn_spec(cfg)
     for layer in params["layers"]:
         if remat:
@@ -278,21 +315,26 @@ def prefill(params, cfg: ArchConfig, batch, cache_len: int,
 
     ``lengths`` ((B,) int, optional) marks true per-row prompt lengths for
     right-padded batches: the logits are taken at position ``lengths-1``
-    per row and the per-row KV ring layout keeps pad keys out of the cache.
+    per row, the per-row KV ring layout keeps pad keys out of the cache,
+    and SSM states are frozen at the last real token.
     """
-    _require_dense(cfg)
+    require_ported(cfg)
     spec = attn_spec(cfg)
     dtype = param_dtype(cfg)
     attn_len = _attn_len(cfg, cache_len)
     x, positions, _ = embed_inputs(params, cfg, batch)
-    ks, vs = [], []
+    states = []
     for layer in params["layers"]:
         h = L.norm_apply(cfg.norm, layer["norm1"], x)
-        mix, (k, v) = L.attn_apply(layer["attn"], h, spec, positions,
-                                   return_kv=True)
-        cache = L.kv_to_cache(k, v, attn_len, dtype, lengths=lengths)
-        ks.append(cache["k"])
-        vs.append(cache["v"])
+        if "ssm" in layer:
+            mix, st = SSM.ssm_apply(layer["ssm"], h, cfg.ssm,
+                                    return_state=True, seq_len=lengths,
+                                    backend=cfg.mixer_backend)
+        else:
+            mix, (k, v) = L.attn_apply(layer["attn"], h, spec, positions,
+                                       return_kv=True)
+            st = L.kv_to_cache(k, v, attn_len, dtype, lengths=lengths)
+        states.append(st)
         x = _ffn(layer, cfg, x + mix)
     x = L.norm_apply(cfg.norm, params["final_norm"], x)
     if lengths is None:
@@ -301,7 +343,8 @@ def prefill(params, cfg: ArchConfig, batch, cache_len: int,
         last = (lengths.to(x.device).long() - 1).clamp(0, x.shape[1] - 1)
         x_last = x[torch.arange(x.shape[0], device=x.device), last]
     logits = logits_fn(params, cfg, x_last)
-    return logits, {"k": torch.stack(ks), "v": torch.stack(vs)}
+    return logits, {name: torch.stack([st[name] for st in states])
+                    for name in states[0]}
 
 
 # --------------------------------------------------------------------------
@@ -309,27 +352,37 @@ def prefill(params, cfg: ArchConfig, batch, cache_len: int,
 # --------------------------------------------------------------------------
 def init_decode_state(cfg: ArchConfig, batch: int, cache_len: int, *,
                       device=None) -> Dict[str, Any]:
-    """Zeroed KV caches, ``{"k", "v"}`` of shape (n_layers, B, L, Kh, hd)."""
-    _require_dense(cfg)
+    """Zeroed decode state with a leading n_layers axis: KV caches
+    ``{"k", "v"}`` (n_layers, B, L, Kh, hd) for a dense stack, SSM states
+    ``{"h", "conv"}`` for an SSM stack."""
+    require_ported(cfg)
     device = resolve_device(device)
-    caches = [L.kv_cache_init(batch, _attn_len(cfg, cache_len),
+    if cfg.family == "ssm":
+        one = SSM.ssm_state_init(batch, cfg.d_model, cfg.ssm,
+                                 param_dtype(cfg), device)
+    else:
+        one = L.kv_cache_init(batch, _attn_len(cfg, cache_len),
                               attn_spec(cfg), param_dtype(cfg), device)
-              for _ in range(cfg.n_layers)]
-    return {name: torch.stack([c[name] for c in caches])
-            for name in ("k", "v")}
+    return {name: t[None].repeat((cfg.n_layers,) + (1,) * t.dim())
+            for name, t in one.items()}
 
 
 @torch.no_grad()
 def decode_step(params, cfg: ArchConfig, state, tokens, position):
     """One decode step.  tokens: (B,1) int; position: (B,) absolute.
     Returns (logits (B,V), state); ``state`` is updated in place."""
-    _require_dense(cfg)
+    require_ported(cfg)
     spec = attn_spec(cfg)
     x = params["embed"]["w"][tokens.long()]                  # (B,1,d)
     for i, layer in enumerate(params["layers"]):
         h = L.norm_apply(cfg.norm, layer["norm1"], x)
-        cache = {"k": state["k"][i], "v": state["v"][i]}
-        mix, _ = L.attn_decode(layer["attn"], cache, h, spec, position)
+        own = {name: t[i] for name, t in state.items()}
+        if "ssm" in layer:
+            mix, new = SSM.ssm_decode_step(layer["ssm"], own, h, cfg.ssm)
+            for name, t in new.items():
+                own[name].copy_(t)
+        else:
+            mix, _ = L.attn_decode(layer["attn"], own, h, spec, position)
         x = _ffn(layer, cfg, x + mix)
     x = L.norm_apply(cfg.norm, params["final_norm"], x)
     logits = logits_fn(params, cfg, x)

@@ -19,8 +19,10 @@ PyTorch runs eagerly, so there is nothing to compile: where the reference
 donates the decode state to a jitted step, the port updates the KV caches
 and the per-slot ``last_token``/``positions`` tensors in place, and the
 donated slot insert becomes an in-place indexed copy of the prefilled rows
-into their cache slots.  The summary reports the flash-attention kernel's
-launches in place of the reference's compile counts.
+into their decode-state slots (the KV caches of a dense stack, the SSM and
+conv states of an SSM stack).  The summary reports the launches of the
+prefill kernels (flash attention, the SSD scan) in place of the
+reference's compile counts.
 """
 from __future__ import annotations
 
@@ -35,6 +37,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.common import resolve_device
 from repro_torch.kernels.flash_attention.kernel import \
     flash_attention_fwd_kernel
+from repro_torch.kernels.ssd_scan.kernel import ssd_scan_kernel
 from repro_torch.models import (decode_and_sample, init_decode_state,
                                 prefill_and_sample)
 
@@ -217,7 +220,7 @@ class ServeEngine:
         self._needs_sampling = False
         self.stats = EngineStats(
             self, decode_steps=0, host_transfer_bytes=0, prefill_calls=0,
-            admitted=0, flash_attention_launches=0)
+            admitted=0, flash_attention_launches=0, ssd_scan_launches=0)
 
     # ------------------------------------------------------------------
     def submit(self, req: Request):
@@ -269,8 +272,8 @@ class ServeEngine:
         slots = np.nonzero(src_row >= 0)[0]
         dst = self._to_dev(slots)
         rows = self._to_dev(src_row[slots].astype(np.int64))
-        for name in ("k", "v"):
-            self.state[name][:, dst] = pstate[name][:, rows]
+        for name, t in self.state.items():
+            t[:, dst] = pstate[name][:, rows]
         self.last_token[dst] = ptoks[rows]
         self.positions[dst] = lens[rows]
 
@@ -298,7 +301,8 @@ class ServeEngine:
                 temps[r], topks[r] = self._effective_sampling(req)
                 src_row[slot] = r
             lens_d = self._to_dev(lens)
-            launches0 = flash_attention_fwd_kernel.launches
+            fa0, ssd0 = (flash_attention_fwd_kernel.launches,
+                         ssd_scan_kernel.launches)
             ptoks, pstate = prefill_and_sample(
                 self.params, self.cfg, {"tokens": self._to_dev(toks)},
                 cache_len=self.cache_len, generator=self._generator,
@@ -309,7 +313,8 @@ class ServeEngine:
             first = ptoks.cpu().numpy()        # (slots,) — admit-time only
             self.stats["prefill_calls"] += 1
             self.stats["flash_attention_launches"] += (
-                flash_attention_fwd_kernel.launches - launches0)
+                flash_attention_fwd_kernel.launches - fa0)
+            self.stats["ssd_scan_launches"] += ssd_scan_kernel.launches - ssd0
             now = self.clock.now()
             for r, (slot, req, toks_np, plen) in enumerate(grp):
                 self.active[slot] = req
@@ -421,6 +426,7 @@ class ServeEngine:
             "host_transfer_bytes": self.stats["host_transfer_bytes"],
             "flash_attention_launches":
                 self.stats["flash_attention_launches"],
+            "ssd_scan_launches": self.stats["ssd_scan_launches"],
             "evictions": sum(r.evictions for r in done),
             "ttft_p50_s": _pctl(ttft, 50), "ttft_p99_s": _pctl(ttft, 99),
             "tpot_p50_s": _pctl(tpot, 50), "tpot_p99_s": _pctl(tpot, 99),

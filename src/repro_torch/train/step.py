@@ -19,7 +19,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Union
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.model import init_params, train_loss
+from repro_torch.models.model import init_params, train_loss, unused_leaves
 from repro_torch.optim import Optimizer, constant, get_optimizer
 from repro_torch.train.precision import Precision, get_precision
 from repro_torch.tree import tree_leaves, tree_unflatten
@@ -80,12 +80,17 @@ def make_train_step(cfg: ArchConfig, optimizer: Optional[Optimizer] = None,
         # their flags, and the gradients come back in tree_leaves order
         leaves = [p.detach().requires_grad_(True)
                   for p in tree_leaves(params)]
+        unused = unused_leaves(params)
         with torch.enable_grad():
             loss = train_loss(tree_unflatten(params, leaves), cfg, mb,
                               remat=remat, loss_chunk=loss_chunk,
                               compute_dtype=compute_dtype)
-            grads = torch.autograd.grad(loss, leaves)
-        return loss.detach(), list(grads)
+            # leaves no output reads get a zero gradient, as in the
+            # reference; every other leaf must reach the loss
+            used = iter(torch.autograd.grad(
+                loss, [p for p, u in zip(leaves, unused) if not u]))
+        return loss.detach(), [torch.zeros_like(p) if u else next(used)
+                               for p, u in zip(leaves, unused)]
 
     def train_step(state: TrainState, batch):
         params = state.params

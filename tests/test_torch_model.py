@@ -1,6 +1,8 @@
-"""The port's dense model against the JAX package on shared weights:
-JAX ``init_params`` -> checkpoint-format flat arrays -> ``params_from_flat``.
-Prefill and chained decode logits agree at atol 1e-4 in f32."""
+"""The port's model against the JAX package on shared weights:
+JAX ``init_params`` -> checkpoint-format flat arrays -> ``params_from_flat``,
+for the dense decoders and the Mamba2 SSM stack.  Prefill and chained
+decode logits, and every tensor of the decode state (KV caches, or SSM and
+conv states), agree at atol 1e-4 in f32."""
 import dataclasses
 
 import numpy as np
@@ -19,7 +21,7 @@ from repro_torch.convert import params_from_flat, params_to_flat  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
 
 ATOL = 1e-4
-ARCHS = ["granite-3-2b", "stablelm-1.6b"]
+ARCHS = ["granite-3-2b", "stablelm-1.6b", "mamba2-2.7b"]
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -75,7 +77,8 @@ def test_prefill_and_decode_match(pair, lengths):
                               {"tokens": torch.from_numpy(toks)}, cache_len,
                               lengths=tl)
     np.testing.assert_allclose(_np(tlog), _np(jlog), atol=ATOL, rtol=0)
-    for name in ("k", "v"):
+    assert set(tstate) == set(jstate["slot0"])
+    for name in tstate:
         np.testing.assert_allclose(_np(tstate[name]),
                                    _np(jstate["slot0"][name]), atol=ATOL,
                                    rtol=0)
@@ -93,19 +96,21 @@ def test_prefill_and_decode_match(pair, lengths):
         np.testing.assert_allclose(_np(tlog), _np(jlog), atol=ATOL, rtol=0)
         tok = np.asarray(jnp.argmax(jlog, -1), np.int32)
         pos = pos + 1
-    np.testing.assert_allclose(_np(tstate["k"]), _np(jstate["slot0"]["k"]),
-                               atol=ATOL, rtol=0)
+    for name in tstate:
+        np.testing.assert_allclose(_np(tstate[name]),
+                                   _np(jstate["slot0"][name]), atol=ATOL,
+                                   rtol=0)
 
 
 def test_pallas_prefill_matches_port_kernel_path(pair):
-    """The JAX prefill through the Pallas kernel (interpret mode) against
-    the port's prefill through ops.flash_attention (its plain version on
-    the CPU), with a window shorter than the prompt."""
+    """The JAX prefill through the Pallas kernels (interpret mode) against
+    the port's prefill through ops.flash_attention and ops.ssd_scan (their
+    plain versions on the CPU), with a window shorter than the prompt."""
     jcfg, tcfg, jparams, _, params = pair
     jcfg = dataclasses.replace(jcfg, attention_backend="pallas",
-                               sliding_window=16)
+                               mixer_backend="pallas", sliding_window=16)
     tcfg = dataclasses.replace(tcfg, attention_backend="cuda",
-                               sliding_window=16)
+                               mixer_backend="cuda", sliding_window=16)
     toks = _tokens(tcfg, B=2, S=24, seed=1)
     jlog, _ = JM.prefill(jparams, jcfg, {"tokens": jnp.asarray(toks)}, 32)
     tlog, _ = TM.prefill(params, tcfg, {"tokens": torch.from_numpy(toks)}, 32)
@@ -138,6 +143,11 @@ def test_entry_points_need_a_device_or_cuda(monkeypatch):
 
 
 def test_other_families_raise():
-    cfg = dataclasses.replace(get_reduced("granite-3-2b"), family="ssm")
+    for family in ("moe", "hybrid", "vlm", "audio"):
+        cfg = dataclasses.replace(get_reduced("granite-3-2b"), family=family)
+        with pytest.raises(NotImplementedError):
+            TM.init_params(cfg, device="cpu")
+    # an SSM stack whose plan is not the one ported (an FFN after the mixer)
+    cfg = dataclasses.replace(get_reduced("mamba2-2.7b"), d_ff=64)
     with pytest.raises(NotImplementedError):
         TM.init_params(cfg, device="cpu")

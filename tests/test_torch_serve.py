@@ -1,6 +1,7 @@
 """The port's ServeEngine against the JAX ServeEngine on shared weights and
-the same requests (greedy tokens identical), plus the engine's retirement,
-validation and sampling behaviour on the CPU."""
+the same requests (greedy tokens identical, for a dense decoder and for the
+Mamba2 SSM stack), plus the engine's retirement, validation and sampling
+behaviour on the CPU."""
 import numpy as np
 import pytest
 
@@ -64,6 +65,33 @@ def test_greedy_tokens_match_jax_engine(shared):
     assert summary["completed"] == 7
     assert summary["flash_attention_launches"] == 0   # CPU: plain version
     assert "prefill_compiles" not in summary
+
+
+def test_mamba2_greedy_tokens_match_jax_engine():
+    """Reduced mamba2 through both engines: the padded prompts of the
+    reference's SSM engine test (3-13 tokens through 2 slots, bucketed
+    right-padded prefill with frozen states), identical greedy tokens, and
+    the SSD scan's plain version on the CPU (no kernel launch)."""
+    jcfg, tcfg = jax_reduced("mamba2-2.7b"), get_reduced("mamba2-2.7b")
+    jparams = jax_init_params(jax.random.PRNGKey(2), jcfg)
+    params = params_from_flat(_flatten(jparams), tcfg, device="cpu")
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(0, tcfg.vocab, size=int(rng.integers(3, 14)))
+               for _ in range(5)]
+    jeng = JServeEngine(jcfg, jparams, slots=2, cache_len=48)
+    teng = ServeEngine(tcfg, params, slots=2, cache_len=48, device="cpu")
+    for i, p in enumerate(prompts):
+        jeng.submit(JRequest(rid=i, prompt=p, max_tokens=6))
+        teng.submit(Request(rid=i, prompt=p, max_tokens=6))
+    jdone = {r.rid: r.generated for r in jeng.run()}
+    tdone = {r.rid: r.generated for r in teng.run()}
+    assert len(tdone) == 5 and all(len(g) == 6 for g in tdone.values())
+    assert tdone == jdone
+    for key in ("decode_steps", "prefill_calls", "admitted"):
+        assert teng.stats[key] == jeng.stats[key], key
+    summary = teng.stats()
+    assert summary["ssd_scan_launches"] == 0
+    assert summary["flash_attention_launches"] == 0
 
 
 def test_eos_and_max_tokens_retire(shared):
@@ -140,3 +168,10 @@ def test_serve_main_on_cpu():
     out = serve_main(ARCH, requests=3, max_tokens=3, device="cpu")
     assert out["requests"] == 3 and out["tokens"] == 9
     assert out["device"] == "cpu" and out["flash_attention_launches"] == 0
+
+
+def test_serve_main_serves_mamba2_on_cpu():
+    out = serve_main("mamba2-2.7b", requests=3, max_tokens=3, device="cpu")
+    assert out["arch"] == "mamba2-2.7b-reduced"
+    assert out["requests"] == 3 and out["tokens"] == 9
+    assert out["ssd_scan_launches"] == 0 and out["prefill_calls"] >= 1

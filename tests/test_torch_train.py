@@ -2,12 +2,15 @@
 JAX ``init_params`` -> checkpoint-format flat arrays -> ``params_from_flat``.
 
 The loss and every gradient leaf of reduced stablelm-1.6b (4 query over 2
-kv heads, layernorm, untied head) and granite-3-2b (rmsnorm, tied head)
-agree with ``jax.value_and_grad`` in f32: the plain
-attention against ``"jnp"``, and the port's flash-attention ``Function``
-(``"cuda"`` on CPU tensors, i.e. its plain versions) against ``"pallas"``
-in interpret mode.  The sequence (80) is longer than the reduced window
-(64), so the window is exercised.  Tolerances: loss rtol 1e-5; gradients
+kv heads, layernorm, untied head), granite-3-2b (rmsnorm, tied head) and
+mamba2-2.7b (SSD mixers, no FFN) agree with ``jax.value_and_grad`` in f32:
+the plain attention and SSD scan against ``"jnp"``, and the port's
+flash-attention and SSD-scan ``Function``s (``"cuda"`` on CPU tensors, i.e.
+their plain versions) against ``"pallas"`` in interpret mode.  The sequence
+(80) is longer than the reduced window (64), so the window is exercised,
+and spans three SSD chunks of 32, the last one short.  An SSM layer's
+norm2 reaches no output: its gradient is zero in both packages, and every
+other leaf must reach the loss.  Tolerances: loss rtol 1e-5; gradients
 atol 1e-5, rtol 1e-4 (f32 sums in another order over a 2-layer stack).
 
 Parameters after an Adam step are not compared with the reference: at the
@@ -40,7 +43,7 @@ from repro_torch.train import (TrainState, init_train_state,  # noqa: E402
                                make_eval_step, make_train_step)
 from repro_torch.tree import tree_leaves, tree_unflatten  # noqa: E402
 
-ARCHS = ["stablelm-1.6b", "granite-3-2b"]
+ARCHS = ["stablelm-1.6b", "granite-3-2b", "mamba2-2.7b"]
 B, S, CHUNK = 2, 80, 32
 
 
@@ -64,17 +67,24 @@ def _port_value_and_grad(params, cfg, toks, labels, **kw):
     batch = {"tokens": torch.from_numpy(toks),
              "labels": torch.from_numpy(labels)}
     loss = TM.train_loss(tree_unflatten(params, leaves), cfg, batch, **kw)
-    grads = torch.autograd.grad(loss, leaves)
-    return loss.item(), params_to_flat(tree_unflatten(params, list(grads)))
+    unused = TM.unused_leaves(params)
+    used = iter(torch.autograd.grad(
+        loss, [p for p, u in zip(leaves, unused) if not u]))
+    grads = [torch.zeros_like(p) if u else next(used)
+             for p, u in zip(leaves, unused)]
+    return loss.item(), params_to_flat(tree_unflatten(params, grads))
 
 
 @pytest.mark.parametrize("backends", [("torch", "jnp"), ("cuda", "pallas")],
                          ids=["plain-vs-jnp", "function-vs-pallas"])
 def test_loss_and_grads_match_reference(pair, backends):
     jcfg, tcfg, jparams, params = pair
-    tcfg = dataclasses.replace(tcfg, attention_backend=backends[0])
-    jcfg = dataclasses.replace(jcfg, attention_backend=backends[1])
-    assert tcfg.sliding_window < S
+    tcfg = dataclasses.replace(tcfg, attention_backend=backends[0],
+                               mixer_backend=backends[0])
+    jcfg = dataclasses.replace(jcfg, attention_backend=backends[1],
+                               mixer_backend=backends[1])
+    if tcfg.family == "dense":
+        assert tcfg.sliding_window < S
     toks, labels = _batch(tcfg)
     loss, grads = _port_value_and_grad(params, tcfg, toks, labels,
                                        remat=True, loss_chunk=CHUNK)

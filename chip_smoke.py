@@ -8,7 +8,7 @@ Phases, each of which fails the run if it fails:
 1. print the card's name and power limit; build the kernels from
    ``src/repro_torch/.../csrc`` with nvcc (sm_90a), one nvcc per source,
    started together: the flash-attention forward (K1) and backward (K2
-   dQ, K3 dK/dV), and the SSD chunk scan (K4);
+   dQ, K3 dK/dV), the SSD chunk scan (K4) and the percentile stretch (K5);
 2. hold K1 against its plain PyTorch version on the card, in bf16 and f32,
    at granite-3-2b's prefill shape and at ragged, windowed and MHA hd=128
    shapes (one JSON line per shape: errors, kernel / plain / library ms and
@@ -42,18 +42,39 @@ Phases, each of which fails the run if it fails:
    seed) through ``ServeEngine`` with phase 5's traffic; K4 must launch
    64 x prefill calls; the prefill batch through K4 and through the plain
    scan, each against an f32 prefill; ``torch.profiler`` over one prefill
-   and 8 decode steps; then ``serve_main("mamba2-2.7b")``.
+   and 8 decode steps; then ``serve_main("mamba2-2.7b")``;
+10. hold K5 against the plain stretch, bit for bit, on reflectance-like
+    data made on the card: a 10980 x 10980 Sentinel-2 tile of 4 and of 13
+    bands, more than 2**31 elements (checked in row chunks), the vision
+    slice's scene and composite, a ragged R and one band, and bf16 input;
+    at the 4-band tile also the time of the percentile helper (its sort);
+11. the burned-area study: ``build_dataset`` normalizes four 2048 x 2048
+    scenes through K5 (4 launches) and chips them at the paper's recipe;
+    the scenes are held against numpy's ``percentile_stretch`` and the
+    plain stretch on the card; U-Net at width 16 trains 4 epochs (Adam,
+    batch 16), then U-Net++, DeepLabV3 and DeepLabV3+ one epoch each
+    (LAMB); losses, steps/s, chips/s, peak memory, val metrics;
+    ``torch.profiler`` over one U-Net step; each model's and ChangeFormer's
+    forward on the card against the same weights on the CPU;
+12. the deforestation study: ``build_pairs`` makes six 256 x 256 NIR-R-G
+    composite pairs through K5 (12 launches), held against numpy's
+    ``nir_rg``; ChangeFormer trains 60 full-batch AdamW steps on four and
+    is scored on two;
+13. the reduced vision CLI (``repro_torch.launch.vision.main``) on the
+    card.
 
 The line before the last lists each ported kernel with its launches on
-its main path (K1-K3 training, K4 mamba2 serving) and its numbers at the
-training shape (K2, K3), granite's prefill shape (K1) or mamba2's prefill
-shape (K4); the last line is ``{"ok": true, "device": {...}}``.  Without
+its main path (K1-K3 training, K4 mamba2 serving, K5 the two vision
+studies) and its numbers at the training shape (K2, K3), granite's
+prefill shape (K1), mamba2's prefill shape (K4) or the 4-band Sentinel-2
+tile (K5); the last line is ``{"ok": true, "device": {...}}``.  Without
 a CUDA card, or without the repository beside it, the script exits
 non-zero and prints no result.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -75,6 +96,9 @@ KERNELS = {
     "flash_attention_bwd_dkv": (CSRC + "flash_bwd.cu", TPU_KERNELS + ":179"),
     "ssd_scan": ("src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
                  "src/repro/kernels/ssd_scan/kernel.py:24"),
+    "percentile_norm": (
+        "src/repro_torch/kernels/percentile_norm/csrc/percentile_norm.cu",
+        "src/repro/kernels/percentile_norm/kernel.py:22"),
 }
 
 # H100 SXM published peaks (dense): bf16 tensor cores, f32 CUDA cores, HBM3
@@ -125,6 +149,32 @@ SSD_TOL = {"float32": {"y": ("scaled", 3e-5, 1e-4),
                        "h": ("scaled", 3e-5, 1e-4)},
            "bfloat16": {"y": ("fixed", 2e-2, 2e-2),
                         "h": ("scaled", 3e-5, 1e-4)}}
+S2_TILE = 10980 * 10980   # pixels of one Sentinel-2 L2A tile at 10 m
+# name, R, C, dtype
+PN_SHAPES = [
+    ("s2_tile_4band", S2_TILE, 4, "float32"),
+    ("s2_tile_13band", S2_TILE, 13, "float32"),
+    ("over_2p31", 2 ** 29 + 1, 4, "float32"),
+    ("ba_scene", 2048 * 2048, 4, "float32"),
+    ("defo_composite", 256 * 256, 3, "float32"),
+    ("ragged_r1000", 1000, 13, "float32"),
+    ("one_band", 1000, 1, "float32"),
+    ("s2_tile_4band_bf16", S2_TILE, 4, "bfloat16"),
+]
+# K5 against the plain stretch: the same f32 operations in the same order,
+# so equal bit for bit; one f32 ulp at 1.0 is the most allowed
+PN_TOL = 1.2e-7
+# rows of the >2**31-element case compared (and timed plainly) at a time
+PN_CHUNK = 2 ** 26
+# the vision slice at full width (paper recipe: 256 chips, overlap 0.25,
+# both classes at least 10%): parameters of each model at width 16 (the
+# JAX package's counts) and the chips four 2048 x 2048 scenes give
+SEG_PARAMS = {"unet": 487314, "unetpp": 558866, "deeplabv3": 474194,
+              "deeplabv3plus": 557794, "changeformer": 324258}
+BA_CHIPS = {"train": 87, "val": 19, "test": 0}
+# a model's forward on the card against the CPU on the same weights, f32
+# with TF32 off in both: summation order only
+FWD_TOL = 1e-4
 
 
 def _ssd_close(torch, got, want, tol):
@@ -436,12 +486,13 @@ class _Counts:
     """The launch counters of the kernels, zeroed and read around one
     path."""
 
-    def __init__(self, fa, ssd):
+    def __init__(self, fa, ssd, pn):
         self.fns = {"flash_attention_fwd": fa.flash_attention_fwd_kernel,
                     "flash_attention_bwd_dq": fa.flash_attention_bwd_dq_kernel,
                     "flash_attention_bwd_dkv":
                         fa.flash_attention_bwd_dkv_kernel,
-                    "ssd_scan": ssd.ssd_scan_kernel}
+                    "ssd_scan": ssd.ssd_scan_kernel,
+                    "percentile_norm": pn.percentile_norm_kernel}
 
     def zero(self):
         for fn in self.fns.values():
@@ -496,7 +547,8 @@ def train_full_width(torch, m, counts):
     L = cfg.n_layers
     want = {"flash_attention_fwd": 2 * L * TRAIN_STEPS,
             "flash_attention_bwd_dq": L * TRAIN_STEPS,
-            "flash_attention_bwd_dkv": L * TRAIN_STEPS, "ssd_scan": 0}
+            "flash_attention_bwd_dkv": L * TRAIN_STEPS, "ssd_scan": 0,
+            "percentile_norm": 0}
     if launches != want:
         raise AssertionError(f"launches {launches} != {want} (remat runs "
                              f"each layer's forward twice a step)")
@@ -831,6 +883,244 @@ def profile_steps(torch, cfg, params, prompts, prefill, decode_step):
     torch.cuda.empty_cache()
 
 
+def pn_bound(R: int, C: int, esize: int):
+    """Least time (ms) of the stretch: bytes (x read once, the f32 output
+    written once, lo and hi read once) over HBM bandwidth, or operations
+    (subtract, multiply, two comparisons per element) over the f32 peak."""
+    nbytes = R * C * (esize + 4) + 2 * 4 * C
+    return (*least_ms(4 * R * C, nbytes, "float32"), nbytes)
+
+
+def k5_vs_plain(torch, pn, pn_ref):
+    """Phase 10: K5 against the plain stretch on reflectance-like data
+    (0-4000) made on the card.  Returns the 4-band tile's f32 record."""
+    records = {}
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    kernel = pn.percentile_norm_kernel
+    for name, R, C, dtype_name in PN_SHAPES:
+        x = torch.empty((R, C), device="cuda")
+        for part in x.view(-1).split(2 ** 28):
+            part.uniform_(0.0, 4000.0, generator=gen)
+        x = x.to(getattr(torch, dtype_name))
+        extra = {}
+        if name == "s2_tile_4band":
+            # the bounds come from the percentile helper, whose sort (not
+            # the stretch) is most of the public op's time
+            pct = pn_ref.percentiles(x, (1.0, 99.0))
+            extra["percentile_helper_ms"] = cuda_ms(
+                torch, lambda: pn_ref.percentiles(x, (1.0, 99.0)), reps=2)
+            lo, hi = pct[0:1], pct[1:2]
+        else:
+            lo = torch.empty((1, C), device="cuda").uniform_(
+                0.0, 400.0, generator=gen)
+            hi = lo + torch.empty((1, C), device="cuda").uniform_(
+                2000.0, 3600.0, generator=gen)
+        out = kernel(x, lo, hi)
+        torch.cuda.synchronize()
+        err = 0.0
+        for s0 in range(0, R, PN_CHUNK):
+            want = pn_ref.stretch_ref(x[s0:s0 + PN_CHUNK], lo, hi)
+            got = out[s0:s0 + PN_CHUNK]
+            err = max(err, (got - want).abs().max().item())
+            torch.testing.assert_close(got, want, atol=PN_TOL, rtol=0)
+            del want, got
+        del out
+        torch.cuda.empty_cache()
+        big = R * C > 2 ** 30
+        kernel_ms = cuda_ms(torch, lambda: kernel(x, lo, hi),
+                            reps=5 if big else 20)
+        plain_ms = cuda_ms(torch, lambda: pn_ref.stretch_ref(x, lo, hi),
+                           reps=2 if big else 5)
+        torch.cuda.empty_cache()
+        bound_ms, bound_by, nbytes = pn_bound(R, C, x.element_size())
+        rec = dict(phase="k5_vs_plain", shape=name, dims=[R, C],
+                   dtype=dtype_name, max_abs_err=err, tol=PN_TOL,
+                   kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=None,
+                   bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+                   kernel_gbps=nbytes / kernel_ms / 1e6,
+                   share_of_bound=bound_ms / kernel_ms, **extra)
+        emit(**rec)
+        records[name] = rec
+        del x, lo, hi
+        torch.cuda.empty_cache()
+    return records["s2_tile_4band"]
+
+
+def _k5_only(launches: dict, n: int, what: str):
+    others = {k: v for k, v in launches.items()
+              if k != "percentile_norm" and v}
+    if launches["percentile_norm"] != n or others:
+        raise AssertionError(f"{what}: launches {launches}, want "
+                             f"percentile_norm {n} and nothing else")
+
+
+def _seg_record(torch, res, width, batch, optimizer, lr):
+    steady = (res["steps"] - 1) / (res["train_s"] - res["first_step_s"])
+    losses = res["losses"]
+    if not np.all(np.isfinite(losses)) or res["params"] != SEG_PARAMS[
+            res["model"]]:
+        raise AssertionError(f"{res['model']}: losses {losses}, params "
+                             f"{res['params']}")
+    return dict(model=res["model"], params=res["params"], width=width,
+                batch=batch, optimizer=optimizer, lr=lr, steps=res["steps"],
+                losses=losses, train_s=res["train_s"],
+                first_step_s=res["first_step_s"],
+                steps_per_s=res["steps"] / res["train_s"],
+                steady_steps_per_s=steady,
+                chips_per_s=res["chips_seen"] / res["train_s"],
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                val={k: res[k] for k in ("precision", "recall", "f1", "iou",
+                                         "accuracy")})
+
+
+def burned_area(torch, m, counts) -> int:
+    """Phase 11: the burned-area study at full width.  Returns K5's
+    launches on it."""
+    kept = []
+    torch.cuda.reset_peak_memory_stats()
+    counts.zero()
+    t0 = time.perf_counter()
+    split = m["build_dataset"](4, 2048, 256, "cuda", min_frac=0.10,
+                               on_scene=lambda s, n: kept.append((s, n)))
+    torch.cuda.synchronize()
+    data_s = time.perf_counter() - t0
+    _k5_only(counts.read(), 4, "build_dataset")
+    chips = {k: len(v) for k, v in split.items()}
+    if chips != BA_CHIPS:
+        raise AssertionError(f"chips {chips}, want {BA_CHIPS}")
+    emit(phase="burned_area_data", scenes=4, size=2048, chip=256,
+         chips=chips, seconds=data_s)
+
+    res = m["train_segmentation"]("unet", split, lr=1e-3, optimizer="adam",
+                                  epochs=4, batch=16, width=16,
+                                  device="cuda", seed=0)
+    emit(phase="burned_area_train", epochs=4,
+         **_seg_record(torch, res, 16, 16, "adam", 1e-3))
+    for name in ("unetpp", "deeplabv3", "deeplabv3plus"):
+        torch.cuda.reset_peak_memory_stats()
+        res = m["train_segmentation"](name, split, lr=1e-2,
+                                      optimizer="lamb", epochs=1, batch=16,
+                                      width=16, device="cuda", seed=0)
+        emit(phase="burned_area_train", epochs=1,
+             **_seg_record(torch, res, 16, 16, "lamb", 1e-2))
+    launches = counts.read()
+    _k5_only(launches, 4, "the burned-area path")
+
+    # the scenes the path normalized, against numpy and the plain stretch
+    errs = []
+    for scene, norm in kept:
+        want = m["percentile_stretch"](scene.raster)
+        plain = m["percentile_normalize"](
+            torch.from_numpy(scene.raster).cuda(), backend="torch")
+        errs.append({"scene": scene.scene_id,
+                     "vs_numpy": float(np.abs(norm.cpu().numpy()
+                                              - want).max()),
+                     "vs_plain": (norm - plain).abs().max().item()})
+    emit(phase="burned_area_scenes", max_abs_err=errs, tol_numpy=1e-5,
+         tol_plain=PN_TOL)
+    if any(e["vs_numpy"] > 1e-5 or e["vs_plain"] > PN_TOL for e in errs):
+        raise AssertionError(f"normalized scenes stray: {errs}")
+    del kept
+    torch.cuda.empty_cache()
+
+    # one U-Net step under the profiler
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = m["seg_init"]("unet", gen, width=16, device="cuda")
+    for t in m["tree_leaves"](params):
+        t.requires_grad_(True)
+    opt = m["get_optimizer"]("adam")
+    state = opt.init(params)
+    x, mk = next(iter(m["prefetch"](m["ChipLoader"](split["train"], 16),
+                                    device="cuda")))
+
+    def step(i=0):
+        m["train_step"](lambda p: m["seg_loss"]("unet", p, x, mk), params,
+                        opt, state, i, 1e-3)
+    step()
+    device_profile(torch, step, model="unet", what="train_step", batch=16,
+                   chip=256, steps=1)
+    return launches["percentile_norm"]
+
+
+def forward_vs_cpu(torch, m):
+    """Phase 11b: each vision model's forward on the card (cuDNN, TF32 off)
+    against the same weights on the CPU, at batch 2 x 64 x 64."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.rand((2, 64, 64, 3), device="cuda", generator=gen)
+    y = torch.rand((2, 64, 64, 3), device="cuda", generator=gen)
+    errs = {}
+    with torch.no_grad():
+        for name in SEG_PARAMS:
+            if name == "changeformer":
+                p = m["changeformer_init"](gen, in_ch=3, device="cuda")
+                run = m["changeformer_apply"]
+                ins = (x, y)
+            else:
+                p = m["seg_init"](name, gen, width=16, device="cuda")
+                run = functools.partial(m["seg_apply"], name)
+                ins = (x,)
+            got = run(p, *ins)
+            want = run(_map(p, lambda t: t.cpu()), *(t.cpu() for t in ins))
+            errs[name] = (got.cpu() - want).abs().max().item()
+            torch.testing.assert_close(got.cpu(), want, atol=FWD_TOL,
+                                       rtol=FWD_TOL)
+    emit(phase="vision_forward_vs_cpu", batch=[2, 64, 64],
+         max_abs_err=errs, tol=FWD_TOL)
+
+
+def deforestation(torch, m, counts) -> int:
+    """Phase 12: the deforestation study at the paper's 256 chip.  Returns
+    K5's launches on it."""
+    torch.cuda.reset_peak_memory_stats()
+    counts.zero()
+    pairs = m["build_pairs"](6, 256, "cuda")
+    torch.cuda.synchronize()
+    _k5_only(counts.read(), 12, "build_pairs")
+    res = m["train_changeformer"](pairs, lr=1e-3, steps=60, device="cuda",
+                                  seed=0)
+    launches = counts.read()
+    _k5_only(launches, 12, "the deforestation path")
+    errs = []
+    for i, (a3, b3, mk) in enumerate(pairs):
+        a, b, want_m = m["synth_change_pair"](f"defo-{i}", 256, 256,
+                                              bands=4, seed=i)
+        errs.append(max(float(np.abs(t.cpu().numpy()
+                                     - m["nir_rg"](r)).max())
+                        for t, r in ((a3, a), (b3, b))))
+        if not np.array_equal(mk.cpu().numpy(), want_m):
+            raise AssertionError(f"pair {i}: the change mask differs")
+    losses = res["losses"]
+    emit(phase="deforestation_train", model="changeformer",
+         params=res["params"], pairs=[4, 2], size=256, steps=res["steps"],
+         losses=losses, train_s=res["train_s"],
+         steps_per_s=res["steps"] / res["train_s"],
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+         composite_max_abs_err_vs_numpy=errs,
+         test={k: res[k] for k in ("precision", "recall", "f1", "iou",
+                                   "accuracy")})
+    if (max(errs) > 1e-5 or not np.all(np.isfinite(losses))
+            or res["params"] != SEG_PARAMS["changeformer"]):
+        raise AssertionError(f"deforestation: composite errors {errs}, "
+                             f"losses {losses}, params {res['params']}")
+    del pairs
+    torch.cuda.empty_cache()
+    return launches["percentile_norm"]
+
+
+def vision_cli(torch, m, counts):
+    """Phase 13: the reduced vision CLI on the card."""
+    counts.zero()
+    out = m["vision_main"](["--device", "cuda"])
+    launches = counts.read()
+    want = 4 + 2 * 6
+    _k5_only(launches, want, "vision main")
+    if out["percentile_norm_launches"] != want or not np.isfinite(
+            out["changeformer"]["final_loss"]):
+        raise AssertionError(f"vision main: {out}")
+    emit(phase="vision_main_reduced", launches=launches, chips=out["chips"],
+         unet=out["models"][0], changeformer=out["changeformer"])
+
+
 def _map(tree, fn):
     if isinstance(tree, dict):
         return {k: _map(v, fn) for k, v in tree.items()}
@@ -860,10 +1150,20 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.flash_attention import ref
+    from repro_torch.data.loader import ChipLoader, prefetch
+    from repro_torch.data.normalize import nir_rg, percentile_stretch
+    from repro_torch.data.rasters import synth_change_pair
+    from repro_torch.kernels.percentile_norm import kernel as pn
+    from repro_torch.kernels.percentile_norm import percentile_normalize
+    from repro_torch.kernels.percentile_norm import ref as pn_ref
     from repro_torch.kernels.ssd_scan import kernel as ssd
     from repro_torch.kernels.ssd_scan.ref import ssd_chunked_ref
+    from repro_torch.launch import vision
     from repro_torch.launch.serve import serve_main
     from repro_torch.launch.train import _LMDictBatches, train_main
+    from repro_torch.models.changeformer import (changeformer_apply,
+                                                 changeformer_init)
+    from repro_torch.models.segmentation import seg_apply, seg_init, seg_loss
     from repro_torch.models import init_params
     from repro_torch.models.layers import naive_attention
     from repro_torch.models.model import (cast_floating, decode_step,
@@ -884,7 +1184,18 @@ def main() -> int:
              list_checkpoints=list_checkpoints, init_params=init_params,
              ServeEngine=ServeEngine, Request=Request, prefill=prefill,
              decode_step=decode_step, serve_main=serve_main,
-             get_reduced=get_reduced)
+             get_reduced=get_reduced, build_dataset=vision.build_dataset,
+             train_segmentation=vision.train_segmentation,
+             build_pairs=vision.build_pairs,
+             train_changeformer=vision.train_changeformer,
+             train_step=vision.train_step, vision_main=vision.main,
+             percentile_stretch=percentile_stretch, nir_rg=nir_rg,
+             percentile_normalize=percentile_normalize,
+             synth_change_pair=synth_change_pair, seg_init=seg_init,
+             seg_apply=seg_apply, seg_loss=seg_loss,
+             changeformer_init=changeformer_init,
+             changeformer_apply=changeformer_apply, ChipLoader=ChipLoader,
+             prefetch=prefetch)
 
     # f32 products in the plain versions stay full f32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -895,10 +1206,11 @@ def main() -> int:
 
     # phase 1: one nvcc per source, all started together
     t0 = time.perf_counter()
-    build_libraries([fa.SOURCE, fa.BWD_SOURCE, ssd.SOURCE])
+    build_libraries([fa.SOURCE, fa.BWD_SOURCE, ssd.SOURCE, pn.SOURCE])
     fa.library()
     fa.bwd_library()
     ssd.library()
+    pn.library()
     emit(phase="build", sources=sorted({v[0] for v in KERNELS.values()}),
          seconds=time.perf_counter() - t0)
 
@@ -908,7 +1220,7 @@ def main() -> int:
     function_vs_plain(torch, flash_attention, naive_attention)
 
     # the training path
-    counts = _Counts(fa, ssd)
+    counts = _Counts(fa, ssd, pn)
     train_launches, state, data = train_full_width(torch, m, counts)
     train_grads_vs_f32(torch, m, state.params, data)
     del state, data
@@ -922,6 +1234,14 @@ def main() -> int:
     # the SSM serving path (this slice's main path)
     k4 = ssd_vs_plain(torch, ssd.ssd_scan_kernel, ssd_chunked_ref)
     ssd_launches = serve_path(torch, m, counts, "mamba2-2.7b")
+
+    # the vision paths (this slice's main path): both studies normalize
+    # every scene through K5
+    k5 = k5_vs_plain(torch, pn, pn_ref)
+    pn_launches = burned_area(torch, m, counts)
+    forward_vs_cpu(torch, m)
+    pn_launches += deforestation(torch, m, counts)
+    vision_cli(torch, m, counts)
 
     emit(phase="done", seconds=time.perf_counter() - t_start)
     k2 = dict(ms=kb["dq_kernel_ms"], bound_ms=kb["dq_bound_ms"],
@@ -951,6 +1271,14 @@ def main() -> int:
                  "max_abs_err": max(k4["max_abs_err_y"], k4["max_abs_err_h"]),
                  "ms": k4["kernel_ms"], "plain_ms": k4["plain_ms"],
                  "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"],
+                 "library_ms": None})
+    source, replaces = KERNELS["percentile_norm"]
+    # no single PyTorch call computes the stretch: library_ms is null
+    rows.append({"name": "percentile_norm", "route": "cuda",
+                 "source": source, "replaces": replaces,
+                 "launches": pn_launches, "max_abs_err": k5["max_abs_err"],
+                 "ms": k5["kernel_ms"], "plain_ms": k5["plain_ms"],
+                 "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
                  "library_ms": None})
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -10,6 +10,14 @@ A bf16 leaf leaves torch as a numpy array of dtype ``V2`` (two raw bytes)
 holding its bit pattern: numpy has no bf16 type of its own, and ``V2`` is
 what ``np.load`` returns for the reference's bf16 (``ml_dtypes``) leaves,
 so both packages' checkpoints restore bitwise without ``ml_dtypes``.
+
+The vision models (``models/segmentation.py``, ``models/changeformer.py``)
+have no ``ArchConfig`` and hold lists: the reference's ``_flatten`` names a
+list index as a path segment (``"enc/0/c1/w"``,
+``"stages/1/blocks/0/qkv/w"``, ``"nodes/0_1/c2/b"``).
+:func:`vision_params_from_flat` rebuilds those lists from the integer
+segments, and the weights keep the reference's HWIO layout, so the round
+trip is bitwise.
 """
 from __future__ import annotations
 
@@ -34,12 +42,25 @@ def _set(tree: dict, path: str, value) -> None:
     tree[leaf] = value
 
 
-def _items(tree: dict, prefix: str = ""):
-    for key, val in tree.items():
-        if isinstance(val, dict):
+def _items(tree, prefix: str = ""):
+    """(path, leaf) pairs of a tree of dicts and lists; a list index is a
+    path segment."""
+    pairs = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for key, val in pairs:
+        if isinstance(val, (dict, list)):
             yield from _items(val, f"{prefix}{key}/")
         else:
             yield f"{prefix}{key}", val
+
+
+def _listify(tree):
+    """Dicts whose keys are 0..n-1 (as strings) become lists."""
+    if not isinstance(tree, dict):
+        return tree
+    out = {k: _listify(v) for k, v in tree.items()}
+    if out and sorted(out) == sorted(str(i) for i in range(len(out))):
+        return [out[str(i)] for i in range(len(out))]
+    return out
 
 
 def _to_torch(arr: np.ndarray, device, dtype) -> torch.Tensor:
@@ -98,3 +119,21 @@ def params_to_flat(params) -> Dict[str, np.ndarray]:
     for key in per_layer[0]:
         flat[_PERIOD + key] = np.stack([_to_numpy(l[key]) for l in per_layer])
     return flat
+
+
+def vision_params_from_flat(flat: Dict[str, np.ndarray], *, device=None,
+                            dtype: Optional[torch.dtype] = None):
+    """Flat reference arrays of a segmentation model or ChangeFormer -> the
+    port's params (nested dicts and lists; weights stay HWIO).  ``device``
+    defaults to ``cuda``."""
+    device = resolve_device(device)
+    params: dict = {}
+    for key, arr in flat.items():
+        _set(params, key, _to_torch(arr, device, dtype))
+    return _listify(params)
+
+
+def vision_params_to_flat(params) -> Dict[str, np.ndarray]:
+    """The port's vision params -> flat reference arrays (inverse of
+    :func:`vision_params_from_flat`)."""
+    return {key: _to_numpy(t) for key, t in _items(params)}

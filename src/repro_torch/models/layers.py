@@ -163,10 +163,13 @@ def naive_attention(q, k, v, *, causal, window):
     qg = q.reshape(B, Sq, Kh, rep, hd).float()
     scores = torch.einsum("bqgrd,bkgd->bgrqk", qg, k.float())
     scores = scores / math.sqrt(hd)
-    pos_q = torch.arange(Sq, device=q.device)
-    pos_k = torch.arange(Sk, device=q.device)
-    bias = _mask_bias(pos_q, pos_k, causal, window)
-    probs = torch.softmax(scores + bias, dim=-1)
+    if causal or window is not None:
+        # unmasked, the reference adds zeros: skipped, which saves an
+        # (Sq, Sk) bias and a scores-sized sum (ChangeFormer's 16k tokens)
+        pos_q = torch.arange(Sq, device=q.device)
+        pos_k = torch.arange(Sk, device=q.device)
+        scores = scores + _mask_bias(pos_q, pos_k, causal, window)
+    probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bgrqk,bkgd->bqgrd", probs, v.float())
     return out.reshape(B, Sq, H, hd).to(q.dtype)
 

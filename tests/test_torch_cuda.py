@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels (flash-attention forward K1, backward K2
-and K3, and the SSD chunk scan K4) against their plain PyTorch versions, a
-small train step and reduced mamba2 serving, on the card.  Every test here
+and K3, the SSD chunk scan K4 and the percentile stretch K5) against their
+plain PyTorch versions, a small train step, reduced mamba2 serving and a
+reduced vision run, on the card.  Every test here
 is marked ``cuda`` and skips where no card is present; on a machine with an
 H100 run
 
@@ -274,3 +275,103 @@ def test_mamba2_serves_through_k4_on_the_card(dev):
                                    rtol=5e-4)
     torch.testing.assert_close(logits["cuda"][0], logits["torch"][0],
                                atol=5e-4, rtol=5e-4)
+
+
+PN_CASES = [
+    # R, C, row stride (None: packed rows)
+    (4096, 4, None),
+    (1000, 13, None),     # ragged R, 13 bands
+    (1000, 1, None),      # one band
+    (3, 3, None),         # fewer elements than one vector of four
+    (777, 5, 8),          # rows further apart than the bands
+    (65537, 3, None),     # R * C not a multiple of four
+]
+
+
+def _pn_inputs(R, C, ld, dtype, dev, seed=0):
+    rng = np.random.default_rng(seed)
+    base = torch.from_numpy((rng.gamma(2.0, 500.0, size=(R, ld or C)))
+                            .astype(np.float32)).to(dev, dtype)
+    x = base[:, :C]
+    lo = torch.from_numpy(rng.uniform(0, 300, (1, C)).astype(np.float32))
+    hi = lo + torch.from_numpy(rng.uniform(500, 3000, (1, C))
+                               .astype(np.float32))
+    return x, lo.to(dev), hi.to(dev)
+
+
+@pytest.mark.parametrize("case", PN_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_percentile_norm_kernel_matches_plain(case, dtype, dev):
+    from repro_torch.kernels.percentile_norm.kernel import (
+        percentile_norm_kernel)
+    from repro_torch.kernels.percentile_norm.ref import stretch_ref
+    R, C, ld = case
+    x, lo, hi = _pn_inputs(R, C, ld, getattr(torch, dtype), dev)
+    n0 = percentile_norm_kernel.launches
+    out = percentile_norm_kernel(x, lo, hi)
+    torch.cuda.synchronize()
+    assert percentile_norm_kernel.launches == n0 + 1
+    assert out.dtype == torch.float32 and out.shape == (R, C)
+    # the same operations in the same order: equal bit for bit
+    torch.testing.assert_close(out, stretch_ref(x, lo, hi), atol=0, rtol=0)
+
+
+def test_percentile_norm_kernel_keeps_nan_and_constant_bands(dev):
+    from repro_torch.kernels.percentile_norm.kernel import (
+        percentile_norm_kernel)
+    from repro_torch.kernels.percentile_norm.ref import stretch_ref
+    x, lo, hi = _pn_inputs(1001, 3, None, torch.float32, dev)
+    x[5, 1] = float("nan")
+    x[7, 0] = -float("inf")
+    hi[0, 2] = lo[0, 2]                    # a constant band: 1e-12 guard
+    out = percentile_norm_kernel(x, lo, hi)
+    want = stretch_ref(x, lo, hi)
+    assert torch.isnan(out[5, 1]) and torch.isnan(out).sum() == 1
+    assert out[7, 0] == 0
+    torch.testing.assert_close(out, want, atol=0, rtol=0, equal_nan=True)
+    assert torch.isfinite(out[:, 2]).all()
+
+
+def test_percentile_normalize_routes_to_k5_and_trains(dev):
+    from repro_torch.kernels.percentile_norm import percentile_normalize
+    from repro_torch.kernels.percentile_norm.kernel import (
+        percentile_norm_kernel)
+    rng = np.random.default_rng(1)
+    img = torch.from_numpy(rng.gamma(2.0, 500.0, size=(64, 64, 3))
+                           .astype(np.float32)).to(dev).requires_grad_(True)
+    co = torch.from_numpy(rng.standard_normal((64, 64, 3))
+                          .astype(np.float32)).to(dev)
+    n0 = percentile_norm_kernel.launches
+    out = percentile_normalize(img)
+    assert percentile_norm_kernel.launches == n0 + 1
+    g, = torch.autograd.grad((out * co).sum(), img)
+    plain = percentile_normalize(img, backend="torch")
+    assert percentile_norm_kernel.launches == n0 + 1
+    torch.testing.assert_close(out, plain, atol=0, rtol=0)
+    g_plain, = torch.autograd.grad((plain * co).sum(), img)
+    torch.testing.assert_close(g, g_plain, atol=0, rtol=0)
+
+
+def test_percentile_norm_unsupported_inputs_raise(dev):
+    from repro_torch.kernels.percentile_norm.kernel import (
+        percentile_norm_kernel)
+    x, lo, hi = _pn_inputs(64, 4, None, torch.float32, dev)
+    with pytest.raises(ValueError, match="bands must be contiguous"):
+        percentile_norm_kernel(x.t().contiguous().t(), lo, hi)
+    with pytest.raises(TypeError):
+        percentile_norm_kernel(x.half(), lo, hi)
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        percentile_norm_kernel(x, lo.cpu(), hi)
+    with pytest.raises(ValueError, match="must be"):
+        percentile_norm_kernel(x, lo[:, :2], hi)
+
+
+def test_vision_main_on_the_card(dev):
+    """The reduced vision CLI on the card: every scene and composite goes
+    through K5."""
+    from repro_torch.launch.vision import main
+    out = main(["--device", "cuda", "--scenes", "4", "--size", "128",
+                "--chip", "32", "--epochs", "1", "--pairs", "5",
+                "--pair-size", "32", "--cf-steps", "2"])
+    assert out["percentile_norm_launches"] == 4 + 2 * 5
+    assert np.isfinite(out["models"][0]["final_loss"])

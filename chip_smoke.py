@@ -11,22 +11,27 @@ Phases, each of which fails the run if it fails:
    dQ, K3 dK/dV), the SSD chunk scan (K4) and the percentile stretch (K5);
 2. hold K1 against its plain PyTorch version on the card, in bf16 and f32,
    at granite-3-2b's prefill shape and at ragged, windowed and MHA hd=128
-   shapes (one JSON line per shape: errors, kernel / plain / library ms and
-   the least time the card could take);
+   shapes (one JSON line per shape: K1's route, tensor cores for bf16 at
+   hd 64 and 128, CUDA cores otherwise, checked by its route counter;
+   errors, kernel / plain / library ms, the wrapper's host ms per call,
+   TFLOP/s, the least time the card could take and the kernel's share of
+   it);
 3. hold K2 and K3 against the plain backward, in bf16 and f32, at
    stablelm-1.6b's training shape, granite-3-2b's GQA shape and ragged,
    windowed and MHA hd=128 shapes, the same way; then the whole
    differentiable op (K1 -> K2 + K3) against autograd of plain attention;
 4. train full-width stablelm-1.6b (24 layers, bf16, random weights from a
    seed) through ``TrainLoop``: AdamW, warmup-cosine, remat, the Markov
-   token stream at batch 8 x seq 2048; K1 must launch 2 x 24 and K2 and
-   K3 24 times a step; losses, steps/s, tokens/s, model FLOP utilisation
-   and peak memory; ``torch.profiler`` over one step; then one (4, 2048)
-   step's loss and gradients through the kernels and through plain
-   attention, both bf16, each against plain attention in f32;
+   token stream at batch 8 x seq 2048; K1 must launch 2 x 24 times a
+   step, every launch on the tensor cores, and K2 and K3 24; losses,
+   steps/s, tokens/s, model FLOP utilisation and peak memory;
+   ``torch.profiler`` over one step; then one (4, 2048) step's loss and
+   gradients through the kernels and through plain attention, both bf16,
+   each against plain attention in f32;
 5. serve full-width granite-3-2b (40 layers, bf16, random weights from a
    seed) through ``ServeEngine``: 16 greedy requests, prompts of 16-1500
-   tokens, 32 new tokens each, 8 slots; K1 must launch 40 x prefill calls;
+   tokens, 32 new tokens each, 8 slots; K1 must launch 40 x prefill calls,
+   every launch on the tensor cores;
    one prefill batch through the kernel and through plain attention, each
    held against an f32 prefill; ``torch.profiler`` over one prefill and 8
    decode steps;
@@ -65,11 +70,11 @@ Phases, each of which fails the run if it fails:
 
 The line before the last lists each ported kernel with its launches on
 its main path (K1-K3 training, K4 mamba2 serving, K5 the two vision
-studies) and its numbers at the training shape (K2, K3), granite's
-prefill shape (K1), mamba2's prefill shape (K4) or the 4-band Sentinel-2
-tile (K5); the last line is ``{"ok": true, "device": {...}}``.  Without
-a CUDA card, or without the repository beside it, the script exits
-non-zero and prints no result.
+studies), K1's route (``core_route``) and its numbers at the training
+shape (K2, K3), granite's prefill shape (K1), mamba2's prefill shape (K4)
+or the 4-band Sentinel-2 tile (K5); the last line is ``{"ok": true,
+"device": {...}}``.  Without a CUDA card, or without the repository beside
+it, the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -325,8 +330,9 @@ def ssd_vs_plain(torch, ssd_scan_kernel, ssd_chunked_ref):
     return records[("mamba2_prefill", "bfloat16")]
 
 
-def kernel_vs_plain(torch, F, fa_kernel, attention_ref):
+def kernel_vs_plain(torch, F, fa, attention_ref):
     """Phase 2.  Returns the granite-shape bf16 record."""
+    fa_kernel = fa.flash_attention_fwd_kernel
     records = {}
     gen = torch.Generator(device="cuda").manual_seed(1)
     for dtype_name in ("bfloat16", "float32"):
@@ -336,8 +342,13 @@ def kernel_vs_plain(torch, F, fa_kernel, attention_ref):
                 return torch.randn(shape, generator=gen, device="cuda",
                                    dtype=torch.float32).to(dtype)
             q, k, v = rnd(B, Sq, H, hd), rnd(B, Sk, Kh, hd), rnd(B, Sk, Kh, hd)
+            route = fa.route(dtype, hd)
+            n0 = fa_kernel.launches_by_route[route]
             out, lse = fa_kernel(q, k, v, causal=causal, window=window)
             torch.cuda.synchronize()
+            if fa_kernel.launches_by_route[route] != n0 + 1:
+                raise AssertionError(f"{name} {dtype_name}: K1 did not take "
+                                     f"the {route} route")
             ref_out, ref_lse = attention_ref(q, k, v, causal=causal,
                                              window=window)
             err_o = (out.float() - ref_out.float()).abs().max().item()
@@ -351,6 +362,14 @@ def kernel_vs_plain(torch, F, fa_kernel, attention_ref):
 
             kernel_ms = cuda_ms(torch, lambda: fa_kernel(
                 q, k, v, causal=causal, window=window), reps=10)
+            # the wrapper's host time per call (checks, outputs, tensor
+            # maps, launch): back-to-back calls cannot beat it
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(10):
+                fa_kernel(q, k, v, causal=causal, window=window)
+            host_ms = (time.perf_counter() - t0) * 100
+            torch.cuda.synchronize()
             plain_ms = cuda_ms(torch, lambda: attention_ref(
                 q, k, v, causal=causal, window=window), reps=2)
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -369,12 +388,13 @@ def kernel_vs_plain(torch, F, fa_kernel, attention_ref):
                                               q.element_size())
             rec = dict(phase="kernel_vs_plain", shape=name,
                        dims=[B, Sq, Sk, H, Kh, hd], causal=causal,
-                       window=window, dtype=dtype_name,
+                       window=window, dtype=dtype_name, route=route,
                        max_abs_err_o=err_o, max_abs_err_lse=err_l,
-                       tol=tol, kernel_ms=kernel_ms, plain_ms=plain_ms,
-                       library_ms=library_ms, bound_ms=bound_ms,
-                       bound_by=bound_by,
-                       kernel_tflops=flops / kernel_ms / 1e9)
+                       tol=tol, kernel_ms=kernel_ms, host_ms=host_ms,
+                       plain_ms=plain_ms, library_ms=library_ms,
+                       bound_ms=bound_ms, bound_by=bound_by,
+                       kernel_tflops=flops / kernel_ms / 1e9,
+                       share_of_bound=bound_ms / kernel_ms)
             emit(**rec)
             records[(name, dtype_name)] = rec
             del q, k, v, out, lse
@@ -497,9 +517,16 @@ class _Counts:
     def zero(self):
         for fn in self.fns.values():
             fn.launches = 0
+        routes = self.fns["flash_attention_fwd"].launches_by_route
+        for key in routes:
+            routes[key] = 0
 
     def read(self) -> dict:
         return {name: fn.launches for name, fn in self.fns.items()}
+
+    def k1_routes(self) -> dict:
+        """K1's launches by route since the last zero()."""
+        return dict(self.fns["flash_attention_fwd"].launches_by_route)
 
 
 def _param_count(tree) -> int:
@@ -542,6 +569,7 @@ def train_full_width(torch, m, counts):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = counts.read()
+    k1_routes = counts.k1_routes()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     L = cfg.n_layers
@@ -552,6 +580,9 @@ def train_full_width(torch, m, counts):
     if launches != want:
         raise AssertionError(f"launches {launches} != {want} (remat runs "
                              f"each layer's forward twice a step)")
+    if k1_routes != {"tensor_core": 2 * L * TRAIN_STEPS, "cuda_core": 0}:
+        raise AssertionError(f"K1 routes {k1_routes}: every training launch "
+                             f"must run on the tensor cores")
     losses = loop.losses
     if len(losses) != TRAIN_STEPS or not np.all(np.isfinite(losses)):
         raise AssertionError(f"losses {losses}")
@@ -572,7 +603,7 @@ def train_full_width(torch, m, counts):
          mfu_vs_989_tflops=flops / step_s / PEAK_FLOPS["bfloat16"],
          mfu_formula="(6*(N - vocab*d)*B*S + 12*hd*H*L*B*S(S+1)/2) / step_s"
                      " / 989e12",
-         peak_mem_gb=peak_gb, launches=launches,
+         peak_mem_gb=peak_gb, launches=launches, k1_routes=k1_routes,
          pure_step_s=res["pure_step_s"])
 
     # phase 4b: one step under the profiler
@@ -655,6 +686,7 @@ def train_cli_resume(torch, m, counts):
             res = m["train_main"]("stablelm-1.6b", checkpoint_dir=ck,
                                   checkpoint_every=2, resume=True, **kw)
             launches = counts.read()
+            k1_routes = counts.k1_routes()
             load, ls = m["load_checkpoint"], m["list_checkpoints"]
             got, gstep = load(ls(ck)[-1][1])
             want, wstep = load(ls(os.path.join(tmp, "oracle"))[-1][1])
@@ -672,6 +704,7 @@ def train_cli_resume(torch, m, counts):
          resumed_from_step=res["resumed_from_step"],
          final_loss=res["final_loss"], losses_equal=True,
          final_checkpoint_bitwise=True, launches=launches,
+         k1_routes=k1_routes,
          steps_per_s=res["steps_per_s"])
 
 
@@ -737,6 +770,7 @@ def serve_full_width(torch, m, counts, arch: str):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = counts.read()
+    k1_routes = counts.k1_routes()
 
     s = engine.stats()
     if len(done) != 16 or any(len(r.generated) != 32 for r in reqs):
@@ -749,13 +783,17 @@ def serve_full_width(torch, m, counts, arch: str):
         raise AssertionError(f"{kernel} launches {n} != {cfg.n_layers} x "
                              f"{s['prefill_calls']} prefill calls, or other "
                              f"kernels launched: {launches}")
+    if kernel == "flash_attention_fwd" and k1_routes != {
+            "tensor_core": n, "cuda_core": 0}:
+        raise AssertionError(f"K1 routes {k1_routes}: every prefill launch "
+                             f"must run on the tensor cores")
     tokens = sum(len(r.generated) for r in reqs)
     emit(phase="serve_full_width", arch=cfg.name, params=n_params,
          init_s=init_s, requests=len(done), tokens=tokens, wall_s=wall,
          tokens_per_s=tokens / wall,
          prompt_tokens=int(sum(len(p) for p in prompts)),
          prefill_calls=s["prefill_calls"], decode_steps=s["decode_steps"],
-         launches=launches,
+         launches=launches, k1_routes=k1_routes,
          ttft_p50_s=s["ttft_p50_s"], ttft_p99_s=s["ttft_p99_s"],
          tpot_p50_s=s["tpot_p50_s"], tpot_p99_s=s["tpot_p99_s"],
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
@@ -827,7 +865,8 @@ def serve_path(torch, m, counts, arch: str) -> int:
             or cli_launches != n_layers * cli["prefill_calls"]
             or cli[stat] != cli_launches):
         raise AssertionError(f"serve_main: {cli}, launches {cli_launches}")
-    emit(phase="serve_main_reduced", launches=cli_launches, **cli)
+    emit(phase="serve_main_reduced", launches=cli_launches,
+         k1_routes=counts.k1_routes(), **cli)
     return launches
 
 
@@ -1214,8 +1253,7 @@ def main() -> int:
     emit(phase="build", sources=sorted({v[0] for v in KERNELS.values()}),
          seconds=time.perf_counter() - t0)
 
-    k1 = kernel_vs_plain(torch, F, fa.flash_attention_fwd_kernel,
-                         ref.attention_ref)
+    k1 = kernel_vs_plain(torch, F, fa, ref.attention_ref)
     kb = bwd_vs_plain(torch, F, fa, ref)
     function_vs_plain(torch, flash_attention, naive_attention)
 
@@ -1253,7 +1291,7 @@ def main() -> int:
     k1 = dict(ms=k1["kernel_ms"], bound_ms=k1["bound_ms"],
               bound_by=k1["bound_by"], max_abs_err=k1["max_abs_err_o"],
               plain_ms=k1["plain_ms"], library_ms=k1["library_ms"],
-              launches_serve=serve_launches)
+              core_route=k1["route"], launches_serve=serve_launches)
     rows = []
     for name, rec in (("flash_attention_fwd", k1),
                       ("flash_attention_bwd_dq", k2),

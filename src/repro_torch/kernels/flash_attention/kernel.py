@@ -2,7 +2,9 @@
 Hopper counterparts of the Pallas TPU kernels in
 ``repro.kernels.flash_attention.kernel``:
 
-* ``csrc/flash_fwd.cu`` — the forward (``_attn_fwd_kernel``, K1);
+* ``csrc/flash_fwd.cu`` — the forward (``_attn_fwd_kernel``, K1), on one
+  of two routes by :func:`route`: ``"tensor_core"`` (wgmma, TMA) for bf16
+  at head dims 64 and 128, ``"cuda_core"`` (f32 FMAs) for the rest;
 * ``csrc/flash_bwd.cu`` — the backward, dQ (``_attn_bwd_dq_kernel``, K2)
   and dK/dV (``_attn_bwd_dkv_kernel``, K3).
 
@@ -10,7 +12,8 @@ Each library is compiled with nvcc for ``sm_90a`` at first use (see
 :func:`repro_torch.kernels.common.build_library`).  A wrapper checks its
 inputs, allocates the outputs, launches on PyTorch's current stream without
 synchronising, and raises if the launch reports a CUDA error.  Each wrapper
-counts its own launches in ``.launches``.
+counts its own launches in ``.launches``; the forward also counts them by
+route in ``.launches_by_route``.
 """
 from __future__ import annotations
 
@@ -26,8 +29,20 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCE = CSRC / "flash_fwd.cu"
 BWD_SOURCE = CSRC / "flash_bwd.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# (dtype, head_dim) pairs the forward runs on the tensor cores; every other
+# pair it takes runs on the CUDA cores.  f32 stays off the tensor cores:
+# TF32 would break the f32 tolerance the reduced configs rely on.  The
+# same table is flash_fwd.cu's route_of (tests hold the two together).
+TENSOR_CORE = frozenset({(torch.bfloat16, 64), (torch.bfloat16, 128)})
+ROUTES = ("tensor_core", "cuda_core")
 _lib: Optional[ctypes.CDLL] = None
 _bwd_lib: Optional[ctypes.CDLL] = None
+
+
+def route(dtype: torch.dtype, head_dim: int) -> str:
+    """The forward's route for q/k/v of ``dtype`` and ``head_dim``:
+    ``"tensor_core"`` or ``"cuda_core"``."""
+    return ROUTES[0] if (dtype, head_dim) in TENSOR_CORE else ROUTES[1]
 
 
 def library() -> ctypes.CDLL:
@@ -39,6 +54,8 @@ def library() -> ctypes.CDLL:
         lib.flash_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p, i,
                                   i, ctypes.c_float, p]
         lib.flash_fwd.restype = i
+        lib.flash_fwd_route.argtypes = [i, i]
+        lib.flash_fwd_route.restype = i
         lib.flash_fwd_error_string.argtypes = [i]
         lib.flash_fwd_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -104,7 +121,8 @@ def flash_attention_fwd_kernel(q: torch.Tensor, k: torch.Tensor,
 
     Returns ``(out (B, Sq, H, hd) in q's dtype, lse (B*H, Sq) f32)``.
     ``window`` is the sliding window in tokens, or None.  Each call that
-    launches the kernel adds one to ``flash_attention_fwd_kernel.launches``.
+    launches the kernel adds one to ``flash_attention_fwd_kernel.launches``
+    and to its route's entry in ``.launches_by_route``.
     """
     _check(q, k, v)
     B, Sq, H, hd = q.shape
@@ -126,10 +144,12 @@ def flash_attention_fwd_kernel(q: torch.Tensor, k: torch.Tensor,
         raise RuntimeError(f"flash_fwd launch failed: CUDA error {code} "
                            f"({lib.flash_fwd_error_string(code).decode()})")
     flash_attention_fwd_kernel.launches += 1
+    flash_attention_fwd_kernel.launches_by_route[route(q.dtype, hd)] += 1
     return out, lse
 
 
 flash_attention_fwd_kernel.launches = 0
+flash_attention_fwd_kernel.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
 def _check_bwd(q, k, v, do, lse, delta):

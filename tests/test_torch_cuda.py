@@ -17,7 +17,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
     flash_attention_bwd_dkv_kernel, flash_attention_bwd_dq_kernel,
-    flash_attention_bwd_kernel, flash_attention_fwd_kernel)
+    flash_attention_bwd_kernel, flash_attention_fwd_kernel, library, route)
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     attention_bwd_ref, attention_ref, row_delta)
 
@@ -74,6 +74,74 @@ def test_kernel_matches_plain(case, dtype, dev):
     torch.testing.assert_close(out.float(), ref_out.float(), atol=tol_o,
                                rtol=tol_o)
     torch.testing.assert_close(lse, ref_lse, atol=tol_l, rtol=tol_l)
+
+
+TC_CASES = [
+    # B, Sq, Sk, H, Kh, hd, causal, window, q cut from a fused qkv tensor
+    (2, 1, 1, 32, 8, 64, True, None, False),        # one row
+    (2, 17, 17, 32, 8, 64, True, None, False),      # Sq below one q tile
+    (2, 1000, 1000, 32, 8, 64, True, None, False),  # ragged, granite heads
+    (1, 64, 192, 4, 4, 64, False, None, False),     # non-causal cross-length
+    (1, 700, 700, 4, 2, 64, True, 100, False),      # window off the tile grid
+    (2, 300, 300, 8, 8, 64, True, None, False),     # MHA
+    (1, 520, 520, 16, 16, 128, True, None, False),  # hd 128: two boxes a row
+    (2, 333, 333, 8, 2, 64, True, None, True),      # strided q
+    (1, 260, 260, 4, 4, 128, False, None, True),    # strided q, hd 128
+]
+
+
+def _tc_inputs(case, dev, seed=0):
+    B, Sq, Sk, H, Kh, hd, _, _, fused = case
+    rng = np.random.default_rng(seed)
+    mk = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s, dtype=np.float32)).to(dev, torch.bfloat16)
+    if fused:
+        q = mk(B, Sq, 3 * H * hd)[..., :H * hd].reshape(B, Sq, H, hd)
+        assert not q.is_contiguous()
+    else:
+        q = mk(B, Sq, H, hd)
+    return q, mk(B, Sk, Kh, hd), mk(B, Sk, Kh, hd)
+
+
+@pytest.mark.parametrize("case", TC_CASES)
+def test_tensor_core_route_matches_plain_and_repeats_bitwise(case, dev):
+    causal, window = case[6], case[7]
+    q, k, v = _tc_inputs(case, dev)
+    assert route(q.dtype, q.shape[-1]) == "tensor_core"
+    n0 = dict(flash_attention_fwd_kernel.launches_by_route)
+    out, lse = flash_attention_fwd_kernel(q, k, v, causal=causal,
+                                          window=window)
+    out2, lse2 = flash_attention_fwd_kernel(q, k, v, causal=causal,
+                                            window=window)
+    torch.cuda.synchronize()
+    by_route = flash_attention_fwd_kernel.launches_by_route
+    assert by_route["tensor_core"] - n0["tensor_core"] == 2
+    assert by_route["cuda_core"] == n0["cuda_core"]
+    # no atomics and no kv split: the same inputs give the same bits
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    ref_out, ref_lse = attention_ref(q, k, v, causal=causal, window=window)
+    tol_o, tol_l = TOL[torch.bfloat16]
+    torch.testing.assert_close(out.float(), ref_out.float(), atol=tol_o,
+                               rtol=tol_o)
+    torch.testing.assert_close(lse, ref_lse, atol=tol_l, rtol=tol_l)
+
+
+def test_routes_follow_the_table(dev):
+    lib = library()
+    for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+        for hd in range(16, 257, 16):
+            want = route(dtype, hd)
+            assert ("tensor_core" if lib.flash_fwd_route(code, hd)
+                    else "cuda_core") == want
+    # f32 and bf16 at another head dim launch the CUDA-core kernel
+    for dtype, hd in ((torch.float32, 64), (torch.bfloat16, 32)):
+        q, k, v = (x.to(dtype) for x in _inputs(
+            (1, 70, 70, 2, 1, hd, True, None), torch.float32, dev))
+        n0 = dict(flash_attention_fwd_kernel.launches_by_route)
+        flash_attention_fwd_kernel(q, k, v, causal=True, window=None)
+        by_route = flash_attention_fwd_kernel.launches_by_route
+        assert by_route["cuda_core"] - n0["cuda_core"] == 1
+        assert by_route["tensor_core"] == n0["tensor_core"]
 
 
 def test_ops_routes_cuda_tensors_to_the_kernel(dev):

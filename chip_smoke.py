@@ -18,12 +18,14 @@ Phases, each of which fails the run if it fails:
    it);
 3. hold K2 and K3 against the plain backward, in bf16 and f32, at
    stablelm-1.6b's training shape, granite-3-2b's GQA shape and ragged,
-   windowed and MHA hd=128 shapes, the same way; then the whole
+   windowed and MHA hd=128 shapes, the same way (their route, by the same
+   table as K1's, checked by their route counters; each kernel's share of
+   its bound and the wrapper's host ms per call); then the whole
    differentiable op (K1 -> K2 + K3) against autograd of plain attention;
 4. train full-width stablelm-1.6b (24 layers, bf16, random weights from a
    seed) through ``TrainLoop``: AdamW, warmup-cosine, remat, the Markov
    token stream at batch 8 x seq 2048; K1 must launch 2 x 24 times a
-   step, every launch on the tensor cores, and K2 and K3 24; losses,
+   step and K2 and K3 24, every launch on the tensor cores; losses,
    steps/s, tokens/s, model FLOP utilisation and peak memory;
    ``torch.profiler`` over one step; then one (4, 2048) step's loss and
    gradients through the kernels and through plain attention, both bf16,
@@ -38,7 +40,10 @@ Phases, each of which fails the run if it fails:
 6. run ``serve_main("granite-3-2b")`` (the reduced serve CLI) on the card;
 7. run ``train_main("stablelm-1.6b")`` (the reduced train CLI) with
    checkpoints, preempt it, resume it, and hold it bitwise against an
-   uninterrupted run, in PyTorch's deterministic mode;
+   uninterrupted run, in PyTorch's deterministic mode: in f32 (7, the
+   CUDA-core route of K1-K3) and in ``precision="bf16"`` (7b: q/k/v in
+   bf16 at hd 64, so every K1, K2 and K3 launch must take the tensor
+   cores);
 8. hold K4 against the plain chunked scan: y and the final state, in bf16
    and f32 at mamba2-2.7b's serving prefill shape (Bs 8, S 2048, 80 heads
    of 64, g 1, N 128, Q 256), and in bf16 at a ragged S 1000, jamba's
@@ -70,7 +75,7 @@ Phases, each of which fails the run if it fails:
 
 The line before the last lists each ported kernel with its launches on
 its main path (K1-K3 training, K4 mamba2 serving, K5 the two vision
-studies), K1's route (``core_route``) and its numbers at the training
+studies), K1-K3's route (``core_route``) and its numbers at the training
 shape (K2, K3), granite's prefill shape (K1), mamba2's prefill shape (K4)
 or the 4-band Sentinel-2 tile (K5); the last line is ``{"ok": true,
 "device": {...}}``.  Without a CUDA card, or without the repository beside
@@ -419,9 +424,17 @@ def bwd_vs_plain(torch, F, fa, ref):
                                                      window=window)
             delta = ref.row_delta(out, do)
             mask = dict(causal=causal, window=window)
+            route = fa.route(dtype, hd)
+            kernels = (fa.flash_attention_bwd_dq_kernel,
+                       fa.flash_attention_bwd_dkv_kernel)
+            n0 = [fn.launches_by_route[route] for fn in kernels]
             got = fa.flash_attention_bwd_kernel(q, k, v, do, lse, delta,
                                                 **mask)
             torch.cuda.synchronize()
+            if [fn.launches_by_route[route] for fn in kernels] != [
+                    n + 1 for n in n0]:
+                raise AssertionError(f"{name} {dtype_name}: K2/K3 did not "
+                                     f"take the {route} route")
             want = ref.attention_bwd_ref(q, k, v, out, lse, do, **mask)
             errs = {}
             for what, g, w in zip(("dq", "dk", "dv"), got, want):
@@ -434,6 +447,16 @@ def bwd_vs_plain(torch, F, fa, ref):
                 q, k, v, do, lse, delta, **mask), reps=5)
             dkv_ms = cuda_ms(torch, lambda: fa.flash_attention_bwd_dkv_kernel(
                 q, k, v, do, lse, delta, **mask), reps=5)
+            # each wrapper's host time per call (checks, outputs, tensor
+            # maps, launch): back-to-back calls cannot beat it
+            host_ms = {}
+            for what, fn in zip(("dq", "dkv"), kernels):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(10):
+                    fn(q, k, v, do, lse, delta, **mask)
+                host_ms[what] = (time.perf_counter() - t0) * 100
+                torch.cuda.synchronize()
             plain_ms = cuda_ms(torch, lambda: ref.attention_bwd_ref(
                 q, k, v, out, lse, do, **mask), reps=1)
             torch.cuda.empty_cache()
@@ -457,14 +480,17 @@ def bwd_vs_plain(torch, F, fa, ref):
                            q.element_size())
             rec = dict(phase="bwd_kernel_vs_plain", shape=name,
                        dims=[B, Sq, Sk, H, Kh, hd], causal=causal,
-                       window=window, dtype=dtype_name,
+                       window=window, dtype=dtype_name, route=route,
                        max_abs_err=errs, tol=BWD_TOL,
                        dq_kernel_ms=dq_ms, dkv_kernel_ms=dkv_ms,
+                       host_ms=host_ms,
                        plain_ms=plain_ms, library_ms=library_ms,
                        dq_bound_ms=b["dq"]["ms"], dq_bound_by=b["dq"]["by"],
                        dkv_bound_ms=b["dkv"]["ms"],
                        dkv_bound_by=b["dkv"]["by"],
                        fused_bound_ms=b["fused"]["ms"],
+                       dq_share_of_bound=b["dq"]["ms"] / dq_ms,
+                       dkv_share_of_bound=b["dkv"]["ms"] / dkv_ms,
                        dq_tflops=b["dq"]["flops"] / dq_ms / 1e9,
                        dkv_tflops=b["dkv"]["flops"] / dkv_ms / 1e9)
             emit(**rec)
@@ -514,19 +540,24 @@ class _Counts:
                     "ssd_scan": ssd.ssd_scan_kernel,
                     "percentile_norm": pn.percentile_norm_kernel}
 
+    ROUTED = ("flash_attention_fwd", "flash_attention_bwd_dq",
+              "flash_attention_bwd_dkv")
+
     def zero(self):
         for fn in self.fns.values():
             fn.launches = 0
-        routes = self.fns["flash_attention_fwd"].launches_by_route
-        for key in routes:
-            routes[key] = 0
+        for name in self.ROUTED:
+            routes = self.fns[name].launches_by_route
+            for key in routes:
+                routes[key] = 0
 
     def read(self) -> dict:
         return {name: fn.launches for name, fn in self.fns.items()}
 
-    def k1_routes(self) -> dict:
-        """K1's launches by route since the last zero()."""
-        return dict(self.fns["flash_attention_fwd"].launches_by_route)
+    def routes(self) -> dict:
+        """K1's, K2's and K3's launches by route since the last zero()."""
+        return {name: dict(self.fns[name].launches_by_route)
+                for name in self.ROUTED}
 
 
 def _param_count(tree) -> int:
@@ -569,7 +600,7 @@ def train_full_width(torch, m, counts):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = counts.read()
-    k1_routes = counts.k1_routes()
+    routes = counts.routes()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     L = cfg.n_layers
@@ -580,8 +611,10 @@ def train_full_width(torch, m, counts):
     if launches != want:
         raise AssertionError(f"launches {launches} != {want} (remat runs "
                              f"each layer's forward twice a step)")
-    if k1_routes != {"tensor_core": 2 * L * TRAIN_STEPS, "cuda_core": 0}:
-        raise AssertionError(f"K1 routes {k1_routes}: every training launch "
+    want_routes = {name: {"tensor_core": n, "cuda_core": 0}
+                   for name, n in want.items() if name in counts.ROUTED}
+    if routes != want_routes:
+        raise AssertionError(f"K1-K3 routes {routes}: every training launch "
                              f"must run on the tensor cores")
     losses = loop.losses
     if len(losses) != TRAIN_STEPS or not np.all(np.isfinite(losses)):
@@ -603,7 +636,7 @@ def train_full_width(torch, m, counts):
          mfu_vs_989_tflops=flops / step_s / PEAK_FLOPS["bfloat16"],
          mfu_formula="(6*(N - vocab*d)*B*S + 12*hd*H*L*B*S(S+1)/2) / step_s"
                      " / 989e12",
-         peak_mem_gb=peak_gb, launches=launches, k1_routes=k1_routes,
+         peak_mem_gb=peak_gb, launches=launches, routes=routes,
          pure_step_s=res["pure_step_s"])
 
     # phase 4b: one step under the profiler
@@ -665,13 +698,17 @@ def train_grads_vs_f32(torch, m, params, data):
         raise AssertionError(f"the kernel path strays from f32: {out}")
 
 
-def train_cli_resume(torch, m, counts):
-    """Phase 7: the reduced train CLI, preempted and resumed, bitwise
-    against an uninterrupted run, in deterministic mode."""
+def train_cli_resume(torch, m, counts, precision: str = "f32"):
+    """Phases 7 (f32) and 7b (bf16): the reduced train CLI, preempted and
+    resumed, bitwise against an uninterrupted run, in deterministic mode.
+    The reduced stablelm has hd 64 and f32 master weights: in f32 K1-K3
+    take the CUDA-core route, in bf16 (q/k/v in bf16) the tensor cores,
+    and every launch must."""
     torch.use_deterministic_algorithms(True)
     try:
         with tempfile.TemporaryDirectory() as tmp:
-            kw = dict(steps=12, log_every=0, device="cuda")
+            kw = dict(steps=12, log_every=0, device="cuda",
+                      precision=precision)
             base = m["train_main"]("stablelm-1.6b", checkpoint_dir=os.path.join(
                 tmp, "oracle"), checkpoint_async=False, **kw)
             ck = os.path.join(tmp, "ck")
@@ -686,7 +723,7 @@ def train_cli_resume(torch, m, counts):
             res = m["train_main"]("stablelm-1.6b", checkpoint_dir=ck,
                                   checkpoint_every=2, resume=True, **kw)
             launches = counts.read()
-            k1_routes = counts.k1_routes()
+            routes = counts.routes()
             load, ls = m["load_checkpoint"], m["list_checkpoints"]
             got, gstep = load(ls(ck)[-1][1])
             want, wstep = load(ls(os.path.join(tmp, "oracle"))[-1][1])
@@ -695,16 +732,20 @@ def train_cli_resume(torch, m, counts):
             if (res["resumed_from_step"] != 2
                     or res["losses"] != base["losses"][2:] or not same):
                 raise AssertionError(
-                    f"resume is not bitwise: resumed from "
+                    f"{precision}: resume is not bitwise: resumed from "
                     f"{res['resumed_from_step']}, losses {res['losses']} vs "
                     f"{base['losses'][2:]}, final arrays equal: {same}")
     finally:
         torch.use_deterministic_algorithms(False)
-    emit(phase="train_main_reduced_resume", arch=res["arch"],
-         resumed_from_step=res["resumed_from_step"],
+    route = "tensor_core" if precision == "bf16" else "cuda_core"
+    if any(r[route] != launches[name] or launches[name] == 0
+           for name, r in routes.items()):
+        raise AssertionError(f"{precision}: K1-K3 routes {routes} (launches "
+                             f"{launches}): every launch must take {route}")
+    emit(phase="train_main_reduced_resume", precision=precision,
+         arch=res["arch"], resumed_from_step=res["resumed_from_step"],
          final_loss=res["final_loss"], losses_equal=True,
-         final_checkpoint_bitwise=True, launches=launches,
-         k1_routes=k1_routes,
+         final_checkpoint_bitwise=True, launches=launches, routes=routes,
          steps_per_s=res["steps_per_s"])
 
 
@@ -770,7 +811,7 @@ def serve_full_width(torch, m, counts, arch: str):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = counts.read()
-    k1_routes = counts.k1_routes()
+    k1_routes = counts.routes()["flash_attention_fwd"]
 
     s = engine.stats()
     if len(done) != 16 or any(len(r.generated) != 32 for r in reqs):
@@ -866,7 +907,7 @@ def serve_path(torch, m, counts, arch: str) -> int:
             or cli[stat] != cli_launches):
         raise AssertionError(f"serve_main: {cli}, launches {cli_launches}")
     emit(phase="serve_main_reduced", launches=cli_launches,
-         k1_routes=counts.k1_routes(), **cli)
+         k1_routes=counts.routes()["flash_attention_fwd"], **cli)
     return launches
 
 
@@ -1268,6 +1309,7 @@ def main() -> int:
     serve_launches = serve_path(torch, m, counts, "granite-3-2b")
 
     train_cli_resume(torch, m, counts)
+    train_cli_resume(torch, m, counts, precision="bf16")
 
     # the SSM serving path (this slice's main path)
     k4 = ssd_vs_plain(torch, ssd.ssd_scan_kernel, ssd_chunked_ref)
@@ -1283,11 +1325,13 @@ def main() -> int:
 
     emit(phase="done", seconds=time.perf_counter() - t_start)
     k2 = dict(ms=kb["dq_kernel_ms"], bound_ms=kb["dq_bound_ms"],
-              bound_by=kb["dq_bound_by"], max_abs_err=kb["max_abs_err"]["dq"])
+              bound_by=kb["dq_bound_by"], max_abs_err=kb["max_abs_err"]["dq"],
+              core_route=kb["route"])
     k3 = dict(ms=kb["dkv_kernel_ms"], bound_ms=kb["dkv_bound_ms"],
               bound_by=kb["dkv_bound_by"],
               max_abs_err=max(kb["max_abs_err"]["dk"],
-                              kb["max_abs_err"]["dv"]))
+                              kb["max_abs_err"]["dv"]),
+              core_route=kb["route"])
     k1 = dict(ms=k1["kernel_ms"], bound_ms=k1["bound_ms"],
               bound_by=k1["bound_by"], max_abs_err=k1["max_abs_err_o"],
               plain_ms=k1["plain_ms"], library_ms=k1["library_ms"],

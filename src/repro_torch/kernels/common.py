@@ -10,6 +10,7 @@ import concurrent.futures
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -63,17 +64,40 @@ def _nvcc() -> str:
                        "source and need the CUDA toolkit")
 
 
+def _included(source: Path, seen: set) -> None:
+    """Add ``source`` and every file it includes with ``#include "..."``
+    (resolved beside the including file, recursively) to ``seen``."""
+    source = source.resolve()
+    if source in seen:
+        return
+    seen.add(source)
+    for line in source.read_text().splitlines():
+        m = re.match(r'\s*#\s*include\s*"([^"]+)"', line)
+        if m:
+            _included(source.parent / m.group(1), seen)
+
+
+def library_key(source: Path) -> str:
+    """The build key of ``source``: a hash of its text, of every header it
+    includes (a changed header rebuilds the library) and of the flags."""
+    seen: set = set()
+    _included(Path(source), seen)
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(seen):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    return digest.hexdigest()[:16]
+
+
 def build_library(source: Path) -> Path:
     """Compile one ``.cu`` source into a shared library under
-    :data:`BUILD_DIR`, keyed by the hash of its text and flags, and return
-    its path.  A library already built from the same text is reused.
+    :data:`BUILD_DIR`, keyed by :func:`library_key` (its text, the headers
+    it includes and the flags), and return its path.  A library already
+    built from the same text is reused.
     The compile writes to a temporary name and is renamed into place, so
     concurrent builders never load a half-written file.  A failed build
     raises ``RuntimeError`` with the compiler's output."""
     source = Path(source)
-    digest = hashlib.sha256(source.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode())
-    out = BUILD_DIR / f"{source.stem}-{digest.hexdigest()[:16]}.so"
+    out = BUILD_DIR / f"{source.stem}-{library_key(source)}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

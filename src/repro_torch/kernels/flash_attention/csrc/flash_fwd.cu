@@ -66,18 +66,16 @@
 // could not be made; flash_fwd_error_string(code) names it;
 // flash_fwd_route(dtype, hd) says which route a call takes.
 
-#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
-// flash_fwd's own error codes, above every cudaError_t
-constexpr int ENCODER_MISSING = 10000;
-constexpr int ENCODE_FAILED = 20000;   // + the CUresult
 
 // The route table: 1 = tensor cores, 0 = CUDA cores.
 int route_of(int dtype, int hd) {
@@ -323,13 +321,13 @@ cudaError_t dispatch(int hd, const void* q, const void* k, const void* v,
 // ---------------------------------------------------------------------------
 namespace tc {
 
+using namespace hopper;
+
 constexpr int BM = 128;      // q rows per work item: 64 per consumer warpgroup
 constexpr int BN = 128;      // kv rows per tile
 constexpr int STAGES = 2;    // K/V tiles in flight
 constexpr int NT = 384;      // consumer warpgroups 0 and 1, producer 2
-constexpr int BOX = 128;     // bytes of one row of a 64-column box
 constexpr int CONSUMERS = 256;
-constexpr int BAND = 8;      // q tiles of one head kept together in the order
 constexpr float LN2 = 0.6931471805599453f;
 // A masked score is -inf, so exp2 of it is exactly 0 whatever the running
 // max: a finite sentinel times the scale, less the max, can be far from 0
@@ -352,197 +350,6 @@ struct Layout {
   static constexpr int ALLOC = BAR_OFF + 8 * N_BARS + 1024;
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// Wait for the completion of the barrier's phase of this parity.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  asm volatile(
-      "{\n.reg .pred done;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      "@!done bra WAIT;\n}\n" ::"r"(bar),
-      "r"(parity) : "memory");
-}
-
-// One TMA box of a 4-D map (hd, heads, seq, batch) into shared memory;
-// completion is counted in bytes on `bar`.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3) : "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
-// and stride byte offsets, all in 16-byte units.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Registers that an asynchronous wgmma reads or writes: pinned in place
-// so the compiler neither moves their uses across the wait nor reuses them
-// while the tensor cores hold them.
-template <int N>
-__device__ __forceinline__ void pin(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void pin(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
-// D (64 x 128) (+)= A (64 x 16) * B (16 x 128): A and B in shared memory,
-// both K-major (no transpose); f32 accumulate; D is zeroed when !accumulate
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
-                                              uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// D (64 x 64) += A (64 x 16) * B (16 x 64): A in registers (bf16 pairs),
-// B in shared memory MN-major (the transpose bit set); f32 accumulate
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                              const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// D (64 x 128) += A (64 x 16) * B (16 x 128): A in registers (bf16 pairs),
-// B in shared memory MN-major (the transpose bit set); f32 accumulate
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
-                                              const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <int HD>
-__device__ __forceinline__ void wgmma_pv(float (&o)[HD / 2], const uint32_t* a,
-                                         uint64_t db);
-template <>
-__device__ __forceinline__ void wgmma_pv<64>(float (&o)[32], const uint32_t* a,
-                                             uint64_t db) {
-  wgmma_rs_n64(o, a, db);
-}
-template <>
-__device__ __forceinline__ void wgmma_pv<128>(float (&o)[64],
-                                              const uint32_t* a, uint64_t db) {
-  wgmma_rs_n128(o, a, db);
-}
-
-// 2^x in one MUFU op; results below 2^-126 flush to 0 (P is rounded to
-// bf16 next, and l sums values near 1)
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 // Register fragments of one consumer thread (m64nN accumulator layout):
 // element 4j + e of a 64 x N tile is row (lane / 4) + 8 (e / 2) of the
 // warp's 16 rows, column 8j + 2 (lane % 4) + (e % 2).
@@ -556,22 +363,16 @@ struct Consumer {
   // S = Q K^T over the head dim, K-major A (Q) and B (K) in shared memory
   __device__ __forceinline__ void issue_qk(uint32_t q_base, uint32_t k_base) {
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      const uint32_t off = (kk % 4) * 32;   // 16 columns further
-      const uint64_t da = smem_desc(q_base + (kk / 4) * BM * BOX + off, 16,
-                                    8 * BOX);
-      const uint64_t db = smem_desc(k_base + (kk / 4) * BN * BOX + off, 16,
-                                    8 * BOX);
-      wgmma_ss_n128(s, da, db, kk > 0);
-    }
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss_n128(s, desc_k(q_base, BM, 0, kk), desc_k(k_base, BN, 0, kk),
+                    kk > 0);
   }
 
   // O += P V: P from registers, V (kv rows x hd, MN-major) in shared memory
   __device__ __forceinline__ void issue_pv(uint32_t v_base) {
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk)
-      wgmma_pv<HD>(o, &p[4 * kk],
-                   smem_desc(v_base + kk * 16 * BOX, BN * BOX, 8 * BOX));
+      wgmma_rs<HD>(o, &p[4 * kk], desc_mn(v_base, BN, kk));
   }
 
   // Mask if asked, take the row max, and turn s into exp2(scale_log2 s -
@@ -666,34 +467,20 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
   auto v_full = [&](int s) { return q_full + 8 * (2 + 2 * STAGES + s); };
   auto v_empty = [&](int s) { return q_full + 8 * (2 + 3 * STAGES + s); };
 
-  // Work item j is (q tile, batch*head).  Items run longest first, in
-  // bands of BAND q tiles: under a causal mask the last q tiles do the
-  // most work, and the short ones fill the tail.  Within a band a head's
-  // tiles are adjacent, so blocks running at once share its K and V in L2
-  // (ordered by q tile alone and without GQA, each running block would
-  // read another head's K/V).  Rounds of gridDim.x items are dealt out
-  // back and forth (block x takes item x of even rounds and
-  // gridDim.x - 1 - x of odd ones), so every block's sum of lengths is
-  // about the same.
-  const int n_qt = (Sq + BM - 1) / BM;
-  const int n_items = n_qt * n_bh;
+  // Work item j is (q tile, batch*head), in Walk's order: the last q
+  // tiles first, in bands of q tiles per head.
+  const Walk walk{(Sq + BM - 1) / BM, n_bh, true};
   struct Item {
     int bh, b, h, kh, q0, t_lo, n_tiles;
   };
-  auto item_of = [&](int round) {
-    const int x = round & 1 ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
-    return round * gridDim.x + x;
-  };
   auto item = [&](int j) {
     Item it;
-    const int band = j / (BAND * n_bh);
-    const int width = min(BAND, n_qt - band * BAND);
-    const int r = j - band * BAND * n_bh;
-    it.bh = r / width;
+    int qt;
+    walk.at(j, it.bh, qt);
     it.b = it.bh / H;
     it.h = it.bh % H;
     it.kh = it.h / (H / Kh);
-    it.q0 = (n_qt - 1 - band * BAND - r % width) * BM;
+    it.q0 = qt * BM;
     const int q_last = min(it.q0 + BM, Sq) - 1;
     const int hi = causal ? min(Sk, q_last + 1) : Sk;
     const int lo = window > 0 ? max(0, it.q0 - window + 1) : 0;
@@ -723,7 +510,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
     if (threadIdx.x == 256) {
       int t = 0;   // K/V tiles loaded so far: the ring position
       int n = 0;   // items so far
-      for (int j = item_of(0); j < n_items; j = item_of(++n)) {
+      for (int j = walk.of_round(0); j < walk.items(); j = walk.of_round(++n)) {
         const Item it = item(j);
         mbar_wait(q_empty, (n & 1) ^ 1);
         mbar_expect_tx(q_full, L::Q_BYTES);
@@ -758,7 +545,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
     float alpha[2];
     int t = 0;     // K/V tiles consumed so far: the ring position
     int n = 0;     // items so far
-    for (int j = item_of(0); j < n_items; j = item_of(++n)) {
+    for (int j = walk.of_round(0); j < walk.items(); j = walk.of_round(++n)) {
       const Item it = item(j);
       const int r0 = it.q0 + 64 * wg;
       const int row = r0 + 16 * warp + lane / 4;   // and row + 8
@@ -865,57 +652,6 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
-// cuTensorMapEncodeTiled from the driver, found at run time so the library
-// links against the CUDA runtime only
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found =
-        cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                     cudaEnableDefault, &found);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                            &found);
-#endif
-    if (found == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
-  }
-  return fn;
-}
-
-// A 4-D map (hd, heads, seq, batch) over a bf16 (B, S, heads, hd) tensor
-// with element strides (sb, ss, sh) and a contiguous head dim; boxes of 64
-// columns x `rows` rows of one (batch, head), 128-byte swizzled, zeros past
-// the edge.  A dim of size 1 gets the packed stride: its stride is never
-// used, and any 16-byte multiple is valid.
-CUresult make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int hd,
-                  int heads, int seq, int batch, int64_t sb, int64_t ss,
-                  int64_t sh, int rows) {
-  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads,
-                              (cuuint64_t)seq, (cuuint64_t)batch};
-  const int64_t packed[3] = {hd, (int64_t)hd * heads,
-                             (int64_t)hd * heads * seq};
-  const int64_t given[3] = {sh, ss, sb};
-  cuuint64_t strides[3];
-  for (int i = 0; i < 3; ++i)
-    strides[i] = 2 * (cuuint64_t)(dims[i + 1] == 1 ? packed[i] : given[i]);
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-}
-
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int B, int H, int Kh, int Sq, int Sk, const int64_t* st, int causal,
@@ -930,17 +666,11 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
     r = make_map(enc, &vm, v, HD, Kh, Sk, B, st[6], st[7], st[8], BN);
   if (r != CUDA_SUCCESS) return ENCODE_FAILED + static_cast<int>(r);
   auto kern = flash_fwd_wgmma<HD>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Layout<HD>::ALLOC);
+  int grid = 0;
+  const cudaError_t err = persistent_grid(kern, Layout<HD>::ALLOC,
+                                          B * H * ((Sq + BM - 1) / BM), &grid);
   if (err != cudaSuccess) return err;
-  // one resident block per SM walks the work items
-  int device = 0, sms = 0;
-  err = cudaGetDevice(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
-  const int items = B * H * ((Sq + BM - 1) / BM);
-  kern<<<sms < items ? sms : items, NT, Layout<HD>::ALLOC, stream>>>(
+  kern<<<grid, NT, Layout<HD>::ALLOC, stream>>>(
       qm, km, vm, static_cast<__nv_bfloat16*>(o), lse, H, Kh, Sq, Sk, st[9],
       st[10], st[11], causal, window, scale * LOG2E, B * H);
   return cudaGetLastError();
@@ -955,7 +685,7 @@ extern "C" {
 // dtype: 0 = float32, 1 = bfloat16.  strides: 12 int64 element strides,
 // (batch, seq, head) for q, k, v and o in that order; the head dim is
 // contiguous.  window <= 0 means no window.  Returns a cudaError_t code, or
-// ENCODER_MISSING / ENCODE_FAILED + CUresult.
+// hopper::ENCODER_MISSING / ENCODE_FAILED + CUresult.
 int flash_fwd(const void* q, const void* k, const void* v, void* o,
               void* lse, int dtype, int B, int H, int Kh, int Sq, int Sk,
               int hd, const int64_t* strides, int causal, int window,
@@ -980,12 +710,7 @@ int flash_fwd(const void* q, const void* k, const void* v, void* o,
 int flash_fwd_route(int dtype, int hd) { return route_of(dtype, hd); }
 
 const char* flash_fwd_error_string(int code) {
-  if (code == ENCODER_MISSING)
-    return "cuTensorMapEncodeTiled not found in the driver";
-  if (code >= ENCODE_FAILED)
-    return "cuTensorMapEncodeTiled refused a map (code - 20000 is the "
-           "CUresult)";
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+  return hopper::error_string(code);
 }
 
 }  // extern "C"

@@ -2,18 +2,20 @@
 Hopper counterparts of the Pallas TPU kernels in
 ``repro.kernels.flash_attention.kernel``:
 
-* ``csrc/flash_fwd.cu`` — the forward (``_attn_fwd_kernel``, K1), on one
-  of two routes by :func:`route`: ``"tensor_core"`` (wgmma, TMA) for bf16
-  at head dims 64 and 128, ``"cuda_core"`` (f32 FMAs) for the rest;
+* ``csrc/flash_fwd.cu`` — the forward (``_attn_fwd_kernel``, K1);
 * ``csrc/flash_bwd.cu`` — the backward, dQ (``_attn_bwd_dq_kernel``, K2)
   and dK/dV (``_attn_bwd_dkv_kernel``, K3).
+
+Each kernel takes one of two routes by :func:`route`: ``"tensor_core"``
+(wgmma, TMA; the Hopper building blocks in ``csrc/hopper.cuh``) for bf16
+at head dims 64 and 128, ``"cuda_core"`` (f32 FMAs) for the rest.
 
 Each library is compiled with nvcc for ``sm_90a`` at first use (see
 :func:`repro_torch.kernels.common.build_library`).  A wrapper checks its
 inputs, allocates the outputs, launches on PyTorch's current stream without
 synchronising, and raises if the launch reports a CUDA error.  Each wrapper
-counts its own launches in ``.launches``; the forward also counts them by
-route in ``.launches_by_route``.
+counts its own launches in ``.launches`` and by route in
+``.launches_by_route``.
 """
 from __future__ import annotations
 
@@ -29,10 +31,11 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCE = CSRC / "flash_fwd.cu"
 BWD_SOURCE = CSRC / "flash_bwd.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# (dtype, head_dim) pairs the forward runs on the tensor cores; every other
-# pair it takes runs on the CUDA cores.  f32 stays off the tensor cores:
-# TF32 would break the f32 tolerance the reduced configs rely on.  The
-# same table is flash_fwd.cu's route_of (tests hold the two together).
+# (dtype, head_dim) pairs the kernels run on the tensor cores; every other
+# pair they take runs on the CUDA cores.  f32 stays off the tensor cores:
+# TF32 would break the f32 tolerances the reduced configs rely on.  The
+# same table is route_of in flash_fwd.cu and in flash_bwd.cu (tests hold
+# the three together).
 TENSOR_CORE = frozenset({(torch.bfloat16, 64), (torch.bfloat16, 128)})
 ROUTES = ("tensor_core", "cuda_core")
 _lib: Optional[ctypes.CDLL] = None
@@ -40,7 +43,7 @@ _bwd_lib: Optional[ctypes.CDLL] = None
 
 
 def route(dtype: torch.dtype, head_dim: int) -> str:
-    """The forward's route for q/k/v of ``dtype`` and ``head_dim``:
+    """The route of K1, K2 and K3 for q/k/v of ``dtype`` and ``head_dim``:
     ``"tensor_core"`` or ``"cuda_core"``."""
     return ROUTES[0] if (dtype, head_dim) in TENSOR_CORE else ROUTES[1]
 
@@ -72,6 +75,8 @@ def bwd_library() -> ctypes.CDLL:
         lib.flash_bwd_dq.restype = i
         lib.flash_bwd_dkv.argtypes = [p] * 8 + [i] * 7 + [p, i, i, f, p]
         lib.flash_bwd_dkv.restype = i
+        lib.flash_bwd_route.argtypes = [i, i]
+        lib.flash_bwd_route.restype = i
         lib.flash_bwd_error_string.argtypes = [i]
         lib.flash_bwd_error_string.restype = ctypes.c_char_p
         _bwd_lib = lib
@@ -196,7 +201,8 @@ def flash_attention_bwd_dq_kernel(q, k, v, do, lse, delta, *, causal: bool,
     lse/delta: (B*H, Sq) f32 (delta = rowsum(dO * O)).
 
     Returns dq (B, Sq, H, hd) f32.  Each call that launches the kernel adds
-    one to ``flash_attention_bwd_dq_kernel.launches``.
+    one to ``flash_attention_bwd_dq_kernel.launches`` and to its route's
+    entry in ``.launches_by_route``.
     """
     _check_bwd(q, k, v, do, lse, delta)
     lib = bwd_library()
@@ -206,6 +212,8 @@ def flash_attention_bwd_dq_kernel(q, k, v, do, lse, delta, *, causal: bool,
         code = lib.flash_bwd_dq(*head, dq.data_ptr(), *tail)
     _raise_on(code, "flash_bwd_dq")
     flash_attention_bwd_dq_kernel.launches += 1
+    flash_attention_bwd_dq_kernel.launches_by_route[route(q.dtype,
+                                                          q.shape[3])] += 1
     return dq
 
 
@@ -215,7 +223,8 @@ def flash_attention_bwd_dkv_kernel(q, k, v, do, lse, delta, *, causal: bool,
 
     Returns ``(dk, dv)``, each (B, Sk, Kh, hd) f32 and already summed over
     the query heads of its GQA group.  Each call that launches the kernel
-    adds one to ``flash_attention_bwd_dkv_kernel.launches``.
+    adds one to ``flash_attention_bwd_dkv_kernel.launches`` and to its
+    route's entry in ``.launches_by_route``.
     """
     _check_bwd(q, k, v, do, lse, delta)
     lib = bwd_library()
@@ -226,6 +235,8 @@ def flash_attention_bwd_dkv_kernel(q, k, v, do, lse, delta, *, causal: bool,
         code = lib.flash_bwd_dkv(*head, dk.data_ptr(), dv.data_ptr(), *tail)
     _raise_on(code, "flash_bwd_dkv")
     flash_attention_bwd_dkv_kernel.launches += 1
+    flash_attention_bwd_dkv_kernel.launches_by_route[route(q.dtype,
+                                                           q.shape[3])] += 1
     return dk, dv
 
 
@@ -241,4 +252,6 @@ def flash_attention_bwd_kernel(q, k, v, do, lse, delta, *, causal: bool,
 
 
 flash_attention_bwd_dq_kernel.launches = 0
+flash_attention_bwd_dq_kernel.launches_by_route = dict.fromkeys(ROUTES, 0)
 flash_attention_bwd_dkv_kernel.launches = 0
+flash_attention_bwd_dkv_kernel.launches_by_route = dict.fromkeys(ROUTES, 0)

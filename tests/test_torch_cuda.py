@@ -17,7 +17,8 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
     flash_attention_bwd_dkv_kernel, flash_attention_bwd_dq_kernel,
-    flash_attention_bwd_kernel, flash_attention_fwd_kernel, library, route)
+    bwd_library, flash_attention_bwd_kernel, flash_attention_fwd_kernel,
+    library, route)
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     attention_bwd_ref, attention_ref, row_delta)
 
@@ -126,22 +127,83 @@ def test_tensor_core_route_matches_plain_and_repeats_bitwise(case, dev):
     torch.testing.assert_close(lse, ref_lse, atol=tol_l, rtol=tol_l)
 
 
+# K2/K3 on the tensor-core route: TC_CASES (Sq 1 / 17 / 1000, cross
+# length, window 100, GQA rep 4, MHA, hd 128), with q, k and v all cut from
+# one fused qkv tensor where the last field says so, plus a causal cross
+# length (kv tiles past Sq get no query) and a non-causal window
+TC_BWD_CASES = TC_CASES + [
+    (1, 64, 300, 4, 2, 64, True, None, False),
+    (1, 400, 400, 4, 1, 128, False, 150, True),
+]
+
+
+def _tc_bwd_inputs(case, dev, seed=0):
+    B, Sq, Sk, H, Kh, hd, _, _, fused = case
+    rng = np.random.default_rng(seed)
+    mk = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s, dtype=np.float32)).to(dev, torch.bfloat16)
+    if fused:
+        qkv = mk(B, Sq, (H + 2 * Kh) * hd)
+        q = qkv[..., :H * hd].reshape(B, Sq, H, hd)
+        k = qkv[..., H * hd:(H + Kh) * hd].reshape(B, Sk, Kh, hd)
+        v = qkv[..., (H + Kh) * hd:].reshape(B, Sk, Kh, hd)
+        assert not (q.is_contiguous() or k.is_contiguous())
+    else:
+        q, k, v = mk(B, Sq, H, hd), mk(B, Sk, Kh, hd), mk(B, Sk, Kh, hd)
+    return q, k, v, mk(B, Sq, H, hd)
+
+
+@pytest.mark.parametrize("case", TC_BWD_CASES)
+def test_tensor_core_bwd_matches_plain_and_repeats_bitwise(case, dev):
+    causal, window = case[6], case[7]
+    mask = dict(causal=causal, window=window)
+    q, k, v, do = _tc_bwd_inputs(case, dev)
+    assert route(q.dtype, q.shape[-1]) == "tensor_core"
+    out, lse = attention_ref(q, k, v, **mask)
+    delta = row_delta(out, do)
+    kernels = (flash_attention_bwd_dq_kernel, flash_attention_bwd_dkv_kernel)
+    n0 = [dict(fn.launches_by_route) for fn in kernels]
+    dq = flash_attention_bwd_dq_kernel(q, k, v, do, lse, delta, **mask)
+    dq2 = flash_attention_bwd_dq_kernel(q, k, v, do, lse, delta, **mask)
+    dk, dv = flash_attention_bwd_dkv_kernel(q, k, v, do, lse, delta, **mask)
+    dk2, dv2 = flash_attention_bwd_dkv_kernel(q, k, v, do, lse, delta, **mask)
+    torch.cuda.synchronize()
+    for fn, before in zip(kernels, n0):
+        assert fn.launches_by_route["tensor_core"] - \
+            before["tensor_core"] == 2
+        assert fn.launches_by_route["cuda_core"] == before["cuda_core"]
+    # no atomics and a fixed order: the same inputs give the same bits
+    assert torch.equal(dq, dq2) and torch.equal(dk, dk2) and \
+        torch.equal(dv, dv2)
+    want = attention_bwd_ref(q, k, v, out, lse, do, **mask)
+    for g, w in zip((dq, dk, dv), want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        torch.testing.assert_close(g, w, atol=BWD_TOL, rtol=BWD_TOL)
+
+
 def test_routes_follow_the_table(dev):
-    lib = library()
+    lib, bwd = library(), bwd_library()
     for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
         for hd in range(16, 257, 16):
             want = route(dtype, hd)
-            assert ("tensor_core" if lib.flash_fwd_route(code, hd)
-                    else "cuda_core") == want
-    # f32 and bf16 at another head dim launch the CUDA-core kernel
+            for fn in (lib.flash_fwd_route, bwd.flash_bwd_route):
+                assert ("tensor_core" if fn(code, hd)
+                        else "cuda_core") == want
+    # f32 and bf16 at another head dim launch the CUDA-core kernels
+    kernels = (flash_attention_fwd_kernel, flash_attention_bwd_dq_kernel,
+               flash_attention_bwd_dkv_kernel)
     for dtype, hd in ((torch.float32, 64), (torch.bfloat16, 32)):
         q, k, v = (x.to(dtype) for x in _inputs(
             (1, 70, 70, 2, 1, hd, True, None), torch.float32, dev))
-        n0 = dict(flash_attention_fwd_kernel.launches_by_route)
-        flash_attention_fwd_kernel(q, k, v, causal=True, window=None)
-        by_route = flash_attention_fwd_kernel.launches_by_route
-        assert by_route["cuda_core"] - n0["cuda_core"] == 1
-        assert by_route["tensor_core"] == n0["tensor_core"]
+        n0 = [dict(fn.launches_by_route) for fn in kernels]
+        out, lse = flash_attention_fwd_kernel(q, k, v, causal=True,
+                                              window=None)
+        flash_attention_bwd_kernel(q, k, v, out, lse, row_delta(out, out),
+                                   causal=True, window=None)
+        for fn, before in zip(kernels, n0):
+            by_route = fn.launches_by_route
+            assert by_route["cuda_core"] - before["cuda_core"] == 1
+            assert by_route["tensor_core"] == before["tensor_core"]
 
 
 def test_ops_routes_cuda_tensors_to_the_kernel(dev):

@@ -47,12 +47,16 @@ Phases, each of which fails the run if it fails:
 8. hold K4 against the plain chunked scan: y and the final state, in bf16
    and f32 at mamba2-2.7b's serving prefill shape (Bs 8, S 2048, 80 heads
    of 64, g 1, N 128, Q 256), and in bf16 at a ragged S 1000, jamba's
-   widths (128 heads of 128, g 8) and Q 64 at S 4096;
+   widths (128 heads of 128, g 8) and Q 64 at S 4096; each shape's route
+   (tensor cores for bf16, CUDA cores for f32, checked by the route
+   counters) and two launches bitwise equal; ptxas's registers and spills
+   of the tensor-core entries (a second nvcc, ``-Xptxas -v``, in phase 1);
 9. serve full-width mamba2-2.7b (64 layers, bf16, random weights from a
    seed) through ``ServeEngine`` with phase 5's traffic; K4 must launch
-   64 x prefill calls; the prefill batch through K4 and through the plain
-   scan, each against an f32 prefill; ``torch.profiler`` over one prefill
-   and 8 decode steps; then ``serve_main("mamba2-2.7b")``;
+   64 x prefill calls, every launch on the tensor cores; the prefill batch
+   through K4 and through the plain scan, each against an f32 prefill;
+   ``torch.profiler`` over one prefill and 8 decode steps; then
+   ``serve_main("mamba2-2.7b")`` and its K4 routes;
 10. hold K5 against the plain stretch, bit for bit, on reflectance-like
     data made on the card: a 10980 x 10980 Sentinel-2 tile of 4 and of 13
     bands, more than 2**31 elements (checked in row chunks), the vision
@@ -75,7 +79,7 @@ Phases, each of which fails the run if it fails:
 
 The line before the last lists each ported kernel with its launches on
 its main path (K1-K3 training, K4 mamba2 serving, K5 the two vision
-studies), K1-K3's route (``core_route``) and its numbers at the training
+studies), K1-K4's route (``core_route``) and its numbers at the training
 shape (K2, K3), granite's prefill shape (K1), mamba2's prefill shape (K4)
 or the 4-band Sentinel-2 tile (K5); the last line is ``{"ok": true,
 "device": {...}}``.  Without a CUDA card, or without the repository beside
@@ -87,6 +91,7 @@ import dataclasses
 import functools
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -283,10 +288,13 @@ def ssd_bound(Bs, S, nh, hp, g, N, Q, dtype: str, esize: int):
     return (*least_ms(flops, nbytes, dtype), flops, nbytes)
 
 
-def ssd_vs_plain(torch, ssd_scan_kernel, ssd_chunked_ref):
+def ssd_vs_plain(torch, ssd, ssd_chunked_ref):
     """Phase 8: K4 against the plain chunked scan.  x, B and C are strided
-    views of one buffer, as the mixer hands them over.  Returns the
-    serving-shape bf16 record."""
+    views of one buffer, as the mixer hands them over.  Each shape runs on
+    its route (bf16 on the tensor cores, f32 on the CUDA cores), checked by
+    the route counters, and two launches must be bitwise equal.  Returns
+    the serving-shape bf16 record."""
+    kernel = ssd.ssd_scan_kernel
     records = {}
     gen = torch.Generator(device="cuda").manual_seed(4)
     for name, Bs, S, nh, hp, g, N, Q, dtypes in SSD_SHAPES:
@@ -301,8 +309,25 @@ def ssd_vs_plain(torch, ssd_scan_kernel, ssd_chunked_ref):
                 (Bs, S, nh), generator=gen, device="cuda"))
             A = -torch.exp(0.3 * torch.randn(nh, generator=gen,
                                              device="cuda"))
-            y, h = ssd_scan_kernel(x, dt, A, B, C, chunk=Q)
+            route = ssd.route(dtype, hp, N)
+            want = ("tensor_core" if dtype_name == "bfloat16"
+                    else "cuda_core")
+            before = dict(kernel.launches_by_route)
+            y, h = kernel(x, dt, A, B, C, chunk=Q)
+            y2, h2 = kernel(x, dt, A, B, C, chunk=Q)
             torch.cuda.synchronize()
+            took = {k: v - before[k]
+                    for k, v in kernel.launches_by_route.items()}
+            if route != want or took != {r: 2 * (r == want)
+                                         for r in ssd.ROUTES}:
+                raise AssertionError(f"K4 {name} {dtype_name}: route "
+                                     f"{route}, launches {took}; want "
+                                     f"{want}")
+            bitwise = bool(torch.equal(y, y2) and torch.equal(h, h2))
+            if not bitwise:
+                raise AssertionError(f"K4 {name} {dtype_name}: two launches "
+                                     f"differ")
+            del y2, h2
             yr, hr = ssd_chunked_ref(x, dt, A, B, C, Q)
             err_y = (y.float() - yr.float()).abs().max().item()
             err_h = (h - hr).abs().max().item()
@@ -313,7 +338,7 @@ def ssd_vs_plain(torch, ssd_scan_kernel, ssd_chunked_ref):
                             hr.abs().max().item())
             del yr, hr
             torch.cuda.empty_cache()
-            kernel_ms = cuda_ms(torch, lambda: ssd_scan_kernel(
+            kernel_ms = cuda_ms(torch, lambda: kernel(
                 x, dt, A, B, C, chunk=Q), reps=10)
             plain_ms = cuda_ms(torch, lambda: ssd_chunked_ref(
                 x, dt, A, B, C, Q), reps=2)
@@ -321,6 +346,7 @@ def ssd_vs_plain(torch, ssd_scan_kernel, ssd_chunked_ref):
                 Bs, S, nh, hp, g, N, Q, dtype_name, x.element_size())
             rec = dict(phase="ssd_kernel_vs_plain", shape=name,
                        dims=[Bs, S, nh, hp, g, N, Q], dtype=dtype_name,
+                       route=route, bitwise_repeat=bitwise,
                        max_abs_err_y=err_y, max_abs_err_h=err_h, tol=tol,
                        atol_y=atol_y, atol_h=atol_h, max_abs_y=max_y,
                        max_abs_h=max_h,
@@ -333,6 +359,35 @@ def ssd_vs_plain(torch, ssd_scan_kernel, ssd_chunked_ref):
             del buf, x, B, C, dt, A, y, h
             torch.cuda.empty_cache()
     return records[("mamba2_prefill", "bfloat16")]
+
+
+def ptxas_start(source: Path, out_dir: str):
+    """Start nvcc on ``source`` with ``-Xptxas -v`` (the library build
+    discards the compiler's output); :func:`ptxas_report` reads it."""
+    from repro_torch.kernels.common import NVCC_FLAGS, _nvcc
+    return subprocess.Popen(
+        [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o",
+         os.path.join(out_dir, "ptxas.so"), str(source)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def ptxas_report(proc, entry: str) -> list:
+    """Registers and spills ptxas reported for each entry whose name holds
+    ``entry``."""
+    log = proc.communicate(timeout=600)[0]
+    if proc.returncode:
+        raise RuntimeError(f"nvcc -Xptxas -v failed:\n{log}")
+    lines = log.splitlines()
+    out = []
+    for i, ln in enumerate(lines):
+        if "Compiling entry" in ln and entry in ln:
+            rest = lines[i + 1:i + 5]
+            out.append({"entry": ln.split("'")[1],
+                        "spill": next((r.strip() for r in rest
+                                       if "spill" in r), None),
+                        "used": next((r.split(":", 1)[1].strip()
+                                      for r in rest if "Used" in r), None)})
+    return out
 
 
 def kernel_vs_plain(torch, F, fa, attention_ref):
@@ -540,8 +595,9 @@ class _Counts:
                     "ssd_scan": ssd.ssd_scan_kernel,
                     "percentile_norm": pn.percentile_norm_kernel}
 
-    ROUTED = ("flash_attention_fwd", "flash_attention_bwd_dq",
-              "flash_attention_bwd_dkv")
+    FLASH = ("flash_attention_fwd", "flash_attention_bwd_dq",
+             "flash_attention_bwd_dkv")
+    ROUTED = FLASH + ("ssd_scan",)
 
     def zero(self):
         for fn in self.fns.values():
@@ -554,10 +610,11 @@ class _Counts:
     def read(self) -> dict:
         return {name: fn.launches for name, fn in self.fns.items()}
 
-    def routes(self) -> dict:
-        """K1's, K2's and K3's launches by route since the last zero()."""
+    def routes(self, names=ROUTED) -> dict:
+        """Launches by route since the last zero(), of K1 to K4 or of
+        ``names``."""
         return {name: dict(self.fns[name].launches_by_route)
-                for name in self.ROUTED}
+                for name in names}
 
 
 def _param_count(tree) -> int:
@@ -723,7 +780,7 @@ def train_cli_resume(torch, m, counts, precision: str = "f32"):
             res = m["train_main"]("stablelm-1.6b", checkpoint_dir=ck,
                                   checkpoint_every=2, resume=True, **kw)
             launches = counts.read()
-            routes = counts.routes()
+            routes = counts.routes(counts.FLASH)
             load, ls = m["load_checkpoint"], m["list_checkpoints"]
             got, gstep = load(ls(ck)[-1][1])
             want, wstep = load(ls(os.path.join(tmp, "oracle"))[-1][1])
@@ -811,7 +868,7 @@ def serve_full_width(torch, m, counts, arch: str):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = counts.read()
-    k1_routes = counts.routes()["flash_attention_fwd"]
+    routes = counts.routes()[kernel]
 
     s = engine.stats()
     if len(done) != 16 or any(len(r.generated) != 32 for r in reqs):
@@ -824,17 +881,16 @@ def serve_full_width(torch, m, counts, arch: str):
         raise AssertionError(f"{kernel} launches {n} != {cfg.n_layers} x "
                              f"{s['prefill_calls']} prefill calls, or other "
                              f"kernels launched: {launches}")
-    if kernel == "flash_attention_fwd" and k1_routes != {
-            "tensor_core": n, "cuda_core": 0}:
-        raise AssertionError(f"K1 routes {k1_routes}: every prefill launch "
-                             f"must run on the tensor cores")
+    if routes != {"tensor_core": n, "cuda_core": 0}:
+        raise AssertionError(f"{kernel} routes {routes}: every prefill "
+                             f"launch must run on the tensor cores")
     tokens = sum(len(r.generated) for r in reqs)
     emit(phase="serve_full_width", arch=cfg.name, params=n_params,
          init_s=init_s, requests=len(done), tokens=tokens, wall_s=wall,
          tokens_per_s=tokens / wall,
          prompt_tokens=int(sum(len(p) for p in prompts)),
          prefill_calls=s["prefill_calls"], decode_steps=s["decode_steps"],
-         launches=launches, k1_routes=k1_routes,
+         launches=launches, routes=routes,
          ttft_p50_s=s["ttft_p50_s"], ttft_p99_s=s["ttft_p99_s"],
          tpot_p50_s=s["tpot_p50_s"], tpot_p99_s=s["tpot_p99_s"],
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
@@ -907,7 +963,7 @@ def serve_path(torch, m, counts, arch: str) -> int:
             or cli[stat] != cli_launches):
         raise AssertionError(f"serve_main: {cli}, launches {cli_launches}")
     emit(phase="serve_main_reduced", launches=cli_launches,
-         k1_routes=counts.routes()["flash_attention_fwd"], **cli)
+         routes=counts.routes()[kernel], **cli)
     return launches
 
 
@@ -1284,8 +1340,11 @@ def main() -> int:
     card = card_line()
     print(card, flush=True)
 
-    # phase 1: one nvcc per source, all started together
+    # phase 1: one nvcc per source, all started together, and one more
+    # for K4's ptxas report
     t0 = time.perf_counter()
+    ptxas_dir = tempfile.mkdtemp()
+    ptxas = ptxas_start(ssd.SOURCE, ptxas_dir)
     build_libraries([fa.SOURCE, fa.BWD_SOURCE, ssd.SOURCE, pn.SOURCE])
     fa.library()
     fa.bwd_library()
@@ -1293,6 +1352,9 @@ def main() -> int:
     pn.library()
     emit(phase="build", sources=sorted({v[0] for v in KERNELS.values()}),
          seconds=time.perf_counter() - t0)
+    emit(phase="ptxas", source=KERNELS["ssd_scan"][0],
+         tensor_core=ptxas_report(ptxas, "ssd_scan_mma"))
+    shutil.rmtree(ptxas_dir)
 
     k1 = kernel_vs_plain(torch, F, fa, ref.attention_ref)
     kb = bwd_vs_plain(torch, F, fa, ref)
@@ -1312,7 +1374,7 @@ def main() -> int:
     train_cli_resume(torch, m, counts, precision="bf16")
 
     # the SSM serving path (this slice's main path)
-    k4 = ssd_vs_plain(torch, ssd.ssd_scan_kernel, ssd_chunked_ref)
+    k4 = ssd_vs_plain(torch, ssd, ssd_chunked_ref)
     ssd_launches = serve_path(torch, m, counts, "mamba2-2.7b")
 
     # the vision paths (this slice's main path): both studies normalize
@@ -1353,7 +1415,7 @@ def main() -> int:
                  "max_abs_err": max(k4["max_abs_err_y"], k4["max_abs_err_h"]),
                  "ms": k4["kernel_ms"], "plain_ms": k4["plain_ms"],
                  "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"],
-                 "library_ms": None})
+                 "library_ms": None, "core_route": k4["route"]})
     source, replaces = KERNELS["percentile_norm"]
     # no single PyTorch call computes the stretch: library_ms is null
     rows.append({"name": "percentile_norm", "route": "cuda",

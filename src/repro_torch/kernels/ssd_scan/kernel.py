@@ -2,11 +2,17 @@
 ``csrc/ssd_scan.cu``, the Hopper counterpart of the Pallas TPU kernel
 ``repro.kernels.ssd_scan.kernel._ssd_kernel``.
 
+Each call takes one of two routes by :func:`route`: ``"tensor_core"``
+(warp-level ``mma.sync``, bf16 tiles staged by ``cp.async``) for bf16 at
+head dims 64 and 128 with a state width N that is a multiple of 16 up to
+128, ``"cuda_core"`` (f32 FMAs) for the rest.
+
 The library is compiled with nvcc for ``sm_90a`` at first use (see
 :func:`repro_torch.kernels.common.build_library`).  The wrapper checks its
 inputs, allocates y and the final state, launches on PyTorch's current
 stream without synchronising, and raises if the launch reports a CUDA
-error.  It counts its launches in ``ssd_scan_kernel.launches``.
+error.  It counts its launches in ``ssd_scan_kernel.launches`` and by route
+in ``ssd_scan_kernel.launches_by_route``.
 """
 from __future__ import annotations
 
@@ -20,11 +26,25 @@ from repro_torch.kernels.common import load_library
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd_scan.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# (dtype, head_dim) pairs the kernel runs on the tensor cores when the state
+# width N is a multiple of 16 (up to MAX_STATE); every other input it takes
+# runs on the CUDA cores.  f32 stays off the tensor cores: h_final is held
+# to an f32 tolerance.  The same table is route_of in ssd_scan.cu (a test
+# holds the two together).
+TENSOR_CORE = frozenset({(torch.bfloat16, 64), (torch.bfloat16, 128)})
+ROUTES = ("tensor_core", "cuda_core")
 # the kernel's limits (csrc/ssd_scan.cu: NMAX, QMAX, 16 <= hp <= 128)
 MAX_STATE, MAX_CHUNK, MAX_HEAD_DIM = 128, 1024, 128
 # dynamic shared memory a block may use on Hopper
 MAX_SMEM = 232_448
 _lib: Optional[ctypes.CDLL] = None
+
+
+def route(dtype: torch.dtype, hp: int, N: int) -> str:
+    """K4's route for x/B/C of ``dtype``, head dim ``hp`` and state width
+    ``N``: ``"tensor_core"`` or ``"cuda_core"``."""
+    tc = (dtype, hp) in TENSOR_CORE and N % 16 == 0 and 16 <= N <= MAX_STATE
+    return ROUTES[0] if tc else ROUTES[1]
 
 
 def library() -> ctypes.CDLL:
@@ -35,17 +55,24 @@ def library() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.ssd_scan.argtypes = [p] * 7 + [i] * 8 + [p, p]
         lib.ssd_scan.restype = i
+        lib.ssd_scan_route.argtypes = [i, i, i]
+        lib.ssd_scan_route.restype = i
         lib.ssd_scan_error_string.argtypes = [i]
         lib.ssd_scan_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
 
 
-def smem_bytes(hp: int, N: int, Q: int) -> int:
-    """Shared memory of one block, as ``ssd_scan.cu::smem_bytes``: the state
-    (hp x N'), C and B tiles (64 x N'), an x tile (64 x hp), the 64 x 65
-    decay tile and two chunk-long vectors, N' = N rounded up to 16, plus
-    one, all f32."""
+def smem_bytes(hp: int, N: int, Q: int, route_: str = ROUTES[1]) -> int:
+    """Shared memory of one block, as ``ssd_scan.cu``'s ``smem_bytes`` of
+    each route.  CUDA cores: the state (hp x N'), C and B tiles (64 x N'),
+    an x tile (64 x hp), the 64 x 65 decay tile and two chunk-long vectors,
+    N' = N rounded up to 16, plus one, all f32.  Tensor cores: the f32
+    state (hp x (N + 8)) and two chunk-long f32 vectors, a bf16 C tile and
+    two bf16 buffers each of B and x tiles (64 x (N + 8), 64 x (hp + 8))."""
+    if route_ == ROUTES[0]:
+        return 4 * (hp * (N + 8) + 2 * Q) + 2 * 64 * (3 * (N + 8)
+                                                     + 2 * (hp + 8))
     nw = -(-N // 16) * 16
     return 4 * (hp * (nw + 1) + 2 * 64 * (nw + 1) + 64 * hp + 64 * 65 + 2 * Q)
 
@@ -73,13 +100,14 @@ def _check(x, dt, A, B, C, chunk):
     if S < 1 or not 1 <= Q <= MAX_CHUNK:
         raise ValueError(f"S={S} and chunk={chunk}: need S >= 1 and "
                          f"1 <= min(chunk, S) <= {MAX_CHUNK}")
-    if smem_bytes(hp, N, Q) > MAX_SMEM:
-        raise ValueError(f"hp={hp}, N={N}, Q={Q} needs "
-                         f"{smem_bytes(hp, N, Q)} bytes of shared memory; "
-                         f"a block has {MAX_SMEM}")
     if not (x.dtype == B.dtype == C.dtype) or x.dtype not in _DTYPES:
         raise TypeError(f"x/B/C must share one dtype of float32 or "
                         f"bfloat16; got {x.dtype}, {B.dtype}, {C.dtype}")
+    path = route(x.dtype, hp, N)
+    if smem_bytes(hp, N, Q, path) > MAX_SMEM:
+        raise ValueError(f"hp={hp}, N={N}, Q={Q} needs "
+                         f"{smem_bytes(hp, N, Q, path)} bytes of shared "
+                         f"memory; a block has {MAX_SMEM}")
     if dt.dtype != torch.float32 or A.dtype != torch.float32:
         raise TypeError(f"dt and A must be float32; got {dt.dtype}, "
                         f"{A.dtype}")
@@ -92,6 +120,13 @@ def _check(x, dt, A, B, C, chunk):
                              f"strides {t.stride()}")
     if A.stride(0) != 1:
         raise ValueError("A must be contiguous")
+    if path == ROUTES[0]:
+        # 16-byte cp.async of every row of x, B and C
+        for name, t in (("x", x), ("B", B), ("C", C)):
+            if t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3]):
+                raise ValueError(f"{name}: the tensor-core route needs "
+                                 f"every row start 16-byte aligned; got "
+                                 f"strides {t.stride()}")
 
 
 def ssd_scan_kernel(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -103,7 +138,8 @@ def ssd_scan_kernel(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
     Returns ``(y (Bs, S, nh, hp) in x's dtype, h_final (Bs, nh, hp, N)
     f32)``.  Each call that launches the kernel adds one to
-    ``ssd_scan_kernel.launches``.
+    ``ssd_scan_kernel.launches`` and to its route's entry in
+    ``.launches_by_route``.
     """
     _check(x, dt, A, B, C, chunk)
     Bs, S, nh, hp = x.shape
@@ -124,7 +160,9 @@ def ssd_scan_kernel(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise RuntimeError(f"ssd_scan launch failed: CUDA error {code} "
                            f"({lib.ssd_scan_error_string(code).decode()})")
     ssd_scan_kernel.launches += 1
+    ssd_scan_kernel.launches_by_route[route(x.dtype, hp, N)] += 1
     return y, h
 
 
 ssd_scan_kernel.launches = 0
+ssd_scan_kernel.launches_by_route = dict.fromkeys(ROUTES, 0)

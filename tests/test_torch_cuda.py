@@ -314,20 +314,41 @@ def _ssd_inputs(case, dtype, dev, seed=0):
 @pytest.mark.parametrize("case", SSD_CASES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_ssd_kernel_matches_plain(case, dtype, dev):
-    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_kernel
+    """On its route (bf16 at hp 64/128 with N a multiple of 16 on the tensor
+    cores), and two launches bitwise equal."""
+    from repro_torch.kernels.ssd_scan.kernel import route, ssd_scan_kernel
     from repro_torch.kernels.ssd_scan.ref import ssd_chunked_ref
     dtype = getattr(torch, dtype)
     x, dt, A, B, C = _ssd_inputs(case, dtype, dev)
     assert not x.is_contiguous()
     n0 = ssd_scan_kernel.launches
+    r0 = dict(ssd_scan_kernel.launches_by_route)
     y, h = ssd_scan_kernel(x, dt, A, B, C, chunk=case[-1])
+    y2, h2 = ssd_scan_kernel(x, dt, A, B, C, chunk=case[-1])
     torch.cuda.synchronize()
-    assert ssd_scan_kernel.launches == n0 + 1
+    assert ssd_scan_kernel.launches == n0 + 2
+    want = route(dtype, case[3], case[5])
+    assert want == ("tensor_core" if dtype == torch.bfloat16
+                    and case[3] in (64, 128) else "cuda_core")
+    assert {k: v - r0[k] for k, v in
+            ssd_scan_kernel.launches_by_route.items()} == \
+        {k: 2 * (k == want) for k in r0}
+    assert torch.equal(y, y2) and torch.equal(h, h2)
     assert y.dtype == dtype and h.dtype == torch.float32
     yr, hr = ssd_chunked_ref(x, dt, A, B, C, case[-1])
     tol = SSD_TOL[dtype]
     torch.testing.assert_close(y.float(), yr.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(h, hr, atol=5e-4, rtol=5e-4)
+
+
+def test_ssd_routes_follow_the_table(dev):
+    from repro_torch.kernels.ssd_scan import kernel as ssd
+    lib = ssd.library()
+    for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+        for hp in range(16, 129, 16):
+            for N in (8, 16, 24, 64, 128):
+                assert lib.ssd_scan_route(code, hp, N) == \
+                    (ssd.route(dtype, hp, N) == "tensor_core")
 
 
 def test_ssd_kernel_freezes_the_state_on_zero_dt(dev):
@@ -372,6 +393,13 @@ def test_ssd_unsupported_inputs_raise(dev):
         ssd_scan_kernel(x.half(), dt, A, B.half(), C.half(), chunk=16)
     with pytest.raises(ValueError, match="must be a CUDA tensor"):
         ssd_scan_kernel(x, dt.cpu(), A, B, C, chunk=16)
+    # the tensor-core route reads rows by 16-byte cp.async: a row stride of
+    # 68 bf16 (136 bytes) is refused, never sent to the CUDA cores
+    x, dt, A, B, C = _ssd_inputs((1, 64, 2, 64, 1, 16, 16), torch.bfloat16,
+                                 dev)
+    wide = torch.zeros((1, 64, 2, 68), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):
+        ssd_scan_kernel(wide[..., :64], dt, A, B, C, chunk=16)
 
 
 def test_mamba2_serves_through_k4_on_the_card(dev):

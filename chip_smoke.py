@@ -10,7 +10,8 @@ Phases, each of which fails the run if it fails:
    started together: the flash-attention forward (K1) and backward (K2
    dQ, K3 dK/dV), the SSD chunk scan (K4) and the percentile stretch (K5);
 2. hold K1 against its plain PyTorch version on the card, in bf16 and f32,
-   at granite-3-2b's prefill shape and at ragged, windowed and MHA hd=128
+   at the prefill shapes of granite-3-2b, glm4-9b (GQA 16 at hd 128) and
+   codeqwen1.5-7b (MHA at hd 128) and at ragged, windowed and MHA hd=128
    shapes (one JSON line per shape: K1's route, tensor cores for bf16 at
    hd 64 and 128, CUDA cores otherwise, checked by its route counter;
    errors, kernel / plain / library ms, the wrapper's host ms per call,
@@ -37,7 +38,24 @@ Phases, each of which fails the run if it fails:
    one prefill batch through the kernel and through plain attention, each
    held against an f32 prefill; ``torch.profiler`` over one prefill and 8
    decode steps;
-6. run ``serve_main("granite-3-2b")`` (the reduced serve CLI) on the card;
+5c. the same for glm4-9b (40 layers, 32 q / 2 kv heads of 128) and
+   codeqwen1.5-7b (32 layers, 32 heads of 128), whose logit gate runs at 4
+   rows (``GATE_ROWS``);
+5d. serve full-width granite-3-2b through ``ServeScheduler`` on the real
+   clock: 32 requests of a Poisson trace at 2 requests/s, a 5 s TTFT SLO
+   and a KV pool of 384 blocks of 16, so that requests are evicted and
+   re-prefilled; every request completes or is shed, every block returns,
+   K1 launches 40 x prefill calls on the tensor cores; tokens/s, goodput,
+   TTFT / TPOT / queue-wait percentiles; ``torch.profiler`` over 8 of the
+   scheduler's decode ticks;
+5e. token identity: (a) 16 of those prompts arriving at once through the
+   scheduler and through the engine at full width give the same greedy
+   tokens (and, not gated, how phase 5d's evicted requests compare with
+   the same prompts served unevicted); (b)
+   the reduced granite in f32 on the card resumes evicted requests token
+   for token;
+6. run ``serve_main("granite-3-2b")`` (the reduced serve CLI) on the card,
+   then (6b) its continuous mode for granite-3-2b and mamba2-2.7b;
 7. run ``train_main("stablelm-1.6b")`` (the reduced train CLI) with
    checkpoints, preempt it, resume it, and hold it bitwise against an
    uninterrupted run, in PyTorch's deterministic mode: in f32 (7, the
@@ -78,10 +96,11 @@ Phases, each of which fails the run if it fails:
     card.
 
 The line before the last lists each ported kernel with its launches on
-its main path (K1-K3 training, K4 mamba2 serving, K5 the two vision
-studies), K1-K4's route (``core_route``) and its numbers at the training
-shape (K2, K3), granite's prefill shape (K1), mamba2's prefill shape (K4)
-or the 4-band Sentinel-2 tile (K5); the last line is ``{"ok": true,
+its main path (K1-K3 training, and K1 on each serving path; K4 mamba2
+serving, K5 the two vision studies), K1-K4's route (``core_route``) and
+its numbers at the training shape (K2, K3), granite's prefill shape (K1,
+with glm4's and codeqwen's beside it), mamba2's prefill shape (K4) or the
+4-band Sentinel-2 tile (K5); the last line is ``{"ok": true,
 "device": {...}}``.  Without a CUDA card, or without the repository beside
 it, the script exits non-zero and prints no result.
 """
@@ -100,6 +119,7 @@ from pathlib import Path
 
 import numpy as np
 
+T_START = time.perf_counter()     # each emitted line's t_s counts from here
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 CSRC = "src/repro_torch/kernels/flash_attention/csrc/"
@@ -126,6 +146,8 @@ SHAPES = [
     ("ragged_s1000", 2, 1000, 1000, 32, 8, 64, True, None),
     ("window_512", 2, 2048, 2048, 32, 8, 64, True, 512),
     ("mha_hd128", 2, 1024, 1024, 16, 16, 128, True, None),
+    ("glm4_prefill", 8, 2048, 2048, 32, 2, 128, True, None),
+    ("codeqwen_prefill", 8, 2048, 2048, 32, 32, 128, True, None),
 ]
 # kernel vs plain in the working dtype: f32 differs only by summation
 # order; bf16 adds the output's rounding to bf16 (~4e-3 relative)
@@ -201,7 +223,8 @@ def _ssd_close(torch, got, want, tol):
 
 
 def emit(**rec):
-    print(json.dumps(rec), flush=True)
+    print(json.dumps({**rec, "t_s": time.perf_counter() - T_START}),
+          flush=True)
 
 
 def card_line() -> str:
@@ -391,7 +414,7 @@ def ptxas_report(proc, entry: str) -> list:
 
 
 def kernel_vs_plain(torch, F, fa, attention_ref):
-    """Phase 2.  Returns the granite-shape bf16 record."""
+    """Phase 2.  Returns the records by (shape, dtype)."""
     fa_kernel = fa.flash_attention_fwd_kernel
     records = {}
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -459,7 +482,7 @@ def kernel_vs_plain(torch, F, fa, attention_ref):
             records[(name, dtype_name)] = rec
             del q, k, v, out, lse
             torch.cuda.empty_cache()
-    return records[("granite_prefill", "bfloat16")]
+    return records
 
 
 def bwd_vs_plain(torch, F, fa, ref):
@@ -819,9 +842,14 @@ def prefill_batch(torch, prompts, S):
 
 # arch served in full -> (its prefill kernel, the engine's stat for it, the
 # config field that picks that kernel or the plain version)
-SERVED = {"granite-3-2b": ("flash_attention_fwd", "flash_attention_launches",
-                           "attention_backend"),
+_K1 = ("flash_attention_fwd", "flash_attention_launches", "attention_backend")
+SERVED = {"granite-3-2b": _K1, "glm4-9b": _K1, "codeqwen1.5-7b": _K1,
           "mamba2-2.7b": ("ssd_scan", "ssd_scan_launches", "mixer_backend")}
+# rows of the prefill logit gate, where 8 do not fit beside the f32
+# yardstick: codeqwen's f32 weights (32.8 GB) beside its bf16 ones (16.4)
+# and the f32 prefill's KV caches (MHA: 17.2 GB at 8 rows, twice that
+# while the layers' caches are stacked) would pass the card's 80 GB
+GATE_ROWS = {"codeqwen1.5-7b": 4}
 
 
 def serve_full_width(torch, m, counts, arch: str):
@@ -871,7 +899,9 @@ def serve_full_width(torch, m, counts, arch: str):
     routes = counts.routes()[kernel]
 
     s = engine.stats()
-    if len(done) != 16 or any(len(r.generated) != 32 for r in reqs):
+    del engine, done                     # the decode state, before the gate
+    torch.cuda.empty_cache()
+    if s["completed"] != 16 or any(len(r.generated) != 32 for r in reqs):
         raise AssertionError(f"not every request completed with 32 tokens: "
                              f"{[len(r.generated) for r in reqs]}")
     n = launches[kernel]
@@ -886,7 +916,7 @@ def serve_full_width(torch, m, counts, arch: str):
                              f"launch must run on the tensor cores")
     tokens = sum(len(r.generated) for r in reqs)
     emit(phase="serve_full_width", arch=cfg.name, params=n_params,
-         init_s=init_s, requests=len(done), tokens=tokens, wall_s=wall,
+         init_s=init_s, requests=s["completed"], tokens=tokens, wall_s=wall,
          tokens_per_s=tokens / wall,
          prompt_tokens=int(sum(len(p) for p in prompts)),
          prefill_calls=s["prefill_calls"], decode_steps=s["decode_steps"],
@@ -897,7 +927,8 @@ def serve_full_width(torch, m, counts, arch: str):
 
     # one prefill batch through the kernel and through its plain version,
     # both in bf16, each held against the plain path in f32
-    B, S = 8, 2048
+    B, S = GATE_ROWS.get(arch, 8), 2048
+    torch.cuda.reset_peak_memory_stats()
     batch, lens_d = prefill_batch(torch, prompts[:B], S)
     logits, times = {}, {}
     for backend in ("cuda", "torch"):
@@ -932,7 +963,8 @@ def serve_full_width(torch, m, counts, arch: str):
          rel_err_cuda_vs_torch=rel(a, b), max_abs_err_cuda_vs_f32=max_abs,
          argmax_agree_cuda_f32=int((a.argmax(-1) == arg_ref).sum().item()),
          argmax_agree_torch_f32=int((b.argmax(-1) == arg_ref).sum().item()),
-         rows=B, argmax_faults=faults)
+         rows=B, argmax_faults=faults,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     # the kernel path may be no more than twice as far from f32 as the
     # plain bf16 path (K1 rounds P to bf16 before P V, as the TPU kernel)
     if rel_cuda > 2 * rel_torch or faults:
@@ -942,16 +974,18 @@ def serve_full_width(torch, m, counts, arch: str):
     return n, params, prompts
 
 
-def serve_path(torch, m, counts, arch: str) -> int:
-    """Phases 5-6 (granite) and 9 (mamba2): the full-width arch through the
-    engine, its profile, then the reduced serve CLI on the card with its
-    launch check.  Returns the kernel's launches over the full-width
-    engine run."""
+def serve_path(torch, m, counts, arch: str, cli: bool = True) -> int:
+    """Phases 5-6 (granite), 5c (glm4, codeqwen; ``cli=False``) and 9
+    (mamba2): the full-width arch through the engine, its profile, then
+    the reduced serve CLI on the card with its launch check.  Returns the
+    kernel's launches over the full-width engine run."""
     launches, params, prompts = serve_full_width(torch, m, counts, arch)
     profile_steps(torch, m["get_config"](arch), params, prompts,
                   m["prefill"], m["decode_step"])
     del params
     torch.cuda.empty_cache()
+    if not cli:
+        return launches
 
     kernel, stat, _ = SERVED[arch]
     counts.zero()
@@ -967,20 +1001,265 @@ def serve_path(torch, m, counts, arch: str) -> int:
     return launches
 
 
+# phase 5d: granite at full width under live traffic (a Poisson trace at
+# about the closed batch's completion rate, 16 x 32 tokens in ~8 s) with a
+# KV pool of 384 blocks of 16 (37.5% of the 1024 that cover 8 slots of
+# 2048), so that evictions happen, and a 5 s TTFT SLO
+LIVE = dict(n=32, rate=2.0, plen=(16, 1500), max_tokens=32, slots=8,
+            cache_len=2048, pools=(384, 256), block=16, slo_ms=5000.0)
+# phase 5e (a) serves the first 16 of those 32 prompts at once, two waves
+# of the 8 slots, to keep the script's time down
+AT_ONCE = 16
+
+
+def _live_trace(m, vocab: int, rate: float):
+    return m["poisson_trace"](vocab, LIVE["n"], rate, seed=0,
+                              plen_range=LIVE["plen"],
+                              max_tokens=LIVE["max_tokens"])
+
+
+def _submit_now(sched, trace):
+    """Submit a trace on the scheduler's real clock, starting now."""
+    t0 = sched.clock.now()
+    sched.submit_trace([(t0 + t, r) for t, r in trace])
+    return t0
+
+
+def _k1_only(launches: dict, routes: dict, n_layers: int, prefill_calls: int,
+             route: str, what: str):
+    n = launches["flash_attention_fwd"]
+    others = {k: v for k, v in launches.items()
+              if k != "flash_attention_fwd" and v}
+    if (n == 0 or n != n_layers * prefill_calls or others
+            or routes["flash_attention_fwd"] != {
+                r: n * (r == route) for r in ("tensor_core", "cuda_core")}):
+        raise AssertionError(f"{what}: K1 launches {n} != {n_layers} x "
+                             f"{prefill_calls} prefill calls on {route}, or "
+                             f"other kernels: {launches}, routes {routes}")
+
+
+def serve_continuous_full_width(torch, m, counts):
+    """Phase 5d: full-width granite-3-2b (bf16) through ``ServeScheduler``
+    on the real clock: an open-loop Poisson trace, SLO shedding and an
+    oversubscribed paged-KV pool.  Returns the K1 launches, the params and
+    the requests, and each request's eviction count."""
+    cfg = m["get_config"]("granite-3-2b")
+    params = m["init_params"](
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    L = LIVE
+    for pool in L["pools"]:
+        trace = _live_trace(m, cfg.vocab, L["rate"])
+        sched = m["ServeScheduler"](
+            cfg, params, slots=L["slots"], cache_len=L["cache_len"],
+            max_kv_blocks=pool, kv_block_size=L["block"],
+            slo_deadline_ms=L["slo_ms"], device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counts.zero()
+        t0 = _submit_now(sched, trace)
+        sched.run()
+        torch.cuda.synchronize()
+        wall = sched.clock.now() - t0
+        launches, routes = counts.read(), counts.routes()
+        s = sched.stats()
+        if s["evictions"]:
+            break
+        emit(phase="serve_continuous_no_eviction", pool_blocks=pool,
+             peak_blocks=s["kv"]["peak_blocks_in_use"],
+             why="the trace never held more blocks than the pool; "
+                 "tightening it")
+    reqs = [r for _, r in trace]
+    _k1_only(launches, routes, cfg.n_layers, s["prefill_calls"],
+             "tensor_core", "serve_continuous_full_width")
+    kv = s["kv"]
+    short = [r.rid for r in sched.completed
+             if len(r.generated) != L["max_tokens"]
+             and len(r.prompt) + len(r.generated) < L["cache_len"] - 1]
+    if (s["completed"] + s["shed"] != L["n"] or kv["used_blocks"]
+            or kv["peak_blocks_in_use"] > kv["total_blocks"]
+            or not s["evictions"] or short):
+        raise AssertionError(f"serve_continuous_full_width: {s}; short "
+                             f"requests {short}")
+    tokens = sum(len(r.generated) for r in sched.completed)
+    slo_tokens = sum(len(r.generated) for r in sched.completed
+                     if r.met_deadline())
+    emit(phase="serve_continuous_full_width", arch=cfg.name,
+         trace="poisson", requests=L["n"], rate_qps=L["rate"],
+         slots=L["slots"], cache_len=L["cache_len"],
+         kv_pool=[kv["total_blocks"], kv["block_size"]],
+         slo_deadline_ms=L["slo_ms"], completed=s["completed"],
+         shed=s["shed"], slo_met=s["slo_met"], evictions=s["evictions"],
+         failed_grows=kv["failed_grows"],
+         peak_blocks_in_use=kv["peak_blocks_in_use"], tokens=tokens,
+         wall_s=wall, tokens_per_s=tokens / wall,
+         goodput_req_s=s["slo_met"] / wall, goodput_tok_s=slo_tokens / wall,
+         prompt_tokens=int(sum(len(r.prompt) for r in reqs)),
+         prefill_calls=s["prefill_calls"], decode_steps=s["decode_steps"],
+         launches=launches, routes=routes["flash_attention_fwd"],
+         **{k: s[k] for k in ("ttft_p50_s", "ttft_p99_s", "tpot_p50_s",
+                              "tpot_p99_s", "queue_wait_p50_s",
+                              "queue_wait_p99_s")},
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    n = launches["flash_attention_fwd"]
+    del sched
+    torch.cuda.empty_cache()
+
+    # phase 5d': the scheduler's decode ticks (admission, KV growth, the
+    # decode step) with 8 requests running, under the profiler
+    prof = m["ServeScheduler"](cfg, params, slots=L["slots"],
+                               cache_len=L["cache_len"], device="cuda")
+    for r in reqs[:L["slots"]]:
+        prof.submit(m["Request"](rid=r.rid, prompt=r.prompt,
+                                 max_tokens=L["max_tokens"]))
+    prof.step()
+
+    def ticks():
+        for _ in range(8):
+            prof.step()
+    device_profile(torch, ticks, arch=cfg.name, what="scheduler_decode",
+                   steps=8)
+    del prof
+    torch.cuda.empty_cache()
+    return n, params, reqs
+
+
+def scheduler_token_identity(torch, m, counts, params, live_reqs):
+    """Phase 5e.  (a) Full-width granite in bf16: the first ``AT_ONCE`` of
+    the live trace's prompts arriving at once through the scheduler
+    (default pool) and through the plain engine give the same greedy
+    tokens and the same prefill batches.  Then, not gated, phase 5d's
+    evicted requests against the same prompts served unevicted by the
+    engine: re-prefilling prompt + generated through K1 rounds differently
+    in bf16 from the incremental decode, so a near tie may flip an argmax.
+    (b) The reduced granite in f32 on the card: an oversubscribed pool (8
+    blocks of 8, 3 slots of 64) evicts, and the tokens equal an
+    unconstrained run's."""
+    cfg = m["get_config"]("granite-3-2b")
+    L = LIVE
+    trace = _live_trace(m, cfg.vocab, 1e6)
+    if any(not np.array_equal(r.prompt, w.prompt)
+           for (_, r), w in zip(trace, live_reqs)):
+        raise AssertionError("the trace's prompts depend on its rate")
+    trace = trace[:AT_ONCE]
+    sched = m["ServeScheduler"](cfg, params, slots=L["slots"],
+                                cache_len=L["cache_len"], device="cuda")
+    engine = m["ServeEngine"](cfg, params, slots=L["slots"],
+                              cache_len=L["cache_len"], device="cuda")
+    for _, r in trace:
+        engine.submit(m["Request"](rid=r.rid, prompt=r.prompt,
+                                   max_tokens=r.max_tokens))
+    counts.zero()
+    t0 = _submit_now(sched, trace)
+    sched.clock.sleep_until(t0 + trace[-1][0])    # all have arrived
+    sched.run()
+    engine.run()
+    launches, routes = counts.read(), counts.routes()
+    calls = sched.stats["prefill_calls"] + engine.stats["prefill_calls"]
+    _k1_only(launches, routes, cfg.n_layers, calls, "tensor_core",
+             "token identity (a)")
+    got = {r.rid: r.generated for r in sched.completed}
+    want = {r.rid: r.generated for r in engine.completed}
+    if (got != want or len(got) != AT_ONCE
+            or sched.stats["prefill_calls"] != engine.stats["prefill_calls"]
+            or sched.stats["evictions"]):
+        differ = sum(got.get(k) != v for k, v in want.items())
+        raise AssertionError(
+            f"token identity (a): {differ} of {len(want)} requests differ; "
+            f"{len(got)} completed; prefill calls "
+            f"{sched.stats['prefill_calls']} vs "
+            f"{engine.stats['prefill_calls']}")
+    emit(phase="scheduler_token_identity_full_width", arch=cfg.name,
+         dtype="bfloat16", requests=len(got), tokens_equal=True,
+         prefill_calls=sched.stats["prefill_calls"], launches=launches)
+    del sched, engine
+
+    evicted = [r for r in live_reqs if r.evictions and r.status == "done"]
+    engine = m["ServeEngine"](cfg, params, slots=L["slots"],
+                              cache_len=L["cache_len"], device="cuda")
+    for r in evicted:
+        engine.submit(m["Request"](rid=r.rid, prompt=r.prompt,
+                                   max_tokens=r.max_tokens))
+    engine.run()
+    want = {r.rid: r.generated for r in engine.completed}
+    first = {r.rid: next((i for i, (a, b) in enumerate(
+        zip(r.generated, want[r.rid])) if a != b), None) for r in evicted}
+    emit(phase="scheduler_eviction_divergence_bf16", arch=cfg.name,
+         evicted=len(evicted),
+         evictions={r.rid: r.evictions for r in evicted},
+         first_diverging_token={k: v for k, v in first.items()
+                                if v is not None})
+    del engine
+    torch.cuda.empty_cache()
+
+    rcfg = m["get_reduced"]("granite-3-2b")
+    rparams = m["init_params"](
+        rcfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    rng = np.random.default_rng(23)
+    prompts = [rng.integers(0, rcfg.vocab, size=int(rng.integers(4, 12)))
+               for _ in range(6)]
+    runs = []
+    for pool in ({}, dict(max_kv_blocks=8, kv_block_size=8)):
+        sched = m["ServeScheduler"](rcfg, rparams, slots=3, cache_len=64,
+                                    device="cuda", **pool)
+        for i, p in enumerate(prompts):
+            sched.submit(m["Request"](rid=i, prompt=p, max_tokens=20))
+        counts.zero()
+        sched.run()
+        _k1_only(counts.read(), counts.routes(), rcfg.n_layers,
+                 sched.stats["prefill_calls"], "cuda_core",
+                 "token identity (b)")
+        runs.append(sched)
+    free, tight = runs
+    got = {r.rid: r.generated for r in tight.completed}
+    if (got != {r.rid: r.generated for r in free.completed} or len(got) != 6
+            or not tight.stats["evictions"] or tight.kv.used_blocks):
+        raise AssertionError(f"token identity (b): evictions "
+                             f"{tight.stats['evictions']}, tokens {got}")
+    emit(phase="scheduler_eviction_resume_reduced_f32", arch=rcfg.name,
+         requests=6, evictions=tight.stats["evictions"],
+         failed_grows=tight.kv.stats["failed_grows"],
+         prefill_calls=[free.stats["prefill_calls"],
+                        tight.stats["prefill_calls"]], tokens_equal=True)
+
+
+def serve_main_continuous(torch, m, counts):
+    """Phase 6b: the reduced serve CLI in continuous mode on the card, for
+    granite-3-2b (K1) and mamba2-2.7b (K4); both reduced configs are f32,
+    so every launch takes the CUDA-core route."""
+    for arch in ("granite-3-2b", "mamba2-2.7b"):
+        kernel, stat, _ = SERVED[arch]
+        counts.zero()
+        out = m["serve_main"](arch, arrival_rate=50.0, max_kv_blocks=16,
+                              kv_block_size=8, device="cuda")
+        launches, routes = counts.read(), counts.routes()[kernel]
+        n = launches[kernel]
+        others = {k: v for k, v in launches.items() if k != kernel and v}
+        n_layers = m["get_reduced"](arch).n_layers
+        if (out["completed"] + out["shed"] != 16 or n == 0 or others
+                or n != n_layers * out["prefill_calls"] or out[stat] != n
+                or routes != {"tensor_core": 0, "cuda_core": n}
+                or out["kv"]["used_blocks"]):
+            raise AssertionError(f"serve_main continuous {arch}: {out}, "
+                                 f"launches {launches}, routes {routes}")
+        emit(phase="serve_main_continuous_reduced", launches=launches,
+             routes=routes, **out)
+
+
 def device_profile(torch, run, **labels):
     """``torch.profiler`` over ``run()``: device time by kernel, the device's
-    busy share of the wall time.  Emits one JSON line; returns busy ms."""
+    busy share of the wall time.  Emits one JSON line; returns busy ms.
+    Only the CUDA activity is traced: tracing every aten op on the host as
+    well slows the host loop being measured and takes several times longer
+    to aggregate, for the same device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    # device-side events only (kernels, memcpys): the aten ops that launch
-    # them report the same device time again
+    # device-side events only (kernels, memcpys), not the runtime's calls
     rows = [(ev.self_device_time_total / 1e3, ev.key, ev.count)
             for ev in prof.key_averages()
             if ev.device_type == DeviceType.CUDA
@@ -1305,7 +1584,8 @@ def main() -> int:
     from repro_torch.models.model import (cast_floating, decode_step,
                                           prefill, train_loss)
     from repro_torch.optim import get_optimizer, warmup_cosine
-    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.serve import (Request, ServeEngine, ServeScheduler,
+                                   poisson_trace)
     from repro_torch.train import (Preemption, TrainLoop, init_train_state,
                                    make_train_step)
     from repro_torch.tree import tree_leaves, tree_unflatten
@@ -1319,6 +1599,7 @@ def main() -> int:
              load_checkpoint=load_checkpoint,
              list_checkpoints=list_checkpoints, init_params=init_params,
              ServeEngine=ServeEngine, Request=Request, prefill=prefill,
+             ServeScheduler=ServeScheduler, poisson_trace=poisson_trace,
              decode_step=decode_step, serve_main=serve_main,
              get_reduced=get_reduced, build_dataset=vision.build_dataset,
              train_segmentation=vision.train_segmentation,
@@ -1356,7 +1637,7 @@ def main() -> int:
          tensor_core=ptxas_report(ptxas, "ssd_scan_mma"))
     shutil.rmtree(ptxas_dir)
 
-    k1 = kernel_vs_plain(torch, F, fa, ref.attention_ref)
+    k1_recs = kernel_vs_plain(torch, F, fa, ref.attention_ref)
     kb = bwd_vs_plain(torch, F, fa, ref)
     function_vs_plain(torch, flash_attention, naive_attention)
 
@@ -1367,8 +1648,17 @@ def main() -> int:
     del state, data
     torch.cuda.empty_cache()
 
-    # the dense serving path
+    # the dense serving path, then the other two dense decoders at full
+    # width, then live traffic through the scheduler (this slice's path)
     serve_launches = serve_path(torch, m, counts, "granite-3-2b")
+    wide_launches = {arch: serve_path(torch, m, counts, arch, cli=False)
+                     for arch in ("glm4-9b", "codeqwen1.5-7b")}
+    live_launches, params, live_reqs = serve_continuous_full_width(
+        torch, m, counts)
+    scheduler_token_identity(torch, m, counts, params, live_reqs)
+    del params
+    torch.cuda.empty_cache()
+    serve_main_continuous(torch, m, counts)
 
     train_cli_resume(torch, m, counts)
     train_cli_resume(torch, m, counts, precision="bf16")
@@ -1394,10 +1684,17 @@ def main() -> int:
               max_abs_err=max(kb["max_abs_err"]["dk"],
                               kb["max_abs_err"]["dv"]),
               core_route=kb["route"])
+    k1 = k1_recs[("granite_prefill", "bfloat16")]
     k1 = dict(ms=k1["kernel_ms"], bound_ms=k1["bound_ms"],
               bound_by=k1["bound_by"], max_abs_err=k1["max_abs_err_o"],
               plain_ms=k1["plain_ms"], library_ms=k1["library_ms"],
-              core_route=k1["route"], launches_serve=serve_launches)
+              core_route=k1["route"], launches_serve=serve_launches,
+              launches_serve_wide=wide_launches,
+              launches_serve_continuous=live_launches,
+              shapes={name: {k: k1_recs[(name, "bfloat16")][k] for k in (
+                  "kernel_ms", "bound_ms", "bound_by", "plain_ms",
+                  "library_ms", "max_abs_err_o")}
+                  for name in ("glm4_prefill", "codeqwen_prefill")})
     rows = []
     for name, rec in (("flash_attention_fwd", k1),
                       ("flash_attention_bwd_dq", k2),

@@ -196,6 +196,8 @@ def _ensure_loaded():
     if _REGISTRY:
         return
     from repro_torch.configs import (  # noqa: F401
+        codeqwen1_5_7b,
+        glm4_9b,
         granite_3_2b,
         mamba2_2_7b,
         stablelm_1_6b,

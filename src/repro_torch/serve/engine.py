@@ -23,6 +23,13 @@ into their decode-state slots (the KV caches of a dense stack, the SSM and
 conv states of an SSM stack).  The summary reports the launches of the
 prefill kernels (flash attention, the SSD scan) in place of the
 reference's compile counts.
+
+:class:`repro_torch.serve.scheduler.ServeScheduler` builds continuous
+admission (arrival process, SLO shedding, paged-KV eviction, streaming) on
+top of the ``_select_admissions`` / ``_fill_slots`` / ``_prompt_tokens`` /
+``_retire`` / ``_stats_extra`` hooks this class exposes.  ``_tick``
+advances once per prefill group and once per decode tick, as in the
+reference: the scheduler's LRU eviction orders its victims by it.
 """
 from __future__ import annotations
 
@@ -40,8 +47,6 @@ from repro_torch.kernels.flash_attention.kernel import \
 from repro_torch.kernels.ssd_scan.kernel import ssd_scan_kernel
 from repro_torch.models import (decode_and_sample, init_decode_state,
                                 prefill_and_sample)
-
-MIN_BUCKET = 8           # shortest prefill pad
 
 # Request lifecycle states
 QUEUED = "queued"        # submitted, waiting for a slot
@@ -192,12 +197,14 @@ class ServeEngine:
 
     def __init__(self, cfg: ArchConfig, params, *, slots: int = 4,
                  cache_len: int = 256, greedy: bool = True, seed: int = 0,
-                 clock: Optional[Clock] = None, device=None):
+                 min_bucket: int = 8, clock: Optional[Clock] = None,
+                 device=None):
         self.cfg = cfg
         self.params = params
         self.slots = slots
         self.cache_len = cache_len
         self.greedy = greedy
+        self.min_bucket = min_bucket
         self.clock = clock or Clock()
         self.device = dev = resolve_device(device)
 
@@ -218,6 +225,7 @@ class ServeEngine:
 
         self._generator = torch.Generator(device=dev).manual_seed(seed)
         self._needs_sampling = False
+        self._tick = 0
         self.stats = EngineStats(
             self, decode_steps=0, host_transfer_bytes=0, prefill_calls=0,
             admitted=0, flash_attention_launches=0, ssd_scan_launches=0)
@@ -231,9 +239,9 @@ class ServeEngine:
         self.queue.append(req)
 
     def bucket(self, plen: int) -> int:
-        """Power-of-two pad target for a prompt length, ≥ MIN_BUCKET and
+        """Power-of-two pad target for a prompt length, ≥ min_bucket and
         capped at cache_len (the longest admissible prompt)."""
-        b = max(MIN_BUCKET, 1 << max(0, plen - 1).bit_length())
+        b = max(self.min_bucket, 1 << max(0, plen - 1).bit_length())
         return min(b, self.cache_len)
 
     def _effective_sampling(self, req: Request):
@@ -247,12 +255,14 @@ class ServeEngine:
 
     # --------------------------------------------------- admission hooks
     def _prompt_tokens(self, req: Request) -> np.ndarray:
-        """Tokens to prefill for an admitted request."""
+        """Tokens to prefill for an admitted request.  The scheduler
+        overrides this to re-prefill prompt+generated on eviction resume."""
         return np.asarray(req.prompt)
 
     def _select_admissions(self) -> List:
-        """Admission policy: (slot, request) pairs to admit this tick —
-        FIFO into free slots."""
+        """Admission policy: (slot, request) pairs to admit this tick.
+        Base engine: FIFO into free slots.  The scheduler overrides this
+        with priority order, SLO shedding and paged-KV budgeting."""
         free = [s for s in range(self.slots) if self.active[s] is None]
         pairs = []
         while free and self.queue:
@@ -301,6 +311,7 @@ class ServeEngine:
                 temps[r], topks[r] = self._effective_sampling(req)
                 src_row[slot] = r
             lens_d = self._to_dev(lens)
+            self._tick += 1
             fa0, ssd0 = (flash_attention_fwd_kernel.launches,
                          ssd_scan_kernel.launches)
             ptoks, pstate = prefill_and_sample(
@@ -370,6 +381,7 @@ class ServeEngine:
         """Decode one token for every active slot (no admission)."""
         if not any(r is not None for r in self.active):
             return False
+        self._tick += 1
         tok, _ = decode_and_sample(
             self.params, self.cfg, self.state, self.last_token[:, None],
             self.positions, self._generator, self._temps, self._topks,
@@ -411,12 +423,16 @@ class ServeEngine:
         return self.completed
 
     # ------------------------------------------------------------ stats
+    def _stats_extra(self) -> Dict[str, object]:
+        """Engine-specific stats()-summary fields (scheduler overrides)."""
+        return {}
+
     def _stats_summary(self) -> Dict[str, object]:
         done = [r for r in self.completed if r.status == DONE]
         ttft = [r.ttft_s for r in done]
         tpot = [r.tpot_s for r in done]
         qwait = [r.queue_wait_s for r in done]
-        return {
+        summary = {
             "completed": len(done),
             "queued": len(self.queue),
             "running": sum(r is not None for r in self.active),
@@ -433,3 +449,5 @@ class ServeEngine:
             "queue_wait_p50_s": _pctl(qwait, 50),
             "queue_wait_p99_s": _pctl(qwait, 99),
         }
+        summary.update(self._stats_extra())
+        return summary

@@ -1,7 +1,8 @@
 """The hand-written CUDA kernels (flash-attention forward K1, backward K2
 and K3, the SSD chunk scan K4 and the percentile stretch K5) against their
-plain PyTorch versions, a small train step, reduced mamba2 serving and a
-reduced vision run, on the card.  Every test here
+plain PyTorch versions, a small train step, reduced mamba2 serving, the
+continuous scheduler's eviction resume and a reduced vision run, on the
+card.  Every test here
 is marked ``cuda`` and skips where no card is present; on a machine with an
 H100 run
 
@@ -88,6 +89,7 @@ TC_CASES = [
     (1, 520, 520, 16, 16, 128, True, None, False),  # hd 128: two boxes a row
     (2, 333, 333, 8, 2, 64, True, None, True),      # strided q
     (1, 260, 260, 4, 4, 128, False, None, True),    # strided q, hd 128
+    (2, 600, 600, 32, 2, 128, True, None, False),   # GQA 16 at hd 128 (glm4)
 ]
 
 
@@ -433,6 +435,39 @@ def test_mamba2_serves_through_k4_on_the_card(dev):
                                    rtol=5e-4)
     torch.testing.assert_close(logits["cuda"][0], logits["torch"][0],
                                atol=5e-4, rtol=5e-4)
+
+
+def test_scheduler_eviction_resume_is_token_identical_on_the_card(dev):
+    """The reduced granite in f32 on the card through the continuous
+    scheduler: an oversubscribed KV pool (8 blocks of 8 for 3 slots of
+    64) evicts, and re-prefilling prompt + generated through K1 resumes
+    greedy decode token for token as in an unconstrained run."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import init_params
+    from repro_torch.serve import Request, ServeScheduler
+    cfg = get_reduced("granite-3-2b")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    rng = np.random.default_rng(23)
+    prompts = [rng.integers(0, cfg.vocab, size=int(rng.integers(4, 12)))
+               for _ in range(6)]
+    runs = []
+    for pool in ({}, dict(max_kv_blocks=8, kv_block_size=8)):
+        sched = ServeScheduler(cfg, params, slots=3, cache_len=64,
+                               device=dev, **pool)
+        for i, p in enumerate(prompts):
+            sched.submit(Request(rid=i, prompt=p, max_tokens=20))
+        n0 = flash_attention_fwd_kernel.launches
+        sched.run()
+        assert flash_attention_fwd_kernel.launches - n0 == \
+            cfg.n_layers * sched.stats["prefill_calls"]
+        runs.append(sched)
+    free, tight = runs
+    assert ({r.rid: r.generated for r in tight.completed}
+            == {r.rid: r.generated for r in free.completed})
+    assert len(tight.completed) == 6
+    assert tight.stats["evictions"] > 0 and free.stats["evictions"] == 0
+    assert tight.kv.used_blocks == 0
 
 
 PN_CASES = [

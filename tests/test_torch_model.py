@@ -21,7 +21,8 @@ from repro_torch.convert import params_from_flat, params_to_flat  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
 
 ATOL = 1e-4
-ARCHS = ["granite-3-2b", "stablelm-1.6b", "mamba2-2.7b"]
+ARCHS = ["granite-3-2b", "stablelm-1.6b", "mamba2-2.7b", "glm4-9b",
+         "codeqwen1.5-7b"]
 
 
 @pytest.fixture(scope="module", params=ARCHS)

@@ -1,6 +1,6 @@
 """The port's ServeEngine against the JAX ServeEngine on shared weights and
-the same requests (greedy tokens identical, for a dense decoder and for the
-Mamba2 SSM stack), plus the engine's retirement, validation and sampling
+the same requests (greedy tokens identical, for the dense decoders and for
+the Mamba2 SSM stack), plus the engine's retirement, validation and sampling
 behaviour on the CPU."""
 import numpy as np
 import pytest
@@ -94,6 +94,30 @@ def test_mamba2_greedy_tokens_match_jax_engine():
     assert summary["flash_attention_launches"] == 0
 
 
+@pytest.mark.parametrize("arch", ["glm4-9b", "codeqwen1.5-7b"])
+def test_dense_decoders_greedy_tokens_match_jax_engine(arch):
+    """The reduced glm4-9b and codeqwen1.5-7b (untied embeddings, a window
+    shorter than some prompts) through both engines: identical greedy
+    tokens and the same prefill/decode schedule."""
+    jcfg, tcfg = jax_reduced(arch), get_reduced(arch)
+    jparams = jax_init_params(jax.random.PRNGKey(4), jcfg)
+    params = params_from_flat(_flatten(jparams), tcfg, device="cpu")
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, tcfg.vocab, size=int(n))
+               for n in (5, 70, 17, 3, 90)]
+    jeng = JServeEngine(jcfg, jparams, slots=2, cache_len=128)
+    teng = ServeEngine(tcfg, params, slots=2, cache_len=128, device="cpu")
+    for i, p in enumerate(prompts):
+        jeng.submit(JRequest(rid=i, prompt=p, max_tokens=6))
+        teng.submit(Request(rid=i, prompt=p, max_tokens=6))
+    jdone = {r.rid: r.generated for r in jeng.run()}
+    tdone = {r.rid: r.generated for r in teng.run()}
+    assert len(tdone) == 5 and all(len(g) == 6 for g in tdone.values())
+    assert tdone == jdone
+    for key in ("decode_steps", "prefill_calls", "admitted"):
+        assert teng.stats[key] == jeng.stats[key], key
+
+
 def test_eos_and_max_tokens_retire(shared):
     params = shared[2]
     prompt = _prompts(1, seed=5)[0]
@@ -160,8 +184,9 @@ def test_serve_main_needs_a_device(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve_main(ARCH)
-    with pytest.raises(NotImplementedError):
-        serve_main(ARCH, arrival_rate=1.0, device="cpu")
+    # continuous mode (arrival_rate > 0) resolves its device the same way
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_main(ARCH, arrival_rate=1.0)
 
 
 def test_serve_main_on_cpu():

@@ -10,10 +10,12 @@ Phases, each of which fails the run if it fails:
    started together: the flash-attention forward (K1) and backward (K2
    dQ, K3 dK/dV), the SSD chunk scan (K4) and the percentile stretch (K5);
 2. hold K1 against its plain PyTorch version on the card, in bf16 and f32,
-   at the prefill shapes of granite-3-2b, glm4-9b (GQA 16 at hd 128) and
-   codeqwen1.5-7b (MHA at hd 128) and at ragged, windowed and MHA hd=128
-   shapes (one JSON line per shape: K1's route, tensor cores for bf16 at
-   hd 64 and 128, CUDA cores otherwise, checked by its route counter;
+   at the prefill shapes of granite-3-2b, glm4-9b (GQA 16 at hd 128),
+   codeqwen1.5-7b (MHA at hd 128) and qwen3-moe-30b-a3b (GQA 8 at hd 128,
+   a window of 8192 that binds nowhere at 2048) and at ragged, windowed
+   and MHA hd=128 shapes (one JSON line per shape: K1's route, tensor
+   cores for bf16 at hd 64 and 128, CUDA cores otherwise, checked by its
+   route counter;
    errors, kernel / plain / library ms, the wrapper's host ms per call,
    TFLOP/s, the least time the card could take and the kernel's share of
    it);
@@ -56,6 +58,17 @@ Phases, each of which fails the run if it fails:
    for token;
 6. run ``serve_main("granite-3-2b")`` (the reduced serve CLI) on the card,
    then (6b) its continuous mode for granite-3-2b and mamba2-2.7b;
+5f. serve full-width qwen3-moe-30b-a3b (48 layers, 128 experts top-8,
+   bf16, random weights from a seed) through ``ServeEngine`` with phase
+   5's traffic: the parameters equal ``param_count()``, K1 launches 48 x
+   prefill calls, every launch on the tensor cores; ``torch.profiler``
+   over one prefill and 8 decode steps; the MoE layer's time by stage
+   (routing, dispatch, the experts' matmuls, combine) at the prefill's
+   and a decode step's tokens; then the logit gate on a 4-layer depth cut
+   of the same widths (``GATE_LAYERS``: the full depth's f32 yardstick
+   would take 122 GB), after the full model is freed, with its routing
+   witness (the share of tokens whose experts differ from f32's, and the
+   error left when the f32 prefill takes the kernel path's experts);
 7. run ``train_main("stablelm-1.6b")`` (the reduced train CLI) with
    checkpoints, preempt it, resume it, and hold it bitwise against an
    uninterrupted run, in PyTorch's deterministic mode: in f32 (7, the
@@ -65,7 +78,9 @@ Phases, each of which fails the run if it fails:
 8. hold K4 against the plain chunked scan: y and the final state, in bf16
    and f32 at mamba2-2.7b's serving prefill shape (Bs 8, S 2048, 80 heads
    of 64, g 1, N 128, Q 256), and in bf16 at a ragged S 1000, jamba's
-   widths (128 heads of 128, g 8) and Q 64 at S 4096; each shape's route
+   widths (128 heads of 128, g 8), the one-period jamba's prefill (Bs 8,
+   S 2048, 64 heads of 128, g 8) and its ragged S 1000, and Q 64 at
+   S 4096; each shape's route
    (tensor cores for bf16, CUDA cores for f32, checked by the route
    counters) and two launches bitwise equal; ptxas's registers and spills
    of the tensor-core entries (a second nvcc, ``-Xptxas -v``, in phase 1);
@@ -75,6 +90,21 @@ Phases, each of which fails the run if it fails:
    through K4 and through the plain scan, each against an f32 prefill;
    ``torch.profiler`` over one prefill and 8 decode steps; then
    ``serve_main("mamba2-2.7b")`` and its K4 routes;
+9c. the hybrid: jamba-1.5-large-398b cut to one period
+   (``jamba_one_period``: 8 layers, 7 SSD and 1 attention, MoE on 4;
+   d_model 4096) through ``ServeEngine`` with phase 5's traffic: K1
+   launches 1 and K4 7 x prefill calls, all on the tensor cores; the
+   prefill through the kernels and through the plain versions against
+   f32, with the routing witness of 5f; then
+   ``serve_main("jamba-1.5-large-398b")`` (reduced, f32, the
+   CUDA-core routes);
+9d. train full-width mamba2-2.7b through ``TrainLoop`` (AdamW,
+   warmup-cosine, remat) at batch 8 x seq 2048, a warm-up and 3 measured
+   steps: K4 launches twice per layer and step (the forward and remat's
+   recompute; its backward is the plain scan), all on the tensor cores;
+   ``torch.profiler`` over one step; what one layer's plain backward
+   adds to the memory; one (4, 2048) step's loss and gradients through
+   K4 and through the plain scan against f32;
 10. hold K5 against the plain stretch, bit for bit, on reflectance-like
     data made on the card: a 10980 x 10980 Sentinel-2 tile of 4 and of 13
     bands, more than 2**31 elements (checked in row chunks), the vision
@@ -96,11 +126,13 @@ Phases, each of which fails the run if it fails:
     card.
 
 The line before the last lists each ported kernel with its launches on
-its main path (K1-K3 training, and K1 on each serving path; K4 mamba2
-serving, K5 the two vision studies), K1-K4's route (``core_route``) and
-its numbers at the training shape (K2, K3), granite's prefill shape (K1,
-with glm4's and codeqwen's beside it), mamba2's prefill shape (K4) or the
-4-band Sentinel-2 tile (K5); the last line is ``{"ok": true,
+its main path (K1-K3 training, and K1 on each serving path, qwen3-moe's
+and the hybrid's included; K4 mamba2 serving, with the hybrid's and
+mamba2 training's beside it; K5 the two vision studies), K1-K4's route
+(``core_route``) and its numbers at the training shape (K2, K3),
+granite's prefill shape (K1, with glm4's, codeqwen's and qwen3's beside
+it), mamba2's prefill shape (K4) or the 4-band Sentinel-2 tile (K5); the
+last line is ``{"ok": true,
 "device": {...}}``.  Without a CUDA card, or without the repository beside
 it, the script exits non-zero and prints no result.
 """
@@ -108,6 +140,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import gc
 import json
 import os
 import shutil
@@ -148,6 +181,7 @@ SHAPES = [
     ("mha_hd128", 2, 1024, 1024, 16, 16, 128, True, None),
     ("glm4_prefill", 8, 2048, 2048, 32, 2, 128, True, None),
     ("codeqwen_prefill", 8, 2048, 2048, 32, 32, 128, True, None),
+    ("qwen3_prefill", 8, 2048, 2048, 32, 4, 128, True, 8192),
 ]
 # kernel vs plain in the working dtype: f32 differs only by summation
 # order; bf16 adds the output's rounding to bf16 (~4e-3 relative)
@@ -168,12 +202,18 @@ BWD_TOL = 2e-4
 # rounds P to bf16 before P V and the gradients are rounded to bf16
 FN_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 TRAIN_STEPS, TRAIN_B, TRAIN_S = 8, 8, 2048
+# mamba2-2.7b's measured training steps (phase 9d), after one warm-up
+MAMBA_TRAIN_STEPS = 3
 # name, Bs, S, nh, hp, g, N, Q, dtypes
 SSD_SHAPES = [
     ("mamba2_prefill", 8, 2048, 80, 64, 1, 128, 256,
      ("bfloat16", "float32")),
     ("ragged_s1000", 2, 1000, 80, 64, 1, 128, 256, ("bfloat16",)),
     ("jamba_widths", 1, 1024, 128, 128, 8, 128, 256, ("bfloat16",)),
+    # the one-period jamba's prefill (phase 9c): its batch and its 64 heads
+    ("jamba_cut_prefill", 8, 2048, 64, 128, 8, 128, 256, ("bfloat16",)),
+    ("jamba_cut_ragged_s1000", 2, 1000, 64, 128, 8, 128, 256,
+     ("bfloat16",)),
     ("chunk64_s4096", 1, 4096, 80, 64, 1, 128, 64, ("bfloat16",)),
 ]
 # K4 against the plain chunked scan, (atol, rtol).  Both compute in f32
@@ -456,7 +496,7 @@ def kernel_vs_plain(torch, F, fa, attention_ref):
             plain_ms = cuda_ms(torch, lambda: attention_ref(
                 q, k, v, causal=causal, window=window), reps=2)
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-            if window is None:
+            if window is None or window >= Sk:    # the window binds nowhere
                 lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
                     qt, kt, vt, is_causal=causal, enable_gqa=True)
             else:
@@ -646,10 +686,26 @@ def _param_count(tree) -> int:
     return sum(sizes)
 
 
-def train_full_width(torch, m, counts):
-    """Phase 4: full-width stablelm-1.6b through TrainLoop.  Returns the
-    launches on the path, the state and the data stream."""
-    cfg = m["get_config"]("stablelm-1.6b")
+def train_launches(cfg, steps: int) -> dict:
+    """Launches ``steps`` training steps make: remat runs each layer's
+    forward twice (the forward pass, then the recompute in the backward),
+    so K1 and K4 launch twice per layer of their kind and step; K2 and K3
+    once per attention layer; K4's backward is the plain scan (the
+    reference's ``_ssd_bwd``), which launches nothing."""
+    kinds = cfg.layer_kinds()
+    na, ns = kinds.count("attn"), kinds.count("ssm")
+    return {"flash_attention_fwd": 2 * na * steps,
+            "flash_attention_bwd_dq": na * steps,
+            "flash_attention_bwd_dkv": na * steps,
+            "ssd_scan": 2 * ns * steps, "percentile_norm": 0}
+
+
+def train_full_width(torch, m, counts, arch: str = "stablelm-1.6b",
+                     steps: int = TRAIN_STEPS):
+    """Phases 4 (stablelm-1.6b) and 9d (mamba2-2.7b): the full-width arch
+    through TrainLoop.  Returns the launches on the path, the state and
+    the data stream."""
+    cfg = m["get_config"](arch)
     opt = m["get_optimizer"](cfg.optimizer)
     t0 = time.perf_counter()
     state = m["init_train_state"](
@@ -661,7 +717,7 @@ def train_full_width(torch, m, counts):
     if n_params != cfg.param_count():
         raise AssertionError(f"{n_params} params, config says "
                              f"{cfg.param_count()}")
-    total = 1 + TRAIN_STEPS
+    total = 1 + steps
     step_fn = m["make_train_step"](
         cfg, opt, lr_schedule=m["warmup_cosine"](3e-4, total,
                                                  warmup_steps=2),
@@ -683,11 +739,7 @@ def train_full_width(torch, m, counts):
     routes = counts.routes()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
-    L = cfg.n_layers
-    want = {"flash_attention_fwd": 2 * L * TRAIN_STEPS,
-            "flash_attention_bwd_dq": L * TRAIN_STEPS,
-            "flash_attention_bwd_dkv": L * TRAIN_STEPS, "ssd_scan": 0,
-            "percentile_norm": 0}
+    want = train_launches(cfg, steps)
     if launches != want:
         raise AssertionError(f"launches {launches} != {want} (remat runs "
                              f"each layer's forward twice a step)")
@@ -697,25 +749,28 @@ def train_full_width(torch, m, counts):
         raise AssertionError(f"K1-K3 routes {routes}: every training launch "
                              f"must run on the tensor cores")
     losses = loop.losses
-    if len(losses) != TRAIN_STEPS or not np.all(np.isfinite(losses)):
+    if len(losses) != steps or not np.all(np.isfinite(losses)):
         raise AssertionError(f"losses {losses}")
     tokens = TRAIN_B * TRAIN_S
     # model FLOPs: 6 N T for the weights the matmuls read (all but the
-    # embedding table, which is gathered), plus attention fwd + bwd at
-    # 12 hd per admitted causal (q, k) pair and head
-    n_mm = cfg.param_count() - cfg.vocab * cfg.d_model
-    attn = 12 * cfg.head_dim * cfg.n_heads * L * TRAIN_B \
-        * valid_pairs(TRAIN_S, TRAIN_S, True, None)
+    # embedding table, which is gathered; a tied head reads it again),
+    # plus attention fwd + bwd at 12 hd per admitted causal (q, k) pair
+    # and head; the SSD scan is not counted
+    n_mm = cfg.param_count() - cfg.vocab * cfg.d_model * (
+        not cfg.tie_embeddings)
+    attn = 12 * cfg.head_dim * cfg.n_heads * cfg.layer_kinds().count(
+        "attn") * TRAIN_B * valid_pairs(TRAIN_S, TRAIN_S, True, None)
     flops = 6 * n_mm * tokens + attn
-    step_s = wall / TRAIN_STEPS
+    step_s = wall / steps
     emit(phase="train_full_width", arch=cfg.name, params=n_params,
-         init_s=init_s, batch=[TRAIN_B, TRAIN_S], steps=TRAIN_STEPS,
+         init_s=init_s, batch=[TRAIN_B, TRAIN_S], steps=steps,
          losses=losses, wall_s=wall, step_s=step_s,
          steps_per_s=1 / step_s, tokens_per_s=tokens / step_s,
          model_flops_per_step=flops,
          mfu_vs_989_tflops=flops / step_s / PEAK_FLOPS["bfloat16"],
-         mfu_formula="(6*(N - vocab*d)*B*S + 12*hd*H*L*B*S(S+1)/2) / step_s"
-                     " / 989e12",
+         mfu_formula="(6*N_mm*B*S + 12*hd*H*L_attn*B*S(S+1)/2) / step_s"
+                     " / 989e12, N_mm = N - vocab*d (untied head) or N "
+                     "(tied); SSD scan not counted",
          peak_mem_gb=peak_gb, launches=launches, routes=routes,
          pure_step_s=res["pure_step_s"])
 
@@ -726,27 +781,36 @@ def train_full_width(torch, m, counts):
 
     def one_step():
         profiled["state"] = step_fn(loop.state, batch)[0]
-    device_profile(torch, one_step, what="train_step", steps=1)
+    device_profile(torch, one_step, arch=cfg.name, what="train_step",
+                   steps=1)
     return launches, profiled["state"], data
 
 
-def train_grads_vs_f32(torch, m, params, data):
-    """Phase 4c: one (4, 2048) step's loss and gradients through the
-    kernels (bf16) and through plain attention (bf16), each against plain
-    attention in f32 on the same weights."""
-    cfg = m["get_config"]("stablelm-1.6b")
+def train_grads_vs_f32(torch, m, params, data, arch: str = "stablelm-1.6b"):
+    """Phases 4c (stablelm-1.6b) and 9d' (mamba2-2.7b): one (4, 2048)
+    step's loss and gradients through the kernels (bf16) and through
+    their plain versions (bf16), each against the plain path in f32 on
+    the same weights.  The leaves ``unused_leaves`` marks (an SSD layer's
+    norm2 where no FFN follows) get a zero gradient; every other leaf must
+    reach the loss."""
+    cfg = m["get_config"](arch)
+    fields = [PREFILL_KERNELS[k][1] for k in prefill_launches(cfg)]
     full = data.next_batch()
     batch = {k: v[:4] for k, v in full.items()}
     tree_leaves, tree_unflatten = m["tree_leaves"], m["tree_unflatten"]
+    unused = m["unused_leaves"](params)
 
     def value_and_grad(p, c):
         leaves = [t.detach().requires_grad_(True) for t in tree_leaves(p)]
         loss = m["train_loss"](tree_unflatten(p, leaves), c, batch)
-        return loss.item(), torch.autograd.grad(loss, leaves)
+        used = iter(torch.autograd.grad(
+            loss, [t for t, u in zip(leaves, unused) if not u]))
+        return loss.item(), [torch.zeros_like(t) if u else next(used)
+                             for t, u in zip(leaves, unused)]
 
     p32 = m["cast_floating"](params, torch.float32)
-    c32 = dataclasses.replace(cfg, attention_backend="torch",
-                              param_dtype="float32")
+    c32 = dataclasses.replace(cfg, param_dtype="float32",
+                              **dict.fromkeys(fields, "torch"))
     t0 = time.perf_counter()
     l32, g32 = value_and_grad(p32, c32)
     f32_s = time.perf_counter() - t0
@@ -757,7 +821,7 @@ def train_grads_vs_f32(torch, m, params, data):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         loss, g = value_and_grad(params, dataclasses.replace(
-            cfg, attention_backend=backend))
+            cfg, **dict.fromkeys(fields, backend)))
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         num = sum(float((a.float() - b).double().square().sum())
@@ -768,7 +832,8 @@ def train_grads_vs_f32(torch, m, params, data):
         torch.cuda.empty_cache()
     del g32
     torch.cuda.empty_cache()
-    emit(phase="train_grads_vs_f32", batch=[4, TRAIN_S], loss_f32=l32,
+    emit(phase="train_grads_vs_f32", arch=cfg.name, batch=[4, TRAIN_S],
+         loss_f32=l32,
          f32_step_s=f32_s, cuda_bf16=out["cuda"], torch_bf16=out["torch"])
     # a bf16 rounding of the loss (2**-9 of it) bounds the loss check
     # from below, so two tiny errors do not decide it
@@ -776,6 +841,64 @@ def train_grads_vs_f32(torch, m, params, data):
     if (c["grad_rel_err"] > 2 * t["grad_rel_err"]
             or c["loss_abs_err"] > 2 * t["loss_abs_err"] + abs(l32) / 512):
         raise AssertionError(f"the kernel path strays from f32: {out}")
+
+
+def ssd_bwd_memory(torch, m, cfg) -> dict:
+    """Phase 9d'': what one SSD layer's backward adds to the memory in use
+    at the training shape: K4's ``autograd.Function`` recomputes the
+    forward through the plain chunked scan under autograd and
+    differentiates it (the reference's ``_ssd_bwd``), so the plain scan's
+    intermediates live through the backward of each layer in turn."""
+    sc = cfg.ssm
+    Bs, S = TRAIN_B, TRAIN_S
+    nh, hp, g, N = sc.n_heads(cfg.d_model), sc.head_dim, sc.n_groups, \
+        sc.d_state
+    gen = torch.Generator(device="cuda").manual_seed(9)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(
+            torch.bfloat16).requires_grad_(True)
+    x, B, C = rnd(Bs, S, nh, hp), rnd(Bs, S, g, N), rnd(Bs, S, g, N)
+    dt = torch.nn.functional.softplus(torch.randn(
+        (Bs, S, nh), generator=gen, device="cuda")).requires_grad_(True)
+    A = (-torch.exp(0.3 * torch.randn(nh, generator=gen, device="cuda"))
+         ).requires_grad_(True)
+    y, h = m["ssd_scan"](x, dt, A, B, C, chunk=sc.chunk, return_state=True,
+                         backend="cuda")
+    dy, dh = torch.randn_like(y), torch.randn_like(h)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    torch.autograd.backward((y, h), (dy, dh))
+    torch.cuda.synchronize()
+    out = dict(shape=[Bs, S, nh, hp, g, N, sc.chunk],
+               backward_s=time.perf_counter() - t0,
+               added_gb=(torch.cuda.max_memory_allocated() - base) / 1e9)
+    del x, B, C, dt, A, y, h, dy, dh
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_mamba2(torch, m, counts) -> int:
+    """Phase 9d: full-width mamba2-2.7b trains through TrainLoop (AdamW,
+    warmup-cosine, remat) at (8, 2048): K4 launches twice per layer and
+    step, every launch on the tensor cores; what the plain backward's
+    recompute adds to the memory; then one (4, 2048) step's loss and
+    gradients through K4 and through the plain scan against f32.  Returns
+    K4's launches."""
+    arch = "mamba2-2.7b"
+    launches, state, data = train_full_width(torch, m, counts, arch,
+                                             steps=MAMBA_TRAIN_STEPS)
+    params = state.params
+    del state                                    # the optimizer's moments
+    torch.cuda.empty_cache()
+    emit(phase="ssd_backward_memory", arch=arch,
+         **ssd_bwd_memory(torch, m, m["get_config"](arch)))
+    train_grads_vs_f32(torch, m, params, data, arch)
+    del params, data
+    torch.cuda.empty_cache()
+    return launches["ssd_scan"]
 
 
 def train_cli_resume(torch, m, counts, precision: str = "f32"):
@@ -840,26 +963,76 @@ def prefill_batch(torch, prompts, S):
             torch.from_numpy(lens).cuda())
 
 
-# arch served in full -> (its prefill kernel, the engine's stat for it, the
-# config field that picks that kernel or the plain version)
-_K1 = ("flash_attention_fwd", "flash_attention_launches", "attention_backend")
-SERVED = {"granite-3-2b": _K1, "glm4-9b": _K1, "codeqwen1.5-7b": _K1,
-          "mamba2-2.7b": ("ssd_scan", "ssd_scan_launches", "mixer_backend")}
+def jamba_one_period(get_config):
+    """jamba-1.5-large-398b cut to one period of 8 layers (7 SSD, 1
+    attention at slot 4, MoE on the odd ones) and to d_model 4096 with 32
+    q / 4 kv heads of 128 and 16 experts top-2 of ff 6144 (d_ff 6144):
+    ~6.47 B parameters, ~13 GB in bf16.  The SSD shape (64 heads of 128,
+    g 8, N 128, chunk 256, expand 2 over the cut d_model) and the vocab
+    (65 536) are the full config's."""
+    full = get_config("jamba-1.5-large-398b")
+    return dataclasses.replace(
+        full, name=full.name + "-1period", n_layers=8, d_model=4096,
+        n_heads=32, n_kv_heads=4, d_ff=6144,
+        moe=dataclasses.replace(full.moe, expert_d_ff=6144))
+
+
+# prefill kernel -> (the engine's stat for it, the config field that picks
+# it or its plain version, the mixer kind whose layers launch it)
+PREFILL_KERNELS = {
+    "flash_attention_fwd": ("flash_attention_launches", "attention_backend",
+                            "attn"),
+    "ssd_scan": ("ssd_scan_launches", "mixer_backend", "ssm")}
 # rows of the prefill logit gate, where 8 do not fit beside the f32
 # yardstick: codeqwen's f32 weights (32.8 GB) beside its bf16 ones (16.4)
 # and the f32 prefill's KV caches (MHA: 17.2 GB at 8 rows, twice that
 # while the layers' caches are stacked) would pass the card's 80 GB
 GATE_ROWS = {"codeqwen1.5-7b": 4}
+# layers of the logit gate's depth cut, where the f32 yardstick of the full
+# depth does not fit: qwen3-moe's f32 weights are 122 GB.  The cut keeps
+# every width and runs after the full model is freed.
+GATE_LAYERS = {"qwen3-moe-30b-a3b": 4}
 
 
-def serve_full_width(torch, m, counts, arch: str):
-    """Phases 5 and 9: a full-width arch through the engine.  Returns the
-    kernel launches counted over the engine's run, the params and the
-    prompts."""
-    kernel, stat, backend_field = SERVED[arch]
-    get_config, ServeEngine, Request, prefill = (
-        m["get_config"], m["ServeEngine"], m["Request"], m["prefill"])
-    cfg = get_config(arch)
+def prefill_launches(cfg) -> dict:
+    """Launches one prefill call makes of each prefill kernel: one per
+    layer of the kernel's mixer kind."""
+    kinds = cfg.layer_kinds()
+    return {k: kinds.count(kind) for k, (_, _, kind) in PREFILL_KERNELS.items()
+            if kind in kinds}
+
+
+def _check_prefill_launches(cfg, launches: dict, routes: dict,
+                            prefill_calls: int, route: str, what: str,
+                            stats=None):
+    """Each prefill kernel launched (its layers) x prefill calls times,
+    every launch on ``route``, no other kernel launched, and the engine's
+    stats (``stats``) agreeing."""
+    want = {k: n * prefill_calls for k, n in prefill_launches(cfg).items()}
+    got = {k: v for k, v in launches.items() if v}
+    bad = (got != want or prefill_calls == 0
+           or any(routes[k] != {r: n * (r == route)
+                                for r in ("tensor_core", "cuda_core")}
+                  for k, n in want.items())
+           or (stats is not None and any(
+               stats[PREFILL_KERNELS[k][0]] != n for k, n in want.items())))
+    if bad:
+        raise AssertionError(f"{what}: launches {launches} (want {want} on "
+                             f"{route} over {prefill_calls} prefill calls), "
+                             f"routes {routes}")
+    return want
+
+
+def serve_full_width(torch, m, counts, cfg):
+    """Phases 5, 5c, 5f, 9 and 9c: a full-width config through the engine.
+    Returns the prefill kernels' launches over the engine's run, the
+    params and the prompts."""
+    ServeEngine, Request = m["ServeEngine"], m["Request"]
+    # an engine and its stats refer to each other: only the collector
+    # frees an earlier phase's engines, their params and decode states
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem_before = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     params = m["init_params"](
         cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
@@ -896,7 +1069,7 @@ def serve_full_width(torch, m, counts, arch: str):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = counts.read()
-    routes = counts.routes()[kernel]
+    routes = counts.routes()
 
     s = engine.stats()
     del engine, done                     # the decode state, before the gate
@@ -904,51 +1077,139 @@ def serve_full_width(torch, m, counts, arch: str):
     if s["completed"] != 16 or any(len(r.generated) != 32 for r in reqs):
         raise AssertionError(f"not every request completed with 32 tokens: "
                              f"{[len(r.generated) for r in reqs]}")
-    n = launches[kernel]
-    others = {k: v for k, v in launches.items() if k != kernel and v}
-    if (n != cfg.n_layers * s["prefill_calls"] or n == 0 or s[stat] != n
-            or others):
-        raise AssertionError(f"{kernel} launches {n} != {cfg.n_layers} x "
-                             f"{s['prefill_calls']} prefill calls, or other "
-                             f"kernels launched: {launches}")
-    if routes != {"tensor_core": n, "cuda_core": 0}:
-        raise AssertionError(f"{kernel} routes {routes}: every prefill "
-                             f"launch must run on the tensor cores")
+    want = _check_prefill_launches(cfg, launches, routes, s["prefill_calls"],
+                                   "tensor_core", cfg.name, stats=s)
     tokens = sum(len(r.generated) for r in reqs)
     emit(phase="serve_full_width", arch=cfg.name, params=n_params,
-         init_s=init_s, requests=s["completed"], tokens=tokens, wall_s=wall,
+         init_s=init_s, mem_in_use_before_gb=mem_before / 1e9,
+         requests=s["completed"], tokens=tokens, wall_s=wall,
          tokens_per_s=tokens / wall,
          prompt_tokens=int(sum(len(p) for p in prompts)),
          prefill_calls=s["prefill_calls"], decode_steps=s["decode_steps"],
-         launches=launches, routes=routes,
+         launches=launches, routes={k: routes[k] for k in want},
          ttft_p50_s=s["ttft_p50_s"], ttft_p99_s=s["ttft_p99_s"],
          tpot_p50_s=s["tpot_p50_s"], tpot_p99_s=s["tpot_p99_s"],
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return want, params, prompts
 
-    # one prefill batch through the kernel and through its plain version,
-    # both in bf16, each held against the plain path in f32
-    B, S = GATE_ROWS.get(arch, 8), 2048
+
+def _rel(x, y) -> float:
+    return ((x - y).norm() / y.norm()).item()
+
+
+def _state_rel(state, ref) -> float:
+    """The relative error of a decode state (every KV cache, SSM and conv
+    state, taken as one vector) against ``ref``'s, a tensor at a time."""
+    num = sum((state[k].float() - ref[k].float()).square().sum().item()
+              for k in ref)
+    den = sum(ref[k].float().square().sum().item() for k in ref)
+    return (num / den) ** 0.5
+
+
+class _PickHook:
+    """Patches ``moe._local_top_k`` for one run: records each MoE layer's
+    (T, K) expert ids in layer order, or with ``replay`` (such a list)
+    picks those experts, with the gates this run's router gives them."""
+
+    def __init__(self, MOE, replay=None):
+        self.MOE, self.replay, self.picks = MOE, replay, []
+
+    def __enter__(self):
+        self.orig = self.MOE._local_top_k
+
+        def top_k(x, k):
+            if self.replay is None:
+                v, i = self.orig(x, k)
+            else:
+                i = self.replay[len(self.picks)]
+                v = x.gather(-1, i)
+            self.picks.append(i)
+            return v, i
+        self.MOE._local_top_k = top_k
+        return self
+
+    def __exit__(self, *exc):
+        self.MOE._local_top_k = self.orig
+
+
+def routing_witness(torch, m, cfg, prefill, p32, c32, batch, lens_d,
+                    picks: dict, logits, state, ref, ref_st):
+    """Phases 5f'' and 9c'': how much of the bf16 kernel path's distance
+    from f32 the MoE's routing makes.  Per MoE layer, the share of real
+    tokens whose top-k experts (as a set) differ between the kernel path
+    and f32; then the f32 prefill once more with the kernel path's experts
+    (the gates its own router gives them), and the kernel path's logits
+    and state against that and against f32's own routing."""
+    with _PickHook(m["moe"], replay=picks["cuda"]):
+        same, same_st = prefill(p32, c32, batch, 2048, lengths=lens_d)
+    S = batch["tokens"].shape[1]
+    real = (torch.arange(S, device="cuda")[None, :]
+            < lens_d[:, None]).reshape(-1)
+    flips = [(((a.sort(-1).values != b.sort(-1).values).any(-1) & real)
+              .sum() / real.sum()).item()
+             for a, b in zip(picks["cuda"], picks["f32"])]
+    rec = dict(phase="moe_routing_witness", arch=cfg.name,
+               layers=cfg.n_layers, moe_layers=len(flips),
+               token_flip_share_by_moe_layer=flips,
+               rel_err_cuda_bf16_vs_f32=_rel(logits, ref),
+               rel_err_cuda_bf16_vs_f32_same_experts=_rel(logits, same),
+               rel_err_f32_same_experts_vs_f32=_rel(same, ref),
+               state_rel_err_cuda_bf16_vs_f32=_state_rel(state, ref_st),
+               state_rel_err_cuda_bf16_vs_f32_same_experts=_state_rel(
+                   state, same_st))
+    emit(**rec)
+    return rec
+
+
+def prefill_gate(torch, m, cfg, params, prompts, rows: int):
+    """One (rows, 2048) prefill batch through the kernels and through their
+    plain versions, both in bf16, each held against the plain path in f32
+    on the same weights.  The kernel path may be no more than twice as far
+    from f32 as the plain bf16 path (K1 rounds P to bf16 before P V, as
+    the TPU kernel).  Without MoE that is judged on the last-token logits.
+    With MoE it is judged on the decode state the prefill writes (every
+    layer's KV cache and SSM state at every real position): a bf16
+    rounding flips a near-tied top-k choice now and then, in either path,
+    and over a few last tokens such flips decide the logits' error by
+    chance, where over every position of every layer they average out.
+    The logits' errors are reported either way, and with MoE the
+    routing witness (:func:`routing_witness`)."""
+    prefill = m["prefill"]
+    fields = [PREFILL_KERNELS[k][1] for k in prefill_launches(cfg)]
+    judged = "state" if cfg.moe is not None else "logits"
+    B, S = rows, 2048
     torch.cuda.reset_peak_memory_stats()
     batch, lens_d = prefill_batch(torch, prompts[:B], S)
-    logits, times = {}, {}
+    logits, states, times, picks = {}, {}, {}, {}
     for backend in ("cuda", "torch"):
-        c = dataclasses.replace(cfg, **{backend_field: backend})
+        c = dataclasses.replace(cfg, **dict.fromkeys(fields, backend))
         run = lambda: prefill(params, c, batch, 2048,  # noqa: E731
                               lengths=lens_d)
         times[backend] = cuda_ms(torch, run, reps=2)
-        logits[backend] = run()[0].float()
+        with _PickHook(m["moe"]) as hook:
+            out, st = run()
+        picks[backend] = hook.picks
+        logits[backend] = out.float()
+        if judged == "state":
+            states[backend] = st
+        del out, st
         torch.cuda.empty_cache()
     p32 = _map(params, lambda t: t.float())
     c32 = dataclasses.replace(cfg, param_dtype="float32",
-                              **{backend_field: "torch"})
-    ref = prefill(p32, c32, batch, 2048, lengths=lens_d)[0]
-    del p32
+                              **dict.fromkeys(fields, "torch"))
+    with _PickHook(m["moe"]) as hook:
+        ref, ref_st = prefill(p32, c32, batch, 2048, lengths=lens_d)
+    picks["f32"] = hook.picks
+    if judged == "state":
+        routing_witness(torch, m, cfg, prefill, p32, c32, batch, lens_d,
+                        picks, logits["cuda"], states["cuda"], ref, ref_st)
+    del p32, picks
+    st_rel = {b: _state_rel(st, ref_st) for b, st in states.items()}
+    del ref_st, states
     torch.cuda.empty_cache()
 
-    def rel(x, y):
-        return ((x - y).norm() / y.norm()).item()
     a, b = logits["cuda"], logits["torch"]
-    rel_cuda, rel_torch = rel(a, ref), rel(b, ref)
+    rel_cuda, rel_torch = _rel(a, ref), _rel(b, ref)
     max_abs = (a - ref).abs().max().item()
     top2 = ref.topk(2, dim=-1)
     margin = top2.values[:, 0] - top2.values[:, 1]
@@ -956,48 +1217,116 @@ def serve_full_width(torch, m, counts, arch: str):
     # a differing argmax is a fault only where the f32 top-2 margin
     # exceeds twice the kernel path's largest logit error
     faults = ((a.argmax(-1) != arg_ref) & (margin > 2 * max_abs)).sum().item()
-    emit(phase="prefill_cuda_vs_torch", arch=cfg.name, batch=[B, S],
+    emit(phase="prefill_cuda_vs_torch", arch=cfg.name, layers=cfg.n_layers,
+         batch=[B, S], kernels=sorted(prefill_launches(cfg)),
          prefill_ms_cuda=times["cuda"], prefill_ms_torch=times["torch"],
          rel_err_cuda_bf16_vs_f32=rel_cuda,
          rel_err_torch_bf16_vs_f32=rel_torch,
-         rel_err_cuda_vs_torch=rel(a, b), max_abs_err_cuda_vs_f32=max_abs,
+         rel_err_cuda_vs_torch=_rel(a, b), max_abs_err_cuda_vs_f32=max_abs,
+         state_rel_err_cuda_bf16_vs_f32=st_rel.get("cuda"),
+         state_rel_err_torch_bf16_vs_f32=st_rel.get("torch"),
          argmax_agree_cuda_f32=int((a.argmax(-1) == arg_ref).sum().item()),
          argmax_agree_torch_f32=int((b.argmax(-1) == arg_ref).sum().item()),
-         rows=B, argmax_faults=faults,
+         rows=B, argmax_faults=faults, judged_on=judged,
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-    # the kernel path may be no more than twice as far from f32 as the
-    # plain bf16 path (K1 rounds P to bf16 before P V, as the TPU kernel)
-    if rel_cuda > 2 * rel_torch or faults:
-        raise AssertionError(f"prefill through the kernel strays from f32: "
-                             f"rel {rel_cuda} vs plain {rel_torch}, "
-                             f"faults {faults}")
-    return n, params, prompts
+    ours, plain = ((st_rel["cuda"], st_rel["torch"]) if judged == "state"
+                   else (rel_cuda, rel_torch))
+    if ours > 2 * plain or faults:
+        raise AssertionError(f"{cfg.name}: prefill through the kernels "
+                             f"strays from f32 ({judged}): rel {ours} vs "
+                             f"plain {plain}, faults {faults}")
 
 
-def serve_path(torch, m, counts, arch: str, cli: bool = True) -> int:
-    """Phases 5-6 (granite), 5c (glm4, codeqwen; ``cli=False``) and 9
-    (mamba2): the full-width arch through the engine, its profile, then
-    the reduced serve CLI on the card with its launch check.  Returns the
-    kernel's launches over the full-width engine run."""
-    launches, params, prompts = serve_full_width(torch, m, counts, arch)
-    profile_steps(torch, m["get_config"](arch), params, prompts,
-                  m["prefill"], m["decode_step"])
+def moe_breakdown(torch, m, cfg, params, prompts):
+    """Phase 5f': where an MoE layer's time goes, by stage (routing, the
+    dispatch scatter, the experts' batched matmuls, the combine gather),
+    timed with CUDA events on the first MoE layer's weights at the
+    prefill's (8, 2048) tokens and at a decode step's 8, against the bytes
+    bound of reading every expert's weights (what a capacity-based step
+    does)."""
+    MOE = m["moe"]
+    layer = next(l for l in params["layers"] if "moe" in l)
+    mc = cfg.moe
+    E, K = mc.n_experts, mc.top_k
+    batch, lens_d = prefill_batch(torch, prompts[:8], 2048)
+    # the prompts' embeddings at unit RMS, the scale the router sees
+    e = params["embed"]["w"][batch["tokens"].long()].float()
+    x = (e * torch.rsqrt(e.square().mean(-1, keepdim=True) + 1e-6)).to(
+        layer["moe"]["up"].dtype)
+    del e
+    mask = (torch.arange(2048, device="cuda")[None, :] < lens_d[:, None])
+    wbytes = sum(layer["moe"][k].numel() * layer["moe"][k].element_size()
+                 for k in ("up", "gate", "down"))
+    out = {}
+    for what, xs, tm in (("prefill", x, mask), ("decode", x[:, :1], None)):
+        T = xs.shape[0] * xs.shape[1]
+        cap = MOE.capacity_of(T, mc)
+        xt = xs.reshape(T, -1)
+        with torch.no_grad():
+            r = MOE.route(layer["moe"], xt, mc, cap, tm)
+            buf = MOE.dispatch(xt, r, E, K, cap)
+            ob = MOE.expert_ffn(layer["moe"], buf, cfg.act)
+            stages = {
+                "route": lambda: MOE.route(layer["moe"], xt, mc, cap, tm),
+                "dispatch": lambda: MOE.dispatch(xt, r, E, K, cap),
+                "experts": lambda: MOE.expert_ffn(layer["moe"], buf,
+                                                  cfg.act),
+                "combine": lambda: MOE.combine(ob, r, tm is not None),
+                "moe_apply": lambda: MOE.moe_apply(layer["moe"], xs, mc,
+                                                   cfg.act, token_mask=tm)}
+            ms = {k: cuda_ms(torch, f, reps=5) for k, f in stages.items()}
+        kept = int((r["keep"] & (r["e"] < E)).sum().item())
+        routed = int((r["e"] < E).sum().item())
+        out[what] = dict(tokens=T, capacity=cap, routed=routed, kept=kept,
+                         stage_ms=ms,
+                         experts_bytes_bound_ms=wbytes / PEAK_BYTES * 1e3)
+        del r, buf, ob
+    emit(phase="moe_breakdown", arch=cfg.name, experts=E, top_k=K,
+         expert_weight_gb_per_layer=wbytes / 1e9,
+         expert_weight_gb_all_layers=wbytes * sum(cfg.moe_layer_mask()) / 1e9,
+         **out)
+    torch.cuda.empty_cache()
+
+
+def serve_path(torch, m, counts, arch: str, cfg=None,
+               cli: bool = True) -> dict:
+    """Phases 5-6 (granite), 5c (glm4, codeqwen; ``cli=False``), 5f
+    (qwen3-moe), 9 (mamba2) and 9c (the one-period jamba, ``cfg``): the
+    config at full width through the engine, its profile (and an MoE
+    config's stage breakdown), the prefill logit gate, then the reduced
+    serve CLI on the card, every launch on the CUDA-core route (f32).
+    Returns the prefill kernels' launches over the full-width engine
+    run."""
+    cfg = cfg or m["get_config"](arch)
+    launches, params, prompts = serve_full_width(torch, m, counts, cfg)
+    profile_steps(torch, cfg, params, prompts, m["prefill"],
+                  m["decode_step"])
+    if cfg.moe is not None:
+        moe_breakdown(torch, m, cfg, params, prompts)
+    if arch in GATE_LAYERS:
+        del params
+        torch.cuda.empty_cache()
+        cfg = dataclasses.replace(cfg, n_layers=GATE_LAYERS[arch])
+        params = m["init_params"](
+            cfg, torch.Generator(device="cuda").manual_seed(0),
+            device="cuda")
+    prefill_gate(torch, m, cfg, params, prompts, GATE_ROWS.get(arch, 8))
     del params
     torch.cuda.empty_cache()
     if not cli:
         return launches
 
-    kernel, stat, _ = SERVED[arch]
     counts.zero()
-    cli = m["serve_main"](arch)
-    cli_launches = counts.read()[kernel]
-    n_layers = m["get_reduced"](arch).n_layers
-    if (cli["requests"] != 16 or cli_launches == 0
-            or cli_launches != n_layers * cli["prefill_calls"]
-            or cli[stat] != cli_launches):
-        raise AssertionError(f"serve_main: {cli}, launches {cli_launches}")
-    emit(phase="serve_main_reduced", launches=cli_launches,
-         routes=counts.routes()[kernel], **cli)
+    out = m["serve_main"](arch)
+    rcfg = m["get_reduced"](arch)
+    _check_prefill_launches(rcfg, counts.read(), counts.routes(),
+                            out["prefill_calls"], "cuda_core",
+                            "serve_main " + arch, stats=out)
+    if out["requests"] != 16:
+        raise AssertionError(f"serve_main: {out}")
+    emit(phase="serve_main_reduced", launches=counts.read(),
+         routes={k: counts.routes()[k] for k in prefill_launches(rcfg)},
+         **out)
     return launches
 
 
@@ -1023,19 +1352,6 @@ def _submit_now(sched, trace):
     t0 = sched.clock.now()
     sched.submit_trace([(t0 + t, r) for t, r in trace])
     return t0
-
-
-def _k1_only(launches: dict, routes: dict, n_layers: int, prefill_calls: int,
-             route: str, what: str):
-    n = launches["flash_attention_fwd"]
-    others = {k: v for k, v in launches.items()
-              if k != "flash_attention_fwd" and v}
-    if (n == 0 or n != n_layers * prefill_calls or others
-            or routes["flash_attention_fwd"] != {
-                r: n * (r == route) for r in ("tensor_core", "cuda_core")}):
-        raise AssertionError(f"{what}: K1 launches {n} != {n_layers} x "
-                             f"{prefill_calls} prefill calls on {route}, or "
-                             f"other kernels: {launches}, routes {routes}")
 
 
 def serve_continuous_full_width(torch, m, counts):
@@ -1069,8 +1385,8 @@ def serve_continuous_full_width(torch, m, counts):
              why="the trace never held more blocks than the pool; "
                  "tightening it")
     reqs = [r for _, r in trace]
-    _k1_only(launches, routes, cfg.n_layers, s["prefill_calls"],
-             "tensor_core", "serve_continuous_full_width")
+    _check_prefill_launches(cfg, launches, routes, s["prefill_calls"],
+                            "tensor_core", "serve_continuous_full_width")
     kv = s["kv"]
     short = [r.rid for r in sched.completed
              if len(r.generated) != L["max_tokens"]
@@ -1155,8 +1471,8 @@ def scheduler_token_identity(torch, m, counts, params, live_reqs):
     engine.run()
     launches, routes = counts.read(), counts.routes()
     calls = sched.stats["prefill_calls"] + engine.stats["prefill_calls"]
-    _k1_only(launches, routes, cfg.n_layers, calls, "tensor_core",
-             "token identity (a)")
+    _check_prefill_launches(cfg, launches, routes, calls, "tensor_core",
+                            "token identity (a)")
     got = {r.rid: r.generated for r in sched.completed}
     want = {r.rid: r.generated for r in engine.completed}
     if (got != want or len(got) != AT_ONCE
@@ -1205,9 +1521,9 @@ def scheduler_token_identity(torch, m, counts, params, live_reqs):
             sched.submit(m["Request"](rid=i, prompt=p, max_tokens=20))
         counts.zero()
         sched.run()
-        _k1_only(counts.read(), counts.routes(), rcfg.n_layers,
-                 sched.stats["prefill_calls"], "cuda_core",
-                 "token identity (b)")
+        _check_prefill_launches(rcfg, counts.read(), counts.routes(),
+                                sched.stats["prefill_calls"], "cuda_core",
+                                "token identity (b)")
         runs.append(sched)
     free, tight = runs
     got = {r.rid: r.generated for r in tight.completed}
@@ -1227,20 +1543,15 @@ def serve_main_continuous(torch, m, counts):
     granite-3-2b (K1) and mamba2-2.7b (K4); both reduced configs are f32,
     so every launch takes the CUDA-core route."""
     for arch in ("granite-3-2b", "mamba2-2.7b"):
-        kernel, stat, _ = SERVED[arch]
         counts.zero()
         out = m["serve_main"](arch, arrival_rate=50.0, max_kv_blocks=16,
                               kv_block_size=8, device="cuda")
-        launches, routes = counts.read(), counts.routes()[kernel]
-        n = launches[kernel]
-        others = {k: v for k, v in launches.items() if k != kernel and v}
-        n_layers = m["get_reduced"](arch).n_layers
-        if (out["completed"] + out["shed"] != 16 or n == 0 or others
-                or n != n_layers * out["prefill_calls"] or out[stat] != n
-                or routes != {"tensor_core": 0, "cuda_core": n}
-                or out["kv"]["used_blocks"]):
-            raise AssertionError(f"serve_main continuous {arch}: {out}, "
-                                 f"launches {launches}, routes {routes}")
+        launches, routes = counts.read(), counts.routes()
+        if out["completed"] + out["shed"] != 16 or out["kv"]["used_blocks"]:
+            raise AssertionError(f"serve_main continuous {arch}: {out}")
+        _check_prefill_launches(m["get_reduced"](arch), launches, routes,
+                                out["prefill_calls"], "cuda_core",
+                                "serve_main continuous " + arch, stats=out)
         emit(phase="serve_main_continuous_reduced", launches=launches,
              routes=routes, **out)
 
@@ -1572,6 +1883,7 @@ def main() -> int:
     from repro_torch.kernels.percentile_norm import percentile_normalize
     from repro_torch.kernels.percentile_norm import ref as pn_ref
     from repro_torch.kernels.ssd_scan import kernel as ssd
+    from repro_torch.kernels.ssd_scan import ssd_scan
     from repro_torch.kernels.ssd_scan.ref import ssd_chunked_ref
     from repro_torch.launch import vision
     from repro_torch.launch.serve import serve_main
@@ -1580,9 +1892,10 @@ def main() -> int:
                                                  changeformer_init)
     from repro_torch.models.segmentation import seg_apply, seg_init, seg_loss
     from repro_torch.models import init_params
+    from repro_torch.models import moe
     from repro_torch.models.layers import naive_attention
     from repro_torch.models.model import (cast_floating, decode_step,
-                                          prefill, train_loss)
+                                          prefill, train_loss, unused_leaves)
     from repro_torch.optim import get_optimizer, warmup_cosine
     from repro_torch.serve import (Request, ServeEngine, ServeScheduler,
                                    poisson_trace)
@@ -1593,8 +1906,9 @@ def main() -> int:
              init_train_state=init_train_state,
              make_train_step=make_train_step, warmup_cosine=warmup_cosine,
              LMDictBatches=_LMDictBatches, TrainLoop=TrainLoop,
-             train_loss=train_loss, cast_floating=cast_floating,
-             tree_leaves=tree_leaves, tree_unflatten=tree_unflatten,
+             train_loss=train_loss, unused_leaves=unused_leaves,
+             cast_floating=cast_floating, tree_leaves=tree_leaves,
+             tree_unflatten=tree_unflatten,
              train_main=train_main, Preemption=Preemption,
              load_checkpoint=load_checkpoint,
              list_checkpoints=list_checkpoints, init_params=init_params,
@@ -1612,7 +1926,7 @@ def main() -> int:
              seg_apply=seg_apply, seg_loss=seg_loss,
              changeformer_init=changeformer_init,
              changeformer_apply=changeformer_apply, ChipLoader=ChipLoader,
-             prefetch=prefetch)
+             prefetch=prefetch, moe=moe, ssd_scan=ssd_scan)
 
     # f32 products in the plain versions stay full f32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1649,7 +1963,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # the dense serving path, then the other two dense decoders at full
-    # width, then live traffic through the scheduler (this slice's path)
+    # width, then live traffic through the scheduler
     serve_launches = serve_path(torch, m, counts, "granite-3-2b")
     wide_launches = {arch: serve_path(torch, m, counts, arch, cli=False)
                      for arch in ("glm4-9b", "codeqwen1.5-7b")}
@@ -1660,15 +1974,24 @@ def main() -> int:
     torch.cuda.empty_cache()
     serve_main_continuous(torch, m, counts)
 
+    # the MoE serving path (this slice's main path): full-width qwen3-moe
+    moe_launches = serve_path(torch, m, counts, "qwen3-moe-30b-a3b",
+                              cli=False)
+
     train_cli_resume(torch, m, counts)
     train_cli_resume(torch, m, counts, precision="bf16")
 
-    # the SSM serving path (this slice's main path)
+    # the SSM serving path
     k4 = ssd_vs_plain(torch, ssd, ssd_chunked_ref)
     ssd_launches = serve_path(torch, m, counts, "mamba2-2.7b")
+    # the hybrid (this slice's main path): K1, K4 and the MoE in one
+    # prefill, then the reduced jamba's CLI
+    hybrid_launches = serve_path(torch, m, counts, "jamba-1.5-large-398b",
+                                 cfg=jamba_one_period(get_config))
+    # mamba2 training on the card
+    ssd_train_launches = train_mamba2(torch, m, counts)
 
-    # the vision paths (this slice's main path): both studies normalize
-    # every scene through K5
+    # the vision paths: both studies normalize every scene through K5
     k5 = k5_vs_plain(torch, pn, pn_ref)
     pn_launches = burned_area(torch, m, counts)
     forward_vs_cpu(torch, m)
@@ -1688,13 +2011,18 @@ def main() -> int:
     k1 = dict(ms=k1["kernel_ms"], bound_ms=k1["bound_ms"],
               bound_by=k1["bound_by"], max_abs_err=k1["max_abs_err_o"],
               plain_ms=k1["plain_ms"], library_ms=k1["library_ms"],
-              core_route=k1["route"], launches_serve=serve_launches,
-              launches_serve_wide=wide_launches,
+              core_route=k1["route"],
+              launches_serve=serve_launches["flash_attention_fwd"],
+              launches_serve_wide={a: n["flash_attention_fwd"]
+                                   for a, n in wide_launches.items()},
               launches_serve_continuous=live_launches,
+              launches_serve_moe=moe_launches["flash_attention_fwd"],
+              launches_serve_hybrid=hybrid_launches["flash_attention_fwd"],
               shapes={name: {k: k1_recs[(name, "bfloat16")][k] for k in (
                   "kernel_ms", "bound_ms", "bound_by", "plain_ms",
                   "library_ms", "max_abs_err_o")}
-                  for name in ("glm4_prefill", "codeqwen_prefill")})
+                  for name in ("glm4_prefill", "codeqwen_prefill",
+                               "qwen3_prefill")})
     rows = []
     for name, rec in (("flash_attention_fwd", k1),
                       ("flash_attention_bwd_dq", k2),
@@ -1708,7 +2036,9 @@ def main() -> int:
     source, replaces = KERNELS["ssd_scan"]
     # no single PyTorch call computes the SSD scan: library_ms is null
     rows.append({"name": "ssd_scan", "route": "cuda", "source": source,
-                 "replaces": replaces, "launches": ssd_launches,
+                 "replaces": replaces, "launches": ssd_launches["ssd_scan"],
+                 "launches_serve_hybrid": hybrid_launches["ssd_scan"],
+                 "launches_train": ssd_train_launches,
                  "max_abs_err": max(k4["max_abs_err_y"], k4["max_abs_err_h"]),
                  "ms": k4["kernel_ms"], "plain_ms": k4["plain_ms"],
                  "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"],

@@ -6,7 +6,7 @@ Leaves are flattened to ``"/"``-joined path keys, stored in the shards with
 ``shard_bytes``, and ``manifest.json`` is written last.  A
 :class:`~repro_torch.train.TrainState` flattens as the reference's does:
 ``params/...``, ``opt_state/m/...``, ``opt_state/v/...`` and ``step``
-(int32), with the per-layer list stacked into ``periods/slot0/...`` (see
+(int32), with the per-layer list stacked into ``periods/slot{j}/...`` (see
 :mod:`repro_torch.convert`).  So a checkpoint written by either package
 restores in the other.  A bf16 leaf is stored as its two raw bytes (numpy
 ``V2``) and named ``bfloat16`` in the manifest, as the reference stores it;
@@ -28,8 +28,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from repro_torch.convert import (_PERIOD, BF16_NUMPY, _to_numpy, _to_torch,
-                                 params_to_flat)
+from repro_torch.convert import (BF16_NUMPY, _to_numpy, _to_torch,
+                                 params_to_flat, slot_prefix)
 
 MANIFEST = "manifest.json"
 
@@ -45,21 +45,24 @@ def _join(prefix: str, key: str) -> str:
     return f"{prefix}/{key}" if prefix else key
 
 
-def _flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
+def _flatten(tree, prefix: str = "", period: int = 1
+             ) -> Dict[str, np.ndarray]:
     """Flatten a state tree to host arrays under path keys.  Tensors are
     copied to the host; a params tree (a dict with ``"layers"``) goes
-    through :func:`repro_torch.convert.params_to_flat`; a Python int (the
-    step) becomes an int32 scalar as in the reference."""
+    through :func:`repro_torch.convert.params_to_flat` with ``period``
+    (the config's ``period_len``); a Python int (the step) becomes an
+    int32 scalar as in the reference."""
     flat: Dict[str, np.ndarray] = {}
     if hasattr(tree, "_fields"):                      # TrainState
         for name in tree._fields:
-            flat.update(_flatten(getattr(tree, name), _join(prefix, name)))
+            flat.update(_flatten(getattr(tree, name), _join(prefix, name),
+                                 period))
     elif isinstance(tree, dict) and "layers" in tree:
-        for key, arr in params_to_flat(tree).items():
+        for key, arr in params_to_flat(tree, period).items():
             flat[_join(prefix, key)] = arr
     elif isinstance(tree, dict):
         for key, val in tree.items():
-            flat.update(_flatten(val, _join(prefix, key)))
+            flat.update(_flatten(val, _join(prefix, key), period))
     elif isinstance(tree, (list, tuple)):
         if tree:
             raise TypeError(f"{prefix}: only the params' 'layers' may be "
@@ -80,14 +83,15 @@ def _dtype_name(arr: np.ndarray) -> str:
 def save_checkpoint(directory, tree, step: int = 0,
                     shard_bytes: int = 1 << 30,
                     metadata: Optional[dict] = None,
-                    fsync: bool = False) -> str:
+                    fsync: bool = False, period: int = 1) -> str:
     """Write ``tree`` into ``directory``.  Shards first, manifest last, so
     a torn write is detectable (manifest missing => invalid).  With
     ``fsync=True`` the shards, the manifest and the directory entry are
-    fsynced, as the atomic manager path needs before its rename."""
+    fsynced, as the atomic manager path needs before its rename.
+    ``period`` is the layers' (see :func:`_flatten`)."""
     d = Path(directory)
     d.mkdir(parents=True, exist_ok=True)
-    flat = _flatten(tree)
+    flat = _flatten(tree, period=period)
     shards, cur, cur_bytes = [], {}, 0
     for k in sorted(flat):
         arr = flat[k]
@@ -148,30 +152,33 @@ def read_manifest(directory) -> dict:
     return manifest
 
 
-def _restore(like, flat, key: str, layer=None, n_layers=None):
+def _restore(like, flat, key: str, P: int, row=None, n_rows=None):
     """The tree of ``like``'s structure filled from ``flat``: each tensor
-    leaf shape-checked and cast to the ``like`` leaf's dtype and device."""
+    leaf shape-checked and cast to the ``like`` leaf's dtype and device.
+    Layer ``p*P + j`` reads row p of ``periods/slot{j}/...``."""
     if hasattr(like, "_fields"):
         return type(like)(*(_restore(getattr(like, f), flat, _join(key, f),
-                                     layer, n_layers)
+                                     P, row, n_rows)
                             for f in like._fields))
     if isinstance(like, dict):
         out = {}
         for k, v in like.items():
             if k == "layers":
-                out[k] = [_restore(l, flat, _join(key, _PERIOD[:-1]), i,
-                                   len(v)) for i, l in enumerate(v)]
+                out[k] = [_restore(l, flat,
+                                   _join(key, slot_prefix(i % P)[:-1]), P,
+                                   i // P, len(v) // P)
+                          for i, l in enumerate(v)]
             else:
-                out[k] = _restore(v, flat, _join(key, k), layer, n_layers)
+                out[k] = _restore(v, flat, _join(key, k), P, row, n_rows)
         return out
     if key not in flat:
         raise KeyError(f"checkpoint missing {key}")
     arr = flat[key]
-    if layer is not None:
-        if arr.shape[:1] != (n_layers,):
+    if row is not None:
+        if arr.shape[:1] != (n_rows,):
             raise ValueError(f"{key}: leading axis {arr.shape[:1]} != "
-                             f"n_layers {n_layers}")
-        arr = arr[layer]
+                             f"n_periods {n_rows}")
+        arr = arr[row]
     if isinstance(like, torch.Tensor):
         if tuple(arr.shape) != tuple(like.shape):
             raise ValueError(f"shape mismatch {key}: "
@@ -181,11 +188,12 @@ def _restore(like, flat, key: str, layer=None, n_layers=None):
     return type(like)(arr)
 
 
-def load_checkpoint(directory, like=None):
+def load_checkpoint(directory, like=None, period: int = 1):
     """Returns ``(tree_or_flat_dict, step)``.  With ``like`` (a
     ``TrainState`` or params tree), leaves are restored into that structure
     on its devices, shape-checked; dtype-only mismatches are cast to the
-    ``like`` leaf's dtype."""
+    ``like`` leaf's dtype.  ``period`` is the layers' (see
+    :func:`_flatten`)."""
     d = Path(directory)
     manifest = read_manifest(d)
     flat: Dict[str, np.ndarray] = {}
@@ -205,4 +213,4 @@ def load_checkpoint(directory, like=None):
                 f"{len(keys)} keys in it") from e
     if like is None:
         return flat, manifest["step"]
-    return _restore(like, flat, ""), manifest["step"]
+    return _restore(like, flat, "", period), manifest["step"]

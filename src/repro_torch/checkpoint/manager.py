@@ -79,12 +79,14 @@ class CheckpointManager:
                       step boundaries.
     async_saves:      write on a background thread (default); the hot
                       path pays only the host snapshot.
+    period:           the model's ``period_len``: layer p*P + j is row p
+                      of ``periods/slot{j}``.
     """
 
     def __init__(self, directory, *, keep_last: int = 3,
                  every_steps: Optional[int] = None,
                  every_s: Optional[float] = None,
-                 async_saves: bool = True):
+                 async_saves: bool = True, period: int = 1):
         if keep_last < 1:
             raise ValueError(f"keep_last must be >= 1, got {keep_last}")
         self.directory = Path(directory)
@@ -92,6 +94,7 @@ class CheckpointManager:
         self.every_steps = int(every_steps or 0)
         self.every_s = float(every_s or 0.0)
         self.async_saves = async_saves
+        self.period = period
         self._last_save_t = time.time()
         # accounting (read via .stats())
         self.saves = 0
@@ -134,7 +137,7 @@ class CheckpointManager:
         t0 = time.time()
         # host snapshot: a real COPY of every leaf (``_flatten`` copies),
         # since the train step updates the same tensors in place
-        snapshot = _flatten(state)
+        snapshot = _flatten(state, period=self.period)
         metadata = dict(extra or {})
         if self.async_saves:
             self._ensure_worker()
@@ -225,7 +228,8 @@ class CheckpointManager:
         for step, path in reversed(list_checkpoints(self.directory)):
             try:
                 manifest = read_manifest(path)
-                tree, mstep = load_checkpoint(path, like=like)
+                tree, mstep = load_checkpoint(path, like=like,
+                                              period=self.period)
             except CheckpointError as e:
                 self.restore_skipped.append(f"{path.name}: {e}")
                 continue

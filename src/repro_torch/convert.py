@@ -1,10 +1,12 @@
 """Weights across the two packages, in the reference's checkpoint key
 scheme (``repro.checkpoint.io._flatten``): a parameter tree flattened to
 ``"/"``-joined path keys, e.g. ``"periods/slot0/attn/wq/w"``, whose
-``periods`` leaves carry a leading (n_periods,) axis.  For the ported
-stacks (dense and SSM) a period is one layer, so ``periods/slot0/...``
-(``periods/slot0/attn/wq/w``, ``periods/slot0/ssm/in_z/w``, ...) has a
-leading n_layers axis and maps onto ``params["layers"][i]``.
+``periods`` leaves carry a leading (n_periods,) axis.  A period of P
+slots (``repro_torch.models.model.period_len``: 1 for the dense and SSM
+stacks, 2 for llama4's MoE on every other layer, 8 for jamba) maps
+``periods/slot{j}/...`` row p onto ``params["layers"][p*P + j]``.  A
+leaf keeps its dtype either way, so the f32 MoE router beside bf16
+weights round-trips bitwise.
 
 A bf16 leaf leaves torch as a numpy array of dtype ``V2`` (two raw bytes)
 holding its bit pattern: numpy has no bf16 type of its own, and ``V2`` is
@@ -28,9 +30,8 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.common import resolve_device
-from repro_torch.models.model import require_ported
+from repro_torch.models.model import period_len, require_ported
 
-_PERIOD = "periods/slot0/"
 # numpy form of a bf16 leaf: its bit pattern as two raw bytes
 BF16_NUMPY = np.dtype("V2")
 
@@ -76,6 +77,11 @@ def _to_torch(arr: np.ndarray, device, dtype) -> torch.Tensor:
     return t
 
 
+def slot_prefix(j: int) -> str:
+    """The flat-key prefix of period slot ``j``."""
+    return f"periods/slot{j}/"
+
+
 def params_from_flat(flat: Dict[str, np.ndarray], cfg: ArchConfig, *,
                      device=None, dtype: Optional[torch.dtype] = None):
     """Flat reference checkpoint arrays -> the port's params.
@@ -85,17 +91,20 @@ def params_from_flat(flat: Dict[str, np.ndarray], cfg: ArchConfig, *,
     """
     require_ported(cfg)
     device = resolve_device(device)
+    P = period_len(cfg)
+    n_periods = cfg.n_layers // P
     params: dict = {"layers": [{} for _ in range(cfg.n_layers)]}
     for key, arr in flat.items():
-        if key.startswith(_PERIOD):
-            if arr.shape[0] != cfg.n_layers:
-                raise ValueError(f"{key}: leading axis {arr.shape[0]} != "
-                                 f"n_layers {cfg.n_layers}")
-            for i in range(cfg.n_layers):
-                _set(params["layers"][i], key[len(_PERIOD):],
-                     _to_torch(arr[i], device, dtype))
-        elif key.startswith("periods/"):
-            raise ValueError(f"{key}: only one slot per period is ported")
+        if key.startswith("periods/"):
+            slot, rest = key[len("periods/"):].split("/", 1)
+            j = int(slot[len("slot"):])
+            if j >= P or arr.shape[0] != n_periods:
+                raise ValueError(f"{key}: slot {j} of a period of {P}, "
+                                 f"leading axis {arr.shape[0]} != n_periods "
+                                 f"{n_periods}")
+            for p in range(n_periods):
+                _set(params["layers"][p * P + j], rest,
+                     _to_torch(arr[p], device, dtype))
         else:
             _set(params, key, _to_torch(arr, device, dtype))
     return params
@@ -109,15 +118,23 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def params_to_flat(params) -> Dict[str, np.ndarray]:
+def params_to_flat(params, period: int = 1) -> Dict[str, np.ndarray]:
     """The port's params -> flat reference checkpoint arrays (inverse of
-    :func:`params_from_flat`)."""
+    :func:`params_from_flat`).  ``period`` is the config's
+    :func:`~repro_torch.models.model.period_len`: layer p·P + j becomes
+    row p of ``periods/slot{j}/...``."""
     flat = {}
     for key, t in _items({k: v for k, v in params.items() if k != "layers"}):
         flat[key] = _to_numpy(t)
-    per_layer = [dict(_items(layer)) for layer in params["layers"]]
-    for key in per_layer[0]:
-        flat[_PERIOD + key] = np.stack([_to_numpy(l[key]) for l in per_layer])
+    layers = params["layers"]
+    for j in range(period):
+        per_layer = [dict(_items(layer)) for layer in layers[j::period]]
+        if any(l.keys() != per_layer[0].keys() for l in per_layer):
+            raise ValueError(f"the layers of slot {j} differ in their "
+                             f"leaves: not a period of {period}")
+        for key in per_layer[0]:
+            flat[slot_prefix(j) + key] = np.stack(
+                [_to_numpy(l[key]) for l in per_layer])
     return flat
 
 

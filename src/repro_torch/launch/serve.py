@@ -2,6 +2,8 @@
 
 ``python -m repro_torch.launch.serve --arch granite-3-2b --requests 16``
 ``python -m repro_torch.launch.serve --arch mamba2-2.7b``
+``python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b`` (also
+``jamba-1.5-large-398b``, ``llama4-maverick-400b-a17b``)
 ``python -m repro_torch.launch.serve --arrival-rate 50 --max-kv-blocks 16
 --kv-block-size 8``
 

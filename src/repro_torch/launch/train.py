@@ -28,6 +28,7 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.data.tokens import SeekableTokenBatches
 from repro_torch.kernels.common import resolve_device
+from repro_torch.models.model import period_len
 from repro_torch.optim import get_optimizer, warmup_cosine
 from repro_torch.train import TrainLoop, init_train_state, make_train_step
 
@@ -81,7 +82,8 @@ def train_main(arch: str, *, reduced: bool = True, steps: int = 100,
         ckpt = CheckpointManager(checkpoint_dir,
                                  keep_last=max(int(checkpoint_keep), 1),
                                  every_steps=int(checkpoint_every),
-                                 async_saves=bool(checkpoint_async))
+                                 async_saves=bool(checkpoint_async),
+                                 period=period_len(cfg))
     loop = TrainLoop(step_fn, state, data, checkpointer=ckpt,
                      preempt_at_step=preempt_at_step, log_every=log_every)
     if resume:

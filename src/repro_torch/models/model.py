@@ -1,22 +1,28 @@
 """Model assembly: init, the training forward and loss, prefill, decode
-and the sampling head.  Port of the text path of ``repro.models.model`` for
-the two one-slot stacks: dense decoders (every layer attention + a dense
-MLP) and Mamba2 SSM stacks (every layer an SSD mixer, no FFN).
+and the sampling head.  Port of the text path of ``repro.models.model``
+for the dense, ssm, moe and hybrid families.
 
-The reference stacks each period's parameters and scans over periods with
-``jax.lax.scan``; here ``params["layers"]`` is a list of per-layer dicts
-and the stack is a Python loop.  ``jax.checkpoint`` (remat) becomes one
-``torch.utils.checkpoint.checkpoint`` per layer.  The decode state stacks
-every layer's state along a leading n_layers axis: the KV caches
-``{"k", "v"}`` (n_layers, B, L, Kh, hd) of a dense stack, or the SSM states
-``{"h": (n_layers, B, nh, hp, N) f32, "conv": (n_layers, B, W-1, C)}`` of
-an SSM stack; :func:`decode_step` updates it in place (the reference
-donates it).  Every other family (moe, hybrid, vlm, audio) raises
-``NotImplementedError``; neither stack has an MoE auxiliary loss, so the
-reference's ``aux`` term is absent here.
+The reference groups layers into repeating *periods* (``_slot_plan``: each
+slot an attention or SSD mixer, followed by a dense MLP, an MoE FFN, an
+MoE FFN plus a shared expert, or nothing), stacks each period's
+parameters and scans over periods with ``jax.lax.scan``.  Here
+``params["layers"]`` is a list of per-layer dicts, ``layers[p*P + j]``
+being period p, slot j, and the stack is a Python loop; ``jax.checkpoint``
+(remat) becomes one ``torch.utils.checkpoint.checkpoint`` per layer.  A
+layer's keys say what it holds: ``attn`` or ``ssm``, then ``mlp``, or
+``moe`` (plus ``shared_mlp``), or neither.  ``backbone`` returns the MoE
+auxiliary loss summed over the layers, and ``train_loss`` adds it, as the
+reference does.
 
-An SSM layer keeps ``norm2``, as the reference's slot does, although with
-no FFN nothing reads it; :func:`unused_leaves` marks those leaves, whose
+The decode state is one flat dict: the KV caches ``{"k", "v"}``
+(n_attn, B, L, Kh, hd) stacked over the attention layers and the SSM
+states ``{"h": (n_ssm, B, nh, hp, N) f32, "conv": (n_ssm, B, W-1, C)}``
+over the SSD layers, each layer indexing its own kind's axis in layer
+order; :func:`decode_step` updates it in place (the reference donates
+it).  The vlm and audio families raise ``NotImplementedError``.
+
+An SSD layer with no FFN keeps ``norm2``, as the reference's slot does,
+although nothing reads it; :func:`unused_leaves` marks those leaves, whose
 gradient is zero.
 """
 from __future__ import annotations
@@ -30,6 +36,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -37,19 +44,18 @@ from repro_torch.tree import tree_leaves, tree_map
 # --------------------------------------------------------------------------
 # structure helpers
 # --------------------------------------------------------------------------
-# the ported stacks: family -> its one-slot plan [(kind, has_moe, has_dense)]
-PORTED_PLANS = {"dense": [("attn", False, True)],
-                "ssm": [("ssm", False, False)]}
+PORTED_FAMILIES = ("dense", "ssm", "moe", "hybrid")
+# the decode state's keys for each mixer kind
+STATE_KEYS = {"attn": ("k", "v"), "ssm": ("h", "conv")}
 
 
 def require_ported(cfg: ArchConfig) -> None:
-    """Every layer must be attention + a dense MLP (dense) or an SSD mixer
-    alone (ssm): the only stacks ported."""
-    if (cfg.family not in PORTED_PLANS
-            or _slot_plan(cfg) != PORTED_PLANS[cfg.family]):
+    """The text families are ported, with every slot plan they make; the
+    vlm and audio frontends are not."""
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet; the port "
-            f"runs dense decoders and SSM stacks")
+            f"runs {', '.join(PORTED_FAMILIES)} stacks")
 
 
 def period_len(cfg: ArchConfig) -> int:
@@ -119,16 +125,26 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
     dtype = param_dtype(cfg)
     d = cfg.d_model
     g = generator
+    plan = _slot_plan(cfg)
     embed = (torch.randn((cfg.vocab, d), generator=g, dtype=torch.float32,
                          device=device) * L.DEFAULT_INIT_SCALE).to(dtype)
     layers = []
-    for _ in range(cfg.n_layers):
+    for i in range(cfg.n_layers):
+        kind, has_moe, has_dense = plan[i % len(plan)]
         layer = {"norm1": L.norm_init(cfg.norm, d, dtype, device),
                  "norm2": L.norm_init(cfg.norm, d, dtype, device)}
-        if cfg.family == "ssm":
-            layer["ssm"] = SSM.ssm_init(g, d, cfg.ssm, dtype, device)
-        else:
+        if kind == "attn":
             layer["attn"] = L.attn_init(g, d, attn_spec(cfg), dtype, device)
+        else:
+            layer["ssm"] = SSM.ssm_init(g, d, cfg.ssm, dtype, device)
+        if has_moe:
+            layer["moe"] = MOE.moe_init(g, d, cfg.moe, cfg.act, dtype,
+                                        device)
+            if cfg.moe.shared_expert:
+                layer["shared_mlp"] = L.mlp_init(
+                    g, d, cfg.d_ff or cfg.moe.expert_d_ff, cfg.act, dtype,
+                    device)
+        elif has_dense:
             layer["mlp"] = L.mlp_init(g, d, cfg.d_ff, cfg.act, dtype, device)
         layers.append(layer)
     params = {"embed": {"w": embed},
@@ -170,13 +186,20 @@ def logits_fn(params, cfg: ArchConfig, x):
     return _promote_matmul(x, _head_weight(params, cfg))
 
 
-def _ffn(layer, cfg: ArchConfig, x):
-    """The dense MLP after the mixer; an SSM layer has none (its norm2 is
-    unread)."""
-    if "mlp" not in layer:
-        return x
+def _ffn(layer, cfg: ArchConfig, x, token_mask=None):
+    """The FFN after the mixer: a dense MLP, or the MoE (plus its shared
+    expert), or nothing (an SSD layer's norm2 is then unread).  Returns
+    (x, the MoE's aux loss or None)."""
+    if "mlp" not in layer and "moe" not in layer:
+        return x, None
     h = L.norm_apply(cfg.norm, layer["norm2"], x)
-    return x + L.mlp_apply(layer["mlp"], h, cfg.act)
+    if "mlp" in layer:
+        return x + L.mlp_apply(layer["mlp"], h, cfg.act), None
+    y, aux = MOE.moe_apply(layer["moe"], h, cfg.moe, cfg.act,
+                           token_mask=token_mask)
+    if "shared_mlp" in layer:
+        y = y + L.mlp_apply(layer["shared_mlp"], h, cfg.act)
+    return x + y, aux
 
 
 def _layer_forward(layer, x, positions, cfg: ArchConfig, spec: L.AttnSpec):
@@ -191,36 +214,42 @@ def _layer_forward(layer, x, positions, cfg: ArchConfig, spec: L.AttnSpec):
 
 def unused_leaves(params) -> List[bool]:
     """One flag per leaf of ``tree_leaves(params)``: True for the leaves no
-    output reads (the norm2 of each SSM layer), whose gradient is zero.
-    Differentiating only the others keeps autograd's check that every
-    other parameter reaches the loss."""
+    output reads (the norm2 of each SSD layer without an FFN), whose
+    gradient is zero.  Differentiating only the others keeps autograd's
+    check that every other parameter reaches the loss."""
     flags = tree_map(lambda _: False, params)
     for layer in flags["layers"]:
-        if "ssm" in layer:
+        if "ssm" in layer and "mlp" not in layer and "moe" not in layer:
             layer["norm2"] = tree_map(lambda _: True, layer["norm2"])
     return tree_leaves(flags)
 
 
 def backbone(params, cfg: ArchConfig, x, positions, remat: bool = True):
-    """The layer stack and the final norm.  With ``remat`` each layer is one
-    ``checkpoint`` (the reference's ``nothing_saveable`` per period): only
-    its input is kept, and its forward runs again in the backward pass."""
+    """The layer stack and the final norm.  Returns (x, aux): the MoE aux
+    loss summed over the layers in layer order (f32 zero without MoE).
+    With ``remat`` each layer is one ``checkpoint`` (the reference's
+    ``nothing_saveable`` per period): only its input is kept, and its
+    forward runs again in the backward pass."""
     require_ported(cfg)
     spec = attn_spec(cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer in params["layers"]:
         if remat:
             # the layer draws no random numbers: no RNG state to keep
-            x = checkpoint(_layer_forward, layer, x, positions, cfg, spec,
-                           use_reentrant=False, preserve_rng_state=False)
+            x, a = checkpoint(_layer_forward, layer, x, positions, cfg, spec,
+                              use_reentrant=False, preserve_rng_state=False)
         else:
-            x = _layer_forward(layer, x, positions, cfg, spec)
-    return L.norm_apply(cfg.norm, params["final_norm"], x)
+            x, a = _layer_forward(layer, x, positions, cfg, spec)
+        if a is not None:
+            aux = aux + a
+    return L.norm_apply(cfg.norm, params["final_norm"], x), aux
 
 
 def forward(params, cfg: ArchConfig, batch, remat: bool = True):
-    """Full forward -> logits (B,S,V)."""
+    """Full forward -> logits (B,S,V) (the MoE aux loss is
+    :func:`backbone`'s second output)."""
     x, positions, _ = embed_inputs(params, cfg, batch)
-    x = backbone(params, cfg, x, positions, remat=remat)
+    x, _ = backbone(params, cfg, x, positions, remat=remat)
     return logits_fn(params, cfg, x)
 
 
@@ -268,8 +297,8 @@ def cast_compute_params(params, dtype):
 
 def train_loss(params, cfg: ArchConfig, batch, remat: bool = True,
                loss_chunk: int = 512, compute_dtype=None):
-    """Scalar mean next-token cross entropy, sequence-chunked so the
-    (B,S,V) logits are never materialised at once.
+    """Scalar mean next-token cross entropy plus the MoE aux loss,
+    sequence-chunked so the (B,S,V) logits are never materialised at once.
 
     ``compute_dtype`` (e.g. ``"bfloat16"``) runs the backbone in that
     dtype (see :func:`cast_compute_params`); the loss reduction stays f32.
@@ -281,7 +310,7 @@ def train_loss(params, cfg: ArchConfig, batch, remat: bool = True,
     x, positions, loss_mask = embed_inputs(params, cfg, batch)
     if compute_dtype is not None:
         x = x.to(_as_dtype(compute_dtype))
-    x = backbone(params, cfg, x, positions, remat=remat)
+    x, aux = backbone(params, cfg, x, positions, remat=remat)
     w = _head_weight(params, cfg)
 
     # causal shift as in the reference: position t is scored against
@@ -301,7 +330,7 @@ def train_loss(params, cfg: ArchConfig, batch, remat: bool = True,
     for a, b in bounds:
         s, m = _xent_chunk(xs[:, a:b], w, ls[:, a:b], ms[:, a:b])
         tot, cnt = tot + s, cnt + m
-    return tot / cnt.clamp_min(1.0)
+    return tot / cnt.clamp_min(1.0) + aux
 
 
 # --------------------------------------------------------------------------
@@ -316,35 +345,45 @@ def prefill(params, cfg: ArchConfig, batch, cache_len: int,
     ``lengths`` ((B,) int, optional) marks true per-row prompt lengths for
     right-padded batches: the logits are taken at position ``lengths-1``
     per row, the per-row KV ring layout keeps pad keys out of the cache,
-    and SSM states are frozen at the last real token.
+    SSM states are frozen at the last real token, and pad tokens claim no
+    MoE capacity (the router's token mask).  Real tokens of co-batched
+    rows still share one capacity pool, sized from the padded token
+    count, as in the reference.
     """
     require_ported(cfg)
     spec = attn_spec(cfg)
     dtype = param_dtype(cfg)
     attn_len = _attn_len(cfg, cache_len)
     x, positions, _ = embed_inputs(params, cfg, batch)
-    states = []
+    token_mask = None
+    if lengths is not None:
+        lengths = lengths.to(x.device)
+        token_mask = (torch.arange(x.shape[1], device=x.device)[None, :]
+                      < lengths[:, None])
+    states = {"attn": [], "ssm": []}
     for layer in params["layers"]:
         h = L.norm_apply(cfg.norm, layer["norm1"], x)
         if "ssm" in layer:
             mix, st = SSM.ssm_apply(layer["ssm"], h, cfg.ssm,
                                     return_state=True, seq_len=lengths,
                                     backend=cfg.mixer_backend)
+            states["ssm"].append(st)
         else:
             mix, (k, v) = L.attn_apply(layer["attn"], h, spec, positions,
                                        return_kv=True)
-            st = L.kv_to_cache(k, v, attn_len, dtype, lengths=lengths)
-        states.append(st)
-        x = _ffn(layer, cfg, x + mix)
+            states["attn"].append(L.kv_to_cache(k, v, attn_len, dtype,
+                                                lengths=lengths))
+        x, _ = _ffn(layer, cfg, x + mix, token_mask)
     x = L.norm_apply(cfg.norm, params["final_norm"], x)
     if lengths is None:
         x_last = x[:, -1]
     else:
-        last = (lengths.to(x.device).long() - 1).clamp(0, x.shape[1] - 1)
+        last = (lengths.long() - 1).clamp(0, x.shape[1] - 1)
         x_last = x[torch.arange(x.shape[0], device=x.device), last]
     logits = logits_fn(params, cfg, x_last)
-    return logits, {name: torch.stack([st[name] for st in states])
-                    for name in states[0]}
+    return logits, {name: torch.stack([st[name] for st in sts])
+                    for kind, sts in states.items() if sts
+                    for name in STATE_KEYS[kind]}
 
 
 # --------------------------------------------------------------------------
@@ -352,38 +391,50 @@ def prefill(params, cfg: ArchConfig, batch, cache_len: int,
 # --------------------------------------------------------------------------
 def init_decode_state(cfg: ArchConfig, batch: int, cache_len: int, *,
                       device=None) -> Dict[str, Any]:
-    """Zeroed decode state with a leading n_layers axis: KV caches
-    ``{"k", "v"}`` (n_layers, B, L, Kh, hd) for a dense stack, SSM states
-    ``{"h", "conv"}`` for an SSM stack."""
+    """Zeroed decode state: KV caches ``{"k", "v"}`` (n_attn, B, L, Kh, hd)
+    over the attention layers and SSM states ``{"h", "conv"}`` (n_ssm,
+    ...) over the SSD layers; a stack without one kind has no keys for
+    it."""
     require_ported(cfg)
     device = resolve_device(device)
-    if cfg.family == "ssm":
-        one = SSM.ssm_state_init(batch, cfg.d_model, cfg.ssm,
-                                 param_dtype(cfg), device)
-    else:
-        one = L.kv_cache_init(batch, _attn_len(cfg, cache_len),
-                              attn_spec(cfg), param_dtype(cfg), device)
-    return {name: t[None].repeat((cfg.n_layers,) + (1,) * t.dim())
-            for name, t in one.items()}
+    kinds = cfg.layer_kinds()
+    state = {}
+    for kind, n in (("attn", kinds.count("attn")),
+                    ("ssm", kinds.count("ssm"))):
+        if not n:
+            continue
+        if kind == "ssm":
+            one = SSM.ssm_state_init(batch, cfg.d_model, cfg.ssm,
+                                     param_dtype(cfg), device)
+        else:
+            one = L.kv_cache_init(batch, _attn_len(cfg, cache_len),
+                                  attn_spec(cfg), param_dtype(cfg), device)
+        state.update({name: t[None].repeat((n,) + (1,) * t.dim())
+                      for name, t in one.items()})
+    return state
 
 
 @torch.no_grad()
 def decode_step(params, cfg: ArchConfig, state, tokens, position):
     """One decode step.  tokens: (B,1) int; position: (B,) absolute.
-    Returns (logits (B,V), state); ``state`` is updated in place."""
+    Returns (logits (B,V), state); ``state`` is updated in place.  The MoE
+    routes with no token mask: every row, idle slots included, claims
+    capacity, as in the reference."""
     require_ported(cfg)
     spec = attn_spec(cfg)
     x = params["embed"]["w"][tokens.long()]                  # (B,1,d)
-    for i, layer in enumerate(params["layers"]):
+    seen = {"attn": 0, "ssm": 0}           # each layer's index in its kind
+    for layer, kind in zip(params["layers"], cfg.layer_kinds()):
         h = L.norm_apply(cfg.norm, layer["norm1"], x)
-        own = {name: t[i] for name, t in state.items()}
-        if "ssm" in layer:
+        own = {name: state[name][seen[kind]] for name in STATE_KEYS[kind]}
+        seen[kind] += 1
+        if kind == "ssm":
             mix, new = SSM.ssm_decode_step(layer["ssm"], own, h, cfg.ssm)
             for name, t in new.items():
                 own[name].copy_(t)
         else:
             mix, _ = L.attn_decode(layer["attn"], own, h, spec, position)
-        x = _ffn(layer, cfg, x + mix)
+        x, _ = _ffn(layer, cfg, x + mix)
     x = L.norm_apply(cfg.norm, params["final_norm"], x)
     logits = logits_fn(params, cfg, x)
     return logits[:, 0, :], state

@@ -19,8 +19,8 @@ PyTorch runs eagerly, so there is nothing to compile: where the reference
 donates the decode state to a jitted step, the port updates the KV caches
 and the per-slot ``last_token``/``positions`` tensors in place, and the
 donated slot insert becomes an in-place indexed copy of the prefilled rows
-into their decode-state slots (the KV caches of a dense stack, the SSM and
-conv states of an SSM stack).  The summary reports the launches of the
+into their decode-state slots, key by key (the KV caches of the attention
+layers, the SSM and conv states of the SSD layers).  The summary reports the launches of the
 prefill kernels (flash attention, the SSD scan) in place of the
 reference's compile counts.
 

@@ -27,9 +27,9 @@ with the pieces a static slot model lacks:
 
 The physical decode state is untouched: fixed-shape slot tensors, the
 in-place decode step and bucketed prefill are all inherited, so every
-(re-)prefill runs the engine's prefill kernels (flash attention for a
-dense stack, the SSD scan for an SSM stack) exactly as a first admission
-does.  Runs on ``cuda`` unless ``device`` says otherwise.
+(re-)prefill runs the engine's prefill kernels (flash attention in the
+attention layers, the SSD scan in the SSD layers) exactly as a first
+admission does.  Runs on ``cuda`` unless ``device`` says otherwise.
 """
 from __future__ import annotations
 

@@ -1,8 +1,8 @@
 """The hand-written CUDA kernels (flash-attention forward K1, backward K2
 and K3, the SSD chunk scan K4 and the percentile stretch K5) against their
-plain PyTorch versions, a small train step, reduced mamba2 serving, the
-continuous scheduler's eviction resume and a reduced vision run, on the
-card.  Every test here
+plain PyTorch versions, a small train step, reduced mamba2, MoE and
+hybrid serving, the continuous scheduler's eviction resume and a reduced
+vision run, on the card.  Every test here
 is marked ``cuda`` and skips where no card is present; on a machine with an
 H100 run
 
@@ -435,6 +435,53 @@ def test_mamba2_serves_through_k4_on_the_card(dev):
                                    rtol=5e-4)
     torch.testing.assert_close(logits["cuda"][0], logits["torch"][0],
                                atol=5e-4, rtol=5e-4)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b",
+                                  "jamba-1.5-large-398b"])
+def test_moe_and_hybrid_serve_on_the_card(arch, dev):
+    """The reduced MoE and hybrid stacks (f32) through the engine on the
+    card: K1 in every attention layer and K4 in every SSD layer of every
+    prefill, and a prefill through the kernels on the card agrees with the
+    plain versions on the CPU on the same weights (the MoE's dispatch and
+    combine included)."""
+    import dataclasses
+    from repro_torch.configs import get_reduced
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_kernel
+    from repro_torch.launch.serve import serve_main
+    from repro_torch.models import init_params, prefill
+    cfg = get_reduced(arch)
+    kinds = cfg.layer_kinds()
+    n1, n4 = flash_attention_fwd_kernel.launches, ssd_scan_kernel.launches
+    res = serve_main(arch, requests=6, max_tokens=4, device="cuda")
+    assert res["requests"] == 6 and res["tokens"] == 24
+    assert flash_attention_fwd_kernel.launches - n1 == \
+        res["flash_attention_launches"] == \
+        kinds.count("attn") * res["prefill_calls"]
+    assert ssd_scan_kernel.launches - n4 == res["ssd_scan_launches"] == \
+        kinds.count("ssm") * res["prefill_calls"]
+    params = init_params(cfg, torch.Generator().manual_seed(1), device="cpu")
+    toks = torch.randint(0, cfg.vocab, (3, 70),
+                         generator=torch.Generator().manual_seed(2))
+    lens = torch.tensor([70, 33, 5])
+    want = prefill(params, cfg, {"tokens": toks}, 128, lengths=lens)
+
+    def to_dev(tree):
+        if isinstance(tree, dict):
+            return {k: to_dev(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to_dev(v) for v in tree]
+        return tree.to(dev)
+    on_card = to_dev(params)
+    c = dataclasses.replace(cfg, attention_backend="cuda",
+                            mixer_backend="cuda")
+    got = prefill(on_card, c, {"tokens": toks.to(dev)}, 128,
+                  lengths=lens.to(dev))
+    torch.testing.assert_close(got[0].cpu(), want[0], atol=5e-4, rtol=5e-4)
+    assert set(got[1]) == set(want[1])
+    for name, t in want[1].items():
+        torch.testing.assert_close(got[1][name].cpu(), t, atol=5e-4,
+                                   rtol=5e-4)
 
 
 def test_scheduler_eviction_resume_is_token_identical_on_the_card(dev):

@@ -36,6 +36,7 @@ from repro_torch.configs import get_reduced  # noqa: E402
 from repro_torch.data.tokens import (SeekableTokenBatches,  # noqa: E402
                                      lm_batch_iterator)
 from repro_torch.launch.train import train_main  # noqa: E402
+from repro_torch.models.model import period_len  # noqa: E402
 from repro_torch.train import (Preemption, TrainLoop,  # noqa: E402
                                TrainState, init_train_state)
 
@@ -264,6 +265,58 @@ def test_port_checkpoint_restores_into_the_reference(tmp_path):
     like = jax_init_state(jax.random.PRNGKey(1),
                           jax_reduced("stablelm-1.6b"))
     tree, step = jax_load(path, like=like)
+    assert int(tree.step) == step == 2
+    _assert_same_arrays({k: np.asarray(v) for k, v in
+                         jax_flatten(tree).items()}, want)
+
+
+def test_hybrid_train_main_resume_bitwise(tmp_path):
+    """The reduced jamba (SSD and attention layers, MoE on every other one)
+    trains through ``train_main`` (the loss includes the MoE aux term), and
+    a preempted run resumes bitwise: its layers live in periods of two
+    slots (``periods/slot0`` and ``periods/slot1``, optimizer moments
+    too)."""
+    arch = "jamba-1.5-large-398b"
+    base = train_main(arch, steps=4, checkpoint_dir=str(tmp_path / "oracle"),
+                      checkpoint_async=False, **KW)
+    assert np.all(np.isfinite(base["losses"]))
+    ck = str(tmp_path / "ck")
+    with pytest.raises(Preemption):
+        train_main(arch, steps=4, checkpoint_dir=ck, checkpoint_every=2,
+                   preempt_at_step=3, **KW)
+    res = train_main(arch, steps=4, checkpoint_dir=ck, checkpoint_every=2,
+                     resume=True, **KW)
+    assert res["resumed_from_step"] == 2
+    assert res["losses"] == base["losses"][2:]
+    _assert_same_arrays(_final_arrays(ck)[0],
+                        _final_arrays(tmp_path / "oracle")[0])
+    keys = read_manifest(list_checkpoints(ck)[-1][1])["keys"]
+    assert {k.split("/")[2] for k in keys
+            if k.startswith("params/periods/")} == {"slot0", "slot1"}
+
+
+def test_hybrid_checkpoints_interoperate(tmp_path):
+    """jamba's two-slot periods: the reference's checkpoint restores into
+    the port, and the port's into the reference, bitwise."""
+    arch = "jamba-1.5-large-398b"
+    jax_train_main(arch, steps=2, batch=2, seq=16, log_every=0,
+                   checkpoint_dir=str(tmp_path / "jax"),
+                   checkpoint_async=False)
+    want, wstep = jax_load(list_checkpoints(tmp_path / "jax")[-1][1])
+    cfg = get_reduced(arch)
+    P = period_len(cfg)
+    state, step, _ = CheckpointManager(tmp_path / "jax",
+                                       period=P).restore_latest(
+        like=init_train_state(None, cfg, device="cpu"))
+    assert step == wstep == 2
+    _assert_same_arrays(_flatten(state, period=P), want)
+
+    train_main(arch, steps=2, checkpoint_dir=str(tmp_path / "port"),
+               checkpoint_async=False, **KW)
+    path = list_checkpoints(tmp_path / "port")[-1][1]
+    want, _ = load_checkpoint(path)
+    tree, step = jax_load(path, like=jax_init_state(
+        jax.random.PRNGKey(1), jax_reduced(arch)))
     assert int(tree.step) == step == 2
     _assert_same_arrays({k: np.asarray(v) for k, v in
                          jax_flatten(tree).items()}, want)

@@ -1,7 +1,7 @@
 """The port's ServeEngine against the JAX ServeEngine on shared weights and
-the same requests (greedy tokens identical, for the dense decoders and for
-the Mamba2 SSM stack), plus the engine's retirement, validation and sampling
-behaviour on the CPU."""
+the same requests (greedy tokens identical, for the dense decoders, the
+Mamba2 SSM stack, the qwen3 MoE stack and the jamba hybrid), plus the
+engine's retirement, validation and sampling behaviour on the CPU."""
 import numpy as np
 import pytest
 
@@ -116,6 +116,47 @@ def test_dense_decoders_greedy_tokens_match_jax_engine(arch):
     assert tdone == jdone
     for key in ("decode_steps", "prefill_calls", "admitted"):
         assert teng.stats[key] == jeng.stats[key], key
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b",
+                                  "jamba-1.5-large-398b"])
+def test_moe_and_hybrid_greedy_tokens_match_jax_engine(arch):
+    """The reduced qwen3-moe (MoE on every layer) and jamba (SSD +
+    attention, MoE on every other layer) through both engines.  Co-batched
+    rows share one capacity pool, in prefill (the pads masked out) and in
+    decode (idle slots included), so the same requests must form the same
+    prefill groups: both engines group them the same way, and the greedy
+    tokens and the schedule agree."""
+    jcfg, tcfg = jax_reduced(arch), get_reduced(arch)
+    jparams = jax_init_params(jax.random.PRNGKey(6), jcfg)
+    params = params_from_flat(_flatten(jparams), tcfg, device="cpu")
+    rng = np.random.default_rng(13)
+    prompts = [rng.integers(0, tcfg.vocab, size=int(n))
+               for n in (5, 40, 17, 3, 30, 9, 12)]
+    jeng = JServeEngine(jcfg, jparams, slots=3, cache_len=64)
+    teng = ServeEngine(tcfg, params, slots=3, cache_len=64, device="cpu")
+    for i, p in enumerate(prompts):
+        jeng.submit(JRequest(rid=i, prompt=p, max_tokens=7))
+        teng.submit(Request(rid=i, prompt=p, max_tokens=7))
+    jdone = {r.rid: r.generated for r in jeng.run()}
+    tdone = {r.rid: r.generated for r in teng.run()}
+    assert len(tdone) == 7 and all(len(g) == 7 for g in tdone.values())
+    assert tdone == jdone
+    for key in ("decode_steps", "prefill_calls", "admitted"):
+        assert teng.stats[key] == jeng.stats[key], key
+    summary = teng.stats()
+    assert summary["flash_attention_launches"] == 0   # CPU: plain versions
+    assert summary["ssd_scan_launches"] == 0
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b",
+                                  "jamba-1.5-large-398b"])
+def test_serve_main_serves_moe_and_hybrid_on_cpu(arch):
+    out = serve_main(arch, requests=3, max_tokens=3, device="cpu")
+    assert out["arch"] == arch + "-reduced"
+    assert out["requests"] == 3 and out["tokens"] == 9
+    assert out["prefill_calls"] >= 1
+    assert out["flash_attention_launches"] == out["ssd_scan_launches"] == 0
 
 
 def test_eos_and_max_tokens_retire(shared):

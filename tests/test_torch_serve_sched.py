@@ -2,7 +2,9 @@
 ServeScheduler, on shared weights and the same open-loop traces, both
 driven by a VirtualClock: the same greedy tokens, shed requests, eviction
 counts, KV accounting and service timestamps, for a dense decoder and the
-Mamba2 SSM stack, with and without KV-pool pressure and SLO shedding.
+Mamba2 SSM stack, with and without KV-pool pressure and SLO shedding, and
+for the jamba hybrid (KV caches and SSM states in one decode state, MoE
+capacity shared by co-batched rows) under pressure.
 Then the reference's own scheduler cases (validation, the deadlock guard,
 priority, shedding, open-loop release, streaming, callbacks, bucket
 edges, timing stats) on the port, and ``serve_main``'s continuous mode on
@@ -74,9 +76,7 @@ def _record(sched):
     }
 
 
-@pytest.mark.parametrize("scenario", list(SCENARIOS))
-def test_scheduler_matches_jax_scheduler(pair, scenario):
-    arch, jcfg, jparams, tcfg, params = pair
+def _run_pair(jcfg, jparams, tcfg, params, scenario):
     kind, n, rate, max_tokens, knobs = SCENARIOS[scenario]
     runs = []
     for sched_cls, clock_cls, trace_fn, p, c, extra in (
@@ -90,7 +90,14 @@ def test_scheduler_matches_jax_scheduler(pair, scenario):
                                     max_tokens=max_tokens))
         sched.run()
         runs.append(_record(sched))
-    want, got = runs
+    return runs
+
+
+@pytest.mark.parametrize("scenario", list(SCENARIOS))
+def test_scheduler_matches_jax_scheduler(pair, scenario):
+    arch, jcfg, jparams, tcfg, params = pair
+    _, n, _, max_tokens, _ = SCENARIOS[scenario]
+    want, got = _run_pair(jcfg, jparams, tcfg, params, scenario)
     assert got == want
     s = got["summary"]
     assert s["completed"] + s["shed"] == n and s["kv"]["used_blocks"] == 0
@@ -100,6 +107,22 @@ def test_scheduler_matches_jax_scheduler(pair, scenario):
     else:
         assert s["shed"] > 0 and s["evictions"] > 0
         assert got["kv_stats"]["failed_grows"] > 0
+
+
+def test_hybrid_scheduler_matches_jax_scheduler_under_eviction():
+    """The reduced jamba through both schedulers on an oversubscribed pool
+    with an SLO: the mixed decode state (KV caches beside SSM states)
+    survives the slot insert, eviction and re-prefill, and tokens,
+    evictions, shed ids and ``kv.stats`` equal the reference's."""
+    arch = "jamba-1.5-large-398b"
+    jcfg, tcfg = jax_reduced(arch), get_reduced(arch)
+    jparams = jax_init_params(jax.random.PRNGKey(0), jcfg)
+    params = params_from_flat(_flatten(jparams), tcfg, device="cpu")
+    want, got = _run_pair(jcfg, jparams, tcfg, params, "oversubscribed_slo")
+    assert got == want
+    s = got["summary"]
+    assert s["shed"] > 0 and s["evictions"] > 0
+    assert s["kv"]["used_blocks"] == 0
 
 
 def test_engine_tick_and_min_bucket_match_reference(pair):

@@ -2,8 +2,11 @@
 JAX ``init_params`` -> checkpoint-format flat arrays -> ``params_from_flat``.
 
 The loss and every gradient leaf of reduced stablelm-1.6b (4 query over 2
-kv heads, layernorm, untied head), granite-3-2b (rmsnorm, tied head) and
-mamba2-2.7b (SSD mixers, no FFN) agree with ``jax.value_and_grad`` in f32:
+kv heads, layernorm, untied head), granite-3-2b (rmsnorm, tied head),
+mamba2-2.7b (SSD mixers, no FFN), qwen3-moe-30b-a3b (MoE on every layer),
+jamba-1.5-large-398b (SSD + attention, MoE on every other layer) and
+llama4-maverick-400b-a17b (top-1 MoE with a shared expert) agree with
+``jax.value_and_grad`` in f32, the MoE auxiliary loss included:
 the plain attention and SSD scan against ``"jnp"``, and the port's
 flash-attention and SSD-scan ``Function``s (``"cuda"`` on CPU tensors, i.e.
 their plain versions) against ``"pallas"`` in interpret mode.  The sequence
@@ -16,8 +19,14 @@ atol 1e-5, rtol 1e-4 (f32 sums in another order over a 2-layer stack).
 Parameters after an Adam step are not compared with the reference: at the
 first step the update is about lr * sign(g), so noise-level gradient
 differences flip it.  One step's parameters are checked with SGD.
+
+Microbatches do not split an MoE step exactly: each microbatch has its own
+capacity pool and its own load-balance statistics, in both packages.  So
+the MoE stacks' microbatched step is held against the reference's
+microbatched step, and the others' against their own full batch.
 """
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -43,17 +52,24 @@ from repro_torch.train import (TrainState, init_train_state,  # noqa: E402
                                make_eval_step, make_train_step)
 from repro_torch.tree import tree_leaves, tree_unflatten  # noqa: E402
 
-ARCHS = ["stablelm-1.6b", "granite-3-2b", "mamba2-2.7b"]
+NO_MOE_ARCHS = ["stablelm-1.6b", "granite-3-2b", "mamba2-2.7b"]
+MOE_ARCHS = ["qwen3-moe-30b-a3b", "jamba-1.5-large-398b",
+             "llama4-maverick-400b-a17b"]
+ARCHS = NO_MOE_ARCHS + MOE_ARCHS
 B, S, CHUNK = 2, 80, 32
 
 
-@pytest.fixture(scope="module", params=ARCHS)
-def pair(request):
-    arch = request.param
+@functools.lru_cache(maxsize=None)
+def _pair(arch):
     jcfg, tcfg = jax_reduced(arch), get_reduced(arch)
     jparams = JM.init_params(jax.random.PRNGKey(5), jcfg)
     return jcfg, tcfg, jparams, params_from_flat(_flatten(jparams), tcfg,
                                                  device="cpu")
+
+
+@pytest.fixture(scope="module", params=ARCHS)
+def pair(request):
+    return _pair(request.param)
 
 
 def _batch(cfg, b=B, s=S, seed=0):
@@ -72,7 +88,8 @@ def _port_value_and_grad(params, cfg, toks, labels, **kw):
         loss, [p for p, u in zip(leaves, unused) if not u]))
     grads = [torch.zeros_like(p) if u else next(used)
              for p, u in zip(leaves, unused)]
-    return loss.item(), params_to_flat(tree_unflatten(params, grads))
+    return loss.item(), params_to_flat(tree_unflatten(params, grads),
+                                       TM.period_len(cfg))
 
 
 @pytest.mark.parametrize("backends", [("torch", "jnp"), ("cuda", "pallas")],
@@ -147,7 +164,8 @@ def test_one_sgd_step_matches_reference(pair):
                                rtol=1e-5)
     np.testing.assert_allclose(float(m["grad_norm"]),
                                float(jm["grad_norm"]), rtol=1e-5)
-    jflat, flat = _flatten(jstate.params), params_to_flat(state.params)
+    jflat = _flatten(jstate.params)
+    flat = params_to_flat(state.params, TM.period_len(tcfg))
     for key, want in jflat.items():
         np.testing.assert_allclose(flat[key], np.asarray(want), atol=1e-5,
                                    rtol=1e-4, err_msg=key)
@@ -168,8 +186,9 @@ def test_step_updates_params_in_place(pair):
     assert not any(t.requires_grad for t in tree_leaves(new.params))
 
 
-def test_microbatches_match_full_batch(pair):
-    _, tcfg, _, params = pair
+@pytest.mark.parametrize("arch", NO_MOE_ARCHS)
+def test_microbatches_match_full_batch(arch):
+    _, tcfg, _, params = _pair(arch)
     toks, labels = _batch(tcfg, b=4, s=24, seed=3)
     out = []
     for mb in (1, 2):
@@ -177,7 +196,7 @@ def test_microbatches_match_full_batch(pair):
         step = make_train_step(tcfg, opt, lr_schedule=constant(0.5),
                                microbatches=mb)
         state, m = step(_fresh_state(params, opt), _torch_batch(toks, labels))
-        out.append((m, params_to_flat(state.params)))
+        out.append((m, params_to_flat(state.params, TM.period_len(tcfg))))
     (m1, p1), (m2, p2) = out
     np.testing.assert_allclose(float(m2["loss"]), float(m1["loss"]),
                                rtol=1e-6)
@@ -186,6 +205,40 @@ def test_microbatches_match_full_batch(pair):
     for key in p1:
         np.testing.assert_allclose(p2[key], p1[key], atol=1e-6, rtol=1e-5,
                                    err_msg=key)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_microbatched_moe_step_matches_reference(arch):
+    """Two microbatches of an MoE stack, each with its own capacity pool
+    and aux loss: the loss, grad norm and SGD step equal the reference's
+    microbatched step, and differ from the full batch's."""
+    jcfg, tcfg, jparams, params = _pair(arch)
+    toks, labels = _batch(tcfg, b=4, s=24, seed=3)
+    jstate = jax_init_state(jax.random.PRNGKey(0), jcfg, jax_sgd())
+    jstate = jstate._replace(params=jparams)
+    jstep = jax_make_step(jcfg, jax_sgd(), lr_schedule=lambda s: 0.5,
+                          microbatches=2, donate=False)
+    jstate, jm = jstep(jstate, {"tokens": jnp.asarray(toks),
+                                "labels": jnp.asarray(labels)})
+    out = {}
+    for mb in (1, 2):
+        opt = sgd()
+        step = make_train_step(tcfg, opt, lr_schedule=constant(0.5),
+                               microbatches=mb)
+        state, m = step(_fresh_state(params, opt), _torch_batch(toks, labels))
+        out[mb] = (m, state)
+    m, state = out[2]
+    np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]),
+                               rtol=1e-5)
+    np.testing.assert_allclose(float(m["grad_norm"]),
+                               float(jm["grad_norm"]), rtol=1e-5)
+    assert float(out[1][0]["loss"]) != pytest.approx(float(m["loss"]),
+                                                     rel=1e-6)
+    jflat = _flatten(jstate.params)
+    flat = params_to_flat(state.params, TM.period_len(tcfg))
+    for key, want in jflat.items():
+        np.testing.assert_allclose(flat[key], np.asarray(want), atol=1e-5,
+                                   rtol=1e-4, err_msg=key)
 
 
 def test_grad_clip_scales_the_update_and_reports_the_norm(pair):
@@ -201,8 +254,8 @@ def test_grad_clip_scales_the_update_and_reports_the_norm(pair):
                            grad_clip=clip)
     state, m = step(_fresh_state(params, opt), batch)
     np.testing.assert_allclose(float(m["grad_norm"]), gnorm, rtol=1e-5)
-    moved = params_to_flat(params)
-    after = params_to_flat(state.params)
+    moved = params_to_flat(params, TM.period_len(tcfg))
+    after = params_to_flat(state.params, TM.period_len(tcfg))
     for key, g in grads.items():
         np.testing.assert_allclose(moved[key] - after[key], g / 4,
                                    atol=1e-6, rtol=1e-4, err_msg=key)

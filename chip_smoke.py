@@ -124,11 +124,34 @@ Phases, each of which fails the run if it fails:
     is scored on two;
 13. the reduced vision CLI (``repro_torch.launch.vision.main``) on the
     card.
+14. (run between phases 9d and 10) the run API's front door in this
+    process:
+    ``repro_torch.launch.__main__.main(["run", "train", "--full", ...])``
+    trains full-width stablelm-1.6b (bf16, 8 x 2048, 4 steps): a
+    ``succeeded`` report, 4 finite losses, K1-K3 launched as
+    ``train_launches`` predicts, all on the tensor cores; steps/s, the
+    loop's step time, the report's ``wall_s`` and the peak memory;
+15. ``python -m repro_torch.launch run serve`` as real subprocesses:
+    granite-3-2b (the same counts as a direct ``serve_main`` call, K1
+    launched) and mamba2-2.7b (K4 launched); ``run bogus`` exits 2;
+16. ``run train`` on the reduced stablelm (bf16, deterministic mode)
+    preempted (a ``failed`` report), then ``--resume``: losses and final
+    checkpoint bitwise equal to an uninterrupted ``train_main`` call's;
+17. a two-learning-rate grid of the reduced stablelm through
+    ``Orchestrator.submit_runs(attach_payload=True)`` and ``run_local``:
+    each job preempted once, resumed from step 2 under the retry env,
+    results on the PVC and in S3 with the checkpoints, every K1-K3 launch
+    on the tensor cores;
+18. ``run simulate --campaign all``: 234 jobs, 234 manifests, 4040.0
+    wall-hours; ``autobatch`` for stablelm-1.6b at seq 2048 against the
+    card's own ``MemoryBudget`` (not gated).
 
 The line before the last lists each ported kernel with its launches on
 its main path (K1-K3 training, and K1 on each serving path, qwen3-moe's
 and the hybrid's included; K4 mamba2 serving, with the hybrid's and
-mamba2 training's beside it; K5 the two vision studies), K1-K4's route
+mamba2 training's beside it; K5 the two vision studies; K1-K3's launches
+in phases 14, 16 and 17 as ``launches_run_api``, and the subprocesses'
+K1 and K4 launches of phase 15 as ``launches_run_api_cli``), K1-K4's route
 (``core_route``) and its numbers at the training shape (K2, K3),
 granite's prefill shape (K1, with glm4's, codeqwen's and qwen3's beside
 it), mamba2's prefill shape (K4) or the 4-band Sentinel-2 tile (K5); the
@@ -138,9 +161,10 @@ it, the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
-import gc
+import io
 import json
 import os
 import shutil
@@ -1028,9 +1052,6 @@ def serve_full_width(torch, m, counts, cfg):
     Returns the prefill kernels' launches over the engine's run, the
     params and the prompts."""
     ServeEngine, Request = m["ServeEngine"], m["Request"]
-    # an engine and its stats refer to each other: only the collector
-    # frees an earlier phase's engines, their params and decode states
-    gc.collect()
     torch.cuda.empty_cache()
     mem_before = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
@@ -1847,6 +1868,253 @@ def vision_cli(torch, m, counts):
          unet=out["models"][0], changeformer=out["changeformer"])
 
 
+# the run API phases (14-18): full-width training through ``run train``,
+# then the reduced configs
+RUN_TRAIN_ARGV = ["run", "train", "--arch", "stablelm-1.6b", "--full",
+                  "--batch", "8", "--seq", "2048", "--precision", "bf16",
+                  "--steps", "4", "--log_every", "0"]
+
+
+def _report_of(text: str) -> dict:
+    """The RunReport JSON that ``run`` prints last (an indented object
+    whose first line is ``{``)."""
+    start = text.rfind("\n{\n")
+    return json.loads(text[start + 1:] if start >= 0 else text)
+
+
+def launch_run(m, argv) -> tuple:
+    """``python -m repro_torch.launch`` in this process (so the launch
+    counters see it): its exit code and the report it printed."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = m["launch_main"](list(argv))
+    return rc, _report_of(buf.getvalue())
+
+
+def _check_report(rc, report, what: str):
+    if rc != 0 or report["status"] != "succeeded":
+        raise AssertionError(f"{what}: exit {rc}, status {report['status']}"
+                             f", error {report.get('error')}: "
+                             f"{report['metrics'].get('traceback', '')}")
+
+
+def _all_tensor_core(routes: dict, launches: dict, what: str):
+    if any(r["cuda_core"] or r["tensor_core"] != launches[name]
+           or launches[name] == 0 for name, r in routes.items()):
+        raise AssertionError(f"{what}: K1-K3 routes {routes} (launches "
+                             f"{launches}): every launch must take the "
+                             f"tensor cores")
+
+
+def run_api_train_full_width(torch, m, counts) -> dict:
+    """Phase 14: ``run train --full`` (stablelm-1.6b, bf16, 8 x 2048, 4
+    steps) through the run API's front door, in this process: a
+    ``succeeded`` report, 4 finite losses, K1-K3 launched as
+    ``train_launches`` predicts, all on the tensor cores.  Returns the
+    launches and the report's numbers for the records."""
+    cfg = m["get_config"]("stablelm-1.6b")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    counts.zero()
+    t0 = time.perf_counter()
+    rc, report = launch_run(m, RUN_TRAIN_ARGV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, routes = counts.read(), counts.routes(counts.FLASH)
+    _check_report(rc, report, "run train --full")
+    met = report["metrics"]
+    losses = met["losses"]
+    if len(losses) != 4 or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"run train --full: losses {losses}")
+    want = train_launches(cfg, 4)
+    if launches != want:
+        raise AssertionError(f"run train --full: launches {launches} != "
+                             f"{want}")
+    _all_tensor_core(routes, launches, "run train --full")
+    rec = dict(arch=met["arch"], params=met["params"], device=met["device"],
+               losses=losses, steps_per_s=met["steps_per_s"],
+               loop_step_s=met["pure_step_s"] / met["steps_run"],
+               loop_wall_s=met["wall_s"],
+               report_wall_s=report["wall_s"], call_wall_s=wall,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               launches=launches, routes=routes,
+               phase4_step_s_pr20=0.9001)
+    emit(phase="run_api_train_full_width", argv=RUN_TRAIN_ARGV, **rec)
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _cli(args, timeout: int = 600):
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    with tempfile.TemporaryDirectory() as cwd:
+        return subprocess.run([sys.executable, "-m", "repro_torch.launch",
+                               *args], env=env, cwd=cwd, capture_output=True,
+                              text=True, timeout=timeout)
+
+
+def run_api_cli_subprocess(m) -> dict:
+    """Phase 15: ``python -m repro_torch.launch run serve`` as a real
+    subprocess on the card: granite (K1) with the same counts as a direct
+    ``serve_main`` call, mamba2 (K4), and ``run bogus`` exiting 2.
+    Returns the subprocesses' K1 and K4 launches."""
+    out = {}
+    direct = m["serve_main"]("granite-3-2b", requests=8)
+    for arch, stat in (("granite-3-2b", "flash_attention_launches"),
+                       ("mamba2-2.7b", "ssd_scan_launches")):
+        t0 = time.perf_counter()
+        proc = _cli(["run", "serve", "--arch", arch, "--requests", "8"])
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"run serve --arch {arch}: exit "
+                                 f"{proc.returncode}: {proc.stderr[-3000:]}"
+                                 f"{proc.stdout[-3000:]}")
+        report = _report_of(proc.stdout)
+        met = report["metrics"]
+        if report["status"] != "succeeded" or not met[stat] > 0:
+            raise AssertionError(f"run serve --arch {arch}: {report}")
+        if arch == "granite-3-2b":
+            keys = ("requests", "tokens", "decode_steps", "prefill_calls",
+                    "flash_attention_launches")
+            if any(met[k] != direct[k] for k in keys):
+                raise AssertionError(
+                    f"run serve (subprocess) {[met[k] for k in keys]} != "
+                    f"serve_main {[direct[k] for k in keys]} for {keys}")
+        out[arch] = met[stat]
+        emit(phase="run_api_cli_subprocess", arch=arch, device=met["device"],
+             exit_code=proc.returncode, status=report["status"],
+             process_wall_s=wall, report_wall_s=report["wall_s"],
+             tokens=met["tokens"], tokens_per_s=met["tokens_per_s"],
+             **{stat: met[stat]})
+    proc = _cli(["run", "bogus"], timeout=120)
+    if proc.returncode != 2:
+        raise AssertionError(f"run bogus: exit {proc.returncode}, want 2")
+    emit(phase="run_api_cli_subprocess", argv=["run", "bogus"],
+         exit_code=proc.returncode, stderr=proc.stderr.strip())
+    return out
+
+
+def run_api_train_resume_bitwise(torch, m, counts) -> dict:
+    """Phase 16: reduced stablelm (bf16, the tensor-core route) in
+    deterministic mode through ``run train``: preempted before step 3 (a
+    ``failed`` report), then ``--resume``; its losses and final checkpoint
+    equal an uninterrupted ``train_main`` call's, bit for bit."""
+    torch.use_deterministic_algorithms(True)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            oracle = os.path.join(tmp, "oracle")
+            base = m["train_main"]("stablelm-1.6b", steps=12, log_every=0,
+                                   precision="bf16", device="cuda",
+                                   checkpoint_dir=oracle,
+                                   checkpoint_async=False)
+            ck = os.path.join(tmp, "ck")
+            argv = ["run", "train", "--steps", "12", "--log_every", "0",
+                    "--precision", "bf16", "--checkpoint_dir", ck,
+                    "--checkpoint_every", "2"]
+            counts.zero()
+            rc, pre = launch_run(m, argv + ["--preempt_at_step", "3"])
+            if rc != 1 or pre["status"] != "failed" or not str(
+                    pre["error"]).startswith("Preemption"):
+                raise AssertionError(f"preempted run train: exit {rc}, "
+                                     f"{pre['status']}, {pre['error']}")
+            rc, res = launch_run(m, argv + ["--resume"])
+            launches, routes = counts.read(), counts.routes(counts.FLASH)
+            _check_report(rc, res, "run train --resume")
+            load, ls = m["load_checkpoint"], m["list_checkpoints"]
+            got, gstep = load(ls(ck)[-1][1])
+            want, wstep = load(ls(oracle)[-1][1])
+            same = (set(got) == set(want) and gstep == wstep == 12 and all(
+                np.array_equal(got[k], want[k]) for k in want))
+            met = res["metrics"]
+            if (met["resumed_from_step"] != 2
+                    or met["losses"] != base["losses"][2:] or not same):
+                raise AssertionError(
+                    f"run train --resume is not bitwise: resumed from "
+                    f"{met['resumed_from_step']}, losses {met['losses']} vs "
+                    f"{base['losses'][2:]}, final arrays equal: {same}")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    _all_tensor_core(routes, launches, "run train --resume")
+    emit(phase="run_api_train_resume_bitwise", precision="bf16",
+         preempted_error=pre["error"], resumed_from_step=2,
+         losses_equal=True, final_checkpoint_bitwise=True,
+         launches=launches, routes=routes)
+    return launches
+
+
+def campaign_local(torch, m, counts) -> dict:
+    """Phase 17: a two-learning-rate grid of reduced stablelm (bf16)
+    through ``Orchestrator.submit_runs(attach_payload=True)`` and
+    ``run_local`` on the card: each job's first attempt is preempted
+    before step 3, the retry resumes from step 2 under the retry env, and
+    the results land on the PVC and in S3 with the checkpoints."""
+    with tempfile.TemporaryDirectory() as tmp:
+        grid = m["ExperimentGrid"]("lm", {"lr": [3e-4, 1e-3]})
+        runs = [r.replace(overrides={
+            **r.overrides, "steps": 6, "log_every": 0, "precision": "bf16",
+            "checkpoint_every": 2, "preempt_at_step": 3,
+            "s3_root": os.path.join(tmp, "s3"),
+            "checkpoint_dir": os.path.join(tmp, "ck", r.run_name)})
+            for r in grid.to_runs(kind="train", arch="stablelm-1.6b")]
+        pvc = m["PersistentVolume"](tmp)
+        s3 = m["S3Store"](tmp)
+        orch = m["Orchestrator"](pvc, s3)
+        orch.submit_runs(runs, attach_payload=True)
+        counts.zero()
+        t0 = time.perf_counter()
+        recs = orch.run_local()
+        wall = time.perf_counter() - t0
+        launches, routes = counts.read(), counts.routes(counts.FLASH)
+        jobs = {}
+        for run in runs:
+            rec = recs[run.run_name]
+            res = json.loads(pvc.read_bytes(f"results/{run.run_name}.json"))
+            hist = res["attempt_history"]
+            met = (res["result"] or {}).get("metrics", {})
+            ok = (rec.state.value == "Succeeded" and rec.attempts == 2
+                  and [h["outcome"] for h in hist] == ["failed", "succeeded"]
+                  and "Preemption" in hist[0]["error"]
+                  and hist[1].get("resumed_from_step") == 2
+                  and met.get("s3_objects", 0) > 0
+                  and met.get("device") == "cuda"
+                  and s3.exists(f"results/{run.run_name}.json"))
+            if not ok:
+                raise AssertionError(f"campaign_local {run.run_name}: "
+                                     f"{rec.state}, {rec.attempts} attempts, "
+                                     f"history {hist}, error {rec.error}")
+            jobs[run.run_name] = dict(
+                attempts=rec.attempts,
+                attempt_history=[{k: h[k] for k in h if k != "wall_s"}
+                                 for h in hist],
+                s3_objects=met["s3_objects"], losses=met["losses"])
+        summary = json.loads(pvc.read_bytes(
+            "results/_local_run_summary.json"))
+    _all_tensor_core(routes, launches, "campaign_local")
+    emit(phase="campaign_local", jobs=jobs, wall_s=wall, launches=launches,
+         routes=routes, local_run_summary=summary)
+    return launches
+
+
+def run_api_simulate(torch, m, peak_gb: float):
+    """Phase 18: ``run simulate --campaign all``: the paper's 234 jobs,
+    234 manifests and 4040.0 wall-hours; then, not gated, ``autobatch``
+    for stablelm-1.6b at seq 2048 against the card's own budget."""
+    with tempfile.TemporaryDirectory() as tmp:
+        rc, report = launch_run(m, ["run", "simulate", "--campaign", "all",
+                                    "--workdir", tmp])
+    _check_report(rc, report, "run simulate")
+    met = report["metrics"]
+    if (met["jobs"], met["manifests"], met["total_wall_hours"]) != (
+            234, 234, 4040.0):
+        raise AssertionError(f"run simulate --campaign all: {met}")
+    cfg = m["get_config"]("stablelm-1.6b")
+    budget = m["MemoryBudget"].of_device("cuda")
+    emit(phase="run_api_simulate", **met, wall_s=report["wall_s"],
+         autobatch_stablelm_seq2048=m["autobatch"](cfg, 2048, budget=budget),
+         budget_device_gb=budget.device_gb,
+         budget_reserve_frac=budget.reserve_frac,
+         measured_peak_gb_at_batch8=peak_gb)
+
+
 def _map(tree, fn):
     if isinstance(tree, dict):
         return {k: _map(v, fn) for k, v in tree.items()}
@@ -1871,6 +2139,9 @@ def main() -> int:
     import torch.nn.functional as F
 
     from repro_torch.checkpoint import list_checkpoints, load_checkpoint
+    from repro_torch.core import (ExperimentGrid, Orchestrator,
+                                  PersistentVolume, S3Store)
+    from repro_torch.core.autobatch import MemoryBudget, autobatch
     from repro_torch.configs import get_config, get_reduced
     from repro_torch.kernels.common import build_libraries
     from repro_torch.kernels.flash_attention import flash_attention
@@ -1886,6 +2157,7 @@ def main() -> int:
     from repro_torch.kernels.ssd_scan import ssd_scan
     from repro_torch.kernels.ssd_scan.ref import ssd_chunked_ref
     from repro_torch.launch import vision
+    from repro_torch.launch.__main__ import main as launch_main
     from repro_torch.launch.serve import serve_main
     from repro_torch.launch.train import _LMDictBatches, train_main
     from repro_torch.models.changeformer import (changeformer_apply,
@@ -1926,7 +2198,10 @@ def main() -> int:
              seg_apply=seg_apply, seg_loss=seg_loss,
              changeformer_init=changeformer_init,
              changeformer_apply=changeformer_apply, ChipLoader=ChipLoader,
-             prefetch=prefetch, moe=moe, ssd_scan=ssd_scan)
+             prefetch=prefetch, moe=moe, ssd_scan=ssd_scan,
+             launch_main=launch_main, ExperimentGrid=ExperimentGrid,
+             Orchestrator=Orchestrator, PersistentVolume=PersistentVolume,
+             S3Store=S3Store, MemoryBudget=MemoryBudget, autobatch=autobatch)
 
     # f32 products in the plain versions stay full f32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1991,6 +2266,15 @@ def main() -> int:
     # mamba2 training on the card
     ssd_train_launches = train_mamba2(torch, m, counts)
 
+    # the run API and the local campaign layer
+    api_train = run_api_train_full_width(torch, m, counts)
+    api_cli = run_api_cli_subprocess(m)
+    api_resume = run_api_train_resume_bitwise(torch, m, counts)
+    api_campaign = campaign_local(torch, m, counts)
+    run_api_simulate(torch, m, api_train["peak_mem_gb"])
+    launches_run_api = {name: api_train["launches"][name] + api_resume[name]
+                        + api_campaign[name] for name in counts.FLASH}
+
     # the vision paths: both studies normalize every scene through K5
     k5 = k5_vs_plain(torch, pn, pn_ref)
     pn_launches = burned_area(torch, m, counts)
@@ -2018,6 +2302,7 @@ def main() -> int:
               launches_serve_continuous=live_launches,
               launches_serve_moe=moe_launches["flash_attention_fwd"],
               launches_serve_hybrid=hybrid_launches["flash_attention_fwd"],
+              launches_run_api_cli=api_cli["granite-3-2b"],
               shapes={name: {k: k1_recs[(name, "bfloat16")][k] for k in (
                   "kernel_ms", "bound_ms", "bound_by", "plain_ms",
                   "library_ms", "max_abs_err_o")}
@@ -2031,6 +2316,7 @@ def main() -> int:
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces,
                      "launches": train_launches[name],
+                     "launches_run_api": launches_run_api[name],
                      "plain_ms": kb["plain_ms"],
                      "library_ms": kb["library_ms"], **rec})
     source, replaces = KERNELS["ssd_scan"]
@@ -2039,6 +2325,7 @@ def main() -> int:
                  "replaces": replaces, "launches": ssd_launches["ssd_scan"],
                  "launches_serve_hybrid": hybrid_launches["ssd_scan"],
                  "launches_train": ssd_train_launches,
+                 "launches_run_api_cli": api_cli["mamba2-2.7b"],
                  "max_abs_err": max(k4["max_abs_err_y"], k4["max_abs_err_h"]),
                  "ms": k4["kernel_ms"], "plain_ms": k4["plain_ms"],
                  "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"],

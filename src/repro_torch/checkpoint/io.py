@@ -15,7 +15,9 @@ no ``ml_dtypes`` is needed on either side.
 A checkpoint directory is *valid* iff ``manifest.json`` parses and every
 shard it references loads with every declared key.  Anything else raises
 :class:`CheckpointError`, so the manager can fall back to an older one.
-``export_to_s3`` waits for the port of ``core/artifacts.py``.
+``export_to_s3`` copies a checkpoint directory into an
+:class:`~repro_torch.core.artifacts.S3Store` after training, as the paper
+copies every trained model to S3.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ import torch
 
 from repro_torch.convert import (BF16_NUMPY, _to_numpy, _to_torch,
                                  params_to_flat, slot_prefix)
+from repro_torch.core.artifacts import S3Store
 
 MANIFEST = "manifest.json"
 
@@ -214,3 +217,20 @@ def load_checkpoint(directory, like=None, period: int = 1):
     if like is None:
         return flat, manifest["step"]
     return _restore(like, flat, "", period), manifest["step"]
+
+
+def export_to_s3(directory: str, s3: S3Store, prefix: str) -> int:
+    """Paper: 'all models are copied to S3 cloud storage following
+    training'.  Recurses so the manager's ``step_*/`` layout exports with
+    its structure intact; hidden entries (``.tmp-*`` in-flight writes,
+    ``.old-*`` aside copies) are never uploaded.  Returns number of
+    objects uploaded."""
+    root = Path(directory)
+    n = 0
+    for f in sorted(root.rglob("*")):
+        rel = f.relative_to(root)
+        if f.is_file() and not any(part.startswith(".")
+                                   for part in rel.parts):
+            s3.put_file(f"{prefix}/{rel.as_posix()}", f)
+            n += 1
+    return n

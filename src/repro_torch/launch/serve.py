@@ -24,7 +24,9 @@ percentiles).  Where the reference reports its jit compile counts
 (``prefill_compiles``, ``decode_compiles``), the port, which runs
 eagerly, reports ``prefill_calls`` and the launches of the prefill
 kernels.  Runs on ``cuda`` unless ``device`` (``--device``) says
-otherwise.
+otherwise.  The command line is a thin shim over the port's run API
+(``python -m repro_torch.launch run serve`` is the same run): it prints
+the report's metrics as JSON and exits 1 if the run failed.
 """
 from __future__ import annotations
 
@@ -138,6 +140,9 @@ def _serve_continuous(cfg, params, *, requests, slots, cache_len,
 
 
 def main(argv=None):
+    # thin shim over the repro_torch.api registry (RunSpec in, RunReport out)
+    from repro_torch.api import RunSpec, run
+
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="granite-3-2b")
     ap.add_argument("--requests", type=int, default=16)
@@ -161,15 +166,20 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda, which must exist)")
     args = ap.parse_args(argv)
-    metrics = serve_main(
-        args.arch, requests=args.requests, slots=args.slots,
-        cache_len=args.cache_len, max_tokens=args.max_tokens,
-        temperature=args.temperature, top_k=args.top_k,
-        arrival_rate=args.arrival_rate, trace=args.trace,
-        slo_deadline_ms=args.slo_deadline_ms,
-        max_kv_blocks=args.max_kv_blocks,
-        kv_block_size=args.kv_block_size, device=args.device)
-    print(json.dumps(metrics, indent=1))
+    overrides = {
+        "requests": args.requests, "slots": args.slots,
+        "cache_len": args.cache_len, "max_tokens": args.max_tokens,
+        "temperature": args.temperature, "top_k": args.top_k,
+        "arrival_rate": args.arrival_rate, "trace": args.trace,
+        "slo_deadline_ms": args.slo_deadline_ms,
+        "max_kv_blocks": args.max_kv_blocks,
+        "kv_block_size": args.kv_block_size}
+    if args.device is not None:
+        overrides["device"] = args.device
+    report = run(RunSpec(kind="serve", arch=args.arch, overrides=overrides))
+    print(json.dumps(report.metrics, indent=1))
+    if not report.ok:
+        raise SystemExit(1)
 
 
 if __name__ == "__main__":

@@ -6,14 +6,16 @@ Port of ``repro.launch.train::train_main``: the reduced config of ``arch``
 (or the full one with ``reduced=False``), random weights from ``seed``, the
 seekable Markov token stream, and :class:`repro_torch.train.TrainLoop` with
 optional atomic checkpoints of the full ``TrainState`` plus the data
-cursor, ``resume`` from the newest valid one, and the ``preempt_at_step``
-fault hook.  Runs on ``cuda`` unless ``device`` (``--device``) says
-otherwise.  Data-parallel gangs (``world_size > 1``) and the S3 export
-(``s3_root``) belong to slices not ported yet and raise.
+cursor, ``resume`` from the newest valid one, the ``preempt_at_step``
+fault hook, and with ``s3_root`` the export of the checkpoint directory to
+an :class:`~repro_torch.core.artifacts.S3Store` after training.  Runs on
+``cuda`` unless ``device`` (``--device``) says otherwise.  Data-parallel
+gangs (``world_size > 1``) belong to a slice not ported yet and raise.
 
-The reference's command line goes through ``repro.api``, which is not
-ported; this one calls :func:`train_main` directly and prints its result
-as JSON.
+The command line is a thin shim over the port's run API: it builds a
+``train`` :class:`~repro_torch.api.RunSpec`, runs it through the registry
+(``python -m repro_torch.launch run train`` is the same run), prints the
+report's metrics as JSON and exits 1 if the run failed.
 """
 from __future__ import annotations
 
@@ -24,8 +26,9 @@ import os
 
 import torch
 
-from repro_torch.checkpoint import CheckpointManager
+from repro_torch.checkpoint import CheckpointManager, export_to_s3
 from repro_torch.configs import get_config, get_reduced
+from repro_torch.core.artifacts import S3Store
 from repro_torch.data.tokens import SeekableTokenBatches
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models.model import period_len
@@ -56,16 +59,20 @@ def train_main(arch: str, *, reduced: bool = True, steps: int = 100,
                resume: bool = False, preempt_at_step: int = None,
                precision: str = "f32", grad_clip: float = None,
                microbatches: int = 1, attention_backend: str = None,
-               world_size: int = 1, device=None) -> dict:
+               mixer_backend: str = None, world_size: int = 1,
+               device=None) -> dict:
     if world_size != 1:
         raise NotImplementedError("data-parallel training (world_size > 1) "
                                   "is not ported yet")
-    if s3_root:
-        raise NotImplementedError("the S3 export is not ported yet")
     device = resolve_device(device)
     cfg = get_reduced(arch) if reduced else get_config(arch)
+    backends = {}
     if attention_backend:
-        cfg = dataclasses.replace(cfg, attention_backend=attention_backend)
+        backends["attention_backend"] = attention_backend
+    if mixer_backend:
+        backends["mixer_backend"] = mixer_backend
+    if backends:
+        cfg = dataclasses.replace(cfg, **backends)
     opt = get_optimizer(optimizer or cfg.optimizer)
     state = init_train_state(
         torch.Generator(device=device).manual_seed(seed), cfg, opt,
@@ -105,10 +112,18 @@ def train_main(arch: str, *, reduced: bool = True, steps: int = 100,
         overhead = result.get("checkpoint", {}).get("overhead_frac", 0.0)
         result["checkpoint"] = {**ckpt.stats(), "overhead_frac": overhead}
         ckpt.close()
+        if s3_root:
+            s3 = S3Store(s3_root)
+            n = export_to_s3(checkpoint_dir, s3, f"models/{cfg.name}")
+            result["s3_objects"] = n
     return result
 
 
 def main(argv=None):
+    # thin shim over the repro_torch.api registry (RunSpec in, RunReport out)
+    from repro_torch.api import RunSpec, run
+    from repro_torch.api.runners.train import BACKEND_NAMES
+
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=os.environ.get("ARCH", "stablelm-1.6b"))
     ap.add_argument("--full", action="store_true")
@@ -129,7 +144,9 @@ def main(argv=None):
                          "training")
     ap.add_argument("--preempt-at-step", type=int, default=None,
                     help="fault hook: raise Preemption before this step")
-    ap.add_argument("--s3-root", default=None)
+    ap.add_argument("--s3-root", default=None,
+                    help="export the checkpoint directory to this S3 store "
+                         "after training")
     ap.add_argument("--precision", default=os.environ.get("PRECISION", "f32"),
                     choices=["f32", "bf16"],
                     help="mixed-precision policy: bf16 = bf16 "
@@ -137,9 +154,13 @@ def main(argv=None):
     ap.add_argument("--grad-clip", type=float, default=None,
                     help="clip the global gradient norm to this value")
     ap.add_argument("--attention-backend", default=None,
-                    choices=["torch", "cuda", "auto"],
+                    choices=sorted(BACKEND_NAMES),
                     help="attention kernel backend (default: the config's, "
-                         "'auto' = the CUDA kernels on the card)")
+                         "'auto' = the CUDA kernels on the card; the "
+                         "reference's jnp / pallas mean torch / cuda)")
+    ap.add_argument("--mixer-backend", default=None,
+                    choices=sorted(BACKEND_NAMES),
+                    help="SSD mixer kernel backend, as --attention-backend")
     ap.add_argument("--microbatches", type=int, default=1,
                     help="gradient-accumulation chunks per step")
     ap.add_argument("--world-size", type=int, default=1,
@@ -147,18 +168,33 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda, which must exist)")
     args = ap.parse_args(argv)
-    result = train_main(
-        args.arch, reduced=not args.full, steps=args.steps,
-        batch=args.batch, seq=args.seq, lr=args.lr,
-        optimizer=args.optimizer, seed=args.seed,
-        checkpoint_dir=args.checkpoint_dir, s3_root=args.s3_root,
-        log_every=args.log_every, checkpoint_every=args.checkpoint_every,
-        resume=args.resume, preempt_at_step=args.preempt_at_step,
-        precision=args.precision, grad_clip=args.grad_clip,
-        microbatches=args.microbatches,
-        attention_backend=args.attention_backend,
-        world_size=args.world_size, device=args.device)
-    print(json.dumps(result, indent=1))
+
+    overrides = {"full": args.full, "steps": args.steps, "batch": args.batch,
+                 "seq": args.seq, "lr": args.lr,
+                 "log_every": args.log_every}
+    optional = {"optimizer": args.optimizer,
+                "grad_clip": args.grad_clip,
+                "attention_backend": args.attention_backend,
+                "mixer_backend": args.mixer_backend,
+                "checkpoint_dir": args.checkpoint_dir,
+                "preempt_at_step": args.preempt_at_step,
+                "s3_root": args.s3_root, "device": args.device}
+    overrides.update({k: v for k, v in optional.items() if v is not None})
+    if args.precision != "f32":
+        overrides["precision"] = args.precision
+    if args.checkpoint_every:
+        overrides["checkpoint_every"] = args.checkpoint_every
+    if args.resume:
+        overrides["resume"] = True
+    if args.world_size != 1:
+        overrides["world_size"] = args.world_size
+    if args.microbatches != 1:
+        overrides["microbatches"] = args.microbatches
+    report = run(RunSpec(kind="train", arch=args.arch, seed=args.seed,
+                         overrides=overrides))
+    print(json.dumps(report.metrics, indent=1))
+    if not report.ok:
+        raise SystemExit(1)
 
 
 if __name__ == "__main__":

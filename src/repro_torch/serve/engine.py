@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import weakref
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
@@ -173,14 +174,22 @@ def validate_request(req: Request, cache_len: int) -> None:
 class EngineStats(dict):
     """The engine's raw counters (plain mapping access, e.g.
     ``stats["decode_steps"]``) that is also *callable*: ``stats()``
-    returns a summary dict with per-request latency percentiles."""
+    returns a summary dict with per-request latency percentiles.
+
+    It holds its engine by a weak reference: the engine holds its stats,
+    and a strong reference back would make a cycle that keeps a dropped
+    engine's params and decode state on the card until the cyclic
+    collector runs."""
 
     def __init__(self, engine: "ServeEngine", **counters):
         super().__init__(**counters)
-        self._engine = engine
+        self._engine = weakref.ref(engine)
 
     def __call__(self) -> Dict[str, object]:
-        return self._engine._stats_summary()
+        engine = self._engine()
+        if engine is None:
+            raise ReferenceError("the engine of these stats is gone")
+        return engine._stats_summary()
 
 
 def _pctl(values: List[float], q: float) -> Optional[float]:

@@ -1,8 +1,8 @@
 """The hand-written CUDA kernels (flash-attention forward K1, backward K2
 and K3, the SSD chunk scan K4 and the percentile stretch K5) against their
 plain PyTorch versions, a small train step, reduced mamba2, MoE and
-hybrid serving, the continuous scheduler's eviction resume and a reduced
-vision run, on the card.  Every test here
+hybrid serving, a dropped engine's memory, the continuous scheduler's
+eviction resume and a reduced vision run, on the card.  Every test here
 is marked ``cuda`` and skips where no card is present; on a machine with an
 H100 run
 
@@ -435,6 +435,41 @@ def test_mamba2_serves_through_k4_on_the_card(dev):
                                    rtol=5e-4)
     torch.testing.assert_close(logits["cuda"][0], logits["torch"][0],
                                atol=5e-4, rtol=5e-4)
+
+
+def test_a_dropped_engine_frees_the_card_without_the_collector(dev):
+    """After ``del engine`` the card's allocated memory returns to its
+    value before the engine was built, with the cyclic collector off: the
+    engine's stats hold it by a weak reference, so no cycle keeps its
+    params and decode state alive.  A first run outside the count sets up
+    what stays for the process (cuBLAS workspaces)."""
+    import gc
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import init_params
+    from repro_torch.serve import Request, ServeEngine
+    cfg = get_reduced("granite-3-2b")
+
+    def engine_run():
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                             device=dev)
+        engine = ServeEngine(cfg, params, slots=4, cache_len=128, device=dev)
+        engine.submit(Request(rid=0, prompt=np.arange(9), max_tokens=4))
+        assert len(engine.run()[0].generated) == 4
+        return engine
+
+    engine_run()                      # the warm-up, dropped at once
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    gc.disable()
+    try:
+        engine = engine_run()
+        assert torch.cuda.memory_allocated() > before
+        del engine
+        torch.cuda.synchronize()
+        assert torch.cuda.memory_allocated() == before
+    finally:
+        gc.enable()
 
 
 @pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b",

@@ -241,3 +241,32 @@ def test_serve_main_serves_mamba2_on_cpu():
     assert out["arch"] == "mamba2-2.7b-reduced"
     assert out["requests"] == 3 and out["tokens"] == 9
     assert out["ssd_scan_launches"] == 0 and out["prefill_calls"] >= 1
+
+
+@pytest.mark.parametrize("scheduler", [False, True])
+def test_a_dropped_engine_is_freed_without_the_collector(shared, scheduler):
+    """An engine and its stats make no reference cycle: with the cyclic
+    collector off, the last ``del`` frees the engine (its params and
+    decode state) at once, and the stats of a live engine still
+    summarise."""
+    import gc
+    import weakref
+    from repro_torch.serve import ServeScheduler
+    _, _, params = shared
+    gc.collect()
+    gc.disable()
+    try:
+        eng = (ServeScheduler(CFG, params, slots=2, cache_len=32,
+                              device="cpu") if scheduler
+               else _engine(params))
+        eng.submit(Request(rid=0, prompt=np.arange(5), max_tokens=3))
+        done = eng.run()
+        stats = eng.stats
+        assert stats()["completed"] == 1
+        ref = weakref.ref(eng)
+        del eng, done
+        assert ref() is None
+        with pytest.raises(ReferenceError):
+            stats()
+    finally:
+        gc.enable()

@@ -290,8 +290,14 @@ def test_bf16_policy_trains():
     assert losses[-1] < losses[0]
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(tmp_path):
+    """Data-parallel gangs are not ported and raise; the S3 export, once
+    unported too, now copies the checkpoint directory into the store."""
     with pytest.raises(NotImplementedError):
         train_main("stablelm-1.6b", steps=1, world_size=2, device="cpu")
-    with pytest.raises(NotImplementedError):
-        train_main("stablelm-1.6b", steps=1, s3_root="/x", device="cpu")
+    res = train_main("stablelm-1.6b", steps=1, batch=2, seq=16, log_every=0,
+                     checkpoint_dir=str(tmp_path / "ck"),
+                     checkpoint_async=False, s3_root=str(tmp_path / "s3"),
+                     device="cpu")
+    files = sorted(p for p in (tmp_path / "ck").rglob("*") if p.is_file())
+    assert res["s3_objects"] == len(files) > 0

@@ -144,14 +144,40 @@ Phases, each of which fails the run if it fails:
     on the tensor cores;
 18. ``run simulate --campaign all``: 234 jobs, 234 manifests, 4040.0
     wall-hours; ``autobatch`` for stablelm-1.6b at seq 2048 against the
-    card's own ``MemoryBudget`` (not gated).
+    card's own ``MemoryBudget`` (not gated);
+19. the campaign executor at full width: ``python -m repro_torch.launch
+    campaign run`` as a subprocess (``--workers 2`` over a one-node
+    inventory, ``NODE``: the card) runs phase 14's ``run train`` of
+    stablelm-1.6b and phase 15's ``run serve`` of granite-3-2b and
+    mamba2-2.7b, each job a ``run <kind>`` subprocess on the card: every
+    job succeeds at its first attempt with ``device`` cuda, granite's K1
+    and mamba2's K4 launches equal phase 15's, ``campaign status --json``
+    exits 0 and replays consistent, and the log never holds two GPU jobs
+    on the node at once; the makespan, each job's wall time and queue
+    wait, the GPU-busy share and the train job's step time beside phase
+    14's;
+20. ``Orchestrator.run_cluster`` in this process: two reduced stablelm
+    jobs (bf16) under ``ChaosSpec(after_checkpoints=1)`` (SIGKILL) on the
+    one-node inventory: each succeeds at its second attempt, the first
+    ``preempted``; the retry resumes from the last step the killed attempt
+    published; its losses equal an uninterrupted ``train_main`` run's
+    within ``CAMPAIGN_LOSS_RTOL`` (the children run outside deterministic
+    mode); the log replays consistent; whether the final checkpoints are
+    bitwise equal (not gated);
+21. ``campaign run`` (four reduced stablelm jobs, ``--workers 1``, the
+    one-node inventory) as a subprocess, SIGKILLed once its log holds a
+    success and a running attempt, then restarted with
+    ``--resume-campaign``: every job succeeds, no job that had succeeded
+    starts again, each attempt alive at the kill is adopted or re-queued
+    once, and the log replays consistent.
 
 The line before the last lists each ported kernel with its launches on
 its main path (K1-K3 training, and K1 on each serving path, qwen3-moe's
 and the hybrid's included; K4 mamba2 serving, with the hybrid's and
 mamba2 training's beside it; K5 the two vision studies; K1-K3's launches
-in phases 14, 16 and 17 as ``launches_run_api``, and the subprocesses'
-K1 and K4 launches of phase 15 as ``launches_run_api_cli``), K1-K4's route
+in phases 14, 16 and 17 as ``launches_run_api``, the subprocesses'
+K1 and K4 launches of phase 15 as ``launches_run_api_cli`` and of phase
+19's campaign children as ``launches_campaign``), K1-K4's route
 (``core_route``) and its numbers at the training shape (K2, K3),
 granite's prefill shape (K1, with glm4's, codeqwen's and qwen3's beside
 it), mamba2's prefill shape (K4) or the 4-band Sentinel-2 tile (K5); the
@@ -1873,6 +1899,16 @@ def vision_cli(torch, m, counts):
 RUN_TRAIN_ARGV = ["run", "train", "--arch", "stablelm-1.6b", "--full",
                   "--batch", "8", "--seq", "2048", "--precision", "bf16",
                   "--steps", "4", "--log_every", "0"]
+# the machine as a campaign inventory: one node, one card
+NODE = {"name": "h100", "gpus": 1, "gpu_memory_gb": 80, "cpus": 8,
+        "memory_gb": 96, "count": 1}
+# phase 20: a retry's bf16 losses against an uninterrupted run's; the
+# children run outside deterministic mode, so cuBLAS may sum differently
+CAMPAIGN_LOSS_RTOL = 2e-2
+# the reduced stablelm of phases 20 and 21 (bf16: K1-K3 on the tensor
+# cores), with cadence checkpoints for the resumes
+CAMPAIGN_REDUCED = {"steps": 6, "log_every": 0, "precision": "bf16",
+                    "checkpoint_every": 2}
 
 
 def _report_of(text: str) -> dict:
@@ -2115,6 +2151,318 @@ def run_api_simulate(torch, m, peak_gb: float):
          measured_peak_gb_at_batch8=peak_gb)
 
 
+def _write_campaign(tmp: str, jobs: list) -> tuple:
+    """A jobs file of RunSpec dicts and a one-node ``nodes.json``."""
+    jobs_file = os.path.join(tmp, "jobs.json")
+    nodes_file = os.path.join(tmp, "nodes.json")
+    with open(jobs_file, "w") as fh:
+        json.dump(jobs, fh)
+    with open(nodes_file, "w") as fh:
+        json.dump({"nodes": [NODE]}, fh)
+    return jobs_file, nodes_file
+
+
+def _read_events(workdir: str) -> list:
+    path = Path(workdir) / "repro-data" / "campaign" / "events.jsonl"
+    out = []
+    if path.exists():
+        for line in path.read_text(errors="replace").splitlines():
+            try:
+                out.append(json.loads(line))
+            except ValueError:
+                pass                  # a torn line mid-append
+    return out
+
+
+def _max_gpu_jobs(events: list) -> int:
+    """The most GPU jobs the log ever holds on one node at once."""
+    live, most = {}, 0
+    for e in events:
+        key = (e.get("job"), e.get("attempt"))
+        if e["event"] in ("admitted", "adopted"):
+            if e["resources"]["gpus"] > 0:
+                live[key] = e["node"]
+        elif e["event"] in ("exited", "orphan_requeued"):
+            live.pop(key, None)
+        for node in set(live.values()):
+            most = max(most, sum(n == node for n in live.values()))
+    return most
+
+
+def _summary_of(stdout: str) -> dict:
+    return json.loads(stdout[stdout.index("{"):])
+
+
+def campaign_cluster_full_width(torch, m, api_train, api_cli) -> dict:
+    """Phase 19: ``campaign run`` as a subprocess runs full-width
+    stablelm-1.6b training and granite-3-2b and mamba2-2.7b serving, each
+    job a ``run <kind>`` subprocess on the card.  Returns the children's
+    K1 (granite) and K4 (mamba2) launches."""
+    jobs = [
+        {"kind": "train", "arch": "stablelm-1.6b", "seed": 0,
+         "name": "train-stablelm",
+         "overrides": {"full": True, "batch": 8, "seq": 2048,
+                       "precision": "bf16", "steps": 4, "log_every": 0}},
+        {"kind": "serve", "arch": "granite-3-2b", "seed": 0,
+         "name": "serve-granite", "overrides": {"requests": 8}},
+        {"kind": "serve", "arch": "mamba2-2.7b", "seed": 0,
+         "name": "serve-mamba2", "overrides": {"requests": 8}}]
+    stat = {"serve-granite": ("flash_attention_launches", "granite-3-2b"),
+            "serve-mamba2": ("ssd_scan_launches", "mamba2-2.7b")}
+    torch.cuda.empty_cache()
+    parent_reserved_gb = torch.cuda.memory_reserved() / 1e9
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        jobs_file, nodes_file = _write_campaign(tmp, jobs)
+        workdir = os.path.join(tmp, "campaign")
+        proc = _cli(["campaign", "run", "--jobs", jobs_file, "--workdir",
+                     workdir, "--workers", "2", "--nodes-file", nodes_file],
+                    timeout=900)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"campaign run: exit {proc.returncode}: "
+                                 f"{proc.stderr[-3000:]}"
+                                 f"{proc.stdout[-3000:]}")
+        summary = _summary_of(proc.stdout)
+        events = _read_events(workdir)
+        results = {j["name"]: json.loads(
+            (Path(workdir) / "repro-data" / "results"
+             / f"{j['name']}.json").read_text()) for j in jobs}
+        status = _cli(["campaign", "status", workdir, "--json"], timeout=120)
+    launches, out = {}, {}
+    for name, res in results.items():
+        report = res["result"] or {}
+        met = report.get("metrics", {})
+        if (res["state"] != "Succeeded" or res["attempts"] != 1
+                or report.get("status") != "succeeded"
+                or met.get("device") != "cuda"):
+            raise AssertionError(f"campaign job {name}: {res['state']}, "
+                                 f"{res['attempts']} attempts, device "
+                                 f"{met.get('device')}, error "
+                                 f"{res['error']}")
+        if name in stat:
+            key, arch = stat[name]
+            launches[name] = met[key]
+            if met[key] != api_cli[arch]:
+                raise AssertionError(f"campaign job {name}: {key} "
+                                     f"{met[key]} != phase 15's "
+                                     f"{api_cli[arch]}")
+    train = results["train-stablelm"]["result"]["metrics"]
+    if len(train["losses"]) != 4 or not np.all(np.isfinite(train["losses"])):
+        raise AssertionError(f"campaign train job: losses {train['losses']}")
+    if status.returncode != 0:
+        raise AssertionError(f"campaign status: exit {status.returncode}: "
+                             f"{status.stderr[-2000:]}")
+    state = json.loads(status.stdout)
+    if not state["consistent"] or state["violations"]:
+        raise AssertionError(f"campaign status: {state['violations']}")
+    most = _max_gpu_jobs(events)
+    if most != 1:
+        raise AssertionError(f"campaign log holds {most} GPU jobs on the "
+                             f"node at once")
+    job_walls = {e["job"]: e["wall_s"] for e in events
+                 if e["event"] == "exited"}
+    waits = {e["job"]: e["queue_wait_s"] for e in events
+             if e["event"] == "admitted"}
+    util = summary["utilization"]["cluster"]
+    emit(phase="campaign_cluster_full_width", exit_code=proc.returncode,
+         states=summary["states"], makespan_s=summary["makespan_s"],
+         job_wall_s=job_walls, queue_wait_s=waits,
+         scheduler_overhead_s=summary["makespan_s"] - sum(job_walls.values()),
+         busy_gpu_util=util["busy_gpu_util"],
+         goodput_gpu_util=util["goodput_gpu_util"],
+         max_gpu_jobs_on_node=most, consistent=state["consistent"],
+         train_step_s=train["pure_step_s"] / train["steps_run"],
+         phase14_step_s=api_train["loop_step_s"],
+         train_report_wall_s=results["train-stablelm"]["result"]["wall_s"],
+         launches=launches, parent_reserved_gb=parent_reserved_gb,
+         phase_wall_s=time.perf_counter() - t0, process_wall_s=wall)
+    return {"flash_attention_fwd": launches["serve-granite"],
+            "ssd_scan": launches["serve-mamba2"]}
+
+
+class _LastStepAtExit:
+    """Popen-shaped wrapper that notes the newest published checkpoint
+    step when the executor first sees its process dead: a SIGKILLed
+    attempt publishes nothing after that."""
+
+    def __init__(self, proc, ckpt_dir, latest_step, seen):
+        self.proc, self.pid = proc, proc.pid
+        self.ckpt_dir, self.latest_step, self.seen = (ckpt_dir, latest_step,
+                                                      seen)
+
+    def poll(self):
+        rc = self.proc.poll()
+        if rc is not None and self.pid not in self.seen:
+            self.seen[self.pid] = self.latest_step(self.ckpt_dir)
+        return rc
+
+    def send_signal(self, sig):
+        self.proc.send_signal(sig)
+
+
+def campaign_chaos_resume(torch, m) -> dict:
+    """Phase 20: ``Orchestrator.run_cluster`` here, two reduced stablelm
+    jobs (bf16) each SIGKILLed once it has published a checkpoint, on the
+    one-node inventory."""
+    ex = m["executor"]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = [m["RunSpec"](kind="train", arch="stablelm-1.6b", seed=s,
+                             name=f"chaos{s}", overrides={
+                                 **CAMPAIGN_REDUCED, "checkpoint_dir":
+                                 os.path.join(tmp, f"ck{s}")})
+                for s in (0, 1)]
+        pvc = m["PersistentVolume"](os.path.join(tmp, "campaign"))
+        orch = m["Orchestrator"](pvc)
+        orch.submit_runs(runs)
+        last_step = {}             # pid -> newest published step at exit
+
+        def spawn(job, attempt, argv, env, stdout, stderr):
+            return _LastStepAtExit(
+                ex._default_spawn(job, attempt, argv, env, stdout, stderr),
+                job.env.get("CHECKPOINT_DIR"), ex._latest_checkpoint_step,
+                last_step)
+
+        # each step stalls 0.25 s on the host clock (the math is
+        # untouched): a reduced step takes milliseconds on the card, and
+        # the kill must land while the attempt is still training
+        recs = orch.run_cluster(
+            workers=2, spawn=spawn, attempt_timeout_s=600,
+            worker_env={"REPRO_STEP_DELAY_S": "0.25"},
+            chaos=ex.ChaosSpec(kill_jobs=("chaos0", "chaos1"),
+                               after_checkpoints=1),
+            inventory=m["node_specs_from_json"]({"nodes": [NODE]}))
+        events = [json.loads(ln) for ln in pvc.read_bytes(
+            ex.EVENTS_REL).decode().splitlines()]
+        state = ex.replay_events(events)
+        jobs = {}
+        for s, run in enumerate(runs):
+            name = run.run_name
+            rec = recs[name]
+            res = json.loads(pvc.read_bytes(f"results/{name}.json"))
+            hist = res["attempt_history"]
+            started = [e for e in events
+                       if e["event"] == "started" and e["job"] == name]
+            killed = last_step.get(started[0]["pid"])
+            met = rec.result["metrics"]
+            resumed = met["resumed_from_step"]
+            if (rec.state.value != "Succeeded" or rec.attempts != 2
+                    or [h["outcome"] for h in hist]
+                    != ["preempted", "succeeded"]
+                    or met["device"] != "cuda" or not killed
+                    or resumed != killed):
+                raise AssertionError(
+                    f"campaign chaos {name}: {rec.state}, {rec.attempts} "
+                    f"attempts, history {hist}, resumed from {resumed}, "
+                    f"last published {killed}")
+            ref_dir = os.path.join(tmp, f"ref{s}")
+            base = m["train_main"](
+                "stablelm-1.6b", seed=s, device="cuda",
+                checkpoint_dir=ref_dir, checkpoint_async=False,
+                **{k: v for k, v in CAMPAIGN_REDUCED.items()})
+            want = base["losses"][resumed:]
+            got = met["losses"]
+            rel = max((abs(g - w) / abs(w) for g, w in zip(got, want)),
+                      default=0.0)
+            if (not got or len(got) != len(want)
+                    or rel > CAMPAIGN_LOSS_RTOL):
+                raise AssertionError(f"campaign chaos {name}: losses {got} "
+                                     f"vs {want} (rel {rel})")
+            load, ls = m["load_checkpoint"], m["list_checkpoints"]
+            a, a_step = load(ls(os.path.join(tmp, f"ck{s}"))[-1][1])
+            b, b_step = load(ls(ref_dir)[-1][1])
+            jobs[name] = dict(
+                attempts=rec.attempts, killed_after_step=killed,
+                resumed_from_step=resumed, losses=got,
+                losses_max_rel_err=rel, losses_equal=got == want,
+                final_checkpoint_bitwise=(
+                    set(a) == set(b) and a_step == b_step
+                    and all(np.array_equal(a[k], b[k]) for k in b)),
+                attempt_wall_s=[h["wall_s"] for h in hist])
+    if not state["ended"] or not state["consistent"]:
+        raise AssertionError(f"campaign chaos log: {state['violations']}")
+    emit(phase="campaign_chaos_resume", jobs=jobs,
+         loss_rtol=CAMPAIGN_LOSS_RTOL, consistent=state["consistent"],
+         makespan_s=orch.last_campaign_summary["makespan_s"],
+         wall_goodput=orch.last_campaign_summary["wall_goodput"],
+         phase_wall_s=time.perf_counter() - t0)
+
+
+def campaign_scheduler_sigkill_resume(m) -> None:
+    """Phase 21: ``campaign run`` SIGKILLed mid-campaign and restarted
+    with ``--resume-campaign``; nothing that had finished runs again."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        jobs = [{"kind": "train", "arch": "stablelm-1.6b", "seed": s,
+                 "name": f"run{s}", "overrides": {
+                     **CAMPAIGN_REDUCED,
+                     "checkpoint_dir": os.path.join(tmp, f"ck{s}")}}
+                for s in range(4)]
+        jobs_file, nodes_file = _write_campaign(tmp, jobs)
+        workdir = os.path.join(tmp, "campaign")
+        argv = [sys.executable, "-m", "repro_torch.launch", "campaign",
+                "run", "--jobs", jobs_file, "--workdir", workdir,
+                "--workers", "1", "--nodes-file", nodes_file]
+        env = dict(os.environ, PYTHONPATH=str(SRC))
+        with open(os.path.join(tmp, "sched.err"), "wb") as err:
+            proc = subprocess.Popen(argv, env=env, cwd=tmp,
+                                    stdout=subprocess.DEVNULL, stderr=err)
+            try:
+                deadline = time.time() + 300
+                while True:
+                    state = m["replay_events"](_read_events(workdir))
+                    done = {n for n, st in state["jobs"].items()
+                            if st["state"] == "Succeeded"}
+                    live = sorted((n, int(a)) for n, st
+                                  in state["jobs"].items()
+                                  for a in st["live"])
+                    if done and live:
+                        break
+                    if proc.poll() is not None or time.time() > deadline:
+                        raise AssertionError(
+                            f"campaign run ended or stalled before the "
+                            f"kill: exit {proc.poll()}")
+                    time.sleep(0.2)
+                proc.kill()                # SIGKILL the scheduler
+                proc.wait()
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        t_kill = time.perf_counter() - t0
+        res = subprocess.run(argv + ["--resume-campaign"], env=env, cwd=tmp,
+                             capture_output=True, text=True, timeout=900)
+        events = _read_events(workdir)
+    if res.returncode != 0:
+        raise AssertionError(f"campaign run --resume-campaign: exit "
+                             f"{res.returncode}: {res.stderr[-3000:]}")
+    summary = _summary_of(res.stdout)
+    resume_at = max(i for i, e in enumerate(events)
+                    if e["event"] == "campaign_resume")
+    rerun = sorted({e["job"] for e in events[resume_at:]
+                    if e["event"] == "started" and e["job"] in done})
+    recovered = sorted((e["job"], e["attempt"], e["event"]) for e in events
+                       if e["event"] in ("adopted", "orphan_requeued"))
+    state = m["replay_events"](events)
+    if (summary["states"] != {"Succeeded": 4} or rerun
+            or [r[:2] for r in recovered] != live
+            or not state["ended"] or not state["consistent"]
+            or state["resumes"] != 1):
+        raise AssertionError(
+            f"campaign resume: states {summary['states']}, re-run {rerun}, "
+            f"live at the kill {live}, recovered {recovered}, consistent "
+            f"{state['consistent']} {state['violations']}")
+    emit(phase="campaign_scheduler_sigkill_resume",
+         done_before_kill=sorted(done), live_at_kill=live,
+         recovered=recovered, states=summary["states"],
+         resumed_done=summary["resumed_done"],
+         orphans_adopted=summary["orphans_adopted"],
+         orphans_requeued=summary["orphans_requeued"],
+         consistent=state["consistent"], kill_at_s=t_kill,
+         phase_wall_s=time.perf_counter() - t0)
+
+
 def _map(tree, fn):
     if isinstance(tree, dict):
         return {k: _map(v, fn) for k, v in tree.items()}
@@ -2139,8 +2487,11 @@ def main() -> int:
     import torch.nn.functional as F
 
     from repro_torch.checkpoint import list_checkpoints, load_checkpoint
+    from repro_torch.api import RunSpec
     from repro_torch.core import (ExperimentGrid, Orchestrator,
-                                  PersistentVolume, S3Store)
+                                  PersistentVolume, S3Store,
+                                  node_specs_from_json, replay_events)
+    from repro_torch.core import executor
     from repro_torch.core.autobatch import MemoryBudget, autobatch
     from repro_torch.configs import get_config, get_reduced
     from repro_torch.kernels.common import build_libraries
@@ -2201,7 +2552,10 @@ def main() -> int:
              prefetch=prefetch, moe=moe, ssd_scan=ssd_scan,
              launch_main=launch_main, ExperimentGrid=ExperimentGrid,
              Orchestrator=Orchestrator, PersistentVolume=PersistentVolume,
-             S3Store=S3Store, MemoryBudget=MemoryBudget, autobatch=autobatch)
+             S3Store=S3Store, MemoryBudget=MemoryBudget, autobatch=autobatch,
+             RunSpec=RunSpec, executor=executor,
+             node_specs_from_json=node_specs_from_json,
+             replay_events=replay_events)
 
     # f32 products in the plain versions stay full f32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2275,6 +2629,11 @@ def main() -> int:
     launches_run_api = {name: api_train["launches"][name] + api_resume[name]
                         + api_campaign[name] for name in counts.FLASH}
 
+    # the campaign executor: jobs as `run <kind>` subprocesses on the card
+    campaign = campaign_cluster_full_width(torch, m, api_train, api_cli)
+    campaign_chaos_resume(torch, m)
+    campaign_scheduler_sigkill_resume(m)
+
     # the vision paths: both studies normalize every scene through K5
     k5 = k5_vs_plain(torch, pn, pn_ref)
     pn_launches = burned_area(torch, m, counts)
@@ -2303,6 +2662,7 @@ def main() -> int:
               launches_serve_moe=moe_launches["flash_attention_fwd"],
               launches_serve_hybrid=hybrid_launches["flash_attention_fwd"],
               launches_run_api_cli=api_cli["granite-3-2b"],
+              launches_campaign=campaign["flash_attention_fwd"],
               shapes={name: {k: k1_recs[(name, "bfloat16")][k] for k in (
                   "kernel_ms", "bound_ms", "bound_by", "plain_ms",
                   "library_ms", "max_abs_err_o")}
@@ -2326,6 +2686,7 @@ def main() -> int:
                  "launches_serve_hybrid": hybrid_launches["ssd_scan"],
                  "launches_train": ssd_train_launches,
                  "launches_run_api_cli": api_cli["mamba2-2.7b"],
+                 "launches_campaign": campaign["ssd_scan"],
                  "max_abs_err": max(k4["max_abs_err_y"], k4["max_abs_err_h"]),
                  "ms": k4["kernel_ms"], "plain_ms": k4["plain_ms"],
                  "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"],

@@ -1,8 +1,7 @@
 # The paper's primary contribution: cluster-scale experiment orchestration
 # (grid expansion, templated job manifests, heterogeneous-resource
 # scheduling, staged artifacts, dynamic batch sizing) — the port's copy of
-# ``repro.core``.  The campaign executor (``run_cluster``) is not ported
-# yet, so its exports are absent.
+# ``repro.core``, the campaign executor (``run_cluster``) included.
 from repro_torch.core.jobs import JobSpec, JobState, Resources
 from repro_torch.core.placement import (PlacementPolicy, PLACEMENT_POLICIES,
                                         get_placement_policy)
@@ -13,6 +12,9 @@ from repro_torch.core.scheduler import (ClusterSim, LearnedRequests,
                                         node_spec_from_dict,
                                         node_specs_from_json)
 from repro_torch.core.orchestrator import Orchestrator
+from repro_torch.core.executor import (CampaignExecutor, ChaosSpec,
+                                       ResourcePool, SpeculationSpec,
+                                       replay_events)
 from repro_torch.core.artifacts import PersistentVolume, S3Store
 from repro_torch.core.autobatch import autobatch
 
@@ -23,5 +25,7 @@ __all__ = [
     "render_template", "render_job_manifest",
     "ClusterSim", "LearnedRequests", "NodeSpec", "NAUTILUS_INVENTORY",
     "node_spec_from_dict", "node_specs_from_json",
-    "Orchestrator", "PersistentVolume", "S3Store", "autobatch",
+    "Orchestrator", "CampaignExecutor", "ChaosSpec", "ResourcePool",
+    "SpeculationSpec", "replay_events",
+    "PersistentVolume", "S3Store", "autobatch",
 ]

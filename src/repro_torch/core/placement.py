@@ -4,12 +4,12 @@
 The paper packs 234 heterogeneous models onto Nautilus's mixed fleet
 (GTX-1080 11 GB through A100 80 GB); *where* each job lands decides how
 much of that fleet is usable for the next one.  Both placement surfaces
-— the campaign executor's resource pool (real campaigns; not ported
-yet) and :class:`repro_torch.core.scheduler.ClusterSim` (planning) —
-consult one of these policies, selected by the same name end-to-end
-(``simulate`` knobs, and ``campaign run --placement`` once the executor
-is ported), so a policy evaluated in the sim is the policy the campaign
-runs.
+— :class:`repro_torch.core.executor.ResourcePool` (real campaigns) and
+:class:`repro_torch.core.scheduler.ClusterSim` (planning) — consult one of
+these policies, selected by the same name end-to-end
+(``run_cluster(placement=...)`` / ``campaign run --placement`` /
+``simulate`` knobs), so a policy evaluated in the sim is the policy the
+campaign runs.
 
 A policy ranks *candidate* nodes (already filtered to fit the request);
 it never sees unfittable nodes and cannot oversubscribe — capacity
@@ -18,8 +18,8 @@ never-oversubscribe invariant.
 
 Candidates are duck-typed: anything with ``spec`` (a
 :class:`repro_torch.core.scheduler.NodeSpec`), ``gpus_free``, ``cpus_free``
-and ``mem_free`` — which is exactly the sim's ``_Node`` (and the
-reference executor's ``_FreeNode``).
+and ``mem_free`` — which is exactly the executor's ``_FreeNode`` and
+the sim's ``_Node``.
 """
 from __future__ import annotations
 

@@ -305,16 +305,19 @@ def _cli(*args, timeout=120):
                           timeout=timeout)
 
 
-def test_cli_kinds_bogus_and_campaign_exit_codes():
+def test_cli_kinds_bogus_and_campaign_exit_codes(tmp_path):
     kinds = _cli("kinds")
     assert kinds.returncode == 0 and kinds.stdout.split() == FIVE
     bogus = _cli("run", "bogus")
     assert bogus.returncode == 2 and "bogus" in bogus.stderr
     assert bogus.stdout == ""
-    for args in (("campaign", "run", "--jobs", "x.json"),
-                 ("campaign", "status")):
-        proc = _cli(*args)
-        assert proc.returncode == 2 and "not ported" in proc.stderr
+    # malformed flags and a missing event log exit 2, as the reference's
+    proc = _cli("campaign", "run", "--jobs", "x.json")
+    assert proc.returncode == 2 and "--workdir" in proc.stderr
+    proc = _cli("campaign", "status", str(tmp_path / "nowhere"))
+    assert proc.returncode == 2 and "no campaign event log" in proc.stderr
+    proc = _cli("campaign", "frobnicate")
+    assert proc.returncode == 2 and "usage" in proc.stderr
 
 
 def test_cli_run_train_on_the_cpu():

@@ -324,11 +324,16 @@ def test_run_local_matches_the_reference(toy_kinds, tmp_path):
             results=results, summary=orch.summary(),
             lanes=sorted(json.loads(files[
                 "repro-data/results/_local_run_summary.json"])))
-        if pkg is T:           # the campaign executor is not ported yet
-            with pytest.raises(NotImplementedError):
-                orch.run_cluster()
+        # nothing is pending after run_local: run_cluster re-runs nothing
+        orch.run_cluster(telemetry=False)
+        views[pkg]["cluster"] = (
+            {n: (r.state.value, r.attempts) for n, r in recs.items()},
+            orch.last_campaign_summary["states"],
+            orch.last_campaign_summary["attempts_total"])
     j, t = views[J], views[T]
     assert t["states"] == j["states"]
+    assert t["cluster"] == j["cluster"]
+    assert t["cluster"][2] == 0
     assert t["states"]["f1"] == ("Succeeded", 3, None)
     assert t["states"]["doomed"][:2] == ("Failed", 2)
     assert t["files"] == j["files"]

@@ -4,8 +4,8 @@ and each imports nothing but torch, numpy, the standard library and
 ``repro_torch`` (the machine with the card has no ``ml_dtypes``).  A
 module imported by name from a string (the registry's lazy runners) is
 caught by a scan of the string constants, and ``python -m
-repro_torch.launch run simulate`` is run to list what it really
-imports."""
+repro_torch.launch run simulate`` and ``... campaign status`` are run to
+list what they really import."""
 import ast
 import os
 import re
@@ -102,6 +102,44 @@ def test_run_simulate_imports_no_jax_no_repro_and_no_torch(tmp_path):
     mods = {line.rsplit("|", 1)[1].strip() for line in
             proc.stderr.splitlines() if line.startswith("import time:")}
     assert "repro_torch.api.runners.simulate" in mods
+    top = {m.split(".")[0] for m in mods}
+    assert not top & {"jax", "jaxlib", "repro", "torch"}, sorted(
+        m for m in mods if m.split(".")[0] in ("jax", "repro", "torch"))
+
+
+def test_campaign_status_imports_no_jax_no_repro_and_no_torch(tmp_path):
+    """The scheduler side of a campaign stays free of torch: on one card
+    it must hold none of the memory its children need.  ``campaign
+    status`` replays a log that the port's executor wrote."""
+    import json
+
+    from repro_torch.core import Orchestrator, PersistentVolume
+    from repro_torch.core.jobs import JobSpec
+
+    class Done:
+        pid = None
+
+        def __init__(self, out):
+            out.write(json.dumps({"status": "succeeded"}).encode())
+            out.flush()
+
+        def poll(self):
+            return 0
+
+    orch = Orchestrator(PersistentVolume(tmp_path))
+    orch.submit(JobSpec(name="a", env={"RUN_KIND": "train"}))
+    orch.run_cluster(workers=1, poll_s=0.0, telemetry=False,
+                     spawn=lambda job, att, argv, env, out, err: Done(out))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run(
+        [sys.executable, "-X", "importtime", "-m", "repro_torch.launch",
+         "campaign", "status", str(tmp_path)],
+        env=env, cwd=tmp_path, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "Succeeded" in proc.stdout
+    mods = {line.rsplit("|", 1)[1].strip() for line in
+            proc.stderr.splitlines() if line.startswith("import time:")}
+    assert "repro_torch.core.executor" in mods
     top = {m.split(".")[0] for m in mods}
     assert not top & {"jax", "jaxlib", "repro", "torch"}, sorted(
         m for m in mods if m.split(".")[0] in ("jax", "repro", "torch"))

@@ -12,16 +12,20 @@ Phases, each of which fails the run if it fails:
 2. hold K1 against its plain PyTorch version on the card, in bf16 and f32,
    at the prefill shapes of granite-3-2b, glm4-9b (GQA 16 at hd 128),
    codeqwen1.5-7b (MHA at hd 128) and qwen3-moe-30b-a3b (GQA 8 at hd 128,
-   a window of 8192 that binds nowhere at 2048) and at ragged, windowed
-   and MHA hd=128 shapes (one JSON line per shape: K1's route, tensor
+   a window of 8192 that binds nowhere at 2048), at hubert-xlarge's
+   training shape (non-causal, 16 heads of 80: the CUDA-core route in
+   bf16), at a non-causal hd-64 shape (the tensor cores' non-causal
+   branch) and at ragged, windowed and MHA hd=128 shapes (one JSON line
+   per shape: K1's route, tensor
    cores for bf16 at hd 64 and 128, CUDA cores otherwise, checked by its
    route counter;
    errors, kernel / plain / library ms, the wrapper's host ms per call,
    TFLOP/s, the least time the card could take and the kernel's share of
    it);
 3. hold K2 and K3 against the plain backward, in bf16 and f32, at
-   stablelm-1.6b's training shape, granite-3-2b's GQA shape and ragged,
-   windowed and MHA hd=128 shapes, the same way (their route, by the same
+   stablelm-1.6b's training shape, granite-3-2b's GQA shape, hubert's and
+   the non-causal hd-64 shape and ragged, windowed and MHA hd=128 shapes,
+   the same way (their route, by the same
    table as K1's, checked by their route counters; each kernel's share of
    its bound and the wrapper's host ms per call); then the whole
    differentiable op (K1 -> K2 + K3) against autograd of plain attention;
@@ -124,7 +128,7 @@ Phases, each of which fails the run if it fails:
     is scored on two;
 13. the reduced vision CLI (``repro_torch.launch.vision.main``) on the
     card.
-14. (run between phases 9d and 10) the run API's front door in this
+14. (run between phases 23 and 10) the run API's front door in this
     process:
     ``repro_torch.launch.__main__.main(["run", "train", "--full", ...])``
     trains full-width stablelm-1.6b (bf16, 8 x 2048, 4 steps): a
@@ -169,7 +173,26 @@ Phases, each of which fails the run if it fails:
     success and a running attempt, then restarted with
     ``--resume-campaign``: every job succeeds, no job that had succeeded
     starts again, each attempt alive at the kill is adopted or re-queued
-    once, and the log replays consistent.
+    once, and the log replays consistent;
+22. (run after phase 9d) train full-width hubert-xlarge (48 layers,
+    non-causal, 16 heads of 80, bf16; 945 256 960 parameters) through
+    ``TrainLoop`` on its seeded frame batches at 8 x 2048, a warm-up and
+    3 measured steps: K1 2 x 48, K2 and K3 48 launches a step, every one
+    on the CUDA-core route (``kernel.route`` at hd 80); step time, MFU
+    over the (q, k) pairs the non-causal mask admits, peak memory, one
+    step under ``torch.profiler``; the gradient gate of 4c on the
+    trained weights' first 8 layers; then ``run train --arch
+    hubert-xlarge --full`` (2 steps) in this process: ``succeeded`` on
+    cuda, K1-K3 as ``train_launches`` predicts, all on the CUDA cores;
+23. llava-next-mistral-7b at full width (32 layers, 32 q / 8 kv heads of
+    128, bf16; 7 241 732 096 parameters): (a) one prefill of
+    ``make_batch(cfg, 8, 2048)``, 512 patch embeddings ahead of 1536
+    tokens: K1 32 launches on the tensor cores, finite logits and KV
+    caches, its ms and profile, then the prefill gate judged on the decode
+    state on the first 8 layers (rows of 512 patches and 1-1536 tokens);
+    (b) with nothing else resident, training at full width and depth
+    (1 x 2048, bf16 weights, gradients and AdamW moments, remat), a
+    warm-up and 2 measured steps, every K1-K3 launch on the tensor cores.
 
 The line before the last lists each ported kernel with its launches on
 its main path (K1-K3 training, and K1 on each serving path, qwen3-moe's
@@ -177,10 +200,12 @@ and the hybrid's included; K4 mamba2 serving, with the hybrid's and
 mamba2 training's beside it; K5 the two vision studies; K1-K3's launches
 in phases 14, 16 and 17 as ``launches_run_api``, the subprocesses'
 K1 and K4 launches of phase 15 as ``launches_run_api_cli`` and of phase
-19's campaign children as ``launches_campaign``), K1-K4's route
+19's campaign children as ``launches_campaign``, K1-K3's in phases 22
+and 23 as ``launches_train_hubert``, ``launches_run_api_hubert``,
+``launches_prefill_llava`` and ``launches_train_llava``), K1-K4's route
 (``core_route``) and its numbers at the training shape (K2, K3),
 granite's prefill shape (K1, with glm4's, codeqwen's and qwen3's beside
-it), mamba2's prefill shape (K4) or the 4-band Sentinel-2 tile (K5); the
+it; K1-K3 with hubert's and the non-causal hd-64 shape's), mamba2's prefill shape (K4) or the 4-band Sentinel-2 tile (K5); the
 last line is ``{"ok": true,
 "device": {...}}``.  Without a CUDA card, or without the repository beside
 it, the script exits non-zero and prints no result.
@@ -232,6 +257,11 @@ SHAPES = [
     ("glm4_prefill", 8, 2048, 2048, 32, 2, 128, True, None),
     ("codeqwen_prefill", 8, 2048, 2048, 32, 32, 128, True, None),
     ("qwen3_prefill", 8, 2048, 2048, 32, 4, 128, True, 8192),
+    # hubert-xlarge's training shape: non-causal, 16 heads of 80 (the
+    # CUDA-core route in bf16); and the tensor-core route's non-causal
+    # branch at hd 64
+    ("hubert_train", 8, 2048, 2048, 16, 16, 80, False, None),
+    ("noncausal_hd64", 2, 2048, 2048, 16, 16, 64, False, None),
 ]
 # kernel vs plain in the working dtype: f32 differs only by summation
 # order; bf16 adds the output's rounding to bf16 (~4e-3 relative)
@@ -244,6 +274,8 @@ BWD_SHAPES = [
     ("ragged_s1000", 2, 1000, 1000, 32, 8, 64, True, None),
     ("window_512", 2, 2048, 2048, 32, 8, 64, True, 512),
     ("mha_hd128", 2, 1024, 1024, 16, 16, 128, True, None),
+    ("hubert_train", 8, 2048, 2048, 16, 16, 80, False, None),
+    ("noncausal_hd64", 2, 2048, 2048, 16, 16, 64, False, None),
 ]
 # K2/K3 against the plain backward: both compute in f32 from the same
 # inputs and return f32, so only the order of the f32 sums differs
@@ -577,7 +609,7 @@ def kernel_vs_plain(torch, F, fa, attention_ref):
 
 def bwd_vs_plain(torch, F, fa, ref):
     """Phase 3: K2 and K3 against the plain backward.  Returns the
-    stablelm training-shape bf16 record."""
+    records by (shape, dtype)."""
     records = {}
     gen = torch.Generator(device="cuda").manual_seed(2)
     for dtype_name in ("bfloat16", "float32"):
@@ -665,7 +697,7 @@ def bwd_vs_plain(torch, F, fa, ref):
             records[(name, dtype_name)] = rec
             del q, k, v, do, out, lse, delta
             torch.cuda.empty_cache()
-    return records[("stablelm_train", "bfloat16")]
+    return records
 
 
 def function_vs_plain(torch, flash_attention, naive_attention):
@@ -750,11 +782,26 @@ def train_launches(cfg, steps: int) -> dict:
             "ssd_scan": 2 * ns * steps, "percentile_norm": 0}
 
 
+def train_data(m, cfg, batch: int, seq: int):
+    """The training stream ``train_main`` gives the config's family: the
+    Markov token stream for the text families, the seeded patch / frame
+    batches for the vlm and audio families."""
+    if cfg.family in ("vlm", "audio"):
+        return m["SeekableSyntheticBatches"](cfg, batch, seq, 0,
+                                             device="cuda")
+    return m["LMDictBatches"](cfg.vocab, batch, seq, 0, "cuda")
+
+
 def train_full_width(torch, m, counts, arch: str = "stablelm-1.6b",
-                     steps: int = TRAIN_STEPS):
-    """Phases 4 (stablelm-1.6b) and 9d (mamba2-2.7b): the full-width arch
-    through TrainLoop.  Returns the launches on the path, the state and
-    the data stream."""
+                     steps: int = TRAIN_STEPS, batch: int = TRAIN_B,
+                     seq: int = TRAIN_S):
+    """Phases 4 (stablelm-1.6b), 9d (mamba2-2.7b), 22 (hubert-xlarge) and
+    23b (llava-next-mistral-7b): the full-width arch through TrainLoop on
+    its family's data stream (:func:`train_data`).  K1-K3 must take the
+    route ``kernel.route`` gives the config's head dim in bf16 (the
+    tensor cores at hd 64 and 128, the CUDA cores at hubert's 80), K4 the
+    tensor cores.  Returns the launches on the path, the state and the
+    data stream."""
     cfg = m["get_config"](arch)
     opt = m["get_optimizer"](cfg.optimizer)
     t0 = time.perf_counter()
@@ -772,7 +819,7 @@ def train_full_width(torch, m, counts, arch: str = "stablelm-1.6b",
         cfg, opt, lr_schedule=m["warmup_cosine"](3e-4, total,
                                                  warmup_steps=2),
         remat=True)
-    data = m["LMDictBatches"](cfg.vocab, TRAIN_B, TRAIN_S, 0, "cuda")
+    data = train_data(m, cfg, batch, seq)
 
     # one warm-up step (cuBLAS handles, allocator pools) outside the count
     warm = m["TrainLoop"](step_fn, state, data, log_every=0)
@@ -793,62 +840,71 @@ def train_full_width(torch, m, counts, arch: str = "stablelm-1.6b",
     if launches != want:
         raise AssertionError(f"launches {launches} != {want} (remat runs "
                              f"each layer's forward twice a step)")
-    want_routes = {name: {"tensor_core": n, "cuda_core": 0}
+    flash_route = m["fa_route"](torch.bfloat16, cfg.head_dim)
+    want_routes = {name: {r: n * (r == (flash_route if name in counts.FLASH
+                                        else "tensor_core"))
+                          for r in ("tensor_core", "cuda_core")}
                    for name, n in want.items() if name in counts.ROUTED}
     if routes != want_routes:
-        raise AssertionError(f"K1-K3 routes {routes}: every training launch "
-                             f"must run on the tensor cores")
+        raise AssertionError(f"K1-K4 routes {routes}, want {want_routes}: "
+                             f"K1-K3 on the {flash_route} route at hd "
+                             f"{cfg.head_dim}, K4 on the tensor cores")
     losses = loop.losses
     if len(losses) != steps or not np.all(np.isfinite(losses)):
         raise AssertionError(f"losses {losses}")
-    tokens = TRAIN_B * TRAIN_S
+    tokens = batch * seq
     # model FLOPs: 6 N T for the weights the matmuls read (all but the
-    # embedding table, which is gathered; a tied head reads it again),
-    # plus attention fwd + bwd at 12 hd per admitted causal (q, k) pair
-    # and head; the SSD scan is not counted
+    # embedding table, which is gathered, or for audio not read at all;
+    # a tied head reads it again), plus attention fwd + bwd at 12 hd per
+    # (q, k) pair the mask admits (causal or not, windowed or not) and
+    # head; the SSD scan is not counted
     n_mm = cfg.param_count() - cfg.vocab * cfg.d_model * (
         not cfg.tie_embeddings)
     attn = 12 * cfg.head_dim * cfg.n_heads * cfg.layer_kinds().count(
-        "attn") * TRAIN_B * valid_pairs(TRAIN_S, TRAIN_S, True, None)
+        "attn") * batch * valid_pairs(seq, seq, cfg.causal,
+                                      cfg.sliding_window)
     flops = 6 * n_mm * tokens + attn
     step_s = wall / steps
     emit(phase="train_full_width", arch=cfg.name, params=n_params,
-         init_s=init_s, batch=[TRAIN_B, TRAIN_S], steps=steps,
+         init_s=init_s, batch=[batch, seq], steps=steps,
          losses=losses, wall_s=wall, step_s=step_s,
          steps_per_s=1 / step_s, tokens_per_s=tokens / step_s,
          model_flops_per_step=flops,
          mfu_vs_989_tflops=flops / step_s / PEAK_FLOPS["bfloat16"],
-         mfu_formula="(6*N_mm*B*S + 12*hd*H*L_attn*B*S(S+1)/2) / step_s"
-                     " / 989e12, N_mm = N - vocab*d (untied head) or N "
-                     "(tied); SSD scan not counted",
+         mfu_formula="(6*N_mm*B*S + 12*hd*H*L_attn*B*pairs) / step_s"
+                     " / 989e12, pairs = the (q, k) pairs the mask admits "
+                     "(S(S+1)/2 causal, S^2 not), N_mm = N - vocab*d "
+                     "(untied head) or N (tied); SSD scan not counted",
          peak_mem_gb=peak_gb, launches=launches, routes=routes,
          pure_step_s=res["pure_step_s"])
 
     # phase 4b: one step under the profiler
-    batch = data.next_batch()
+    one = data.next_batch()
     torch.cuda.synchronize()
     profiled = {}
 
     def one_step():
-        profiled["state"] = step_fn(loop.state, batch)[0]
+        profiled["state"] = step_fn(loop.state, one)[0]
     device_profile(torch, one_step, arch=cfg.name, what="train_step",
                    steps=1)
     return launches, profiled["state"], data
 
 
-def train_grads_vs_f32(torch, m, params, data, arch: str = "stablelm-1.6b"):
-    """Phases 4c (stablelm-1.6b) and 9d' (mamba2-2.7b): one (4, 2048)
-    step's loss and gradients through the kernels (bf16) and through
-    their plain versions (bf16), each against the plain path in f32 on
-    the same weights.  The leaves ``unused_leaves`` marks (an SSD layer's
-    norm2 where no FFN follows) get a zero gradient; every other leaf must
-    reach the loss."""
-    cfg = m["get_config"](arch)
+def train_grads_vs_f32(torch, m, params, data, arch: str = "stablelm-1.6b",
+                       cfg=None):
+    """Phases 4c (stablelm-1.6b), 9d' (mamba2-2.7b) and 22' (a depth cut
+    of hubert-xlarge, ``cfg``): one (4, 2048) step's loss and gradients
+    through the kernels (bf16) and through their plain versions (bf16),
+    each against the plain path in f32 on the same weights.  The leaves
+    ``unused_leaves`` marks (an SSD layer's norm2 where no FFN follows,
+    the audio family's embedding table) get a zero gradient; every other
+    leaf must reach the loss."""
+    cfg = cfg or m["get_config"](arch)
     fields = [PREFILL_KERNELS[k][1] for k in prefill_launches(cfg)]
     full = data.next_batch()
     batch = {k: v[:4] for k, v in full.items()}
     tree_leaves, tree_unflatten = m["tree_leaves"], m["tree_unflatten"]
-    unused = m["unused_leaves"](params)
+    unused = m["unused_leaves"](params, cfg)
 
     def value_and_grad(p, c):
         leaves = [t.detach().requires_grad_(True) for t in tree_leaves(p)]
@@ -882,7 +938,8 @@ def train_grads_vs_f32(torch, m, params, data, arch: str = "stablelm-1.6b"):
         torch.cuda.empty_cache()
     del g32
     torch.cuda.empty_cache()
-    emit(phase="train_grads_vs_f32", arch=cfg.name, batch=[4, TRAIN_S],
+    emit(phase="train_grads_vs_f32", arch=cfg.name, layers=cfg.n_layers,
+         batch=[4, TRAIN_S],
          loss_f32=l32,
          f32_step_s=f32_s, cuda_bf16=out["cuda"], torch_bf16=out["torch"])
     # a bf16 rounding of the loss (2**-9 of it) bounds the loss check
@@ -1208,10 +1265,11 @@ def routing_witness(torch, m, cfg, prefill, p32, c32, batch, lens_d,
     return rec
 
 
-def prefill_gate(torch, m, cfg, params, prompts, rows: int):
-    """One (rows, 2048) prefill batch through the kernels and through their
-    plain versions, both in bf16, each held against the plain path in f32
-    on the same weights.  The kernel path may be no more than twice as far
+def prefill_gate(torch, m, cfg, params, batch, lens_d,
+                 judge_state: bool = False):
+    """One (rows, 2048) prefill ``batch`` (right-padded to ``lens_d``)
+    through the kernels and through their plain versions, both in bf16,
+    each held against the plain path in f32 on the same weights.  The kernel path may be no more than twice as far
     from f32 as the plain bf16 path (K1 rounds P to bf16 before P V, as
     the TPU kernel).  Without MoE that is judged on the last-token logits.
     With MoE it is judged on the decode state the prefill writes (every
@@ -1220,13 +1278,13 @@ def prefill_gate(torch, m, cfg, params, prompts, rows: int):
     and over a few last tokens such flips decide the logits' error by
     chance, where over every position of every layer they average out.
     The logits' errors are reported either way, and with MoE the
-    routing witness (:func:`routing_witness`)."""
+    routing witness (:func:`routing_witness`).  ``judge_state`` judges a
+    config without MoE on its decode state as well (the vlm's)."""
     prefill = m["prefill"]
     fields = [PREFILL_KERNELS[k][1] for k in prefill_launches(cfg)]
-    judged = "state" if cfg.moe is not None else "logits"
-    B, S = rows, 2048
+    judged = "state" if cfg.moe is not None or judge_state else "logits"
+    B, S = lens_d.shape[0], 2048
     torch.cuda.reset_peak_memory_stats()
-    batch, lens_d = prefill_batch(torch, prompts[:B], S)
     logits, states, times, picks = {}, {}, {}, {}
     for backend in ("cuda", "torch"):
         c = dataclasses.replace(cfg, **dict.fromkeys(fields, backend))
@@ -1247,7 +1305,7 @@ def prefill_gate(torch, m, cfg, params, prompts, rows: int):
     with _PickHook(m["moe"]) as hook:
         ref, ref_st = prefill(p32, c32, batch, 2048, lengths=lens_d)
     picks["f32"] = hook.picks
-    if judged == "state":
+    if cfg.moe is not None:
         routing_witness(torch, m, cfg, prefill, p32, c32, batch, lens_d,
                         picks, logits["cuda"], states["cuda"], ref, ref_st)
     del p32, picks
@@ -1357,7 +1415,8 @@ def serve_path(torch, m, counts, arch: str, cfg=None,
         params = m["init_params"](
             cfg, torch.Generator(device="cuda").manual_seed(0),
             device="cuda")
-    prefill_gate(torch, m, cfg, params, prompts, GATE_ROWS.get(arch, 8))
+    prefill_gate(torch, m, cfg, params, *prefill_batch(
+        torch, prompts[:GATE_ROWS.get(arch, 8)], 2048))
     del params
     torch.cuda.empty_cache()
     if not cli:
@@ -1942,6 +2001,148 @@ def _all_tensor_core(routes: dict, launches: dict, what: str):
                              f"tensor cores")
 
 
+# phase 22: hubert-xlarge's measured training steps after one warm-up, the
+# layers of its gradient gate's depth cut (the trained weights' first
+# layers), and its run through the run API
+HUBERT_TRAIN_STEPS = 3
+HUBERT_GATE_LAYERS = 8
+RUN_TRAIN_HUBERT_ARGV = ["run", "train", "--arch", "hubert-xlarge", "--full",
+                         "--batch", "8", "--seq", "2048", "--precision",
+                         "bf16", "--steps", "2", "--log_every", "0"]
+# phase 23: llava-next-mistral-7b's prefill batch (8 x 2048: 512 patches
+# and 1536 tokens), its gate's depth cut, and its training batch and steps
+# (1 x 2048: 7.24 B parameters with bf16 grads and AdamW moments take
+# ~58 GB)
+LLAVA_PREFILL_B = 8
+LLAVA_GATE_LAYERS = 8
+LLAVA_TRAIN_B, LLAVA_TRAIN_STEPS = 1, 2
+
+
+def train_hubert(torch, m, counts) -> dict:
+    """Phase 22: full-width hubert-xlarge (48 layers, non-causal, 16 heads
+    of 80, bf16) trains through TrainLoop on its seeded frame batches at
+    8 x 2048: K1 2 x 48, K2 and K3 48 launches a step, every one on the
+    CUDA-core route (hd 80 is not in the tensor-core table); then the
+    gradient gate on the trained weights' first ``HUBERT_GATE_LAYERS``
+    layers; then ``run train --arch hubert-xlarge --full`` in process (2
+    steps): ``succeeded`` on cuda with the same routes.  Returns the
+    launches of the two runs."""
+    arch = "hubert-xlarge"
+    cfg = m["get_config"](arch)
+    launches, state, data = train_full_width(torch, m, counts, arch,
+                                             steps=HUBERT_TRAIN_STEPS)
+    params = state.params
+    del state                                    # the optimizer's moments
+    torch.cuda.empty_cache()
+    cut = dataclasses.replace(cfg, n_layers=HUBERT_GATE_LAYERS)
+    train_grads_vs_f32(torch, m, dict(params, layers=params["layers"][
+        :HUBERT_GATE_LAYERS]), data, arch, cfg=cut)
+    del params, data
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    counts.zero()
+    t0 = time.perf_counter()
+    rc, report = launch_run(m, RUN_TRAIN_HUBERT_ARGV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    api, routes = counts.read(), counts.routes(counts.FLASH)
+    _check_report(rc, report, "run train --arch hubert-xlarge --full")
+    met = report["metrics"]
+    losses = met["losses"]
+    want = train_launches(cfg, 2)
+    if (met["device"] != "cuda" or met["params"] != cfg.param_count()
+            or len(losses) != 2 or not np.all(np.isfinite(losses))
+            or api != want
+            or any(r != {"tensor_core": 0, "cuda_core": api[name]}
+                   for name, r in routes.items())):
+        raise AssertionError(f"run train hubert-xlarge: {met}, launches "
+                             f"{api} (want {want}, all on the CUDA cores), "
+                             f"routes {routes}")
+    emit(phase="run_api_train_hubert", argv=RUN_TRAIN_HUBERT_ARGV,
+         arch=met["arch"], params=met["params"], device=met["device"],
+         losses=losses, loop_step_s=met["pure_step_s"] / met["steps_run"],
+         report_wall_s=report["wall_s"], call_wall_s=wall,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+         launches=api, routes=routes)
+    torch.cuda.empty_cache()
+    return {"train": launches, "run_api": api}
+
+
+def llava_path(torch, m, counts) -> dict:
+    """Phase 23: llava-next-mistral-7b at full width (32 layers, 32 q / 8
+    kv heads of 128, bf16).  (a) One prefill of ``make_batch(cfg, 8,
+    2048)``, 512 patch embeddings ahead of 1536 tokens: K1 32 launches on
+    the tensor cores, finite logits and caches, its ms and profile; the
+    gate (:func:`prefill_gate`, judged on the decode state) on the first
+    ``LLAVA_GATE_LAYERS`` layers, rows of 512 patches and 1..1536 tokens.
+    (b) With nothing else resident, training at full width and depth
+    (1 x 2048, bf16 params and AdamW moments, remat), a warm-up and 2
+    steps, every K1-K3 launch on the tensor cores.  Returns the
+    launches."""
+    arch = "llava-next-mistral-7b"
+    cfg = m["get_config"](arch)
+    prefill = m["prefill"]
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
+    params = m["init_params"](
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    n_params = _param_count(params)
+    if n_params != cfg.param_count():
+        raise AssertionError(f"{n_params} params, config says "
+                             f"{cfg.param_count()}")
+    batch = m["make_batch"](cfg, LLAVA_PREFILL_B, 2048, 0, device="cuda")
+    P, T = batch["patches"].shape[1], batch["tokens"].shape[1]
+    if (P, T) != (512, 1536):
+        raise AssertionError(f"{P} patches and {T} tokens")
+    run = lambda: prefill(params, cfg, batch, 2048)  # noqa: E731
+    run()                                 # warm-up: cuBLAS handles, pools
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counts.zero()
+    logits, state = run()
+    torch.cuda.synchronize()
+    launches, routes = counts.read(), counts.routes()
+    _check_prefill_launches(cfg, launches, routes, 1, "tensor_core",
+                            cfg.name + " prefill")
+    kv = (cfg.n_layers, LLAVA_PREFILL_B, 2048, cfg.n_kv_heads, cfg.head_dim)
+    if (tuple(logits.shape) != (LLAVA_PREFILL_B, cfg.vocab)
+            or not torch.isfinite(logits).all()
+            or any(tuple(state[k].shape) != kv
+                   or not torch.isfinite(state[k]).all() for k in "kv")):
+        raise AssertionError(f"prefill: logits {tuple(logits.shape)}, "
+                             f"state {({k: tuple(v.shape) for k, v in state.items()})}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del logits, state
+    prefill_ms = cuda_ms(torch, run, reps=3)
+    busy = device_profile(torch, run, arch=cfg.name, what="prefill",
+                          steps=1)
+    emit(phase="vlm_prefill_full_width", arch=cfg.name, params=n_params,
+         batch=[LLAVA_PREFILL_B, 2048], patches=P, tokens=T,
+         prefill_ms=prefill_ms, device_busy_ms=busy, peak_mem_gb=peak,
+         launches=launches, routes={"flash_attention_fwd":
+                                    routes["flash_attention_fwd"]})
+    rng = np.random.default_rng(1)
+    lens = torch.from_numpy(
+        (P + rng.integers(1, T + 1, size=LLAVA_PREFILL_B)).astype(np.int32))
+    lens[0] = 2048
+    cut = dataclasses.replace(cfg, n_layers=LLAVA_GATE_LAYERS)
+    prefill_gate(torch, m, cut, dict(params, layers=params["layers"][
+        :LLAVA_GATE_LAYERS]), batch, lens.cuda(), judge_state=True)
+    del params, batch, run
+    torch.cuda.empty_cache()
+    if torch.cuda.memory_allocated() != resident:
+        raise AssertionError(f"{torch.cuda.memory_allocated()} bytes in use "
+                             f"before llava's training, {resident} before "
+                             f"its prefill")
+    train, state, data = train_full_width(
+        torch, m, counts, arch, steps=LLAVA_TRAIN_STEPS, batch=LLAVA_TRAIN_B)
+    del state, data
+    torch.cuda.empty_cache()
+    return {"prefill": launches["flash_attention_fwd"], "train": train,
+            "resident_gb": resident / 1e9}
+
+
 def run_api_train_full_width(torch, m, counts) -> dict:
     """Phase 14: ``run train --full`` (stablelm-1.6b, bf16, 8 x 2048, 4
     steps) through the run API's front door, in this process: a
@@ -2471,18 +2672,9 @@ def _map(tree, fn):
     return fn(tree)
 
 
-def main() -> int:
-    # cuBLAS reads this when it starts: with it (and deterministic mode in
-    # phase 7) a resumed run repeats an uninterrupted one bitwise
-    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
-    import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 1
-    if not (SRC / "repro_torch").is_dir():
-        print(f"chip_smoke: {SRC / 'repro_torch'} not found; run from a "
-              f"checkout of the repository", file=sys.stderr)
-        return 1
+def load_port() -> dict:
+    """Import the port from ``src/`` beside this script: the entry points
+    and modules the phases drive, by name."""
     sys.path.insert(0, str(SRC))
     import torch.nn.functional as F
 
@@ -2498,6 +2690,7 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.flash_attention import ref
+    from repro_torch.data import SeekableSyntheticBatches, make_batch
     from repro_torch.data.loader import ChipLoader, prefetch
     from repro_torch.data.normalize import nir_rg, percentile_stretch
     from repro_torch.data.rasters import synth_change_pair
@@ -2555,7 +2748,31 @@ def main() -> int:
              S3Store=S3Store, MemoryBudget=MemoryBudget, autobatch=autobatch,
              RunSpec=RunSpec, executor=executor,
              node_specs_from_json=node_specs_from_json,
-             replay_events=replay_events)
+             replay_events=replay_events, make_batch=make_batch,
+             SeekableSyntheticBatches=SeekableSyntheticBatches,
+             fa_route=fa.route, fa=fa, ref=ref, ssd=ssd, pn=pn,
+             pn_ref=pn_ref, F=F, flash_attention=flash_attention,
+             naive_attention=naive_attention,
+             ssd_chunked_ref=ssd_chunked_ref,
+             build_libraries=build_libraries)
+    return m
+
+
+def main() -> int:
+    # cuBLAS reads this when it starts: with it (and deterministic mode in
+    # phase 7) a resumed run repeats an uninterrupted one bitwise
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    if not (SRC / "repro_torch").is_dir():
+        print(f"chip_smoke: {SRC / 'repro_torch'} not found; run from a "
+              f"checkout of the repository", file=sys.stderr)
+        return 1
+    m = load_port()
+    fa, ref, ssd, pn, pn_ref, F = (m[k] for k in ("fa", "ref", "ssd", "pn",
+                                                  "pn_ref", "F"))
 
     # f32 products in the plain versions stay full f32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2569,7 +2786,8 @@ def main() -> int:
     t0 = time.perf_counter()
     ptxas_dir = tempfile.mkdtemp()
     ptxas = ptxas_start(ssd.SOURCE, ptxas_dir)
-    build_libraries([fa.SOURCE, fa.BWD_SOURCE, ssd.SOURCE, pn.SOURCE])
+    m["build_libraries"]([fa.SOURCE, fa.BWD_SOURCE, ssd.SOURCE,
+                          pn.SOURCE])
     fa.library()
     fa.bwd_library()
     ssd.library()
@@ -2581,8 +2799,9 @@ def main() -> int:
     shutil.rmtree(ptxas_dir)
 
     k1_recs = kernel_vs_plain(torch, F, fa, ref.attention_ref)
-    kb = bwd_vs_plain(torch, F, fa, ref)
-    function_vs_plain(torch, flash_attention, naive_attention)
+    kb_recs = bwd_vs_plain(torch, F, fa, ref)
+    kb = kb_recs[("stablelm_train", "bfloat16")]
+    function_vs_plain(torch, m["flash_attention"], m["naive_attention"])
 
     # the training path
     counts = _Counts(fa, ssd, pn)
@@ -2611,14 +2830,19 @@ def main() -> int:
     train_cli_resume(torch, m, counts, precision="bf16")
 
     # the SSM serving path
-    k4 = ssd_vs_plain(torch, ssd, ssd_chunked_ref)
+    k4 = ssd_vs_plain(torch, ssd, m["ssd_chunked_ref"])
     ssd_launches = serve_path(torch, m, counts, "mamba2-2.7b")
     # the hybrid (this slice's main path): K1, K4 and the MoE in one
     # prefill, then the reduced jamba's CLI
     hybrid_launches = serve_path(torch, m, counts, "jamba-1.5-large-398b",
-                                 cfg=jamba_one_period(get_config))
+                                 cfg=jamba_one_period(m["get_config"]))
     # mamba2 training on the card
     ssd_train_launches = train_mamba2(torch, m, counts)
+    # the audio and vlm families: hubert trains through K1-K3's
+    # non-causal hd-80 path (the CUDA cores), llava prefills patches and
+    # trains on the tensor cores
+    hubert = train_hubert(torch, m, counts)
+    llava = llava_path(torch, m, counts)
 
     # the run API and the local campaign layer
     api_train = run_api_train_full_width(torch, m, counts)
@@ -2650,6 +2874,23 @@ def main() -> int:
               max_abs_err=max(kb["max_abs_err"]["dk"],
                               kb["max_abs_err"]["dv"]),
               core_route=kb["route"])
+    # hubert's training shape (non-causal, hd 80, the CUDA cores) and the
+    # tensor cores' non-causal branch at hd 64, beside the main shapes
+    new_shapes = ("hubert_train", "noncausal_hd64")
+    for name, rec in (("flash_attention_bwd_dq", k2),
+                      ("flash_attention_bwd_dkv", k3)):
+        what = "dq" if name.endswith("dq") else "dkv"
+        rec["shapes"] = {s: {
+            "ms": kb_recs[(s, "bfloat16")][f"{what}_kernel_ms"],
+            "bound_ms": kb_recs[(s, "bfloat16")][f"{what}_bound_ms"],
+            "bound_by": kb_recs[(s, "bfloat16")][f"{what}_bound_by"],
+            "plain_ms": kb_recs[(s, "bfloat16")]["plain_ms"],
+            "library_ms": kb_recs[(s, "bfloat16")]["library_ms"],
+            "core_route": kb_recs[(s, "bfloat16")]["route"]}
+            for s in new_shapes}
+        rec["launches_train_hubert"] = hubert["train"][name]
+        rec["launches_train_llava"] = llava["train"][name]
+        rec["launches_run_api_hubert"] = hubert["run_api"][name]
     k1 = k1_recs[("granite_prefill", "bfloat16")]
     k1 = dict(ms=k1["kernel_ms"], bound_ms=k1["bound_ms"],
               bound_by=k1["bound_by"], max_abs_err=k1["max_abs_err_o"],
@@ -2663,11 +2904,16 @@ def main() -> int:
               launches_serve_hybrid=hybrid_launches["flash_attention_fwd"],
               launches_run_api_cli=api_cli["granite-3-2b"],
               launches_campaign=campaign["flash_attention_fwd"],
+              launches_train_hubert=hubert["train"]["flash_attention_fwd"],
+              launches_run_api_hubert=hubert["run_api"][
+                  "flash_attention_fwd"],
+              launches_prefill_llava=llava["prefill"],
+              launches_train_llava=llava["train"]["flash_attention_fwd"],
               shapes={name: {k: k1_recs[(name, "bfloat16")][k] for k in (
                   "kernel_ms", "bound_ms", "bound_by", "plain_ms",
-                  "library_ms", "max_abs_err_o")}
+                  "library_ms", "max_abs_err_o", "route")}
                   for name in ("glm4_prefill", "codeqwen_prefill",
-                               "qwen3_prefill")})
+                               "qwen3_prefill") + new_shapes})
     rows = []
     for name, rec in (("flash_attention_fwd", k1),
                       ("flash_attention_bwd_dq", k2),

@@ -199,8 +199,10 @@ def _ensure_loaded():
         codeqwen1_5_7b,
         glm4_9b,
         granite_3_2b,
+        hubert_xlarge,
         jamba_1_5_large_398b,
         llama4_maverick_400b_a17b,
+        llava_next_mistral_7b,
         mamba2_2_7b,
         qwen3_moe_30b_a3b,
         stablelm_1_6b,

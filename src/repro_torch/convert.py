@@ -2,8 +2,8 @@
 scheme (``repro.checkpoint.io._flatten``): a parameter tree flattened to
 ``"/"``-joined path keys, e.g. ``"periods/slot0/attn/wq/w"``, whose
 ``periods`` leaves carry a leading (n_periods,) axis.  A period of P
-slots (``repro_torch.models.model.period_len``: 1 for the dense and SSM
-stacks, 2 for llama4's MoE on every other layer, 8 for jamba) maps
+slots (``repro_torch.models.model.period_len``: 1 for the dense, SSM, vlm
+and audio stacks, 2 for llama4's MoE on every other layer, 8 for jamba) maps
 ``periods/slot{j}/...`` row p onto ``params["layers"][p*P + j]``.  A
 leaf keeps its dtype either way, so the f32 MoE router beside bf16
 weights round-trips bitwise.
@@ -30,7 +30,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.common import resolve_device
-from repro_torch.models.model import period_len, require_ported
+from repro_torch.models.model import period_len
 
 # numpy form of a bf16 leaf: its bit pattern as two raw bytes
 BF16_NUMPY = np.dtype("V2")
@@ -89,7 +89,6 @@ def params_from_flat(flat: Dict[str, np.ndarray], cfg: ArchConfig, *,
     ``dtype`` (optional) casts every floating leaf; by default each leaf
     keeps its dtype.  ``device`` defaults to ``cuda``.
     """
-    require_ported(cfg)
     device = resolve_device(device)
     P = period_len(cfg)
     n_periods = cfg.n_layers // P

@@ -41,7 +41,7 @@ from repro_torch.configs import get_reduced
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models import init_params
 from repro_torch.serve import (Request, ServeEngine, ServeScheduler,
-                               make_trace)
+                               make_trace, require_text_serving)
 
 
 def _timing_metrics(stats_summary: dict) -> dict:
@@ -57,8 +57,9 @@ def serve_main(arch: str, *, requests: int = 16, slots: int = 4,
                trace: str = "poisson", slo_deadline_ms: float = 0.0,
                max_kv_blocks: int = 0, kv_block_size: int = 16,
                device=None) -> dict:
-    device = resolve_device(device)
     cfg = get_reduced(arch)
+    require_text_serving(cfg)          # before any weight reaches the card
+    device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     params = init_params(cfg, gen, device=device)
 

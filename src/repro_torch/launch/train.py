@@ -4,7 +4,8 @@
 
 Port of ``repro.launch.train::train_main``: the reduced config of ``arch``
 (or the full one with ``reduced=False``), random weights from ``seed``, the
-seekable Markov token stream, and :class:`repro_torch.train.TrainLoop` with
+seekable Markov token stream (for the vlm and audio families the seekable
+synthetic patch/frame batches of ``repro_torch.data.inputs``), and :class:`repro_torch.train.TrainLoop` with
 optional atomic checkpoints of the full ``TrainState`` plus the data
 cursor, ``resume`` from the newest valid one, the ``preempt_at_step``
 fault hook, and with ``s3_root`` the export of the checkpoint directory to
@@ -29,6 +30,7 @@ import torch
 from repro_torch.checkpoint import CheckpointManager, export_to_s3
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.core.artifacts import S3Store
+from repro_torch.data.inputs import SeekableSyntheticBatches
 from repro_torch.data.tokens import SeekableTokenBatches
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models.model import period_len
@@ -82,7 +84,10 @@ def train_main(arch: str, *, reduced: bool = True, steps: int = 100,
                                             warmup_steps=max(steps // 10, 1)),
         precision=precision, grad_clip=grad_clip,
         microbatches=max(1, int(microbatches)))
-    data = _LMDictBatches(cfg.vocab, batch, seq, seed, device)
+    text_lm = cfg.family in ("dense", "moe", "ssm", "hybrid")
+    data = (_LMDictBatches(cfg.vocab, batch, seq, seed, device) if text_lm
+            else SeekableSyntheticBatches(cfg, batch, seq, seed,
+                                          device=device))
 
     ckpt = None
     if checkpoint_dir:

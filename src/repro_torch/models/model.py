@@ -1,6 +1,8 @@
 """Model assembly: init, the training forward and loss, prefill, decode
-and the sampling head.  Port of the text path of ``repro.models.model``
-for the dense, ssm, moe and hybrid families.
+and the sampling head.  Port of ``repro.models.model`` for every family:
+the dense, ssm, moe and hybrid text stacks, the vlm (patch embeddings from
+the frontend stub ahead of the token embeddings) and the encoder-only
+audio family (frame embeddings in, masked prediction out, no decode).
 
 The reference groups layers into repeating *periods* (``_slot_plan``: each
 slot an attention or SSD mixer, followed by a dense MLP, an MoE FFN, an
@@ -19,11 +21,12 @@ The decode state is one flat dict: the KV caches ``{"k", "v"}``
 states ``{"h": (n_ssm, B, nh, hp, N) f32, "conv": (n_ssm, B, W-1, C)}``
 over the SSD layers, each layer indexing its own kind's axis in layer
 order; :func:`decode_step` updates it in place (the reference donates
-it).  The vlm and audio families raise ``NotImplementedError``.
+it).
 
 An SSD layer with no FFN keeps ``norm2``, as the reference's slot does,
-although nothing reads it; :func:`unused_leaves` marks those leaves, whose
-gradient is zero.
+although nothing reads it, and the audio family keeps an untied embedding
+table that its frame inputs bypass; :func:`unused_leaves` marks those
+leaves, whose gradient is zero.
 """
 from __future__ import annotations
 
@@ -33,7 +36,7 @@ from typing import Any, Dict, List, Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import FAMILIES, ArchConfig
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
@@ -44,18 +47,15 @@ from repro_torch.tree import tree_leaves, tree_map
 # --------------------------------------------------------------------------
 # structure helpers
 # --------------------------------------------------------------------------
-PORTED_FAMILIES = ("dense", "ssm", "moe", "hybrid")
 # the decode state's keys for each mixer kind
 STATE_KEYS = {"attn": ("k", "v"), "ssm": ("h", "conv")}
 
 
-def require_ported(cfg: ArchConfig) -> None:
-    """The text families are ported, with every slot plan they make; the
-    vlm and audio frontends are not."""
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet; the port "
-            f"runs {', '.join(PORTED_FAMILIES)} stacks")
+def require_decoder(cfg: ArchConfig) -> None:
+    """An encoder-only config has no decode step (the reference's
+    ``build_decode`` raises the same)."""
+    if cfg.is_encoder_only:
+        raise ValueError(f"{cfg.name} is encoder-only: no decode step")
 
 
 def period_len(cfg: ArchConfig) -> int:
@@ -118,7 +118,9 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
     the reference's weights, convert them with
     :func:`repro_torch.convert.params_from_flat`.
     """
-    require_ported(cfg)
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}; "
+                         f"known: {', '.join(FAMILIES)}")
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
@@ -159,14 +161,31 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
 # forward (train / prefill)
 # --------------------------------------------------------------------------
 def embed_inputs(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor]):
-    """Text inputs only.  Returns (x (B,S,d), positions (B,S), loss_mask
-    (B,S) bool)."""
-    require_ported(cfg)
-    tokens = batch["tokens"]
-    x = params["embed"]["w"][tokens.long()]
-    B, S = tokens.shape
+    """Returns (x (B,S,d), positions (B,S), loss_mask (B,S) bool).
+
+    audio: the frame embeddings in the config's dtype, and the batch's
+    mask.  vlm: the patch embeddings (in the config's dtype) ahead of the
+    token embeddings, the loss masked off over the patches.  Text: the
+    token embeddings."""
+    dtype = param_dtype(cfg)
+    if cfg.family == "audio":
+        x = batch["features"].to(dtype)
+        loss_mask = batch["mask"]
+    else:
+        tokens = batch["tokens"]
+        x = params["embed"]["w"][tokens.long()]
+        loss_mask = torch.ones(tokens.shape, dtype=torch.bool,
+                               device=x.device)
+        if cfg.family == "vlm":
+            patches = batch["patches"].to(dtype)
+            # jnp.concatenate's promotion: bf16 patches, f32 tokens -> f32
+            cat = torch.promote_types(patches.dtype, x.dtype)
+            x = torch.cat([patches.to(cat), x.to(cat)], dim=1)
+            loss_mask = torch.cat(
+                [torch.zeros(patches.shape[:2], dtype=torch.bool,
+                             device=x.device), loss_mask], dim=1)
+    B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
-    loss_mask = torch.ones((B, S), dtype=torch.bool, device=x.device)
     return x, positions, loss_mask
 
 
@@ -212,12 +231,15 @@ def _layer_forward(layer, x, positions, cfg: ArchConfig, spec: L.AttnSpec):
     return _ffn(layer, cfg, x + mix)
 
 
-def unused_leaves(params) -> List[bool]:
+def unused_leaves(params, cfg: ArchConfig) -> List[bool]:
     """One flag per leaf of ``tree_leaves(params)``: True for the leaves no
-    output reads (the norm2 of each SSD layer without an FFN), whose
-    gradient is zero.  Differentiating only the others keeps autograd's
-    check that every other parameter reaches the loss."""
+    output reads (the norm2 of each SSD layer without an FFN; the audio
+    family's untied embedding table, which its frame inputs bypass),
+    whose gradient is zero.  Differentiating only the others keeps
+    autograd's check that every other parameter reaches the loss."""
     flags = tree_map(lambda _: False, params)
+    if cfg.family == "audio" and not cfg.tie_embeddings:
+        flags["embed"]["w"] = True
     for layer in flags["layers"]:
         if "ssm" in layer and "mlp" not in layer and "moe" not in layer:
             layer["norm2"] = tree_map(lambda _: True, layer["norm2"])
@@ -230,7 +252,6 @@ def backbone(params, cfg: ArchConfig, x, positions, remat: bool = True):
     With ``remat`` each layer is one ``checkpoint`` (the reference's
     ``nothing_saveable`` per period): only its input is kept, and its
     forward runs again in the backward pass."""
-    require_ported(cfg)
     spec = attn_spec(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer in params["layers"]:
@@ -297,8 +318,10 @@ def cast_compute_params(params, dtype):
 
 def train_loss(params, cfg: ArchConfig, batch, remat: bool = True,
                loss_chunk: int = 512, compute_dtype=None):
-    """Scalar mean next-token cross entropy plus the MoE aux loss,
-    sequence-chunked so the (B,S,V) logits are never materialised at once.
+    """Scalar mean cross entropy plus the MoE aux loss, sequence-chunked
+    so the (B,S,V) logits are never materialised at once: next-token
+    prediction for the text and vlm families, masked prediction of every
+    frame's label for audio.
 
     ``compute_dtype`` (e.g. ``"bfloat16"``) runs the backbone in that
     dtype (see :func:`cast_compute_params`); the loss reduction stays f32.
@@ -313,11 +336,26 @@ def train_loss(params, cfg: ArchConfig, batch, remat: bool = True,
     x, aux = backbone(params, cfg, x, positions, remat=remat)
     w = _head_weight(params, cfg)
 
-    # causal shift as in the reference: position t is scored against
-    # labels[t + 1] (or tokens[t + 1] when the batch has no labels)
-    xs = x[:, :-1]
-    ls = (batch["labels"] if "labels" in batch else batch["tokens"])[:, 1:]
-    ms = loss_mask[:, 1:].float()
+    if cfg.family == "audio":
+        # no shift: each frame is scored against its own label where the
+        # mask says so
+        xs, ls, ms = x, batch["labels"], loss_mask.float()
+    else:
+        # causal shift as in the reference: position t is scored against
+        # labels[t + 1] (or tokens[t + 1] when the batch has no labels);
+        # a vlm's tokens are padded on the left over the patches, so the
+        # last patch position scores the first text token
+        xs = x[:, :-1]
+        if "labels" in batch:
+            full = batch["labels"]
+        else:
+            full = batch["tokens"]
+            if cfg.family == "vlm":
+                P = batch["patches"].shape[1]
+                full = torch.cat([full.new_zeros((full.shape[0], P)), full],
+                                 dim=1)
+        ls = full[:, 1:]
+        ms = loss_mask[:, 1:].float()
 
     S = xs.shape[1]
     c = min(loss_chunk, S)
@@ -339,8 +377,8 @@ def train_loss(params, cfg: ArchConfig, batch, remat: bool = True,
 @torch.no_grad()
 def prefill(params, cfg: ArchConfig, batch, cache_len: int,
             lengths: Optional[torch.Tensor] = None):
-    """Inference prefill over the prompt.  Returns (last_logits (B,V),
-    decode_state).
+    """Inference prefill over the prompt (a vlm's patches, then its
+    tokens).  Returns (last_logits (B,V), decode_state).
 
     ``lengths`` ((B,) int, optional) marks true per-row prompt lengths for
     right-padded batches: the logits are taken at position ``lengths-1``
@@ -348,9 +386,9 @@ def prefill(params, cfg: ArchConfig, batch, cache_len: int,
     SSM states are frozen at the last real token, and pad tokens claim no
     MoE capacity (the router's token mask).  Real tokens of co-batched
     rows still share one capacity pool, sized from the padded token
-    count, as in the reference.
+    count, as in the reference.  A vlm batch's ``lengths`` count its
+    patches too.
     """
-    require_ported(cfg)
     spec = attn_spec(cfg)
     dtype = param_dtype(cfg)
     attn_len = _attn_len(cfg, cache_len)
@@ -394,8 +432,8 @@ def init_decode_state(cfg: ArchConfig, batch: int, cache_len: int, *,
     """Zeroed decode state: KV caches ``{"k", "v"}`` (n_attn, B, L, Kh, hd)
     over the attention layers and SSM states ``{"h", "conv"}`` (n_ssm,
     ...) over the SSD layers; a stack without one kind has no keys for
-    it."""
-    require_ported(cfg)
+    it.  An encoder-only config has none and raises ``ValueError``."""
+    require_decoder(cfg)
     device = resolve_device(device)
     kinds = cfg.layer_kinds()
     state = {}
@@ -419,8 +457,9 @@ def decode_step(params, cfg: ArchConfig, state, tokens, position):
     """One decode step.  tokens: (B,1) int; position: (B,) absolute.
     Returns (logits (B,V), state); ``state`` is updated in place.  The MoE
     routes with no token mask: every row, idle slots included, claims
-    capacity, as in the reference."""
-    require_ported(cfg)
+    capacity, as in the reference.  An encoder-only config raises
+    ``ValueError``."""
+    require_decoder(cfg)
     spec = attn_spec(cfg)
     x = params["embed"]["w"][tokens.long()]                  # (B,1,d)
     seen = {"attn": 0, "ssm": 0}           # each layer's index in its kind

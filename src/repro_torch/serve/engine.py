@@ -13,7 +13,10 @@ As in the reference:
   * prefill pads prompts to power-of-two buckets (capped at ``cache_len``)
     and runs one fixed (slots, bucket) batch per bucket, rows beyond the
     group being dummies of length 0;
-  * ``submit`` rejects empty prompts and prompts that cannot fit the cache.
+  * ``submit`` rejects empty prompts and prompts that cannot fit the cache;
+  * prompts are text only: a vlm (whose prefill needs patches) and the
+    encoder-only audio family (no decode step) cannot be served, and the
+    engine says so when it is built (:func:`require_text_serving`).
 
 PyTorch runs eagerly, so there is nothing to compile: where the reference
 donates the decode state to a jitted step, the port updates the KV caches
@@ -192,6 +195,19 @@ class EngineStats(dict):
         return engine._stats_summary()
 
 
+def require_text_serving(cfg: ArchConfig) -> None:
+    """Raise ``ValueError`` unless the engine can serve ``cfg``: it
+    prefills text prompts and decodes tokens, so the vlm family (a prefill
+    needs its patches) and encoder-only configs (no decode step) are out.
+    The reference's engine fails on both as well, later and less clearly."""
+    if cfg.is_encoder_only:
+        raise ValueError(f"{cfg.name} is encoder-only: it has no decode step "
+                         f"to serve")
+    if cfg.family == "vlm":
+        raise ValueError(f"{cfg.name}: the engine prefills text prompts only; "
+                         f"a {cfg.family} prefill needs its patches")
+
+
 def _pctl(values: List[float], q: float) -> Optional[float]:
     vals = [v for v in values if v is not None]
     if not vals:
@@ -208,6 +224,7 @@ class ServeEngine:
                  cache_len: int = 256, greedy: bool = True, seed: int = 0,
                  min_bucket: int = 8, clock: Optional[Clock] = None,
                  device=None):
+        require_text_serving(cfg)
         self.cfg = cfg
         self.params = params
         self.slots = slots

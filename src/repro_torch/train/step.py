@@ -80,7 +80,7 @@ def make_train_step(cfg: ArchConfig, optimizer: Optional[Optimizer] = None,
         # their flags, and the gradients come back in tree_leaves order
         leaves = [p.detach().requires_grad_(True)
                   for p in tree_leaves(params)]
-        unused = unused_leaves(params)
+        unused = unused_leaves(params, cfg)
         with torch.enable_grad():
             loss = train_loss(tree_unflatten(params, leaves), cfg, mb,
                               remat=remat, loss_chunk=loss_chunk,

@@ -1,7 +1,8 @@
 """The hand-written CUDA kernels (flash-attention forward K1, backward K2
 and K3, the SSD chunk scan K4 and the percentile stretch K5) against their
-plain PyTorch versions, a small train step, reduced mamba2, MoE and
-hybrid serving, a dropped engine's memory, the continuous scheduler's
+plain PyTorch versions, a small train step, reduced hubert (non-causal,
+hd 80) and llava (patches ahead of the tokens) training and prefill,
+reduced mamba2, MoE and hybrid serving, a dropped engine's memory, the continuous scheduler's
 eviction resume and a reduced vision run, on the card.  Every test here
 is marked ``cuda`` and skips where no card is present; on a machine with an
 H100 run
@@ -35,6 +36,8 @@ CASES = [
     (3, 80, 80, 6, 3, 48, True, 32),         # odd sizes + window
     (1, 300, 300, 2, 1, 256, True, None),    # widest head
     (2, 1000, 1000, 32, 8, 64, True, None),  # ragged, granite heads
+    (2, 300, 300, 16, 16, 80, False, None),  # hubert: non-causal, hd 80
+    (1, 200, 200, 4, 2, 80, True, None),     # hd 80, causal
 ]
 # kernel vs plain in the working dtype: f32 differs only by summation
 # order; bf16 adds the output's rounding to bf16 (~4e-3 relative)
@@ -90,6 +93,8 @@ TC_CASES = [
     (2, 333, 333, 8, 2, 64, True, None, True),      # strided q
     (1, 260, 260, 4, 4, 128, False, None, True),    # strided q, hd 128
     (2, 600, 600, 32, 2, 128, True, None, False),   # GQA 16 at hd 128 (glm4)
+    (2, 500, 500, 16, 16, 64, False, None, False),  # non-causal, ragged
+    (1, 384, 384, 8, 8, 128, False, None, False),   # non-causal, hd 128
 ]
 
 
@@ -517,6 +522,80 @@ def test_moe_and_hybrid_serve_on_the_card(arch, dev):
     for name, t in want[1].items():
         torch.testing.assert_close(got[1][name].cpu(), t, atol=5e-4,
                                    rtol=5e-4)
+
+
+def test_hubert_trains_through_k1_k3_at_hd_80_on_the_card(dev):
+    """The reduced hubert widened to 4 heads of 80 (d_model 320), bf16:
+    a non-causal encoder whose K1-K3 launches all take the CUDA-core
+    route (hd 80 is not in the tensor-core table), remat running each
+    layer's forward twice; the loss through the kernels agrees with the
+    plain attention's."""
+    import dataclasses
+    from repro_torch.configs import get_reduced
+    from repro_torch.data import make_batch
+    from repro_torch.models import model as TM
+    from repro_torch.optim import adamw, constant
+    from repro_torch.train import init_train_state, make_train_step
+    cfg = dataclasses.replace(get_reduced("hubert-xlarge"), d_model=320,
+                              param_dtype="bfloat16")
+    assert cfg.head_dim == 80 and not cfg.causal
+    assert route(torch.bfloat16, 80) == "cuda_core"
+    opt = adamw()
+    state = init_train_state(torch.Generator(device=dev).manual_seed(0), cfg,
+                             opt, device=dev)
+    batch = make_batch(cfg, 2, 256, seed=1, device=dev)
+    with torch.no_grad():
+        plain = TM.train_loss(state.params, dataclasses.replace(
+            cfg, attention_backend="torch"), batch).item()
+    kernels = (flash_attention_fwd_kernel, flash_attention_bwd_dq_kernel,
+               flash_attention_bwd_dkv_kernel)
+    n0 = [dict(fn.launches_by_route) for fn in kernels]
+    step = make_train_step(cfg, opt, lr_schedule=constant(1e-4))
+    state, met = step(state, batch)
+    torch.cuda.synchronize()
+    for fn, before, want in zip(kernels, n0, (2 * cfg.n_layers,
+                                              cfg.n_layers, cfg.n_layers)):
+        assert fn.launches_by_route["cuda_core"] - before["cuda_core"] == \
+            want
+        assert fn.launches_by_route["tensor_core"] == before["tensor_core"]
+    loss = float(met["loss"])
+    assert np.isfinite(loss) and abs(loss - plain) < 2e-2 * abs(plain)
+
+
+def test_llava_prefills_patches_and_trains_on_the_card(dev):
+    """The reduced llava (f32) prefills patches plus tokens through K1 on
+    the card, agreeing with the plain attention on the CPU, and
+    ``train_main`` trains it through K1-K3."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.data import make_batch
+    from repro_torch.launch.train import train_main
+    from repro_torch.models import init_params, prefill
+    cfg = get_reduced("llava-next-mistral-7b")
+    params = init_params(cfg, torch.Generator().manual_seed(1), device="cpu")
+    batch = make_batch(cfg, 3, 96, seed=2, device="cpu")
+    lens = torch.tensor([96, 50, 30])
+    want = prefill(params, cfg, batch, 128, lengths=lens)
+    from repro_torch.tree import tree_leaves, tree_unflatten
+    p_dev = tree_unflatten(params, [t.to(dev) for t in tree_leaves(params)])
+    n1 = flash_attention_fwd_kernel.launches
+    got = prefill(p_dev, cfg, {k: v.to(dev) for k, v in batch.items()}, 128,
+                  lengths=lens.to(dev))
+    torch.cuda.synchronize()
+    assert flash_attention_fwd_kernel.launches - n1 == cfg.n_layers
+    torch.testing.assert_close(got[0].cpu(), want[0], atol=5e-4, rtol=5e-4)
+    for name, t in want[1].items():
+        torch.testing.assert_close(got[1][name].cpu(), t, atol=5e-4,
+                                   rtol=5e-4)
+    n = [fn.launches for fn in (flash_attention_fwd_kernel,
+                                flash_attention_bwd_dq_kernel,
+                                flash_attention_bwd_dkv_kernel)]
+    res = train_main("llava-next-mistral-7b", steps=2, batch=2, seq=64,
+                     log_every=0, device="cuda")
+    assert np.all(np.isfinite(res["losses"])) and len(res["losses"]) == 2
+    L = cfg.n_layers
+    assert [fn.launches - n0 for fn, n0 in zip(
+        (flash_attention_fwd_kernel, flash_attention_bwd_dq_kernel,
+         flash_attention_bwd_dkv_kernel), n)] == [4 * L, 2 * L, 2 * L]
 
 
 def test_scheduler_eviction_resume_is_token_identical_on_the_card(dev):

@@ -27,6 +27,7 @@ from repro.models import model as JM  # noqa: E402
 from repro_torch.configs import MoEConfig, SSMConfig, get_reduced  # noqa: E402
 from repro_torch.convert import params_from_flat, params_to_flat  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
+from repro_torch.tree import tree_leaves  # noqa: E402
 
 ATOL = 1e-4
 ARCHS = ["granite-3-2b", "stablelm-1.6b", "mamba2-2.7b", "glm4-9b",
@@ -175,11 +176,22 @@ def test_entry_points_need_a_device_or_cuda(monkeypatch):
         TM.init_decode_state(cfg, 2, 16)
 
 
-def test_other_families_raise():
-    for family in ("vlm", "audio"):
-        cfg = dataclasses.replace(get_reduced("granite-3-2b"), family=family)
-        with pytest.raises(NotImplementedError):
-            TM.init_params(cfg, device="cpu")
+@pytest.mark.parametrize("arch", ["hubert-xlarge", "llava-next-mistral-7b"])
+def test_the_audio_and_vlm_families_initialise(arch):
+    """Both frontend families build their stacks (their parity with the
+    reference is ``tests/test_torch_multimodal.py``'s)."""
+    cfg = get_reduced(arch)
+    params = TM.init_params(cfg, device="cpu")
+    assert sum(t.numel() for t in tree_leaves(params)) == cfg.param_count()
+    assert len(params["layers"]) == cfg.n_layers and "head" in params
+    assert all("attn" in layer and "mlp" in layer
+               for layer in params["layers"])
+
+
+def test_an_unknown_family_raises():
+    cfg = dataclasses.replace(get_reduced("granite-3-2b"), family="video")
+    with pytest.raises(ValueError, match="unknown family 'video'"):
+        TM.init_params(cfg, device="cpu")
 
 
 # plans no registered config has: MoE on every other layer of a dense

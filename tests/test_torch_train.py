@@ -83,7 +83,7 @@ def _port_value_and_grad(params, cfg, toks, labels, **kw):
     batch = {"tokens": torch.from_numpy(toks),
              "labels": torch.from_numpy(labels)}
     loss = TM.train_loss(tree_unflatten(params, leaves), cfg, batch, **kw)
-    unused = TM.unused_leaves(params)
+    unused = TM.unused_leaves(params, cfg)
     used = iter(torch.autograd.grad(
         loss, [p for p, u in zip(leaves, unused) if not u]))
     grads = [torch.zeros_like(p) if u else next(used)

@@ -192,7 +192,27 @@ Phases, each of which fails the run if it fails:
     state on the first 8 layers (rows of 512 patches and 1-1536 tokens);
     (b) with nothing else resident, training at full width and depth
     (1 x 2048, bf16 weights, gradients and AdamW moments, remat), a
-    warm-up and 2 measured steps, every K1-K3 launch on the tensor cores.
+    warm-up and 2 measured steps, every K1-K3 launch on the tensor cores;
+24. (run after phase 21) ``dist_train_main(world_size=1)`` on the
+    reduced stablelm (bf16, deterministic mode, checkpoints): no process
+    group, no collective, losses and final checkpoint equal to
+    ``train_main``'s bit for bit;
+25. ``run train --full --world_size 2`` (stablelm-1.6b, bf16, global 8 x
+    2048, 3 steps) as a subprocess: ``run_gang_local`` starts two ranks,
+    both on ``cuda:0`` with gloo (they share the card); each rank's K1-K3
+    launches are ``train_launches``'s, all on the tensor cores; the losses
+    within ``CAMPAIGN_LOSS_RTOL`` of a world-1 ``run train`` with the same
+    arguments; the step time, each rank's peak memory, the all-reduce's
+    seconds a step against the step and the bytes reduced beside
+    ``grad_bytes``.  With a card per rank the gang takes nccl, and with
+    four cards (25b) a world-4 gang runs too;
+26. ``Orchestrator.run_cluster``: a world-2 gang of the reduced stablelm
+    (bf16) on one node whose two GPU slots are both the card, under
+    ``ChaosSpec(after_checkpoints=1)``: a rank is SIGKILLed, the gang
+    succeeds at its second attempt, resumed from the last published
+    step, its losses within ``CAMPAIGN_LOSS_RTOL`` of an uninterrupted
+    world-1 run; the log replays consistent; whether its final checkpoint
+    equals the world-1 run's bit for bit (not gated: the sums differ).
 
 The line before the last lists each ported kernel with its launches on
 its main path (K1-K3 training, and K1 on each serving path, qwen3-moe's
@@ -202,7 +222,8 @@ in phases 14, 16 and 17 as ``launches_run_api``, the subprocesses'
 K1 and K4 launches of phase 15 as ``launches_run_api_cli`` and of phase
 19's campaign children as ``launches_campaign``, K1-K3's in phases 22
 and 23 as ``launches_train_hubert``, ``launches_run_api_hubert``,
-``launches_prefill_llava`` and ``launches_train_llava``), K1-K4's route
+``launches_prefill_llava`` and ``launches_train_llava``, and each rank's
+of phase 25's gang as ``launches_train_gang``), K1-K4's route
 (``core_route``) and its numbers at the training shape (K2, K3),
 granite's prefill shape (K1, with glm4's, codeqwen's and qwen3's beside
 it; K1-K3 with hubert's and the non-causal hd-64 shape's), mamba2's prefill shape (K4) or the 4-band Sentinel-2 tile (K5); the
@@ -2664,6 +2685,241 @@ def campaign_scheduler_sigkill_resume(m) -> None:
          phase_wall_s=time.perf_counter() - t0)
 
 
+# phases 24-26: data-parallel training.  The full-width world-2 gang of
+# phase 25 (both ranks on the one card, gloo) against world 1 with the same
+# arguments (the learning-rate schedule depends on --steps)
+GANG_STEPS = 3
+GANG_ARGV = ["run", "train", "--arch", "stablelm-1.6b", "--full",
+             "--batch", "8", "--seq", "2048", "--steps", str(GANG_STEPS),
+             "--precision", "bf16", "--log_every", "0"]
+# phase 26: the inventory gives the gang's two ranks a place on the card:
+# one node whose two GPU slots are both this card
+GANG_NODE = {**NODE, "gpus": 2}
+
+
+def dist_world1_bitwise(torch, m) -> None:
+    """Phase 24: ``dist_train_main(world_size=1)`` (no process group, no
+    collective) on the reduced stablelm in deterministic mode (bf16, the
+    tensor-core route), with checkpoints: its losses and final checkpoint
+    equal ``train_main``'s bit for bit."""
+    kw = dict(steps=6, log_every=0, precision="bf16", device="cuda",
+              checkpoint_every=2, checkpoint_async=False)
+    torch.use_deterministic_algorithms(True)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            plain = m["train_main"]("stablelm-1.6b",
+                                    checkpoint_dir=os.path.join(
+                                        tmp, "plain"), **kw)
+            dist = m["dist_train_main"]("stablelm-1.6b", world_size=1,
+                                        checkpoint_dir=os.path.join(
+                                            tmp, "dist"), **kw)
+            load, ls = m["load_checkpoint"], m["list_checkpoints"]
+            got, gstep = load(ls(os.path.join(tmp, "dist"))[-1][1])
+            want, wstep = load(ls(os.path.join(tmp, "plain"))[-1][1])
+            same = (set(got) == set(want) and gstep == wstep == 6 and all(
+                np.array_equal(got[k], want[k]) for k in want))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    d = dist["dist"]
+    if (dist["losses"] != plain["losses"] or not same
+            or d["allreduce_bytes_per_step"] != 0 or d["allreduce_calls"]
+            or d["backend"] is not None):
+        raise AssertionError(f"dist_train_main at world 1 is not "
+                             f"train_main: losses {dist['losses']} vs "
+                             f"{plain['losses']}, final arrays equal: "
+                             f"{same}, dist {d}")
+    emit(phase="dist_world1_bitwise", precision="bf16",
+         losses=dist["losses"], losses_equal=True,
+         final_checkpoint_bitwise=True, dist=d)
+
+
+def _gang_rank_launches(cfg, ranks: list, steps: int, what: str) -> list:
+    """Each rank's K1-K3 launches from its report: as ``train_launches``
+    predicts (the counts do not depend on the batch), all on the tensor
+    cores.  Returns them per rank."""
+    want = train_launches(cfg, steps)
+    out = []
+    for d in ranks:
+        got = d["kernel_launches"]
+        if any(got[name]["cuda_core"] or got[name]["tensor_core"]
+               != want[name] for name in _Counts.FLASH):
+            raise AssertionError(f"{what}: rank {d['rank']} launches {got}, "
+                                 f"want {want} on the tensor cores")
+        out.append({name: got[name]["tensor_core"] for name in _Counts.FLASH})
+    return out
+
+
+def _max_rel(got, want) -> float:
+    return max((abs(g - w) / abs(w) for g, w in zip(got, want)),
+               default=0.0)
+
+
+def dist_gang_full_width(torch, m, counts) -> list:
+    """Phase 25: ``run train --full --world_size 2`` (stablelm-1.6b, bf16,
+    global batch 8 x 2048) as a subprocess, through ``run_gang_local``:
+    two rank processes on ``cuda:0``, gloo (the ranks share the card), each
+    running K1-K3 on the tensor cores; its losses against world 1's with
+    the same arguments, run in this process first.  With a card per rank
+    the ranks take nccl instead, and with four cards 25b runs a world-4
+    gang too.  Returns each rank's K1-K3 launches of the world-2 gang."""
+    torch.cuda.empty_cache()
+    counts.zero()
+    t0 = time.perf_counter()
+    rc, one = launch_run(m, GANG_ARGV)
+    _check_report(rc, one, "run train --full (world 1)")
+    one = dict(one["metrics"], call_wall_s=time.perf_counter() - t0)
+    torch.cuda.empty_cache()
+    launches = _gang(torch, m, one, 2)
+    if torch.cuda.device_count() >= 4:
+        _gang(torch, m, one, 4)
+    return launches
+
+
+def _gang(torch, m, one: dict, world: int) -> list:
+    """One full-width gang of ``world`` ranks: rank r on ``cuda:{r %
+    cards}``, gloo when ranks share a card and nccl when each has its own;
+    K1-K3 as ``train_launches`` predicts on the tensor cores; the losses
+    within ``CAMPAIGN_LOSS_RTOL`` of world 1's.  The step time is the mean
+    of the steps after the first (a fresh process's first full-width step
+    also loads what it runs); the first beside it."""
+    cfg = m["get_config"]("stablelm-1.6b")
+    cards = torch.cuda.device_count()
+    devices = [f"cuda:{r % cards}" for r in range(world)]
+    backend = "nccl" if cards >= world else "gloo"
+    argv = GANG_ARGV + ["--world_size", str(world)]
+    reserved_gb = torch.cuda.memory_reserved() / 1e9
+    t0 = time.perf_counter()
+    proc = _cli(argv, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"run train --world_size {world}: exit "
+                             f"{proc.returncode}: {proc.stderr[-3000:]}"
+                             f"{proc.stdout[-3000:]}")
+    report = _report_of(proc.stdout)
+    met = report["metrics"]
+    ranks = met["gang"]["ranks"]
+    if (report["status"] != "succeeded"
+            or [d["rank"] for d in ranks] != list(range(world))
+            or [d["device"] for d in ranks] != devices
+            or any(d["backend"] != backend or d["world_size"] != world
+                   or d["local_batch"] != 8 // world for d in ranks)):
+        raise AssertionError(f"run train --world_size {world}: "
+                             f"{report['status']}, ranks {ranks}")
+    launches = _gang_rank_launches(cfg, ranks, GANG_STEPS,
+                                   f"run train --world_size {world}")
+    rel = _max_rel(met["losses"], one["losses"])
+    if (len(met["losses"]) != GANG_STEPS
+            or not np.all(np.isfinite(met["losses"]))
+            or rel > CAMPAIGN_LOSS_RTOL):
+        raise AssertionError(f"world-{world} losses {met['losses']} vs "
+                             f"world 1 {one['losses']} (rel {rel})")
+    steady = [float(np.mean(d["step_s"][1:])) for d in ranks]
+    ar = [d["allreduce_s_per_step"] for d in ranks]
+    emit(phase="dist_gang_full_width", argv=argv, status=report["status"],
+         backend=backend, devices=devices, losses=met["losses"],
+         world1_losses=one["losses"], losses_max_rel_err=rel,
+         loss_rtol=CAMPAIGN_LOSS_RTOL, step_s=max(steady),
+         first_step_s=max(d["step_s"][0] for d in ranks),
+         rank_step_s=[d["step_s"] for d in ranks],
+         world1_step_s=one["pure_step_s"] / one["steps_run"],
+         allreduce_s_per_step=ar,
+         allreduce_share_of_step=[a / max(steady) for a in ar],
+         allgather_s=[d["allgather_s"] for d in ranks],
+         reduced_bytes_per_step=[d["reduced_bytes_per_step"] for d in ranks],
+         grad_bytes=ranks[0]["grad_bytes"],
+         allreduce_bytes_per_step=ranks[0]["allreduce_bytes_per_step"],
+         allreduce_calls=[d["allreduce_calls"] for d in ranks],
+         agree_calls=[d["agree_calls"] for d in ranks],
+         peak_mem_gb=[d["peak_mem_gb"] for d in ranks],
+         launches=launches, report_wall_s=report["wall_s"],
+         process_wall_s=wall, world1_call_wall_s=one["call_wall_s"],
+         parent_reserved_gb=reserved_gb)
+    return launches
+
+
+def dist_gang_chaos(torch, m) -> None:
+    """Phase 26: ``Orchestrator.run_cluster`` in this process, a world-2
+    gang of the reduced stablelm (bf16) on ``GANG_NODE`` under
+    ``ChaosSpec(after_checkpoints=1)``: one rank SIGKILLed once a
+    checkpoint is published, the gang requeued whole and resumed."""
+    ex = m["executor"]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "ck")
+        run = m["RunSpec"](kind="train", arch="stablelm-1.6b", seed=0,
+                           name="gang", overrides={
+                               **CAMPAIGN_REDUCED, "world_size": 2,
+                               "checkpoint_dir": ck})
+        pvc = m["PersistentVolume"](os.path.join(tmp, "campaign"))
+        orch = m["Orchestrator"](pvc)
+        orch.submit_runs([run])
+        last_step = {}             # pid -> newest published step at exit
+
+        def spawn(job, attempt, argv, env, stdout, stderr):
+            return _LastStepAtExit(
+                ex._default_spawn(job, attempt, argv, env, stdout, stderr),
+                job.env.get("CHECKPOINT_DIR"), ex._latest_checkpoint_step,
+                last_step)
+
+        recs = orch.run_cluster(
+            workers=2, spawn=spawn, attempt_timeout_s=600,
+            worker_env={"REPRO_STEP_DELAY_S": "0.25"},
+            chaos=ex.ChaosSpec(kill_jobs=("gang",), after_checkpoints=1),
+            inventory=m["node_specs_from_json"]({"nodes": [GANG_NODE]}))
+        events = [json.loads(ln) for ln in pvc.read_bytes(
+            ex.EVENTS_REL).decode().splitlines()]
+        state = ex.replay_events(events)
+        rec = recs["gang"]
+        res = json.loads(pvc.read_bytes("results/gang.json"))
+        hist = res["attempt_history"]
+        kills = [e for e in events if e["event"] == "chaos_kill"]
+        started = [e for e in events
+                   if e["event"] == "started" and e["job"] == "gang"]
+        # rank 0 publishes: the newest step when the killed attempt's
+        # rank 0 was seen dead
+        killed = last_step.get(started[0]["ranks"][0]["pid"])
+        met = rec.result["metrics"]
+        resumed = met["resumed_from_step"]
+        if (rec.state.value != "Succeeded" or rec.attempts != 2
+                or [h["outcome"] for h in hist]
+                != ["preempted", "succeeded"]
+                or not kills or any("rank" not in e for e in kills)
+                or not met["device"].startswith("cuda")
+                or met["dist"]["world_size"] != 2 or not killed
+                or resumed != killed):
+            raise AssertionError(
+                f"gang chaos: {rec.state}, {rec.attempts} attempts, history "
+                f"{hist}, kills {kills}, resumed from {resumed}, last "
+                f"published {killed}, device {met.get('device')}")
+        ref_dir = os.path.join(tmp, "ref")
+        base = m["train_main"]("stablelm-1.6b", device="cuda",
+                               checkpoint_dir=ref_dir, checkpoint_async=False,
+                               **CAMPAIGN_REDUCED)
+        want, got = base["losses"][resumed:], met["losses"]
+        rel = _max_rel(got, want)
+        if not got or len(got) != len(want) or rel > CAMPAIGN_LOSS_RTOL:
+            raise AssertionError(f"gang chaos: losses {got} vs world 1 "
+                                 f"{want} (rel {rel})")
+        load, ls = m["load_checkpoint"], m["list_checkpoints"]
+        a, a_step = load(ls(ck)[-1][1])
+        b, b_step = load(ls(ref_dir)[-1][1])
+        bitwise = (set(a) == set(b) and a_step == b_step
+                   and all(np.array_equal(a[k], b[k]) for k in b))
+    if not state["ended"] or not state["consistent"]:
+        raise AssertionError(f"gang chaos log: {state['violations']}")
+    emit(phase="dist_gang_chaos", inventory=GANG_NODE,
+         placement="one node, two GPU slots, both this card (cuda:0)",
+         attempts=rec.attempts, killed_ranks=[e["rank"] for e in kills],
+         killed_after_step=killed, resumed_from_step=resumed, losses=got,
+         world1_losses=want, losses_max_rel_err=rel,
+         loss_rtol=CAMPAIGN_LOSS_RTOL,
+         final_checkpoint_bitwise_vs_world1=bitwise,
+         backend=met["dist"]["backend"], device=met["dist"]["device"],
+         consistent=state["consistent"],
+         attempt_wall_s=[h["wall_s"] for h in hist],
+         phase_wall_s=time.perf_counter() - t0)
+
+
 def _map(tree, fn):
     if isinstance(tree, dict):
         return {k: _map(v, fn) for k, v in tree.items()}
@@ -2693,6 +2949,7 @@ def load_port() -> dict:
     from repro_torch.data import SeekableSyntheticBatches, make_batch
     from repro_torch.data.loader import ChipLoader, prefetch
     from repro_torch.data.normalize import nir_rg, percentile_stretch
+    from repro_torch.distributed import dist_train_main
     from repro_torch.data.rasters import synth_change_pair
     from repro_torch.kernels.percentile_norm import kernel as pn
     from repro_torch.kernels.percentile_norm import percentile_normalize
@@ -2725,7 +2982,8 @@ def load_port() -> dict:
              train_loss=train_loss, unused_leaves=unused_leaves,
              cast_floating=cast_floating, tree_leaves=tree_leaves,
              tree_unflatten=tree_unflatten,
-             train_main=train_main, Preemption=Preemption,
+             train_main=train_main, dist_train_main=dist_train_main,
+             Preemption=Preemption,
              load_checkpoint=load_checkpoint,
              list_checkpoints=list_checkpoints, init_params=init_params,
              ServeEngine=ServeEngine, Request=Request, prefill=prefill,
@@ -2858,6 +3116,12 @@ def main() -> int:
     campaign_chaos_resume(torch, m)
     campaign_scheduler_sigkill_resume(m)
 
+    # data-parallel training: world 1 is the single process, a full-width
+    # world-2 gang shares the card, and a gang under the executor's chaos
+    dist_world1_bitwise(torch, m)
+    gang_launches = dist_gang_full_width(torch, m, counts)
+    dist_gang_chaos(torch, m)
+
     # the vision paths: both studies normalize every scene through K5
     k5 = k5_vs_plain(torch, pn, pn_ref)
     pn_launches = burned_area(torch, m, counts)
@@ -2891,6 +3155,7 @@ def main() -> int:
         rec["launches_train_hubert"] = hubert["train"][name]
         rec["launches_train_llava"] = llava["train"][name]
         rec["launches_run_api_hubert"] = hubert["run_api"][name]
+        rec["launches_train_gang"] = [r[name] for r in gang_launches]
     k1 = k1_recs[("granite_prefill", "bfloat16")]
     k1 = dict(ms=k1["kernel_ms"], bound_ms=k1["bound_ms"],
               bound_by=k1["bound_by"], max_abs_err=k1["max_abs_err_o"],
@@ -2909,6 +3174,8 @@ def main() -> int:
                   "flash_attention_fwd"],
               launches_prefill_llava=llava["prefill"],
               launches_train_llava=llava["train"]["flash_attention_fwd"],
+              launches_train_gang=[r["flash_attention_fwd"]
+                                   for r in gang_launches],
               shapes={name: {k: k1_recs[(name, "bfloat16")][k] for k in (
                   "kernel_ms", "bound_ms", "bound_by", "plain_ms",
                   "library_ms", "max_abs_err_o", "route")}

@@ -6,9 +6,16 @@ A spec written for the reference runs unchanged: its backend names
 ``cuda`` | ``auto``), and the port's own names are accepted too.  One
 override is the port's own: ``device`` (default ``None``: ``cuda``, which
 must exist; the tests pass ``cpu``).  It travels through the env manifest
-like any override, so a ``run_local`` job on the CPU stays there.
-Data-parallel gangs (``world_size > 1``, ``dist_rank``, ``coordinator``)
-wait for the port of ``distributed/`` and raise.
+like any override, so a ``run_local`` job on the CPU stays there, and
+every rank of a gang gets it through its argv.
+
+Three branches, as in the reference: ``world_size > 1`` without
+``dist_rank`` self-gangs (:func:`repro_torch.distributed.gang.
+run_gang_local` spawns one ``run train`` process per rank and adopts
+rank 0's report); with ``dist_rank`` (and ``coordinator``, rank 0's
+``host:port``) this process is one rank
+(:func:`repro_torch.distributed.dist_train_main`); otherwise the single
+process (:func:`repro_torch.launch.train.train_main`).
 """
 from __future__ import annotations
 
@@ -37,7 +44,7 @@ DEFAULTS = {
     "grad_clip": None,        # clip global grad norm (fused with the metric)
     "attention_backend": None,  # torch | cuda | auto, or the reference's
     "mixer_backend": None,      # jnp | pallas (None = config default)
-    # -- data-parallel: batch is the GLOBAL batch; not ported yet --
+    # -- data-parallel (repro_torch.distributed): batch is the GLOBAL batch --
     "world_size": 1,          # >1 = N-process data-parallel gang
     "gang_min": 0,            # elastic floor, read by the campaign executor
     "dist_rank": None,        # set per rank by the gang launcher/executor
@@ -77,15 +84,10 @@ def run_train(spec: RunSpec) -> RunReport:
         if grid_key in overrides:
             overrides[knob] = overrides.pop(grid_key)
     o = spec.replace(overrides=overrides).merged_overrides(DEFAULTS)
-    if (int(o["world_size"] or 1) > 1 or o["dist_rank"] is not None
-            or o["coordinator"]):
-        raise NotImplementedError("data-parallel training (world_size > 1, "
-                                  "dist_rank, coordinator) is not ported "
-                                  "yet")
-    from repro_torch.launch.train import train_main
     t0 = time.time()
-    result = train_main(
-        spec.arch, reduced=not o["full"], steps=int(o["steps"]),
+    world = int(o["world_size"] or 1)
+    common = dict(
+        reduced=not o["full"], steps=int(o["steps"]),
         batch=int(o["batch"]), seq=int(o["seq"]), lr=float(o["lr"]),
         optimizer=o["optimizer"], seed=spec.seed,
         checkpoint_dir=o["checkpoint_dir"],
@@ -102,6 +104,20 @@ def run_train(spec: RunSpec) -> RunReport:
         attention_backend=port_backend(o["attention_backend"]),
         mixer_backend=port_backend(o["mixer_backend"]),
         device=o["device"])
+    if world > 1 and o["dist_rank"] is None:
+        # gang self-launch: this process stays torch-free and spawns one
+        # rank subprocess per rank (the executor does its own per-rank
+        # spawn and never takes this path)
+        from repro_torch.distributed.gang import run_gang_local
+        result = run_gang_local(spec.replace(overrides=overrides), world)
+    elif o["dist_rank"] is not None:
+        from repro_torch.distributed.trainer import dist_train_main
+        result = dist_train_main(
+            spec.arch, world_size=world, dist_rank=int(o["dist_rank"]),
+            coordinator=o["coordinator"], **common)
+    else:
+        from repro_torch.launch.train import train_main
+        result = train_main(spec.arch, **common)
     artifacts = []
     if o["checkpoint_dir"]:
         artifacts.append(str(o["checkpoint_dir"]))

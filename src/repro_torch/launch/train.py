@@ -10,8 +10,10 @@ optional atomic checkpoints of the full ``TrainState`` plus the data
 cursor, ``resume`` from the newest valid one, the ``preempt_at_step``
 fault hook, and with ``s3_root`` the export of the checkpoint directory to
 an :class:`~repro_torch.core.artifacts.S3Store` after training.  Runs on
-``cuda`` unless ``device`` (``--device``) says otherwise.  Data-parallel
-gangs (``world_size > 1``) belong to a slice not ported yet and raise.
+``cuda`` unless ``device`` (``--device``) says otherwise.  A data-parallel
+gang (``--world_size N``) runs its ranks through
+:func:`repro_torch.distributed.dist_train_main`, which shares
+:func:`run_rank` with this single process.
 
 The command line is a thin shim over the port's run API: it builds a
 ``train`` :class:`~repro_torch.api.RunSpec`, runs it through the registry
@@ -32,10 +34,13 @@ from repro_torch.configs import get_config, get_reduced
 from repro_torch.core.artifacts import S3Store
 from repro_torch.data.inputs import SeekableSyntheticBatches
 from repro_torch.data.tokens import SeekableTokenBatches
-from repro_torch.kernels.common import resolve_device
+from repro_torch.distributed.context import init_distributed, params_checksum
+from repro_torch.distributed.data import ShardedBatches
+from repro_torch.distributed.trainer import DistributedTrainLoop
 from repro_torch.models.model import period_len
 from repro_torch.optim import get_optimizer, warmup_cosine
-from repro_torch.train import TrainLoop, init_train_state, make_train_step
+from repro_torch.train import init_train_state, make_train_step
+from repro_torch.tree import tree_leaves
 
 
 class _LMDictBatches(SeekableTokenBatches):
@@ -61,12 +66,36 @@ def train_main(arch: str, *, reduced: bool = True, steps: int = 100,
                resume: bool = False, preempt_at_step: int = None,
                precision: str = "f32", grad_clip: float = None,
                microbatches: int = 1, attention_backend: str = None,
-               mixer_backend: str = None, world_size: int = 1,
-               device=None) -> dict:
-    if world_size != 1:
-        raise NotImplementedError("data-parallel training (world_size > 1) "
-                                  "is not ported yet")
-    device = resolve_device(device)
+               mixer_backend: str = None, device=None) -> dict:
+    return run_rank(arch, init_distributed(1, device=device),
+                    reduced=reduced, steps=steps, batch=batch, seq=seq,
+                    lr=lr, optimizer=optimizer, seed=seed,
+                    checkpoint_dir=checkpoint_dir, s3_root=s3_root,
+                    log_every=log_every, checkpoint_every=checkpoint_every,
+                    checkpoint_keep=checkpoint_keep,
+                    checkpoint_async=checkpoint_async, resume=resume,
+                    preempt_at_step=preempt_at_step, precision=precision,
+                    grad_clip=grad_clip, microbatches=microbatches,
+                    attention_backend=attention_backend,
+                    mixer_backend=mixer_backend)[0]
+
+
+def run_rank(arch: str, ctx, *, reduced: bool = True, steps: int = 100,
+             batch: int = 8, seq: int = 128, lr: float = 3e-4,
+             optimizer: str = None, seed: int = 0,
+             checkpoint_dir: str = None, s3_root: str = None,
+             log_every: int = 10, checkpoint_every: int = 0,
+             checkpoint_keep: int = 3, checkpoint_async: bool = True,
+             resume: bool = False, preempt_at_step: int = None,
+             precision: str = "f32", grad_clip: float = None,
+             microbatches: int = 1, attention_backend: str = None,
+             mixer_backend: str = None) -> tuple:
+    """One rank's training run on ``ctx.device`` (a
+    :class:`repro_torch.distributed.DistContext`; world 1 is the single
+    process).  ``batch`` is the global batch.  Returns the result dict
+    and the loop.  Rank 0 alone writes checkpoints (on cadence, on
+    SIGTERM and at the end), logs and exports; every rank restores."""
+    device = ctx.device
     cfg = get_reduced(arch) if reduced else get_config(arch)
     backends = {}
     if attention_backend:
@@ -79,25 +108,39 @@ def train_main(arch: str, *, reduced: bool = True, steps: int = 100,
     state = init_train_state(
         torch.Generator(device=device).manual_seed(seed), cfg, opt,
         device=device)
+    if ctx.world_size > 1:
+        # every rank drew its parameters from the same seed
+        ctx.agree(params_checksum(tree_leaves(state.params)),
+                  "initial parameters")
     step_fn = make_train_step(
         cfg, opt, lr_schedule=warmup_cosine(lr, steps,
                                             warmup_steps=max(steps // 10, 1)),
         precision=precision, grad_clip=grad_clip,
-        microbatches=max(1, int(microbatches)))
+        microbatches=max(1, int(microbatches)), dist=ctx)
+    # the global stream on the host; each rank copies its rows over
     text_lm = cfg.family in ("dense", "moe", "ssm", "hybrid")
-    data = (_LMDictBatches(cfg.vocab, batch, seq, seed, device) if text_lm
-            else SeekableSyntheticBatches(cfg, batch, seq, seed,
-                                          device=device))
+    inner = (_LMDictBatches(cfg.vocab, batch, seq, seed, "cpu") if text_lm
+             else SeekableSyntheticBatches(cfg, batch, seq, seed,
+                                           device="cpu"))
+    data = ShardedBatches(inner, ctx)
 
+    lead = ctx.is_coordinator
     ckpt = None
     if checkpoint_dir:
+        # one shared directory: rank 0 writes, every rank restores
         ckpt = CheckpointManager(checkpoint_dir,
                                  keep_last=max(int(checkpoint_keep), 1),
-                                 every_steps=int(checkpoint_every),
-                                 async_saves=bool(checkpoint_async),
+                                 every_steps=int(checkpoint_every) if lead
+                                 else 0,
+                                 async_saves=bool(checkpoint_async) and lead,
                                  period=period_len(cfg))
-    loop = TrainLoop(step_fn, state, data, checkpointer=ckpt,
-                     preempt_at_step=preempt_at_step, log_every=log_every)
+    # only rank 0 saves on SIGTERM; the others die with the signal and
+    # the gang is requeued as one
+    loop = DistributedTrainLoop(step_fn, state, data, ctx=ctx,
+                                checkpointer=ckpt,
+                                preempt_at_step=preempt_at_step,
+                                log_every=log_every if lead else 0,
+                                sigterm_save=lead)
     if resume:
         loop.resume()
     try:
@@ -112,16 +155,17 @@ def train_main(arch: str, *, reduced: bool = True, steps: int = 100,
         # trajectories for oracle comparisons, bounded for long runs
         result["losses"] = list(loop.losses)
     if ckpt is not None:
-        loop.save_final(extra={"arch": cfg.name,
-                               "final_loss": run.get("final_loss")})
+        if lead:
+            loop.save_final(extra={"arch": cfg.name,
+                                   "final_loss": run.get("final_loss")})
         overhead = result.get("checkpoint", {}).get("overhead_frac", 0.0)
         result["checkpoint"] = {**ckpt.stats(), "overhead_frac": overhead}
         ckpt.close()
-        if s3_root:
+        if s3_root and lead:
             s3 = S3Store(s3_root)
             n = export_to_s3(checkpoint_dir, s3, f"models/{cfg.name}")
             result["s3_objects"] = n
-    return result
+    return result, loop
 
 
 def main(argv=None):
@@ -169,7 +213,8 @@ def main(argv=None):
     ap.add_argument("--microbatches", type=int, default=1,
                     help="gradient-accumulation chunks per step")
     ap.add_argument("--world-size", type=int, default=1,
-                    help="data-parallel ranks; only 1 is ported")
+                    help="data-parallel ranks (a gang of processes; "
+                         "--batch is the global batch)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda, which must exist)")
     args = ap.parse_args(argv)

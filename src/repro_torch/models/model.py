@@ -170,23 +170,43 @@ def embed_inputs(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor]):
     dtype = param_dtype(cfg)
     if cfg.family == "audio":
         x = batch["features"].to(dtype)
-        loss_mask = batch["mask"]
     else:
-        tokens = batch["tokens"]
-        x = params["embed"]["w"][tokens.long()]
-        loss_mask = torch.ones(tokens.shape, dtype=torch.bool,
-                               device=x.device)
+        x = params["embed"]["w"][batch["tokens"].long()]
         if cfg.family == "vlm":
             patches = batch["patches"].to(dtype)
             # jnp.concatenate's promotion: bf16 patches, f32 tokens -> f32
             cat = torch.promote_types(patches.dtype, x.dtype)
             x = torch.cat([patches.to(cat), x.to(cat)], dim=1)
-            loss_mask = torch.cat(
-                [torch.zeros(patches.shape[:2], dtype=torch.bool,
-                             device=x.device), loss_mask], dim=1)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
-    return x, positions, loss_mask
+    return x, positions, _loss_mask(cfg, batch)
+
+
+def _loss_mask(cfg: ArchConfig, batch) -> torch.Tensor:
+    """(B, S) bool over the model's input positions: audio's ``mask``;
+    every token of a text batch; a vlm's tokens but not its patches."""
+    if cfg.family == "audio":
+        return batch["mask"]
+    tokens = batch["tokens"]
+    mask = torch.ones(tokens.shape, dtype=torch.bool, device=tokens.device)
+    if cfg.family == "vlm":
+        mask = torch.cat([torch.zeros(batch["patches"].shape[:2],
+                                      dtype=torch.bool, device=mask.device),
+                          mask], dim=1)
+    return mask
+
+
+def _scored(cfg: ArchConfig, loss_mask: torch.Tensor) -> torch.Tensor:
+    """The f32 mask of the positions the loss scores: audio scores each
+    frame against its own label, the others position t against t + 1."""
+    return (loss_mask if cfg.family == "audio" else loss_mask[:, 1:]).float()
+
+
+def loss_count(cfg: ArchConfig, batch) -> torch.Tensor:
+    """The f32 count of positions :func:`train_loss` scores on ``batch``
+    (its ``cnt``), from the batch alone: a data-parallel step sums it over
+    the ranks before its backward."""
+    return _scored(cfg, _loss_mask(cfg, batch)).sum()
 
 
 def _head_weight(params, cfg: ArchConfig):
@@ -328,6 +348,18 @@ def train_loss(params, cfg: ArchConfig, batch, remat: bool = True,
     Must run with gradients enabled to be differentiated: unlike
     :func:`prefill` it is not under ``torch.no_grad()``.
     """
+    tot, cnt, aux = loss_terms(params, cfg, batch, remat=remat,
+                               loss_chunk=loss_chunk,
+                               compute_dtype=compute_dtype)
+    return tot / cnt.clamp_min(1.0) + aux
+
+
+def loss_terms(params, cfg: ArchConfig, batch, remat: bool = True,
+               loss_chunk: int = 512, compute_dtype=None):
+    """:func:`train_loss`'s parts ``(tot, cnt, aux)``: the f32 sum of the
+    scored positions' cross entropy, their count and the MoE aux loss.
+    The loss is ``tot / max(cnt, 1) + aux``; a data-parallel rank divides
+    its ``tot`` by the count summed over every rank instead."""
     if compute_dtype is not None:
         params = cast_compute_params(params, compute_dtype)
     x, positions, loss_mask = embed_inputs(params, cfg, batch)
@@ -339,7 +371,7 @@ def train_loss(params, cfg: ArchConfig, batch, remat: bool = True,
     if cfg.family == "audio":
         # no shift: each frame is scored against its own label where the
         # mask says so
-        xs, ls, ms = x, batch["labels"], loss_mask.float()
+        xs, ls = x, batch["labels"]
     else:
         # causal shift as in the reference: position t is scored against
         # labels[t + 1] (or tokens[t + 1] when the batch has no labels);
@@ -355,7 +387,7 @@ def train_loss(params, cfg: ArchConfig, batch, remat: bool = True,
                 full = torch.cat([full.new_zeros((full.shape[0], P)), full],
                                  dim=1)
         ls = full[:, 1:]
-        ms = loss_mask[:, 1:].float()
+    ms = _scored(cfg, loss_mask)
 
     S = xs.shape[1]
     c = min(loss_chunk, S)
@@ -368,7 +400,7 @@ def train_loss(params, cfg: ArchConfig, batch, remat: bool = True,
     for a, b in bounds:
         s, m = _xent_chunk(xs[:, a:b], w, ls[:, a:b], ms[:, a:b])
         tot, cnt = tot + s, cnt + m
-    return tot / cnt.clamp_min(1.0) + aux
+    return tot, cnt, aux
 
 
 # --------------------------------------------------------------------------

@@ -10,8 +10,11 @@ computes this product outside any Pallas kernel, so the port has no
 kernel here either.
 
 There is one dispatch group (G = 1): the reference's ``_dispatch_groups``
-returns that without a mesh, and the grouped all-to-all dispatch comes
-with the distributed slice.  Every detail that decides which tokens an
+returns that without a mesh.  Under its data-parallel layout the groups
+are the ranks' row shards, so a data-parallel rank that dispatches its own
+rows as one group computes what the reference does; the grouped
+all-to-all of a sharded expert layout belongs with ``sharding/``, not
+ported.  Every detail that decides which tokens an
 expert takes follows the reference: the router in f32, top-k by k
 iterated argmaxes (a tie goes to the first index), ranks by a stable sort
 with masked tokens under a sentinel expert id E, the capacity counted over

@@ -11,8 +11,9 @@ recurrent update :func:`ssd_decode`, plain tensor code: the JAX package
 has no kernel for it.
 
 The reference's sequence-parallel scan (``ssd_seq_parallel``) serves
-sequence-sharded meshes and belongs to the distributed slice; it is not
-ported.
+sequence-sharded meshes (its ``fsdp_sp`` layout); it belongs with
+``sharding/`` and is not ported.  The data-parallel layout shards only
+the batch, so there the reference takes this scan too.
 """
 from __future__ import annotations
 

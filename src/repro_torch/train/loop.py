@@ -75,6 +75,7 @@ class TrainLoop:
         self.start_step = int(state.step)
         self.resumed_from_step: Optional[int] = None
         self.losses: list = []
+        self.step_times: list = []      # host seconds of each step run
         self._sigterm_flag = False
 
     # ------------------------------------------------------------- resume
@@ -139,7 +140,8 @@ class TrainLoop:
                 batch = self.data.next_batch()
                 self.state, metrics = self.step_fn(self.state, batch)
                 self.losses.append(float(metrics["loss"]))
-                step_s += time.time() - ts
+                self.step_times.append(time.time() - ts)
+                step_s += self.step_times[-1]
                 if self.log_every and (i % self.log_every == 0
                                        or i == total_steps - 1):
                     print(f"step {i:5d} loss {self.losses[-1]:.4f} "

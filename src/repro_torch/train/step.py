@@ -11,6 +11,12 @@ with optional microbatch gradient accumulation (port of
   feeds both the ``grad_norm`` metric and the clip scale.
 * a :class:`repro_torch.train.precision.Precision` policy selects the
   compute dtype; microbatch gradients accumulate in f32.
+* with ``dist`` (a :class:`repro_torch.distributed.DistContext` of world
+  N > 1) the step is one rank's share of a data-parallel step: the
+  batch is the rank's rows, and the gradients and the loss are summed
+  over the ranks before the norm, the clip and the update (see
+  :func:`make_loss_and_grads`).  At world 1 it calls no collective and
+  is the single-process step.
 """
 from __future__ import annotations
 
@@ -19,7 +25,8 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Union
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.model import init_params, train_loss, unused_leaves
+from repro_torch.models.model import (init_params, loss_count, loss_terms,
+                                      train_loss, unused_leaves)
 from repro_torch.optim import Optimizer, constant, get_optimizer
 from repro_torch.train.precision import Precision, get_precision
 from repro_torch.tree import tree_leaves, tree_unflatten
@@ -56,35 +63,65 @@ def _global_sq_norm(grads) -> torch.Tensor:
     return sum(g.float().square().sum() for g in tree_leaves(grads))
 
 
-def make_train_step(cfg: ArchConfig, optimizer: Optional[Optimizer] = None,
-                    lr_schedule: Optional[Callable] = None,
-                    remat: bool = True, microbatches: int = 1,
-                    loss_chunk: int = 512,
-                    precision: Union[str, Precision, None] = "f32",
-                    grad_clip: Optional[float] = None):
-    """Returns ``train_step(state, batch) -> (state, metrics)``.
+def _global_counts(dist, cfg: ArchConfig, mbs) -> list:
+    """Each local microbatch's normalizer: the scored positions of the
+    *global* microbatch it belongs to, summed over the ranks.
 
-    The step updates ``state.params`` and ``state.opt_state`` in place and
-    returns a ``TrainState`` holding those same tensors at ``step + 1``.
-    ``grad_clip`` clips the global gradient norm to the given value using
-    the same reduction that produces the ``grad_norm`` metric.
+    The single process cuts the global batch into ``n`` microbatches of
+    consecutive rows.  Rank r holds rows ``[r B/N, (r+1) B/N)`` and cuts
+    them into ``n`` too, so its microbatch j is a slice of global
+    microbatch ``(r n + j) // N``, which is the local microbatches
+    ``i N .. i N + N - 1`` of the rank-major order.  One small all-gather
+    of every rank's ``n`` counts gives all of them."""
+    n, world = len(mbs), dist.world_size
+    local = torch.stack([loss_count(cfg, mb) for mb in mbs])
+    per_global = dist.allgather(local).reshape(n, world).sum(dim=1)
+    return [per_global[(dist.rank * n + j) // world] for j in range(n)]
+
+
+def make_loss_and_grads(cfg: ArchConfig, *, remat: bool = True,
+                        microbatches: int = 1, loss_chunk: int = 512,
+                        precision: Union[str, Precision, None] = "f32",
+                        dist=None):
+    """Returns ``loss_and_grads(params, batch) -> (loss, grads)``: the
+    step's loss and its gradient leaves in ``tree_leaves`` order,
+    averaged over ``microbatches`` (accumulated in the policy's gradient
+    dtype).
+
+    ``dist``: the rank's context in a data-parallel job of world N > 1.
+    The reference's loss over the global batch is ``tot / max(cnt, 1) +
+    aux`` per global microbatch, ``cnt`` counted over every rank's rows
+    (the masks of the audio and vlm families differ between ranks) and
+    ``aux`` the mean of the ranks' MoE aux losses (its dispatch groups
+    are the ranks' row shards).  So each rank differentiates ``tot_r /
+    max(cnt, 1) + aux_r / N``, with ``cnt`` from one small all-gather
+    before the backward, and one all-reduce sums the ranks' gradients
+    and losses: the global gradient and loss.  At world 1 no collective
+    runs.
     """
-    optimizer = optimizer or get_optimizer(cfg.optimizer)
-    lr_schedule = lr_schedule or constant(1e-4)
     prec = get_precision(precision)
     grad_dtype = getattr(torch, prec.grad_dtype)
     compute_dtype = prec.compute_dtype if prec.casts_compute else None
+    world = 1 if dist is None else dist.world_size
 
-    def value_and_grad(params, mb):
+    def objective(params, mb, count):
+        if count is None:
+            return train_loss(params, cfg, mb, remat=remat,
+                              loss_chunk=loss_chunk,
+                              compute_dtype=compute_dtype)
+        tot, _, aux = loss_terms(params, cfg, mb, remat=remat,
+                                 loss_chunk=loss_chunk,
+                                 compute_dtype=compute_dtype)
+        return tot / count.clamp_min(1.0) + aux / world
+
+    def value_and_grad(params, mb, count):
         # detached aliases that require grad: the caller's tensors keep
         # their flags, and the gradients come back in tree_leaves order
         leaves = [p.detach().requires_grad_(True)
                   for p in tree_leaves(params)]
         unused = unused_leaves(params, cfg)
         with torch.enable_grad():
-            loss = train_loss(tree_unflatten(params, leaves), cfg, mb,
-                              remat=remat, loss_chunk=loss_chunk,
-                              compute_dtype=compute_dtype)
+            loss = objective(tree_unflatten(params, leaves), mb, count)
             # leaves no output reads get a zero gradient, as in the
             # reference; every other leaf must reach the loss
             used = iter(torch.autograd.grad(
@@ -92,20 +129,58 @@ def make_train_step(cfg: ArchConfig, optimizer: Optional[Optimizer] = None,
         return loss.detach(), [torch.zeros_like(p) if u else next(used)
                                for p, u in zip(leaves, unused)]
 
-    def train_step(state: TrainState, batch):
-        params = state.params
+    def loss_and_grads(params, batch):
+        mbs = ([batch] if microbatches == 1
+               else _split_microbatches(batch, microbatches))
+        counts = ([None] * microbatches if world == 1
+                  else _global_counts(dist, cfg, mbs))
         if microbatches == 1:
-            loss, grads = value_and_grad(params, batch)
+            loss, grads = value_and_grad(params, batch, counts[0])
         else:
             losses, grads = [], None
-            for mb in _split_microbatches(batch, microbatches):
-                l, g = value_and_grad(params, mb)
+            for mb, count in zip(mbs, counts):
+                l, g = value_and_grad(params, mb, count)
                 g = [gi.to(grad_dtype) for gi in g]
                 losses.append(l)
                 grads = g if grads is None else [
                     a + gi for a, gi in zip(grads, g)]
             loss = sum(losses) / microbatches
             grads = [g / microbatches for g in grads]
+        if world > 1:
+            # one sum over the ranks, the loss riding in the gradients'
+            # last bucket
+            loss = loss.reshape(1)
+            dist.allreduce_(grads + [loss])
+            loss = loss[0]
+        return loss, grads
+
+    return loss_and_grads
+
+
+def make_train_step(cfg: ArchConfig, optimizer: Optional[Optimizer] = None,
+                    lr_schedule: Optional[Callable] = None,
+                    remat: bool = True, microbatches: int = 1,
+                    loss_chunk: int = 512,
+                    precision: Union[str, Precision, None] = "f32",
+                    grad_clip: Optional[float] = None, dist=None):
+    """Returns ``train_step(state, batch) -> (state, metrics)``.
+
+    The step updates ``state.params`` and ``state.opt_state`` in place and
+    returns a ``TrainState`` holding those same tensors at ``step + 1``.
+    ``grad_clip`` clips the global gradient norm to the given value using
+    the same reduction that produces the ``grad_norm`` metric.  With
+    ``dist`` (see :func:`make_loss_and_grads`) the norm and the clip see
+    the gradient summed over the ranks.
+    """
+    optimizer = optimizer or get_optimizer(cfg.optimizer)
+    lr_schedule = lr_schedule or constant(1e-4)
+    loss_and_grads = make_loss_and_grads(
+        cfg, remat=remat, microbatches=microbatches, loss_chunk=loss_chunk,
+        precision=precision, dist=dist)
+
+    def train_step(state: TrainState, batch):
+        params = state.params
+        loss, grads = loss_and_grads(params, batch)
 
         # one global reduction feeds both the metric and the clip scale
         gnorm = torch.sqrt(_global_sq_norm(grads))

@@ -203,9 +203,14 @@ def test_typo_guard_matches_the_reference():
 @pytest.mark.parametrize("kind,overrides,what", [
     ("dryrun", {}, "NotImplementedError"),
     ("perfprobe", {"shape": "decode_32k"}, "NotImplementedError"),
-    ("train", {"world_size": 2}, "NotImplementedError"),
-    ("train", {"dist_rank": 0}, "NotImplementedError"),
-    ("train", {"coordinator": "localhost:1234"}, "NotImplementedError"),
+    # the reference's own errors of a data-parallel rank: no coordinator,
+    # a rank outside the world, a global batch the ranks cannot split
+    ("train", {"world_size": 2, "dist_rank": 0, "device": "cpu"},
+     "ValueError"),
+    ("train", {"world_size": 2, "dist_rank": 2, "device": "cpu",
+               "coordinator": "127.0.0.1:1"}, "ValueError"),
+    ("train", {"world_size": 2, "dist_rank": 0, "batch": 3, "device": "cpu",
+               "coordinator": "127.0.0.1:1"}, "ValueError"),
     ("train", {"attention_backend": "triton", "device": "cpu"},
      "ValueError"),
 ])
@@ -220,7 +225,10 @@ def test_without_a_card_nothing_falls_back_to_the_cpu(monkeypatch,
     job fails every attempt; nothing runs on the CPU instead."""
     from repro_torch.core import Orchestrator, PersistentVolume
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for kind, extra in (("train", SMALL), ("serve", {"requests": 1})):
+    # a rank of a world-2 gang fails before it joins the group
+    rank = {"world_size": 2, "dist_rank": 0, "coordinator": "127.0.0.1:1"}
+    for kind, extra in (("train", SMALL), ("serve", {"requests": 1}),
+                        ("train", {**SMALL, **rank})):
         r = T.run(T.RunSpec(kind=kind, overrides=extra))
         assert r.status == "failed" and "no CUDA device" in r.error
     orch = Orchestrator(PersistentVolume(tmp_path))

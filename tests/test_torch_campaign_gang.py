@@ -4,8 +4,8 @@ the fake spawn: one process per rank sharing a coordinator, whole-gang
 kill and requeue when one rank dies, fail-fast unschedulable gangs, the
 worker cap in process units, the ``campaign status`` gang row), the
 per-rank argv of ``repro_torch.distributed.gang``, and the replayed
-utilization ledger (``test_placement.py``).  Real world-2 gangs wait for
-the port of data-parallel training."""
+utilization ledger (``test_placement.py``).  Real world-2 gangs train in
+``test_torch_dist_gang_chaos.py`` and ``test_torch_dist_gang_elastic.py``."""
 import json
 
 import pytest

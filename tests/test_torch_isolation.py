@@ -143,3 +143,22 @@ def test_campaign_status_imports_no_jax_no_repro_and_no_torch(tmp_path):
     top = {m.split(".")[0] for m in mods}
     assert not top & {"jax", "jaxlib", "repro", "torch"}, sorted(
         m for m in mods if m.split(".")[0] in ("jax", "repro", "torch"))
+
+
+@pytest.mark.parametrize("stmt", [
+    "import repro_torch.distributed",
+    "from repro_torch.distributed import free_port, rank_argv, "
+    "run_gang_local",
+    "import repro_torch.distributed.gang"])
+def test_distributed_package_and_gang_load_no_torch(stmt):
+    """The executor's scheduler process imports the gang helpers, and a
+    self-ganging ``run train`` parent spawns its ranks from them: neither
+    may load torch (only ``.context``, ``.data`` and ``.trainer`` do)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run(
+        [sys.executable, "-c", f"{stmt}\nimport sys\n"
+         "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+         "('torch', 'jax', 'repro')))"],
+        env=env, capture_output=True, text=True, timeout=60)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.strip() == "[]"

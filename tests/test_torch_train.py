@@ -290,11 +290,21 @@ def test_bf16_policy_trains():
     assert losses[-1] < losses[0]
 
 
-def test_unported_options_raise(tmp_path):
-    """Data-parallel gangs are not ported and raise; the S3 export, once
-    unported too, now copies the checkpoint directory into the store."""
-    with pytest.raises(NotImplementedError):
-        train_main("stablelm-1.6b", steps=1, world_size=2, device="cpu")
+def test_unported_options_raise(tmp_path, monkeypatch):
+    """Both options that were once unported now run: a world-2
+    data-parallel gang on the CPU (its losses against world 1's are held
+    in ``test_torch_distributed.py``), and the S3 export copies the
+    checkpoint directory into the store."""
+    from repro_torch.api import RunSpec, run
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")     # each rank's threads
+    gang = run(RunSpec(kind="train", overrides={
+        "steps": 1, "batch": 2, "seq": 8, "log_every": 0, "world_size": 2,
+        "device": "cpu"}))
+    assert gang.ok, gang.error
+    dist = gang.metrics["dist"]
+    assert (dist["world_size"], dist["backend"], dist["local_batch"]) == (
+        2, "gloo", 1)
+    assert np.isfinite(gang.metrics["losses"]).all()
     res = train_main("stablelm-1.6b", steps=1, batch=2, seq=16, log_every=0,
                      checkpoint_dir=str(tmp_path / "ck"),
                      checkpoint_async=False, s3_root=str(tmp_path / "s3"),

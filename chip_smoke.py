@@ -200,9 +200,9 @@ Phases, each of which fails the run if it fails:
 25. ``run train --full --world_size 2`` (stablelm-1.6b, bf16, global 8 x
     2048, 3 steps) as a subprocess: ``run_gang_local`` starts two ranks,
     both on ``cuda:0`` with gloo (they share the card); each rank's K1-K3
-    launches are ``train_launches``'s, all on the tensor cores; the losses
-    within ``CAMPAIGN_LOSS_RTOL`` of a world-1 ``run train`` with the same
-    arguments; the step time, each rank's peak memory, the all-reduce's
+    launches are ``train_launches``'s, all on the tensor cores; every rank
+    agrees on the final parameters; the losses within ``GANG_LOSS_RTOL``
+    of a world-1 ``run train`` with the same arguments; the step time, each rank's peak memory, the all-reduce's
     seconds a step against the step and the bytes reduced beside
     ``grad_bytes``.  With a card per rank the gang takes nccl, and with
     four cards (25b) a world-4 gang runs too;
@@ -210,7 +210,7 @@ Phases, each of which fails the run if it fails:
     (bf16) on one node whose two GPU slots are both the card, under
     ``ChaosSpec(after_checkpoints=1)``: a rank is SIGKILLed, the gang
     succeeds at its second attempt, resumed from the last published
-    step, its losses within ``CAMPAIGN_LOSS_RTOL`` of an uninterrupted
+    step, its losses within ``GANG_LOSS_RTOL`` of an uninterrupted
     world-1 run; the log replays consistent; whether its final checkpoint
     equals the world-1 run's bit for bit (not gated: the sums differ).
 
@@ -240,6 +240,7 @@ import io
 import json
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -2203,11 +2204,26 @@ def run_api_train_full_width(torch, m, counts) -> dict:
 
 
 def _cli(args, timeout: int = 600):
+    """``python -m repro_torch.launch *args`` in a process group of its
+    own, which is killed whole when the call returns or times out: no
+    process it started (a gang's ranks) outlives it into the next
+    phase."""
     env = dict(os.environ, PYTHONPATH=str(SRC))
+    argv = [sys.executable, "-m", "repro_torch.launch", *args]
     with tempfile.TemporaryDirectory() as cwd:
-        return subprocess.run([sys.executable, "-m", "repro_torch.launch",
-                               *args], env=env, cwd=cwd, capture_output=True,
-                              text=True, timeout=timeout)
+        proc = subprocess.Popen(argv, env=env, cwd=cwd, text=True,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE,
+                                start_new_session=True)
+        try:
+            out, err = proc.communicate(timeout=timeout)
+        finally:
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            proc.wait()
+    return subprocess.CompletedProcess(argv, proc.returncode, out, err)
 
 
 def run_api_cli_subprocess(m) -> dict:
@@ -2692,6 +2708,10 @@ GANG_STEPS = 3
 GANG_ARGV = ["run", "train", "--arch", "stablelm-1.6b", "--full",
              "--batch", "8", "--seq", "2048", "--steps", str(GANG_STEPS),
              "--precision", "bf16", "--log_every", "0"]
+# phases 25 and 26: a gang's bf16 losses against world 1's.  Sound gangs
+# measured 9.7e-7 (25) and 1.06e-5 (26) on the H100; a reduction that
+# halved the summed loss and gradients would be off by ~0.5
+GANG_LOSS_RTOL = 1e-3
 # phase 26: the inventory gives the gang's two ranks a place on the card:
 # one node whose two GPU slots are both this card
 GANG_NODE = {**NODE, "gpus": 2}
@@ -2779,7 +2799,7 @@ def _gang(torch, m, one: dict, world: int) -> list:
     """One full-width gang of ``world`` ranks: rank r on ``cuda:{r %
     cards}``, gloo when ranks share a card and nccl when each has its own;
     K1-K3 as ``train_launches`` predicts on the tensor cores; the losses
-    within ``CAMPAIGN_LOSS_RTOL`` of world 1's.  The step time is the mean
+    within ``GANG_LOSS_RTOL`` of world 1's.  The step time is the mean
     of the steps after the first (a fresh process's first full-width step
     also loads what it runs); the first beside it."""
     cfg = m["get_config"]("stablelm-1.6b")
@@ -2810,7 +2830,7 @@ def _gang(torch, m, one: dict, world: int) -> list:
     rel = _max_rel(met["losses"], one["losses"])
     if (len(met["losses"]) != GANG_STEPS
             or not np.all(np.isfinite(met["losses"]))
-            or rel > CAMPAIGN_LOSS_RTOL):
+            or rel > GANG_LOSS_RTOL):
         raise AssertionError(f"world-{world} losses {met['losses']} vs "
                              f"world 1 {one['losses']} (rel {rel})")
     steady = [float(np.mean(d["step_s"][1:])) for d in ranks]
@@ -2818,7 +2838,7 @@ def _gang(torch, m, one: dict, world: int) -> list:
     emit(phase="dist_gang_full_width", argv=argv, status=report["status"],
          backend=backend, devices=devices, losses=met["losses"],
          world1_losses=one["losses"], losses_max_rel_err=rel,
-         loss_rtol=CAMPAIGN_LOSS_RTOL, step_s=max(steady),
+         loss_rtol=GANG_LOSS_RTOL, step_s=max(steady),
          first_step_s=max(d["step_s"][0] for d in ranks),
          rank_step_s=[d["step_s"] for d in ranks],
          world1_step_s=one["pure_step_s"] / one["steps_run"],
@@ -2897,7 +2917,7 @@ def dist_gang_chaos(torch, m) -> None:
                                **CAMPAIGN_REDUCED)
         want, got = base["losses"][resumed:], met["losses"]
         rel = _max_rel(got, want)
-        if not got or len(got) != len(want) or rel > CAMPAIGN_LOSS_RTOL:
+        if not got or len(got) != len(want) or rel > GANG_LOSS_RTOL:
             raise AssertionError(f"gang chaos: losses {got} vs world 1 "
                                  f"{want} (rel {rel})")
         load, ls = m["load_checkpoint"], m["list_checkpoints"]
@@ -2912,7 +2932,7 @@ def dist_gang_chaos(torch, m) -> None:
          attempts=rec.attempts, killed_ranks=[e["rank"] for e in kills],
          killed_after_step=killed, resumed_from_step=resumed, losses=got,
          world1_losses=want, losses_max_rel_err=rel,
-         loss_rtol=CAMPAIGN_LOSS_RTOL,
+         loss_rtol=GANG_LOSS_RTOL,
          final_checkpoint_bitwise_vs_world1=bitwise,
          backend=met["dist"]["backend"], device=met["dist"]["device"],
          consistent=state["consistent"],

@@ -53,9 +53,16 @@ def rank_device(world_size: int, rank: int, device=None) -> torch.device:
     return torch.device("cuda", rank % count)
 
 
-def choose_backend(world_size: int, device: torch.device) -> str:
-    """``nccl`` when every rank has a card of its own, else ``gloo``."""
-    if device.type == "cuda" and torch.cuda.device_count() >= world_size:
+def choose_backend(world_size: int, device=None) -> str:
+    """The backend for the ``device`` the caller asked for (none means
+    ``cuda``): ``nccl`` when it is ``cuda`` with no index, which
+    :func:`rank_device` binds to ``cuda:{rank % device_count}``, and
+    there is a card for every rank; else ``gloo`` (the CPU, an explicit
+    ``cuda:i`` every rank shares, or fewer cards than ranks).  The
+    port's gangs run on one host, so the local cards are the world's."""
+    dev = torch.device("cuda" if device is None else device)
+    if (dev.type == "cuda" and dev.index is None
+            and torch.cuda.device_count() >= world_size):
         return "nccl"
     return "gloo"
 
@@ -75,7 +82,7 @@ def init_distributed(world_size: int = 1, rank: int = 0,
     dev = rank_device(world_size, rank, device)
     backend = None
     if world_size > 1:
-        backend = choose_backend(world_size, dev)
+        backend = choose_backend(world_size, device)
         if dev.type == "cuda":
             torch.cuda.set_device(dev)
         torch.distributed.init_process_group(

@@ -13,6 +13,7 @@ process imports this module."""
 from __future__ import annotations
 
 import os
+import shutil
 import signal
 import socket
 import subprocess
@@ -21,6 +22,9 @@ import tempfile
 import time
 from pathlib import Path
 from typing import Any, Dict, List, Optional
+
+# seconds a surviving rank has to exit after SIGTERM before SIGKILL
+GRACE_S = 5.0
 
 
 def free_port(host: str = "127.0.0.1") -> int:
@@ -43,15 +47,16 @@ def _src_path() -> str:
     return str(Path(__file__).resolve().parents[2])
 
 
-def run_gang_local(spec, world: int, *,
-                   log_dir: Optional[str] = None,
-                   timeout_s: Optional[float] = None,
-                   grace_s: float = 5.0) -> Dict[str, Any]:
+def run_gang_local(spec, world: int) -> Dict[str, Any]:
     """Spawn ``world`` rank subprocesses for ``spec`` (a train RunSpec
     whose overrides carry ``world_size``), wait for the gang, and
     return rank 0's report metrics plus a ``gang`` section.  Any rank
     failing fails the gang (gang semantics, not straggler tolerance):
-    the others get SIGTERM, then SIGKILL after ``grace_s``.
+    the others get SIGTERM, then SIGKILL after ``GRACE_S``.  The ranks'
+    output goes to a temporary directory, removed when every rank
+    succeeded and kept (and named in the error) when one failed.  The
+    ranks share this process's process group, so a caller that kills
+    the group stops them too.
     """
     from repro_torch.api.spec import _encode_scalar
     from repro_torch.core.executor import parse_trailing_report
@@ -71,9 +76,7 @@ def run_gang_local(spec, world: int, *,
     if src not in existing.split(os.pathsep):
         env["PYTHONPATH"] = src + os.pathsep + existing if existing else src
 
-    logs = Path(log_dir) if log_dir else Path(tempfile.mkdtemp(
-        prefix=f"gang-{spec.run_name}-"))
-    logs.mkdir(parents=True, exist_ok=True)
+    logs = Path(tempfile.mkdtemp(prefix=f"gang-{spec.run_name}-"))
     procs, outs = [], []
     for r in range(world):
         out_p = logs / f"rank{r}.out"
@@ -84,7 +87,6 @@ def run_gang_local(spec, world: int, *,
                 rank_argv(base, r, coordinator), env=env, stdout=out,
                 stderr=err))
     rcs: List[Optional[int]] = [None] * world
-    deadline = None if timeout_s is None else time.monotonic() + timeout_s
     try:
         # poll every rank: the first that fails condemns the gang, and a
         # survivor blocked in a collective is not waited for
@@ -94,8 +96,6 @@ def run_gang_local(spec, world: int, *,
                     rcs[r] = p.poll()
             if any(rc not in (None, 0) for rc in rcs):
                 break
-            if deadline is not None and time.monotonic() > deadline:
-                break
             time.sleep(0.05)
     finally:
         # graceful teardown of stragglers: SIGTERM (the coordinator's
@@ -104,7 +104,7 @@ def run_gang_local(spec, world: int, *,
         live = [r for r, p in enumerate(procs) if p.poll() is None]
         for r in live:
             procs[r].send_signal(signal.SIGTERM)
-        grace_end = time.monotonic() + max(0.0, grace_s)
+        grace_end = time.monotonic() + GRACE_S
         for r in live:
             try:
                 rcs[r] = procs[r].wait(
@@ -124,19 +124,20 @@ def run_gang_local(spec, world: int, *,
             errors="replace")[-2000:]
         raise RuntimeError(
             f"gang rank {bad}/{world} exited rc={rcs[bad]} "
-            f"(all rcs={rcs}); its error: {report.get('error')}; stderr "
-            f"tail:\n{err_tail}")
+            f"(all rcs={rcs}); its error: {report.get('error')}; logs in "
+            f"{logs}; stderr tail:\n{err_tail}")
     reports = [parse_trailing_report(out.read_text(errors="replace"))
                for out in outs]
     for r, report in enumerate(reports):
         if report is None or report.get("status") == "failed":
             raise RuntimeError(f"gang rank {r} produced no usable "
                                f"RunReport (see {outs[r]})")
+    shutil.rmtree(logs, ignore_errors=True)
     metrics = dict(reports[0].get("metrics") or {})
     # every rank's own dist section (its device, peak memory, kernel
     # launches and all-reduce time) beside rank 0's report
     metrics["gang"] = {"world_size": world, "coordinator": coordinator,
-                       "returncodes": rcs, "log_dir": str(logs),
+                       "returncodes": rcs,
                        "ranks": [(rep.get("metrics") or {}).get("dist")
                                  for rep in reports]}
     return metrics

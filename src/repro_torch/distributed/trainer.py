@@ -6,8 +6,8 @@ from the same checkpoint directory on resume (writes are atomic ``tmp ->
 rename`` publishes, so readers never see torn state) and the loop
 checks that every rank restored the same step before any collective
 runs.  Every rank draws the same parameters from the seed (checked by a
-checksum) and the identical global batch stream, keeps its rows, and
-sums its gradients with the others' (see
+checksum, and again after the last step) and the identical global batch
+stream, keeps its rows, and sums its gradients with the others' (see
 :func:`repro_torch.train.make_train_step`), so the losses at world N are
 the single process's at the same global batch up to the order of the
 f32 sums.  At world 1 there is no process group and the run is
@@ -62,7 +62,7 @@ def dist_train_main(arch: str, *, world_size: int, dist_rank: int = 0,
                     **kw) -> Dict[str, Any]:
     """Run one rank of a data-parallel training job.  ``batch`` is the
     GLOBAL batch; each rank computes ``batch / world_size`` rows.  The
-    other keywords are :func:`repro_torch.launch.train.train_main`'s.
+    other keywords are :func:`repro_torch.launch.train.run_rank`'s.
     The return dict is ``train_main``'s result plus a ``dist`` section
     (rank 0's report is the one the executor and the gang launcher
     parse): the reference's keys, then the backend, the device and what

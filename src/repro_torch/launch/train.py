@@ -57,27 +57,10 @@ class _LMDictBatches(SeekableTokenBatches):
                 "labels": torch.from_numpy(labels).to(self.device)}
 
 
-def train_main(arch: str, *, reduced: bool = True, steps: int = 100,
-               batch: int = 8, seq: int = 128, lr: float = 3e-4,
-               optimizer: str = None, seed: int = 0,
-               checkpoint_dir: str = None, s3_root: str = None,
-               log_every: int = 10, checkpoint_every: int = 0,
-               checkpoint_keep: int = 3, checkpoint_async: bool = True,
-               resume: bool = False, preempt_at_step: int = None,
-               precision: str = "f32", grad_clip: float = None,
-               microbatches: int = 1, attention_backend: str = None,
-               mixer_backend: str = None, device=None) -> dict:
-    return run_rank(arch, init_distributed(1, device=device),
-                    reduced=reduced, steps=steps, batch=batch, seq=seq,
-                    lr=lr, optimizer=optimizer, seed=seed,
-                    checkpoint_dir=checkpoint_dir, s3_root=s3_root,
-                    log_every=log_every, checkpoint_every=checkpoint_every,
-                    checkpoint_keep=checkpoint_keep,
-                    checkpoint_async=checkpoint_async, resume=resume,
-                    preempt_at_step=preempt_at_step, precision=precision,
-                    grad_clip=grad_clip, microbatches=microbatches,
-                    attention_backend=attention_backend,
-                    mixer_backend=mixer_backend)[0]
+def train_main(arch: str, *, device=None, **kw) -> dict:
+    """Train ``arch`` in this process on ``device`` (default ``cuda``)
+    and return the result dict; the keywords are :func:`run_rank`'s."""
+    return run_rank(arch, init_distributed(1, device=device), **kw)[0]
 
 
 def run_rank(arch: str, ctx, *, reduced: bool = True, steps: int = 100,
@@ -148,6 +131,10 @@ def run_rank(arch: str, ctx, *, reduced: bool = True, steps: int = 100,
     finally:
         if ckpt is not None:
             ckpt.wait()
+    if ctx.world_size > 1:
+        # the summed gradients kept every rank's parameters equal
+        ctx.agree(params_checksum(tree_leaves(loop.state.params)),
+                  "final parameters")
 
     result = {"arch": cfg.name, "params": cfg.param_count(),
               "device": str(device), **run}

@@ -120,7 +120,7 @@ def test_sharded_batches_cursor_round_trip_and_union():
 def test_rank_device_and_backend_rules(monkeypatch):
     cpu = torch.device("cpu")
     assert C.rank_device(2, 1, "cpu") == cpu
-    assert C.choose_backend(2, cpu) == "gloo"
+    assert C.choose_backend(2, "cpu") == "gloo"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     for count, want in ((1, ["cuda:0", "cuda:0"]), (2, ["cuda:0", "cuda:1"])):
         monkeypatch.setattr(torch.cuda, "device_count", lambda: count)
@@ -129,8 +129,13 @@ def test_rank_device_and_backend_rules(monkeypatch):
         assert [str(g) for g in got[::2]] == want == [str(g)
                                                      for g in got[1::2]]
         # ranks sharing a card take gloo; a card each, nccl
-        assert C.choose_backend(2, got[0]) == (
-            "nccl" if count >= 2 else "gloo")
+        for d in (None, "cuda"):
+            assert C.choose_backend(2, d) == (
+                "nccl" if count >= 2 else "gloo")
+        # an explicit card is every rank's: gloo however many cards
+        assert [str(C.rank_device(2, r, "cuda:0"))
+                for r in range(2)] == ["cuda:0", "cuda:0"]
+        assert C.choose_backend(2, "cuda:0") == "gloo"
     assert C.rank_device(1, 0, None) == torch.device("cuda")   # world 1
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
@@ -217,7 +222,7 @@ def test_gang_world2_cli_matches_world1(single, tmp_path):
     assert dist["allreduce_bytes_per_step"] == dist["grad_bytes"] > 0
     # measured: the gradients and the loss, every step
     assert dist["reduced_bytes_per_step"] == dist["grad_bytes"] + 4
-    assert dist["agree_calls"] == 1          # the initial parameters
+    assert dist["agree_calls"] == 2      # the initial and final parameters
     assert met["gang"]["returncodes"] == [0, 0]
     assert [r["rank"] for r in met["gang"]["ranks"]] == [0, 1]
     np.testing.assert_allclose(met["losses"], plain["losses"], rtol=5e-4,

@@ -9,6 +9,9 @@ Phases, each of which fails the run if it fails:
    ``src/repro_torch/.../csrc`` with nvcc (sm_90a), one nvcc per source,
    started together: the flash-attention forward (K1) and backward (K2
    dQ, K3 dK/dV), the SSD chunk scan (K4) and the percentile stretch (K5);
+   beside them two more with ``-Xptxas -v``, for the registers and spills
+   of K4's tensor-core entries and of K2's and K3's at hd 64, 80 and 128
+   (the hd-80 ones must not spill);
 2. hold K1 against its plain PyTorch version on the card, in bf16 and f32,
    at the prefill shapes of granite-3-2b, glm4-9b (GQA 16 at hd 128),
    codeqwen1.5-7b (MHA at hd 128) and qwen3-moe-30b-a3b (GQA 8 at hd 128,
@@ -24,11 +27,15 @@ Phases, each of which fails the run if it fails:
    it);
 3. hold K2 and K3 against the plain backward, in bf16 and f32, at
    stablelm-1.6b's training shape, granite-3-2b's GQA shape, hubert's and
-   the non-causal hd-64 shape and ragged, windowed and MHA hd=128 shapes,
-   the same way (their route, by the same
-   table as K1's, checked by their route counters; each kernel's share of
-   its bound and the wrapper's host ms per call); then the whole
-   differentiable op (K1 -> K2 + K3) against autograd of plain attention;
+   the non-causal hd-64 shape, ragged, windowed and MHA hd=128 shapes, and
+   at hd 80 a causal GQA shape and a ragged one, the same way (their
+   route by the backward's table, K1's and bf16 at hd 80: the tensor
+   cores for bf16 at hd 64, 80 and 128, checked by their route counters;
+   two launches bitwise equal; each kernel's share of its bound and the
+   wrapper's host ms per call); then (3b) the whole differentiable op (K1
+   -> K2 + K3) against autograd of plain attention, at granite's heads
+   and at hubert's (non-causal hd 80 in bf16: K1 on the CUDA cores, K2
+   and K3 on the tensor cores);
 4. train full-width stablelm-1.6b (24 layers, bf16, random weights from a
    seed) through ``TrainLoop``: AdamW, warmup-cosine, remat, the Markov
    token stream at batch 8 x seq 2048; K1 must launch 2 x 24 times a
@@ -177,13 +184,14 @@ Phases, each of which fails the run if it fails:
 22. (run after phase 9d) train full-width hubert-xlarge (48 layers,
     non-causal, 16 heads of 80, bf16; 945 256 960 parameters) through
     ``TrainLoop`` on its seeded frame batches at 8 x 2048, a warm-up and
-    3 measured steps: K1 2 x 48, K2 and K3 48 launches a step, every one
-    on the CUDA-core route (``kernel.route`` at hd 80); step time, MFU
+    3 measured steps: K1 2 x 48 launches a step on the CUDA cores
+    (``kernel.route`` at hd 80), K2 and K3 48 each on the tensor cores
+    (``kernel.bwd_route``); step time, MFU
     over the (q, k) pairs the non-causal mask admits, peak memory, one
     step under ``torch.profiler``; the gradient gate of 4c on the
     trained weights' first 8 layers; then ``run train --arch
     hubert-xlarge --full`` (2 steps) in this process: ``succeeded`` on
-    cuda, K1-K3 as ``train_launches`` predicts, all on the CUDA cores;
+    cuda, K1-K3 as ``train_launches`` predicts, on the same routes;
 23. llava-next-mistral-7b at full width (32 layers, 32 q / 8 kv heads of
     128, bf16; 7 241 732 096 parameters): (a) one prefill of
     ``make_batch(cfg, 8, 2048)``, 512 patch embeddings ahead of 1536
@@ -239,6 +247,7 @@ import functools
 import io
 import json
 import os
+import re
 import shutil
 import signal
 import subprocess
@@ -298,6 +307,10 @@ BWD_SHAPES = [
     ("mha_hd128", 2, 1024, 1024, 16, 16, 128, True, None),
     ("hubert_train", 8, 2048, 2048, 16, 16, 80, False, None),
     ("noncausal_hd64", 2, 2048, 2048, 16, 16, 64, False, None),
+    # hd 80's tensor-core kernels at their edges: the diagonal skip and dK
+    # / dV summed over a GQA group of 4, and ragged tiles past S 1000
+    ("hd80_gqa_causal", 2, 2048, 2048, 16, 4, 80, True, None),
+    ("hd80_ragged_s1000", 2, 1000, 1000, 16, 16, 80, False, None),
 ]
 # K2/K3 against the plain backward: both compute in f32 from the same
 # inputs and return f32, so only the order of the f32 sums differs
@@ -534,7 +547,7 @@ def ptxas_start(source: Path, out_dir: str):
     from repro_torch.kernels.common import NVCC_FLAGS, _nvcc
     return subprocess.Popen(
         [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o",
-         os.path.join(out_dir, "ptxas.so"), str(source)],
+         os.path.join(out_dir, Path(source).stem + ".so"), str(source)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
@@ -554,6 +567,32 @@ def ptxas_report(proc, entry: str) -> list:
                                        if "spill" in r), None),
                         "used": next((r.split(":", 1)[1].strip()
                                       for r in rest if "Used" in r), None)})
+    return out
+
+
+def spills(rec: dict) -> bool:
+    """Whether a :func:`ptxas_report` entry spills registers (its spill
+    line reads "N bytes stack frame, N bytes spill stores, N bytes spill
+    loads")."""
+    found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      rec["spill"] or "")
+    return found is None or found.groups() != ("0", "0")
+
+
+def bwd_ptxas(report: list) -> list:
+    """K2's and K3's tensor-core entries by head dim, from
+    :func:`ptxas_report`; the hd-80 ones must not spill."""
+    out = []
+    for rec in report:
+        kernel = "K2" if "flash_bwd_dq_wgmma" in rec["entry"] else "K3"
+        hd = int(rec["entry"].split("_wgmmaILi")[1].split("E")[0])
+        out.append({"kernel": kernel, "hd": hd, **rec})
+    if sorted((r["kernel"], r["hd"]) for r in out) != [
+            (k, hd) for k in ("K2", "K3") for hd in (64, 80, 128)]:
+        raise AssertionError(f"flash_bwd.cu's tensor-core entries: {out}")
+    bad = [r for r in out if r["hd"] == 80 and spills(r)]
+    if bad:
+        raise AssertionError(f"the hd-80 tensor-core entries spill: {bad}")
     return out
 
 
@@ -630,8 +669,11 @@ def kernel_vs_plain(torch, F, fa, attention_ref):
 
 
 def bwd_vs_plain(torch, F, fa, ref):
-    """Phase 3: K2 and K3 against the plain backward.  Returns the
-    records by (shape, dtype)."""
+    """Phase 3: K2 and K3 against the plain backward.  Each shape runs on
+    its route by the backward's table (the tensor cores for bf16 at hd 64,
+    80 and 128, else the CUDA cores), checked by the route counters, and
+    two launches must be bitwise equal.  Returns the records by (shape,
+    dtype)."""
     records = {}
     gen = torch.Generator(device="cuda").manual_seed(2)
     for dtype_name in ("bfloat16", "float32"):
@@ -646,17 +688,29 @@ def bwd_vs_plain(torch, F, fa, ref):
                                                      window=window)
             delta = ref.row_delta(out, do)
             mask = dict(causal=causal, window=window)
-            route = fa.route(dtype, hd)
+            route = fa.bwd_route(dtype, hd)
+            want_route = ("tensor_core" if dtype_name == "bfloat16"
+                          and hd in (64, 80, 128) else "cuda_core")
             kernels = (fa.flash_attention_bwd_dq_kernel,
                        fa.flash_attention_bwd_dkv_kernel)
-            n0 = [fn.launches_by_route[route] for fn in kernels]
+            n0 = [dict(fn.launches_by_route) for fn in kernels]
             got = fa.flash_attention_bwd_kernel(q, k, v, do, lse, delta,
                                                 **mask)
+            again = fa.flash_attention_bwd_kernel(q, k, v, do, lse, delta,
+                                                  **mask)
             torch.cuda.synchronize()
-            if [fn.launches_by_route[route] for fn in kernels] != [
-                    n + 1 for n in n0]:
-                raise AssertionError(f"{name} {dtype_name}: K2/K3 did not "
-                                     f"take the {route} route")
+            took = [{r: fn.launches_by_route[r] - n[r] for r in n}
+                    for fn, n in zip(kernels, n0)]
+            if route != want_route or took != [
+                    {r: 2 * (r == want_route) for r in fa.ROUTES}] * 2:
+                raise AssertionError(f"{name} {dtype_name}: K2/K3 route "
+                                     f"{route}, launches {took}; want "
+                                     f"{want_route}")
+            bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+            if not bitwise:
+                raise AssertionError(f"{name} {dtype_name}: two K2/K3 "
+                                     f"launches differ")
+            del again
             want = ref.attention_bwd_ref(q, k, v, out, lse, do, **mask)
             errs = {}
             for what, g, w in zip(("dq", "dk", "dv"), got, want):
@@ -703,7 +757,7 @@ def bwd_vs_plain(torch, F, fa, ref):
             rec = dict(phase="bwd_kernel_vs_plain", shape=name,
                        dims=[B, Sq, Sk, H, Kh, hd], causal=causal,
                        window=window, dtype=dtype_name, route=route,
-                       max_abs_err=errs, tol=BWD_TOL,
+                       bitwise_repeat=bitwise, max_abs_err=errs, tol=BWD_TOL,
                        dq_kernel_ms=dq_ms, dkv_kernel_ms=dkv_ms,
                        host_ms=host_ms,
                        plain_ms=plain_ms, library_ms=library_ms,
@@ -722,32 +776,59 @@ def bwd_vs_plain(torch, F, fa, ref):
     return records
 
 
-def function_vs_plain(torch, flash_attention, naive_attention):
-    """Phase 3b: the differentiable op (K1 -> K2 + K3) against autograd of
-    plain attention, at granite's heads, B 2, S 1024."""
-    gen = torch.Generator(device="cuda").manual_seed(3)
-    B, S, H, Kh, hd = 2, 1024, 32, 8, 64
-    for dtype_name in ("float32", "bfloat16"):
-        dtype = getattr(torch, dtype_name)
+# phase 3b: B, S, H, Kh, hd, causal, dtypes
+FN_CASES = [
+    (2, 1024, 32, 8, 64, True, ("float32", "bfloat16")),   # granite's heads
+    # hubert's: K1 on the CUDA cores, K2 and K3 on the tensor cores
+    (2, 1024, 16, 16, 80, False, ("bfloat16",)),
+]
 
-        def rnd(*shape):
-            return torch.randn(shape, generator=gen, device="cuda",
-                               dtype=torch.float32).to(dtype)
-        q, k, v = (x.requires_grad_(True) for x in
-                   (rnd(B, S, H, hd), rnd(B, S, Kh, hd), rnd(B, S, Kh, hd)))
-        do = rnd(B, S, H, hd)
-        got = torch.autograd.grad(flash_attention(q, k, v, causal=True),
-                                  (q, k, v), do)
-        want = torch.autograd.grad(
-            naive_attention(q, k, v, causal=True, window=None), (q, k, v), do)
-        tol = FN_TOL[dtype_name]
-        errs = {}
-        for what, g, w in zip(("dq", "dk", "dv"), got, want):
-            errs[what] = (g.float() - w.float()).abs().max().item()
-            torch.testing.assert_close(g.float(), w.float(), atol=tol,
-                                       rtol=tol)
-        emit(phase="function_vs_plain_autograd", dims=[B, S, S, H, Kh, hd],
-             dtype=dtype_name, max_abs_err=errs, tol=tol)
+
+def function_vs_plain(torch, fa, flash_attention, naive_attention):
+    """Phase 3b: the differentiable op (K1 -> K2 + K3) against autograd of
+    plain attention, each call on its kernels' routes (checked by the
+    route counters), at ``FN_CASES``."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    kernels = (fa.flash_attention_fwd_kernel,
+               fa.flash_attention_bwd_dq_kernel,
+               fa.flash_attention_bwd_dkv_kernel)
+    for B, S, H, Kh, hd, causal, dtypes in FN_CASES:
+        for dtype_name in dtypes:
+            dtype = getattr(torch, dtype_name)
+
+            def rnd(*shape):
+                return torch.randn(shape, generator=gen, device="cuda",
+                                   dtype=torch.float32).to(dtype)
+            q, k, v = (x.requires_grad_(True) for x in
+                       (rnd(B, S, H, hd), rnd(B, S, Kh, hd),
+                        rnd(B, S, Kh, hd)))
+            do = rnd(B, S, H, hd)
+            routes = [table(dtype, hd) for table in
+                      (fa.route, fa.bwd_route, fa.bwd_route)]
+            n0 = [dict(fn.launches_by_route) for fn in kernels]
+            got = torch.autograd.grad(
+                flash_attention(q, k, v, causal=causal), (q, k, v), do)
+            torch.cuda.synchronize()
+            took = [{r: fn.launches_by_route[r] - n[r] for r in n}
+                    for fn, n in zip(kernels, n0)]
+            if took != [{r: int(r == want) for r in fa.ROUTES}
+                        for want in routes]:
+                raise AssertionError(f"3b hd {hd} {dtype_name}: K1-K3 "
+                                     f"launches {took}, want one each on "
+                                     f"{routes}")
+            want = torch.autograd.grad(
+                naive_attention(q, k, v, causal=causal, window=None),
+                (q, k, v), do)
+            tol = FN_TOL[dtype_name]
+            errs = {}
+            for what, g, w in zip(("dq", "dk", "dv"), got, want):
+                errs[what] = (g.float() - w.float()).abs().max().item()
+                torch.testing.assert_close(g.float(), w.float(), atol=tol,
+                                           rtol=tol)
+            emit(phase="function_vs_plain_autograd",
+                 dims=[B, S, S, H, Kh, hd], causal=causal, dtype=dtype_name,
+                 routes=dict(zip(("K1", "K2", "K3"), routes)),
+                 max_abs_err=errs, tol=tol)
 
 
 class _Counts:
@@ -814,15 +895,25 @@ def train_data(m, cfg, batch: int, seq: int):
     return m["LMDictBatches"](cfg.vocab, batch, seq, 0, "cuda")
 
 
+def flash_routes(torch, fa, head_dim: int) -> dict:
+    """The route of K1 (the forward's table) and of K2 and K3 (the
+    backward's) for bf16 q/k/v of ``head_dim``, by counter name."""
+    return {"flash_attention_fwd": fa.route(torch.bfloat16, head_dim),
+            "flash_attention_bwd_dq": fa.bwd_route(torch.bfloat16, head_dim),
+            "flash_attention_bwd_dkv": fa.bwd_route(torch.bfloat16,
+                                                    head_dim)}
+
+
 def train_full_width(torch, m, counts, arch: str = "stablelm-1.6b",
                      steps: int = TRAIN_STEPS, batch: int = TRAIN_B,
                      seq: int = TRAIN_S):
     """Phases 4 (stablelm-1.6b), 9d (mamba2-2.7b), 22 (hubert-xlarge) and
     23b (llava-next-mistral-7b): the full-width arch through TrainLoop on
-    its family's data stream (:func:`train_data`).  K1-K3 must take the
-    route ``kernel.route`` gives the config's head dim in bf16 (the
-    tensor cores at hd 64 and 128, the CUDA cores at hubert's 80), K4 the
-    tensor cores.  Returns the launches on the path, the state and the
+    its family's data stream (:func:`train_data`).  K1 must take the
+    route ``kernel.route`` gives the config's head dim in bf16 and K2 and
+    K3 the one ``kernel.bwd_route`` gives (the tensor cores at hd 64 and
+    128; at hubert's 80 K1 the CUDA cores, K2 and K3 the tensor cores), K4
+    the tensor cores.  Returns the launches on the path, the state and the
     data stream."""
     cfg = m["get_config"](arch)
     opt = m["get_optimizer"](cfg.optimizer)
@@ -862,15 +953,14 @@ def train_full_width(torch, m, counts, arch: str = "stablelm-1.6b",
     if launches != want:
         raise AssertionError(f"launches {launches} != {want} (remat runs "
                              f"each layer's forward twice a step)")
-    flash_route = m["fa_route"](torch.bfloat16, cfg.head_dim)
-    want_routes = {name: {r: n * (r == (flash_route if name in counts.FLASH
-                                        else "tensor_core"))
+    route_of = flash_routes(torch, m["fa"], cfg.head_dim)
+    want_routes = {name: {r: n * (r == route_of.get(name, "tensor_core"))
                           for r in ("tensor_core", "cuda_core")}
                    for name, n in want.items() if name in counts.ROUTED}
     if routes != want_routes:
         raise AssertionError(f"K1-K4 routes {routes}, want {want_routes}: "
-                             f"K1-K3 on the {flash_route} route at hd "
-                             f"{cfg.head_dim}, K4 on the tensor cores")
+                             f"K1-K3 on {route_of} at hd {cfg.head_dim}, K4 "
+                             f"on the tensor cores")
     losses = loop.losses
     if len(losses) != steps or not np.all(np.isfinite(losses)):
         raise AssertionError(f"losses {losses}")
@@ -2043,14 +2133,22 @@ LLAVA_TRAIN_B, LLAVA_TRAIN_STEPS = 1, 2
 def train_hubert(torch, m, counts) -> dict:
     """Phase 22: full-width hubert-xlarge (48 layers, non-causal, 16 heads
     of 80, bf16) trains through TrainLoop on its seeded frame batches at
-    8 x 2048: K1 2 x 48, K2 and K3 48 launches a step, every one on the
-    CUDA-core route (hd 80 is not in the tensor-core table); then the
-    gradient gate on the trained weights' first ``HUBERT_GATE_LAYERS``
-    layers; then ``run train --arch hubert-xlarge --full`` in process (2
+    8 x 2048: K1 2 x 48 launches a step on the CUDA cores (hd 80 is not in
+    the forward's tensor-core table), K2 and K3 48 each on the tensor
+    cores (the backward's table has it); then the gradient gate on the
+    trained weights' first ``HUBERT_GATE_LAYERS`` layers, through the same
+    kernels; then ``run train --arch hubert-xlarge --full`` in process (2
     steps): ``succeeded`` on cuda with the same routes.  Returns the
     launches of the two runs."""
     arch = "hubert-xlarge"
     cfg = m["get_config"](arch)
+    split = {"flash_attention_fwd": "cuda_core",
+             "flash_attention_bwd_dq": "tensor_core",
+             "flash_attention_bwd_dkv": "tensor_core"}
+    routes = flash_routes(torch, m["fa"], cfg.head_dim)
+    if routes != split:
+        raise AssertionError(f"hubert's routes at hd {cfg.head_dim}: "
+                             f"{routes}, want {split}")
     launches, state, data = train_full_width(torch, m, counts, arch,
                                              steps=HUBERT_TRAIN_STEPS)
     params = state.params
@@ -2076,11 +2174,12 @@ def train_hubert(torch, m, counts) -> dict:
     if (met["device"] != "cuda" or met["params"] != cfg.param_count()
             or len(losses) != 2 or not np.all(np.isfinite(losses))
             or api != want
-            or any(r != {"tensor_core": 0, "cuda_core": api[name]}
+            or any(r != {"tensor_core": 0, "cuda_core": 0,
+                         split[name]: api[name]}
                    for name, r in routes.items())):
         raise AssertionError(f"run train hubert-xlarge: {met}, launches "
-                             f"{api} (want {want}, all on the CUDA cores), "
-                             f"routes {routes}")
+                             f"{api} (want {want}, on {split}), routes "
+                             f"{routes}")
     emit(phase="run_api_train_hubert", argv=RUN_TRAIN_HUBERT_ARGV,
          arch=met["arch"], params=met["params"], device=met["device"],
          losses=losses, loop_step_s=met["pure_step_s"] / met["steps_run"],
@@ -3028,7 +3127,7 @@ def load_port() -> dict:
              node_specs_from_json=node_specs_from_json,
              replay_events=replay_events, make_batch=make_batch,
              SeekableSyntheticBatches=SeekableSyntheticBatches,
-             fa_route=fa.route, fa=fa, ref=ref, ssd=ssd, pn=pn,
+             fa=fa, ref=ref, ssd=ssd, pn=pn,
              pn_ref=pn_ref, F=F, flash_attention=flash_attention,
              naive_attention=naive_attention,
              ssd_chunked_ref=ssd_chunked_ref,
@@ -3059,11 +3158,12 @@ def main() -> int:
     card = card_line()
     print(card, flush=True)
 
-    # phase 1: one nvcc per source, all started together, and one more
-    # for K4's ptxas report
+    # phase 1: one nvcc per source, all started together, and two more
+    # for K4's and K2/K3's ptxas reports
     t0 = time.perf_counter()
     ptxas_dir = tempfile.mkdtemp()
     ptxas = ptxas_start(ssd.SOURCE, ptxas_dir)
+    ptxas_bwd = ptxas_start(fa.BWD_SOURCE, ptxas_dir)
     m["build_libraries"]([fa.SOURCE, fa.BWD_SOURCE, ssd.SOURCE,
                           pn.SOURCE])
     fa.library()
@@ -3074,12 +3174,14 @@ def main() -> int:
          seconds=time.perf_counter() - t0)
     emit(phase="ptxas", source=KERNELS["ssd_scan"][0],
          tensor_core=ptxas_report(ptxas, "ssd_scan_mma"))
+    emit(phase="ptxas", source=KERNELS["flash_attention_bwd_dq"][0],
+         tensor_core=bwd_ptxas(ptxas_report(ptxas_bwd, "_wgmma")))
     shutil.rmtree(ptxas_dir)
 
     k1_recs = kernel_vs_plain(torch, F, fa, ref.attention_ref)
     kb_recs = bwd_vs_plain(torch, F, fa, ref)
     kb = kb_recs[("stablelm_train", "bfloat16")]
-    function_vs_plain(torch, m["flash_attention"], m["naive_attention"])
+    function_vs_plain(torch, fa, m["flash_attention"], m["naive_attention"])
 
     # the training path
     counts = _Counts(fa, ssd, pn)
@@ -3117,8 +3219,8 @@ def main() -> int:
     # mamba2 training on the card
     ssd_train_launches = train_mamba2(torch, m, counts)
     # the audio and vlm families: hubert trains through K1-K3's
-    # non-causal hd-80 path (the CUDA cores), llava prefills patches and
-    # trains on the tensor cores
+    # non-causal hd-80 path (K1 on the CUDA cores, K2 and K3 on the tensor
+    # cores), llava prefills patches and trains on the tensor cores
     hubert = train_hubert(torch, m, counts)
     llava = llava_path(torch, m, counts)
 
@@ -3158,9 +3260,12 @@ def main() -> int:
               max_abs_err=max(kb["max_abs_err"]["dk"],
                               kb["max_abs_err"]["dv"]),
               core_route=kb["route"])
-    # hubert's training shape (non-causal, hd 80, the CUDA cores) and the
-    # tensor cores' non-causal branch at hd 64, beside the main shapes
+    # hubert's training shape (non-causal, hd 80: K1 on the CUDA cores,
+    # K2 and K3 on the tensor cores) and the tensor cores' non-causal
+    # branch at hd 64, beside the main shapes; K2 and K3 also at the hd-80
+    # edge shapes
     new_shapes = ("hubert_train", "noncausal_hd64")
+    bwd_shapes = new_shapes + ("hd80_gqa_causal", "hd80_ragged_s1000")
     for name, rec in (("flash_attention_bwd_dq", k2),
                       ("flash_attention_bwd_dkv", k3)):
         what = "dq" if name.endswith("dq") else "dkv"
@@ -3171,7 +3276,7 @@ def main() -> int:
             "plain_ms": kb_recs[(s, "bfloat16")]["plain_ms"],
             "library_ms": kb_recs[(s, "bfloat16")]["library_ms"],
             "core_route": kb_recs[(s, "bfloat16")]["route"]}
-            for s in new_shapes}
+            for s in bwd_shapes}
         rec["launches_train_hubert"] = hubert["train"][name]
         rec["launches_train_llava"] = llava["train"][name]
         rec["launches_run_api_hubert"] = hubert["run_api"][name]

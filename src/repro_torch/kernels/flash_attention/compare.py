@@ -51,6 +51,12 @@ CASES = {
     "window512": (2, 2048, 2048, 32, 8, 64, True, 512, True),
     "granite_nc": (8, 2048, 2048, 32, 8, 64, False, None, True),
     "hd128_8k": (1, 8192, 8192, 16, 16, 128, True, None, True),
+    # hd 80 (hubert's heads): ragged, windowed, causal GQA, and hubert's
+    # training shape
+    "hd80_ragged": (2, 1000, 1000, 16, 16, 80, False, None, False),
+    "hd80_win100": (1, 700, 700, 4, 1, 80, True, 100, False),
+    "hd80_gqa": (2, 2048, 2048, 16, 4, 80, True, None, True),
+    "hubert": (8, 2048, 2048, 16, 16, 80, False, None, True),
 }
 
 

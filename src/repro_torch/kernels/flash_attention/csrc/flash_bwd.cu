@@ -41,10 +41,10 @@
 // pad-and-transpose copy as in the reference's ops.py::_layout, and the
 // ragged edges are masked here.
 //
-// Two routes, chosen by an explicit table on (dtype, hd) (route_of below,
-// the forward's table), never after a failure:
+// Two routes, chosen by an explicit table on (dtype, hd) (route_of below:
+// the forward's table and bf16 at hd 80), never after a failure:
 //
-// * tensor cores, bf16 at hd 64 and 128 (tc::flash_bwd_dq_wgmma and
+// * tensor cores, bf16 at hd 64, 80 and 128 (tc::flash_bwd_dq_wgmma and
 //   tc::flash_bwd_dkv_wgmma).  As the forward's: one persistent block per
 //   SM walks the work items longest first, two consumer warpgroups of 64
 //   rows and one producer warpgroup that keeps a 2-stage ring of tiles full
@@ -63,12 +63,16 @@
 //   and 8.  The tensor cores' f32 sums do not round to nearest, so K3, whose
 //   chains are long (all q rows of a GQA group), makes each tile's dK and
 //   dV product in a fresh accumulator and adds it to the running sums by
-//   f32 adds.  At hd 128 K3 streams 32-row q tiles (64 at hd 64): dK and
-//   dV take 128 registers there.  A tile is masked only where it crosses
-//   Sk (Sq for K3), the diagonal or the window's edge, and skipped where no
-//   pair of a warpgroup's rows is admitted.
+//   f32 adds.  At hd 128 K3 streams 32-row q tiles (64 at hd 64 and 80):
+//   dK and dV take 128 registers there.  A tile is masked only where it
+//   crosses Sk (Sq for K3), the diagonal or the window's edge, and skipped
+//   where no pair of a warpgroup's rows is admitted.  hd 80 (hubert's
+//   heads) is staged as hd 128 is, two 64-column boxes a row, the maps'
+//   extent 80 so that TMA zero-fills columns 80-127: S and dP run 5
+//   k-steps of 16 and never read the zeros, and dQ, dK and dV are m64n80
+//   products whose B spans the first box and 16 columns of the second.
 //
-// * CUDA cores, f32 at every hd and bf16 at hd other than 64 and 128
+// * CUDA cores, f32 at every hd and bf16 at hd other than 64, 80 and 128
 //   (flash_bwd_dq_kernel, flash_bwd_dkv_kernel).  One block per output tile
 //   (K2: (b*h, q tile), heaviest first; K3: (b, kv head, kv tile)), f32
 //   FMAs with operands staged in shared memory as f32, tiles of 64 rows (32
@@ -94,13 +98,14 @@ namespace {
 
 constexpr float LOG2E = 1.4426950408889634f;
 
-// The route table: 1 = tensor cores, 0 = CUDA cores.
+// The route table of K2 and K3: 1 = tensor cores, 0 = CUDA cores.  It is
+// the forward's (flash_fwd.cu) and bf16 at hd 80.
 int route_of(int dtype, int hd) {
-  return dtype == 1 && (hd == 64 || hd == 128);
+  return dtype == 1 && (hd == 64 || hd == 80 || hd == 128);
 }
 
 // ---------------------------------------------------------------------------
-// The CUDA-core route: f32, and bf16 at head dims other than 64 and 128.
+// The CUDA-core route: f32, and bf16 at head dims other than 64, 80, 128.
 // ---------------------------------------------------------------------------
 
 constexpr int NT = 256;      // threads per block: 16 x 16
@@ -511,7 +516,7 @@ cudaError_t dispatch(int hd, const Args& a) {
 }
 
 // ---------------------------------------------------------------------------
-// The tensor-core route: bf16 at head dims 64 and 128.
+// The tensor-core route: bf16 at head dims 64, 80 and 128.
 // ---------------------------------------------------------------------------
 namespace tc {
 
@@ -522,6 +527,18 @@ constexpr int CONSUMERS = 256;
 constexpr int ROWS = 128;      // rows a work item owns: 64 per consumer
 constexpr int TILE = 64;       // rows of each streamed tile
 constexpr int STAGES = 2;      // streamed tiles in flight
+
+// The widths at head dim HD (64, 80 or 128).  Tiles are staged HP = HD
+// rounded up to 64 columns wide, HP / 64 boxes (the columns past HD are
+// TMA's zeros).  Products whose depth is hd (S, dP) run HD / 16 k-steps;
+// those whose width is hd (dQ, dK, dV) are HD columns wide, and K3 makes
+// its own in chunks of CW: one m64n80 product at hd 80, a 64-column box
+// at a time otherwise.
+template <int HD>
+struct Width {
+  static constexpr int HP = (HD + 63) / 64 * 64;
+  static constexpr int CW = HD % 64 ? HD : 64;
+};
 
 // Register fragments of one consumer thread (m64nN accumulator layout):
 // element i of a 64 x N tile is row 16 warp + lane / 4 + 8 ((i % 4) / 2)
@@ -551,26 +568,27 @@ __device__ __forceinline__ void split(const float (&x)[N],
   }
 }
 
-// acc += (hi + lo) B over one tile: B the MN-major tile at `b` (QT rows x
-// HD), hi and lo the A fragments of a 64 x QT operand.  Each 64 columns of
-// the product are made in `tmp`, zeroed by the first wgmma, and added to
-// acc by f32 adds.
-template <int HD, int QT>
+// acc += (hi + lo) B over one tile: B the MN-major tile at `b` (QT rows,
+// staged in 64-column boxes), hi and lo the A fragments of a 64 x QT
+// operand, acc HD columns wide.  Each CW columns of the product (CW = 64:
+// one box; CW = HD: all of them) are made in `tmp`, zeroed by the first
+// wgmma, and added to acc by f32 adds.
+template <int HD, int CW, int QT>
 __device__ __forceinline__ void sum_product(float (&acc)[HD / 2],
-                                            float (&tmp)[32],
+                                            float (&tmp)[CW / 2],
                                             uint32_t (&hi)[QT / 4],
                                             uint32_t (&lo)[QT / 4],
                                             uint32_t b) {
 #pragma unroll
-  for (int c = 0; c < HD / 64; ++c) {
+  for (int c = 0; c < HD / CW; ++c) {
     pin(hi);
     pin(lo);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < QT / 16; ++kk) {
       const uint64_t db = desc_mn(b + c * QT * BOX, QT, kk);
-      wgmma_rs_n64(tmp, &hi[4 * kk], db, kk > 0);
-      wgmma_rs_n64(tmp, &lo[4 * kk], db);
+      wgmma_rs<CW>(tmp, &hi[4 * kk], db, kk > 0);
+      wgmma_rs<CW>(tmp, &lo[4 * kk], db);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -578,7 +596,7 @@ __device__ __forceinline__ void sum_product(float (&acc)[HD / 2],
     pin(hi);
     pin(lo);
 #pragma unroll
-    for (int i = 0; i < 32; ++i) acc[32 * c + i] += tmp[i];
+    for (int i = 0; i < CW / 2; ++i) acc[CW / 2 * c + i] += tmp[i];
   }
 }
 
@@ -587,8 +605,8 @@ __device__ __forceinline__ void sum_product(float (&acc)[HD / 2],
 // rows each), then per stage a K and a V tile (TILE rows), barriers last.
 template <int HD>
 struct DqLayout {
-  static constexpr int Q_BYTES = ROWS * HD * 2;
-  static constexpr int KV_BYTES = TILE * HD * 2;
+  static constexpr int Q_BYTES = ROWS * Width<HD>::HP * 2;
+  static constexpr int KV_BYTES = TILE * Width<HD>::HP * 2;
   static constexpr int O_OFF = Q_BYTES;
   static constexpr int K_OFF = 2 * Q_BYTES;
   static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
@@ -618,6 +636,7 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap,
                    int H, int Kh, int Sq, int Sk, int causal, int window,
                    float scale, float scale_log2, int n_bh) {
   using L = DqLayout<HD>;
+  constexpr int NB = Width<HD>::HP / 64;   // boxes a row
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
   const uint32_t sQ = base, sO = base + L::O_OFF, sK = base + L::K_OFF,
@@ -668,7 +687,7 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap,
         span(q0, t_lo, nt);
         mbar_wait(q_empty, (n & 1) ^ 1);
         mbar_expect_tx(q_full, 2 * L::Q_BYTES);
-        for (int bx = 0; bx < HD / 64; ++bx) {
+        for (int bx = 0; bx < NB; ++bx) {
           tma_load(sQ + bx * ROWS * BOX, &qmap, q_full, 64 * bx, h, q0, b);
           tma_load(sO + bx * ROWS * BOX, &omap, q_full, 64 * bx, h, q0, b);
         }
@@ -679,12 +698,12 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap,
           const uint32_t dv = sV + s * L::KV_BYTES;
           mbar_wait(k_empty(s), parity);
           mbar_expect_tx(k_full(s), L::KV_BYTES);
-          for (int bx = 0; bx < HD / 64; ++bx)
+          for (int bx = 0; bx < NB; ++bx)
             tma_load(dk + bx * TILE * BOX, &kmap, k_full(s), 64 * bx, kh, k0,
                      b);
           mbar_wait(v_empty(s), parity);
           mbar_expect_tx(v_full(s), L::KV_BYTES);
-          for (int bx = 0; bx < HD / 64; ++bx)
+          for (int bx = 0; bx < NB; ++bx)
             tma_load(dv + bx * TILE * BOX, &vmap, v_full(s), 64 * bx, kh, k0,
                      b);
         }
@@ -814,10 +833,11 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap,
 template <int HD>
 struct DkvLayout {
   // q rows per streamed tile: 32 at hd 128, where dK and dV take 128
-  // registers and a 64-row tile's operands would spill
-  static constexpr int QT = HD == 64 ? 64 : 32;
-  static constexpr int KV_BYTES = ROWS * HD * 2;
-  static constexpr int QO_BYTES = QT * HD * 2;
+  // registers and a 64-row tile's operands would spill; 64 at hd 64 and
+  // 80 (dK and dV take 80 registers at hd 80)
+  static constexpr int QT = HD == 128 ? 32 : 64;
+  static constexpr int KV_BYTES = ROWS * Width<HD>::HP * 2;
+  static constexpr int QO_BYTES = QT * Width<HD>::HP * 2;
   static constexpr int V_OFF = KV_BYTES;
   static constexpr int Q_OFF = 2 * KV_BYTES;
   static constexpr int O_OFF = Q_OFF + STAGES * QO_BYTES;
@@ -851,6 +871,8 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap qmap,
                     int n_bh) {
   using L = DkvLayout<HD>;
   constexpr int QT = L::QT;
+  constexpr int NB = Width<HD>::HP / 64;   // boxes a row
+  constexpr int CW = Width<HD>::CW;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
   uint8_t* const gbase = smem_raw + (base - smem_addr(smem_raw));
@@ -904,7 +926,7 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap qmap,
         if (lane == 0) {
           mbar_wait(kv_empty, (n & 1) ^ 1);
           mbar_expect_tx(kv_full, 2 * L::KV_BYTES);
-          for (int bx = 0; bx < HD / 64; ++bx) {
+          for (int bx = 0; bx < NB; ++bx) {
             tma_load(sK + bx * ROWS * BOX, &kmap, kv_full, 64 * bx, kh, k0, b);
             tma_load(sV + bx * ROWS * BOX, &vmap, kv_full, 64 * bx, kh, k0, b);
           }
@@ -917,7 +939,7 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap qmap,
             mbar_wait(t_empty(s), parity);
             if (lane == 0) {
               mbar_expect_tx(t_full(s), 2 * L::QO_BYTES);
-              for (int bx = 0; bx < HD / 64; ++bx) {
+              for (int bx = 0; bx < NB; ++bx) {
                 tma_load(sQ + s * L::QO_BYTES + bx * QT * BOX, &qmap,
                          t_full(s), 64 * bx, h, q0, b);
                 tma_load(sO + s * L::QO_BYTES + bx * QT * BOX, &omap,
@@ -942,7 +964,7 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap qmap,
     float ka[HD / 2], va[HD / 2];   // dK, dV
     float st[QT / 2];             // S^T, then P^T
     float dp[QT / 2];             // dP^T, then dS^T
-    float tmp[32];                  // one tile's product, 64 columns
+    float tmp[CW / 2];              // one tile's product, CW columns
     uint32_t p_hi[QT / 4], p_lo[QT / 4], s_hi[QT / 4], s_lo[QT / 4];
     int t = 0;     // Q/dO tiles consumed so far: the ring position
     int n = 0;     // items so far
@@ -1024,14 +1046,14 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap qmap,
         }
         split(st, p_hi, p_lo);
         split(dp, s_hi, s_lo);
-        // dV += P^T dO and dK += dS^T Q, 64 columns at a time: each tile's
+        // dV += P^T dO and dK += dS^T Q, CW columns at a time: each tile's
         // product goes to a fresh accumulator and is added to the running
         // sum by f32 adds.  The tensor cores' f32 sums do not round to
         // nearest: over the q rows and heads a kv row sums (16 K products
         // at S 2048, GQA 4), one long chain in the accumulator would err
         // ~10x more than the split's own rounding.
-        sum_product<HD, QT>(va, tmp, p_hi, p_lo, ot);
-        sum_product<HD, QT>(ka, tmp, s_hi, s_lo, qt);
+        sum_product<HD, CW, QT>(va, tmp, p_hi, p_lo, ot);
+        sum_product<HD, CW, QT>(ka, tmp, s_hi, s_lo, qt);
         mbar_arrive(t_empty(s));
       }
       t += total;
@@ -1108,10 +1130,16 @@ int launch_dkv(const Args& a) {
   return cudaGetLastError();
 }
 
+// Each head dim of route_of's table has its own instantiation; any other
+// is refused, never sent to a kernel of another width.
 template <bool DQ>
 int launch(int hd, const Args& a) {
-  if (hd == 64) return DQ ? launch_dq<64>(a) : launch_dkv<64>(a);
-  return DQ ? launch_dq<128>(a) : launch_dkv<128>(a);
+  switch (hd) {
+    case 64: return DQ ? launch_dq<64>(a) : launch_dkv<64>(a);
+    case 80: return DQ ? launch_dq<80>(a) : launch_dkv<80>(a);
+    case 128: return DQ ? launch_dq<128>(a) : launch_dkv<128>(a);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace tc

@@ -4,9 +4,11 @@
 // hd) bf16 tensors with the 128-byte swizzle, wgmma shared-memory
 // descriptors and the bf16 wgmma products with f32 accumulators.
 //
-// Operand tiles live in shared memory as hd / 64 boxes of `rows` x 64
+// Operand tiles live in shared memory as HP / 64 boxes of `rows` x 64
 // columns (BOX = 128 bytes a row), box after box, each from a 1024-byte
-// aligned base.  One staged tile serves two read modes:
+// aligned base, HP being hd rounded up to 64: a map's extent is hd, so
+// TMA fills the columns from hd to HP with zeros (at hd 80 the second box
+// holds 16 columns of data).  One staged tile serves two read modes:
 //   K-major (hd is the reduction): start + (kk / 4) * rows * BOX + (kk % 4)
 //     * 32 for the kk-th k16 slice, SBO = 8 rows (1024 bytes);
 //   MN-major (rows are the reduction, the transpose bit set): start + kk *
@@ -269,8 +271,37 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
         "r"(accumulate));
 }
 
-// D (64 x N) (+)= A (registers) * B (shared memory, MN-major), N = 64 or
-// 128; D is zeroed when !accumulate
+// D (64 x 80) (+)= A (64 x 16) * B (16 x 80): A in registers (bf16
+// pairs), B in shared memory MN-major (the transpose bit set): its columns
+// 0-63 from the first box, 64-79 from the next, LBO further on; f32
+// accumulate; D is zeroed when !accumulate
+__device__ __forceinline__ void wgmma_rs_n80(float (&d)[40],
+                                             const uint32_t* a, uint64_t db,
+                                             int accumulate = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
+// D (64 x N) (+)= A (registers) * B (shared memory, MN-major), N = 64, 80
+// or 128; D is zeroed when !accumulate
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t* a,
                                          uint64_t db, int accumulate = 1);
@@ -278,6 +309,11 @@ template <>
 __device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t* a,
                                              uint64_t db, int accumulate) {
   wgmma_rs_n64(d, a, db, accumulate);
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<80>(float (&d)[40], const uint32_t* a,
+                                             uint64_t db, int accumulate) {
+  wgmma_rs_n80(d, a, db, accumulate);
 }
 template <>
 __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],

@@ -1,8 +1,9 @@
 """The hand-written CUDA kernels (flash-attention forward K1, backward K2
 and K3, the SSD chunk scan K4 and the percentile stretch K5) against their
 plain PyTorch versions, a small train step, reduced hubert (non-causal,
-hd 80) and llava (patches ahead of the tokens) training and prefill,
-reduced mamba2, MoE and hybrid serving, a dropped engine's memory, the continuous scheduler's
+hd 80: K1 on the CUDA cores, K2 and K3 on the tensor cores) and llava
+(patches ahead of the tokens) training and prefill, reduced mamba2, MoE
+and hybrid serving, a dropped engine's memory, the continuous scheduler's
 eviction resume and a reduced vision run, on the card.  Every test here
 is marked ``cuda`` and skips where no card is present; on a machine with an
 H100 run
@@ -19,8 +20,8 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
     flash_attention_bwd_dkv_kernel, flash_attention_bwd_dq_kernel,
-    bwd_library, flash_attention_bwd_kernel, flash_attention_fwd_kernel,
-    library, route)
+    bwd_library, bwd_route, flash_attention_bwd_kernel,
+    flash_attention_fwd_kernel, library, route)
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     attention_bwd_ref, attention_ref, row_delta)
 
@@ -137,10 +138,15 @@ def test_tensor_core_route_matches_plain_and_repeats_bitwise(case, dev):
 # K2/K3 on the tensor-core route: TC_CASES (Sq 1 / 17 / 1000, cross
 # length, window 100, GQA rep 4, MHA, hd 128), with q, k and v all cut from
 # one fused qkv tensor where the last field says so, plus a causal cross
-# length (kv tiles past Sq get no query) and a non-causal window
+# length (kv tiles past Sq get no query), a non-causal window, and hd 80
+# (two boxes a row, the second 16 columns of data): causal GQA, non-causal
+# ragged and strided, a window off the tile grid
 TC_BWD_CASES = TC_CASES + [
     (1, 64, 300, 4, 2, 64, True, None, False),
     (1, 400, 400, 4, 1, 128, False, 150, True),
+    (2, 300, 300, 8, 2, 80, True, None, False),
+    (2, 333, 333, 4, 4, 80, False, None, True),
+    (1, 700, 700, 4, 1, 80, True, 100, False),
 ]
 
 
@@ -165,7 +171,7 @@ def test_tensor_core_bwd_matches_plain_and_repeats_bitwise(case, dev):
     causal, window = case[6], case[7]
     mask = dict(causal=causal, window=window)
     q, k, v, do = _tc_bwd_inputs(case, dev)
-    assert route(q.dtype, q.shape[-1]) == "tensor_core"
+    assert bwd_route(q.dtype, q.shape[-1]) == "tensor_core"
     out, lse = attention_ref(q, k, v, **mask)
     delta = row_delta(out, do)
     kernels = (flash_attention_bwd_dq_kernel, flash_attention_bwd_dkv_kernel)
@@ -192,10 +198,10 @@ def test_routes_follow_the_table(dev):
     lib, bwd = library(), bwd_library()
     for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
         for hd in range(16, 257, 16):
-            want = route(dtype, hd)
-            for fn in (lib.flash_fwd_route, bwd.flash_bwd_route):
+            for fn, table in ((lib.flash_fwd_route, route),
+                              (bwd.flash_bwd_route, bwd_route)):
                 assert ("tensor_core" if fn(code, hd)
-                        else "cuda_core") == want
+                        else "cuda_core") == table(dtype, hd)
     # f32 and bf16 at another head dim launch the CUDA-core kernels
     kernels = (flash_attention_fwd_kernel, flash_attention_bwd_dq_kernel,
                flash_attention_bwd_dkv_kernel)
@@ -526,10 +532,11 @@ def test_moe_and_hybrid_serve_on_the_card(arch, dev):
 
 def test_hubert_trains_through_k1_k3_at_hd_80_on_the_card(dev):
     """The reduced hubert widened to 4 heads of 80 (d_model 320), bf16:
-    a non-causal encoder whose K1-K3 launches all take the CUDA-core
-    route (hd 80 is not in the tensor-core table), remat running each
-    layer's forward twice; the loss through the kernels agrees with the
-    plain attention's."""
+    a non-causal encoder whose K1 launches take the CUDA-core route (hd 80
+    is not in the forward's tensor-core table) and whose K2 and K3
+    launches take the tensor cores (the backward's table has it), remat
+    running each layer's forward twice; the loss through the kernels
+    agrees with the plain attention's."""
     import dataclasses
     from repro_torch.configs import get_reduced
     from repro_torch.data import make_batch
@@ -540,6 +547,7 @@ def test_hubert_trains_through_k1_k3_at_hd_80_on_the_card(dev):
                               param_dtype="bfloat16")
     assert cfg.head_dim == 80 and not cfg.causal
     assert route(torch.bfloat16, 80) == "cuda_core"
+    assert bwd_route(torch.bfloat16, 80) == "tensor_core"
     opt = adamw()
     state = init_train_state(torch.Generator(device=dev).manual_seed(0), cfg,
                              opt, device=dev)
@@ -553,11 +561,12 @@ def test_hubert_trains_through_k1_k3_at_hd_80_on_the_card(dev):
     step = make_train_step(cfg, opt, lr_schedule=constant(1e-4))
     state, met = step(state, batch)
     torch.cuda.synchronize()
-    for fn, before, want in zip(kernels, n0, (2 * cfg.n_layers,
-                                              cfg.n_layers, cfg.n_layers)):
-        assert fn.launches_by_route["cuda_core"] - before["cuda_core"] == \
+    for fn, before, want in zip(
+            kernels, n0, ({"cuda_core": 2 * cfg.n_layers, "tensor_core": 0},
+                          {"cuda_core": 0, "tensor_core": cfg.n_layers},
+                          {"cuda_core": 0, "tensor_core": cfg.n_layers})):
+        assert {r: fn.launches_by_route[r] - before[r] for r in want} == \
             want
-        assert fn.launches_by_route["tensor_core"] == before["tensor_core"]
     loss = float(met["loss"])
     assert np.isfinite(loss) and abs(loss - plain) < 2e-2 * abs(plain)
 

@@ -1,7 +1,8 @@
 """The flash-attention forward's route table on the CPU: which (dtype,
 head_dim) pairs the wrapper sends to the tensor-core kernel and which to the
-CUDA-core one, that ``flash_fwd.cu`` dispatches on the same table, and that
-the CPU path launches nothing.  The kernels themselves run only on the card
+CUDA-core one, that ``flash_fwd.cu`` dispatches on the same table, that the
+backward's table differs from it only by bf16 at hd 80, and that the CPU
+path launches nothing.  The kernels themselves run only on the card
 (``tests/test_torch_cuda.py``)."""
 import re
 from pathlib import Path
@@ -48,6 +49,14 @@ def test_the_cuda_source_dispatches_on_the_same_table():
         sorted(hd for dt, hd in fa.TENSOR_CORE)
     assert {dt for dt, _ in fa.TENSOR_CORE} == {torch.bfloat16}
     assert fa._DTYPES[torch.bfloat16] == 1
+
+
+def test_the_backward_table_adds_only_bf16_at_hd_80():
+    # K2 and K3 take hubert's hd 80 on the tensor cores; K1 does not
+    assert fa.BWD_TENSOR_CORE - fa.TENSOR_CORE == {(torch.bfloat16, 80)}
+    assert fa.TENSOR_CORE <= fa.BWD_TENSOR_CORE
+    assert fa.route(torch.bfloat16, 80) == "cuda_core"
+    assert fa.bwd_route(torch.bfloat16, 80) == "tensor_core"
 
 
 def test_counters_start_per_route():

@@ -9,33 +9,31 @@ Phases, each of which fails the run if it fails:
    ``src/repro_torch/.../csrc`` with nvcc (sm_90a), one nvcc per source,
    started together: the flash-attention forward (K1) and backward (K2
    dQ, K3 dK/dV), the SSD chunk scan (K4) and the percentile stretch (K5);
-   beside them two more with ``-Xptxas -v``, for the registers and spills
-   of K4's tensor-core entries and of K2's and K3's at hd 64, 80 and 128
-   (the hd-80 ones must not spill);
+   beside them three more with ``-Xptxas -v``, for the registers and
+   spills of K4's tensor-core entries and of K1's, K2's and K3's at hd 64,
+   80 and 128 (the hd-80 ones must not spill);
 2. hold K1 against its plain PyTorch version on the card, in bf16 and f32,
    at the prefill shapes of granite-3-2b, glm4-9b (GQA 16 at hd 128),
    codeqwen1.5-7b (MHA at hd 128) and qwen3-moe-30b-a3b (GQA 8 at hd 128,
    a window of 8192 that binds nowhere at 2048), at hubert-xlarge's
-   training shape (non-causal, 16 heads of 80: the CUDA-core route in
-   bf16), at a non-causal hd-64 shape (the tensor cores' non-causal
-   branch) and at ragged, windowed and MHA hd=128 shapes (one JSON line
-   per shape: K1's route, tensor
-   cores for bf16 at hd 64 and 128, CUDA cores otherwise, checked by its
-   route counter;
-   errors, kernel / plain / library ms, the wrapper's host ms per call,
-   TFLOP/s, the least time the card could take and the kernel's share of
-   it);
+   training shape (non-causal, 16 heads of 80), at hd 80 a causal GQA
+   shape and a ragged one, at a non-causal hd-64 shape (the tensor cores'
+   non-causal branch) and at ragged, windowed and MHA hd=128 shapes (one
+   JSON line per shape: K1's route, tensor cores for bf16 at hd 64, 80 and
+   128, CUDA cores otherwise, checked by its route counter; on the tensor
+   cores two launches bitwise equal; errors, kernel / plain / library ms,
+   the wrapper's host ms per call, TFLOP/s, the least time the card could
+   take and the kernel's share of it);
 3. hold K2 and K3 against the plain backward, in bf16 and f32, at
    stablelm-1.6b's training shape, granite-3-2b's GQA shape, hubert's and
    the non-causal hd-64 shape, ragged, windowed and MHA hd=128 shapes, and
    at hd 80 a causal GQA shape and a ragged one, the same way (their
-   route by the backward's table, K1's and bf16 at hd 80: the tensor
-   cores for bf16 at hd 64, 80 and 128, checked by their route counters;
-   two launches bitwise equal; each kernel's share of its bound and the
-   wrapper's host ms per call); then (3b) the whole differentiable op (K1
-   -> K2 + K3) against autograd of plain attention, at granite's heads
-   and at hubert's (non-causal hd 80 in bf16: K1 on the CUDA cores, K2
-   and K3 on the tensor cores);
+   route by K1's table: the tensor cores for bf16 at hd 64, 80 and 128,
+   checked by their route counters; two launches bitwise equal; each
+   kernel's share of its bound and the wrapper's host ms per call); then
+   (3b) the whole differentiable op (K1 -> K2 + K3) against autograd of
+   plain attention, at granite's heads and at hubert's (non-causal hd 80
+   in bf16: K1, K2 and K3 on the tensor cores);
 4. train full-width stablelm-1.6b (24 layers, bf16, random weights from a
    seed) through ``TrainLoop``: AdamW, warmup-cosine, remat, the Markov
    token stream at batch 8 x seq 2048; K1 must launch 2 x 24 times a
@@ -184,9 +182,8 @@ Phases, each of which fails the run if it fails:
 22. (run after phase 9d) train full-width hubert-xlarge (48 layers,
     non-causal, 16 heads of 80, bf16; 945 256 960 parameters) through
     ``TrainLoop`` on its seeded frame batches at 8 x 2048, a warm-up and
-    3 measured steps: K1 2 x 48 launches a step on the CUDA cores
-    (``kernel.route`` at hd 80), K2 and K3 48 each on the tensor cores
-    (``kernel.bwd_route``); step time, MFU
+    3 measured steps: K1 2 x 48 launches a step, K2 and K3 48 each, all
+    on the tensor cores (``kernel.route`` at hd 80); step time, MFU
     over the (q, k) pairs the non-causal mask admits, peak memory, one
     step under ``torch.profiler``; the gradient gate of 4c on the
     trained weights' first 8 layers; then ``run train --arch
@@ -234,9 +231,9 @@ and 23 as ``launches_train_hubert``, ``launches_run_api_hubert``,
 of phase 25's gang as ``launches_train_gang``), K1-K4's route
 (``core_route``) and its numbers at the training shape (K2, K3),
 granite's prefill shape (K1, with glm4's, codeqwen's and qwen3's beside
-it; K1-K3 with hubert's and the non-causal hd-64 shape's), mamba2's prefill shape (K4) or the 4-band Sentinel-2 tile (K5); the
-last line is ``{"ok": true,
-"device": {...}}``.  Without a CUDA card, or without the repository beside
+it; K1-K3 with hubert's, the non-causal hd-64 shape's and the two hd-80
+edge shapes'), mamba2's prefill shape (K4) or the 4-band Sentinel-2 tile
+(K5); the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the repository beside
 it, the script exits non-zero and prints no result.
 """
 from __future__ import annotations
@@ -288,10 +285,13 @@ SHAPES = [
     ("glm4_prefill", 8, 2048, 2048, 32, 2, 128, True, None),
     ("codeqwen_prefill", 8, 2048, 2048, 32, 32, 128, True, None),
     ("qwen3_prefill", 8, 2048, 2048, 32, 4, 128, True, 8192),
-    # hubert-xlarge's training shape: non-causal, 16 heads of 80 (the
-    # CUDA-core route in bf16); and the tensor-core route's non-causal
-    # branch at hd 64
+    # hubert-xlarge's training shape: non-causal, 16 heads of 80 (two
+    # 64-column boxes a row, the second 16 columns of data); hd 80 at its
+    # edges, the causal diagonal with GQA 4 and ragged tiles past S 1000;
+    # and the tensor-core route's non-causal branch at hd 64
     ("hubert_train", 8, 2048, 2048, 16, 16, 80, False, None),
+    ("hd80_gqa_causal", 2, 2048, 2048, 16, 4, 80, True, None),
+    ("hd80_ragged_s1000", 2, 1000, 1000, 16, 16, 80, False, None),
     ("noncausal_hd64", 2, 2048, 2048, 16, 16, 64, False, None),
 ]
 # kernel vs plain in the working dtype: f32 differs only by summation
@@ -579,17 +579,23 @@ def spills(rec: dict) -> bool:
     return found is None or found.groups() != ("0", "0")
 
 
-def bwd_ptxas(report: list) -> list:
-    """K2's and K3's tensor-core entries by head dim, from
-    :func:`ptxas_report`; the hd-80 ones must not spill."""
+# the flash kernels' tensor-core entries (tc::<entry><HD>) by kernel
+FLASH_WGMMA = {"flash_fwd_wgmma": "K1", "flash_bwd_dq_wgmma": "K2",
+               "flash_bwd_dkv_wgmma": "K3"}
+
+
+def flash_ptxas(report: list, kernels) -> list:
+    """The tensor-core entries of ``kernels`` (of ``FLASH_WGMMA``'s names)
+    by head dim, from :func:`ptxas_report`: one at each of hd 64, 80 and
+    128, and the hd-80 ones must not spill."""
     out = []
     for rec in report:
-        kernel = "K2" if "flash_bwd_dq_wgmma" in rec["entry"] else "K3"
-        hd = int(rec["entry"].split("_wgmmaILi")[1].split("E")[0])
-        out.append({"kernel": kernel, "hd": hd, **rec})
+        entry = next(e for e in FLASH_WGMMA if e + "ILi" in rec["entry"])
+        hd = int(rec["entry"].split(entry + "ILi")[1].split("E")[0])
+        out.append({"kernel": FLASH_WGMMA[entry], "hd": hd, **rec})
     if sorted((r["kernel"], r["hd"]) for r in out) != [
-            (k, hd) for k in ("K2", "K3") for hd in (64, 80, 128)]:
-        raise AssertionError(f"flash_bwd.cu's tensor-core entries: {out}")
+            (k, hd) for k in kernels for hd in (64, 80, 128)]:
+        raise AssertionError(f"the {kernels} tensor-core entries: {out}")
     bad = [r for r in out if r["hd"] == 80 and spills(r)]
     if bad:
         raise AssertionError(f"the hd-80 tensor-core entries spill: {bad}")
@@ -597,7 +603,8 @@ def bwd_ptxas(report: list) -> list:
 
 
 def kernel_vs_plain(torch, F, fa, attention_ref):
-    """Phase 2.  Returns the records by (shape, dtype)."""
+    """Phase 2.  On the tensor cores two launches must be bitwise equal.
+    Returns the records by (shape, dtype)."""
     fa_kernel = fa.flash_attention_fwd_kernel
     records = {}
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -615,6 +622,15 @@ def kernel_vs_plain(torch, F, fa, attention_ref):
             if fa_kernel.launches_by_route[route] != n0 + 1:
                 raise AssertionError(f"{name} {dtype_name}: K1 did not take "
                                      f"the {route} route")
+            bitwise = None
+            if route == "tensor_core":
+                out2, lse2 = fa_kernel(q, k, v, causal=causal, window=window)
+                bitwise = bool(torch.equal(out, out2)
+                               and torch.equal(lse, lse2))
+                del out2, lse2
+                if not bitwise:
+                    raise AssertionError(f"{name} {dtype_name}: two K1 "
+                                         f"launches differ")
             ref_out, ref_lse = attention_ref(q, k, v, causal=causal,
                                              window=window)
             err_o = (out.float() - ref_out.float()).abs().max().item()
@@ -655,6 +671,7 @@ def kernel_vs_plain(torch, F, fa, attention_ref):
             rec = dict(phase="kernel_vs_plain", shape=name,
                        dims=[B, Sq, Sk, H, Kh, hd], causal=causal,
                        window=window, dtype=dtype_name, route=route,
+                       bitwise_repeat=bitwise,
                        max_abs_err_o=err_o, max_abs_err_lse=err_l,
                        tol=tol, kernel_ms=kernel_ms, host_ms=host_ms,
                        plain_ms=plain_ms, library_ms=library_ms,
@@ -670,8 +687,8 @@ def kernel_vs_plain(torch, F, fa, attention_ref):
 
 def bwd_vs_plain(torch, F, fa, ref):
     """Phase 3: K2 and K3 against the plain backward.  Each shape runs on
-    its route by the backward's table (the tensor cores for bf16 at hd 64,
-    80 and 128, else the CUDA cores), checked by the route counters, and
+    its route by K1's table (the tensor cores for bf16 at hd 64, 80 and
+    128, else the CUDA cores), checked by the route counters, and
     two launches must be bitwise equal.  Returns the records by (shape,
     dtype)."""
     records = {}
@@ -688,7 +705,7 @@ def bwd_vs_plain(torch, F, fa, ref):
                                                      window=window)
             delta = ref.row_delta(out, do)
             mask = dict(causal=causal, window=window)
-            route = fa.bwd_route(dtype, hd)
+            route = fa.route(dtype, hd)
             want_route = ("tensor_core" if dtype_name == "bfloat16"
                           and hd in (64, 80, 128) else "cuda_core")
             kernels = (fa.flash_attention_bwd_dq_kernel,
@@ -779,7 +796,7 @@ def bwd_vs_plain(torch, F, fa, ref):
 # phase 3b: B, S, H, Kh, hd, causal, dtypes
 FN_CASES = [
     (2, 1024, 32, 8, 64, True, ("float32", "bfloat16")),   # granite's heads
-    # hubert's: K1 on the CUDA cores, K2 and K3 on the tensor cores
+    # hubert's: K1, K2 and K3 on the tensor cores at hd 80
     (2, 1024, 16, 16, 80, False, ("bfloat16",)),
 ]
 
@@ -803,8 +820,7 @@ def function_vs_plain(torch, fa, flash_attention, naive_attention):
                        (rnd(B, S, H, hd), rnd(B, S, Kh, hd),
                         rnd(B, S, Kh, hd)))
             do = rnd(B, S, H, hd)
-            routes = [table(dtype, hd) for table in
-                      (fa.route, fa.bwd_route, fa.bwd_route)]
+            routes = [fa.route(dtype, hd)] * 3
             n0 = [dict(fn.launches_by_route) for fn in kernels]
             got = torch.autograd.grad(
                 flash_attention(q, k, v, causal=causal), (q, k, v), do)
@@ -896,12 +912,9 @@ def train_data(m, cfg, batch: int, seq: int):
 
 
 def flash_routes(torch, fa, head_dim: int) -> dict:
-    """The route of K1 (the forward's table) and of K2 and K3 (the
-    backward's) for bf16 q/k/v of ``head_dim``, by counter name."""
-    return {"flash_attention_fwd": fa.route(torch.bfloat16, head_dim),
-            "flash_attention_bwd_dq": fa.bwd_route(torch.bfloat16, head_dim),
-            "flash_attention_bwd_dkv": fa.bwd_route(torch.bfloat16,
-                                                    head_dim)}
+    """The route of K1, K2 and K3 (one table) for bf16 q/k/v of
+    ``head_dim``, by counter name."""
+    return dict.fromkeys(_Counts.FLASH, fa.route(torch.bfloat16, head_dim))
 
 
 def train_full_width(torch, m, counts, arch: str = "stablelm-1.6b",
@@ -910,10 +923,9 @@ def train_full_width(torch, m, counts, arch: str = "stablelm-1.6b",
     """Phases 4 (stablelm-1.6b), 9d (mamba2-2.7b), 22 (hubert-xlarge) and
     23b (llava-next-mistral-7b): the full-width arch through TrainLoop on
     its family's data stream (:func:`train_data`).  K1 must take the
-    route ``kernel.route`` gives the config's head dim in bf16 and K2 and
-    K3 the one ``kernel.bwd_route`` gives (the tensor cores at hd 64 and
-    128; at hubert's 80 K1 the CUDA cores, K2 and K3 the tensor cores), K4
-    the tensor cores.  Returns the launches on the path, the state and the
+    route ``kernel.route`` gives the config's head dim in bf16, and K2 and
+    K3 with it (the tensor cores at hd 64, 80 and 128), K4 the tensor
+    cores.  Returns the launches on the path, the state and the
     data stream."""
     cfg = m["get_config"](arch)
     opt = m["get_optimizer"](cfg.optimizer)
@@ -2133,22 +2145,18 @@ LLAVA_TRAIN_B, LLAVA_TRAIN_STEPS = 1, 2
 def train_hubert(torch, m, counts) -> dict:
     """Phase 22: full-width hubert-xlarge (48 layers, non-causal, 16 heads
     of 80, bf16) trains through TrainLoop on its seeded frame batches at
-    8 x 2048: K1 2 x 48 launches a step on the CUDA cores (hd 80 is not in
-    the forward's tensor-core table), K2 and K3 48 each on the tensor
-    cores (the backward's table has it); then the gradient gate on the
+    8 x 2048: K1 2 x 48 launches a step, K2 and K3 48 each, all on the
+    tensor cores (hd 80 is in the table); then the gradient gate on the
     trained weights' first ``HUBERT_GATE_LAYERS`` layers, through the same
     kernels; then ``run train --arch hubert-xlarge --full`` in process (2
     steps): ``succeeded`` on cuda with the same routes.  Returns the
     launches of the two runs."""
     arch = "hubert-xlarge"
     cfg = m["get_config"](arch)
-    split = {"flash_attention_fwd": "cuda_core",
-             "flash_attention_bwd_dq": "tensor_core",
-             "flash_attention_bwd_dkv": "tensor_core"}
     routes = flash_routes(torch, m["fa"], cfg.head_dim)
-    if routes != split:
+    if set(routes.values()) != {"tensor_core"}:
         raise AssertionError(f"hubert's routes at hd {cfg.head_dim}: "
-                             f"{routes}, want {split}")
+                             f"{routes}, want the tensor cores")
     launches, state, data = train_full_width(torch, m, counts, arch,
                                              steps=HUBERT_TRAIN_STEPS)
     params = state.params
@@ -2173,13 +2181,10 @@ def train_hubert(torch, m, counts) -> dict:
     want = train_launches(cfg, 2)
     if (met["device"] != "cuda" or met["params"] != cfg.param_count()
             or len(losses) != 2 or not np.all(np.isfinite(losses))
-            or api != want
-            or any(r != {"tensor_core": 0, "cuda_core": 0,
-                         split[name]: api[name]}
-                   for name, r in routes.items())):
+            or api != want):
         raise AssertionError(f"run train hubert-xlarge: {met}, launches "
-                             f"{api} (want {want}, on {split}), routes "
-                             f"{routes}")
+                             f"{api} (want {want})")
+    _all_tensor_core(routes, api, "run train --arch hubert-xlarge --full")
     emit(phase="run_api_train_hubert", argv=RUN_TRAIN_HUBERT_ARGV,
          arch=met["arch"], params=met["params"], device=met["device"],
          losses=losses, loop_step_s=met["pure_step_s"] / met["steps_run"],
@@ -3158,11 +3163,12 @@ def main() -> int:
     card = card_line()
     print(card, flush=True)
 
-    # phase 1: one nvcc per source, all started together, and two more
-    # for K4's and K2/K3's ptxas reports
+    # phase 1: one nvcc per source, all started together, and three more
+    # for K4's, K1's and K2/K3's ptxas reports
     t0 = time.perf_counter()
     ptxas_dir = tempfile.mkdtemp()
     ptxas = ptxas_start(ssd.SOURCE, ptxas_dir)
+    ptxas_fwd = ptxas_start(fa.SOURCE, ptxas_dir)
     ptxas_bwd = ptxas_start(fa.BWD_SOURCE, ptxas_dir)
     m["build_libraries"]([fa.SOURCE, fa.BWD_SOURCE, ssd.SOURCE,
                           pn.SOURCE])
@@ -3174,8 +3180,11 @@ def main() -> int:
          seconds=time.perf_counter() - t0)
     emit(phase="ptxas", source=KERNELS["ssd_scan"][0],
          tensor_core=ptxas_report(ptxas, "ssd_scan_mma"))
+    emit(phase="ptxas", source=KERNELS["flash_attention_fwd"][0],
+         tensor_core=flash_ptxas(ptxas_report(ptxas_fwd, "_wgmma"), ("K1",)))
     emit(phase="ptxas", source=KERNELS["flash_attention_bwd_dq"][0],
-         tensor_core=bwd_ptxas(ptxas_report(ptxas_bwd, "_wgmma")))
+         tensor_core=flash_ptxas(ptxas_report(ptxas_bwd, "_wgmma"),
+                                 ("K2", "K3")))
     shutil.rmtree(ptxas_dir)
 
     k1_recs = kernel_vs_plain(torch, F, fa, ref.attention_ref)
@@ -3219,8 +3228,8 @@ def main() -> int:
     # mamba2 training on the card
     ssd_train_launches = train_mamba2(torch, m, counts)
     # the audio and vlm families: hubert trains through K1-K3's
-    # non-causal hd-80 path (K1 on the CUDA cores, K2 and K3 on the tensor
-    # cores), llava prefills patches and trains on the tensor cores
+    # non-causal hd-80 path, llava prefills patches and trains, all on the
+    # tensor cores
     hubert = train_hubert(torch, m, counts)
     llava = llava_path(torch, m, counts)
 
@@ -3260,12 +3269,11 @@ def main() -> int:
               max_abs_err=max(kb["max_abs_err"]["dk"],
                               kb["max_abs_err"]["dv"]),
               core_route=kb["route"])
-    # hubert's training shape (non-causal, hd 80: K1 on the CUDA cores,
-    # K2 and K3 on the tensor cores) and the tensor cores' non-causal
-    # branch at hd 64, beside the main shapes; K2 and K3 also at the hd-80
-    # edge shapes
-    new_shapes = ("hubert_train", "noncausal_hd64")
-    bwd_shapes = new_shapes + ("hd80_gqa_causal", "hd80_ragged_s1000")
+    # hubert's training shape (non-causal, hd 80) and the tensor cores'
+    # non-causal branch at hd 64, beside the main shapes; K1-K3 also at
+    # the hd-80 edge shapes
+    new_shapes = ("hubert_train", "noncausal_hd64", "hd80_gqa_causal",
+                  "hd80_ragged_s1000")
     for name, rec in (("flash_attention_bwd_dq", k2),
                       ("flash_attention_bwd_dkv", k3)):
         what = "dq" if name.endswith("dq") else "dkv"
@@ -3276,7 +3284,7 @@ def main() -> int:
             "plain_ms": kb_recs[(s, "bfloat16")]["plain_ms"],
             "library_ms": kb_recs[(s, "bfloat16")]["library_ms"],
             "core_route": kb_recs[(s, "bfloat16")]["route"]}
-            for s in bwd_shapes}
+            for s in new_shapes}
         rec["launches_train_hubert"] = hubert["train"][name]
         rec["launches_train_llava"] = llava["train"][name]
         rec["launches_run_api_hubert"] = hubert["run_api"][name]

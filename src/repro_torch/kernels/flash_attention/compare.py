@@ -10,7 +10,7 @@ and ``flash_bwd_dkv``).  All are built with nvcc at once into a temporary
 directory (``csrc`` on the include path) and loaded with ctypes; ptxas's
 registers and spills of each tensor-core entry are printed.  Every version
 runs bf16 cases of several sizes, and the max |error| against
-``attention_ref`` (O) or ``attention_bwd_ref`` (dQ, dK, dV) is printed with
+``attention_ref`` (O, L) or ``attention_bwd_ref`` (dQ, dK, dV) is printed with
 whether two launches on the same inputs are bitwise equal.  At the main
 path's shapes each version is also timed with CUDA events, in turns (A B ...
 B A), beside SDPA (its forward, or the backward of its autograd graph).
@@ -154,13 +154,14 @@ def cuda_ms(fn, reps=20):
 
 
 def fwd_case(libs, q, k, v, causal, window, timed):
-    ref_o, _ = attention_ref(q, k, v, causal=causal, window=window)
+    ref_o, ref_lse = attention_ref(q, k, v, causal=causal, window=window)
     rec = {}
     for src, lib in libs.items():
         o, lse = call(lib, q, k, v, causal, window)
         o2, lse2 = call(lib, q, k, v, causal, window)
         rec[src] = {
             "err_o": (o.float() - ref_o.float()).abs().max().item(),
+            "err_lse": (lse - ref_lse).abs().max().item(),
             "bitwise": bool(torch.equal(o, o2) and torch.equal(lse, lse2))}
     if timed:
         for src in list(libs) + list(libs)[::-1]:

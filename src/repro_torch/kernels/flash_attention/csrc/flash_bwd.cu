@@ -41,8 +41,8 @@
 // pad-and-transpose copy as in the reference's ops.py::_layout, and the
 // ragged edges are masked here.
 //
-// Two routes, chosen by an explicit table on (dtype, hd) (route_of below:
-// the forward's table and bf16 at hd 80), never after a failure:
+// Two routes, chosen by an explicit table on (dtype, hd) (route_of below,
+// the forward's table), never after a failure:
 //
 // * tensor cores, bf16 at hd 64, 80 and 128 (tc::flash_bwd_dq_wgmma and
 //   tc::flash_bwd_dkv_wgmma).  As the forward's: one persistent block per
@@ -99,7 +99,7 @@ namespace {
 constexpr float LOG2E = 1.4426950408889634f;
 
 // The route table of K2 and K3: 1 = tensor cores, 0 = CUDA cores.  It is
-// the forward's (flash_fwd.cu) and bf16 at hd 80.
+// the forward's (flash_fwd.cu).
 int route_of(int dtype, int hd) {
   return dtype == 1 && (hd == 64 || hd == 80 || hd == 128);
 }

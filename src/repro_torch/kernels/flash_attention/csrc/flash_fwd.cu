@@ -24,7 +24,7 @@
 // Two routes, chosen by an explicit table on (dtype, hd) (route_of below),
 // never after a failure:
 //
-// * tensor cores, bf16 at hd 64 and 128 (tc::flash_fwd_wgmma).  A work
+// * tensor cores, bf16 at hd 64, 80 and 128 (tc::flash_fwd_wgmma).  A work
 //   item is 128 q rows of one (batch, head).  One persistent block per SM
 //   walks the items, longest q tiles first (the causal diagonal's short
 //   ones fill the tail) in bands of 8 q tiles whose heads' tiles are
@@ -36,7 +36,7 @@
 //   item's Q, once the consumers are done with the last one's, and keeps a
 //   2-stage ring of 128-row K and V tiles full across items, with TMA
 //   (cp.async.bulk.tensor, 4-D maps over the strided tensors, 128-byte
-//   swizzle; a 128-wide head is two 64-column boxes) and mbarrier
+//   swizzle; a head of 80 or 128 is two 64-column boxes) and mbarrier
 //   completion; consumers release each stage as soon as its product is
 //   done, so the next item's loads run under this one's last tiles and
 //   its output stores.  S = Q K^T is wgmma m64n128k16 with Q and K K-major
@@ -50,9 +50,13 @@
 //   tiles that cross Sk (TMA's zero fill gives scores of 0, not -inf), the
 //   diagonal or the window's edge, in a branch of its own; interior tiles
 //   skip it.  The kv loop covers only the tiles the causal and window
-//   bounds reach.
+//   bounds reach.  hd 80 (hubert's heads) is staged as hd 128 is, two
+//   64-column boxes a row, the maps' extent 80 so that TMA zero-fills
+//   columns 80-127 (the mbarriers count whole boxes, zeros included): S
+//   runs 5 k-steps of 16 and never reads the zeros, and P V is an m64n80
+//   product whose B spans the first box and 16 columns of the second.
 //
-// * CUDA cores, f32 at every hd and bf16 at hd other than 64 and 128
+// * CUDA cores, f32 at every hd and bf16 at hd other than 64, 80 and 128
 //   (flash_fwd_kernel).  One block per (batch*head, 64-row q tile), f32
 //   FMAs with operands staged in shared memory as f32.  f32 stays here
 //   because TF32 tensor cores would break the f32 tolerance (2e-5) that the
@@ -77,13 +81,14 @@ namespace {
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
-// The route table: 1 = tensor cores, 0 = CUDA cores.
+// The route table of K1, and of K2 and K3 (flash_bwd.cu): 1 = tensor
+// cores, 0 = CUDA cores.
 int route_of(int dtype, int hd) {
-  return dtype == 1 && (hd == 64 || hd == 128);
+  return dtype == 1 && (hd == 64 || hd == 80 || hd == 128);
 }
 
 // ---------------------------------------------------------------------------
-// The CUDA-core route: f32, and bf16 at head dims other than 64 and 128.
+// The CUDA-core route: f32, and bf16 at head dims other than 64, 80, 128.
 // ---------------------------------------------------------------------------
 
 constexpr int BM = 64;       // q rows per block
@@ -317,7 +322,7 @@ cudaError_t dispatch(int hd, const void* q, const void* k, const void* v,
 }
 
 // ---------------------------------------------------------------------------
-// The tensor-core route: bf16 at head dims 64 and 128.
+// The tensor-core route: bf16 at head dims 64, 80 and 128.
 // ---------------------------------------------------------------------------
 namespace tc {
 
@@ -336,13 +341,16 @@ constexpr float LN2 = 0.6931471805599453f;
 constexpr float MASKED = -__builtin_huge_valf();
 
 // Shared memory, from a 1024-byte aligned base (the 128-byte swizzle
-// repeats every 8 rows of 128 bytes).  Each operand is HD / 64 boxes of
-// rows x 64 columns, box after box; barriers at the end.
+// repeats every 8 rows of 128 bytes).  Each operand is staged HP = HD
+// rounded up to 64 columns wide, NB = HP / 64 boxes of rows x 64 columns,
+// box after box (the columns past HD are TMA's zeros); barriers at the
+// end.
 template <int HD>
 struct Layout {
-  static constexpr int NB = HD / 64;
-  static constexpr int Q_BYTES = BM * HD * 2;
-  static constexpr int KV_BYTES = BN * HD * 2;
+  static constexpr int HP = (HD + 63) / 64 * 64;
+  static constexpr int NB = HP / 64;
+  static constexpr int Q_BYTES = BM * HP * 2;
+  static constexpr int KV_BYTES = BN * HP * 2;
   static constexpr int K_OFF = Q_BYTES;
   static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
   static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;
@@ -360,7 +368,9 @@ struct Consumer {
   float o[HD / 2];     // the output accumulator
   float m[2], l[2];    // running max (log2 units) and this thread's sums
 
-  // S = Q K^T over the head dim, K-major A (Q) and B (K) in shared memory
+  // S = Q K^T over the head dim, K-major A (Q) and B (K) in shared memory,
+  // HD / 16 k-steps: desc_k starts the fifth at the second box, so at hd 80
+  // the zero columns 80-127 are never read
   __device__ __forceinline__ void issue_qk(uint32_t q_base, uint32_t k_base) {
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk)
@@ -368,7 +378,9 @@ struct Consumer {
                     kk > 0);
   }
 
-  // O += P V: P from registers, V (kv rows x hd, MN-major) in shared memory
+  // O += P V: P from registers, V (kv rows x hd, MN-major) in shared
+  // memory; at hd 80 one m64n80 product over the first box and 16 columns
+  // of the second
   __device__ __forceinline__ void issue_pv(uint32_t v_base) {
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk)
@@ -676,6 +688,18 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   return cudaGetLastError();
 }
 
+// Each head dim of route_of's table has its own instantiation; any other
+// is refused, never sent to a kernel of another width.
+template <typename... A>
+int launch(int hd, A... a) {
+  switch (hd) {
+    case 64: return launch<64>(a...);
+    case 80: return launch<80>(a...);
+    case 128: return launch<128>(a...);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace tc
 
 }  // namespace
@@ -693,10 +717,8 @@ int flash_fwd(const void* q, const void* k, const void* v, void* o,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   if (route_of(dtype, hd))
-    return hd == 64 ? tc::launch<64>(q, k, v, o, l, B, H, Kh, Sq, Sk, strides,
-                                     causal, window, scale, s)
-                    : tc::launch<128>(q, k, v, o, l, B, H, Kh, Sq, Sk,
-                                      strides, causal, window, scale, s);
+    return tc::launch(hd, q, k, v, o, l, B, H, Kh, Sq, Sk, strides, causal,
+                      window, scale, s);
   if (dtype == 0)
     return dispatch<float>(hd, q, k, v, o, l, B, H, Kh, Sq, Sk, strides,
                            causal, window, scale, s);

@@ -6,11 +6,10 @@ Hopper counterparts of the Pallas TPU kernels in
 * ``csrc/flash_bwd.cu`` — the backward, dQ (``_attn_bwd_dq_kernel``, K2)
   and dK/dV (``_attn_bwd_dkv_kernel``, K3).
 
-Each kernel takes one of two routes: ``"tensor_core"`` (wgmma, TMA; the
-Hopper building blocks in ``csrc/hopper.cuh``) or ``"cuda_core"`` (f32
-FMAs).  K1's table is :func:`route`: the tensor cores for bf16 at head
-dims 64 and 128.  K2 and K3's is :func:`bwd_route`: the same and bf16 at
-hd 80 (hubert's heads).  Everything else runs on the CUDA cores.
+Each kernel takes one of two routes by one table, :func:`route`:
+``"tensor_core"`` (wgmma, TMA; the Hopper building blocks in
+``csrc/hopper.cuh``) for bf16 at head dims 64, 80 (hubert's heads) and
+128, ``"cuda_core"`` (f32 FMAs) for the rest.
 
 Each library is compiled with nvcc for ``sm_90a`` at first use (see
 :func:`repro_torch.kernels.common.build_library`).  A wrapper checks its
@@ -33,30 +32,23 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCE = CSRC / "flash_fwd.cu"
 BWD_SOURCE = CSRC / "flash_bwd.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# (dtype, head_dim) pairs the forward (K1) runs on the tensor cores; every
-# other pair it takes runs on the CUDA cores.  f32 stays off the tensor
-# cores: TF32 would break the f32 tolerances the reduced configs rely on.
-# The same table is route_of in flash_fwd.cu (tests hold the two together).
-TENSOR_CORE = frozenset({(torch.bfloat16, 64), (torch.bfloat16, 128)})
-# The backward's (K2 and K3) table: the forward's and bf16 at hd 80, which
-# flash_bwd.cu stages as two 64-column boxes a row.  It is route_of in
-# flash_bwd.cu.
-BWD_TENSOR_CORE = TENSOR_CORE | {(torch.bfloat16, 80)}
+# (dtype, head_dim) pairs K1, K2 and K3 run on the tensor cores; every
+# other pair they take runs on the CUDA cores.  hd 80 is staged as two
+# 64-column boxes a row.  f32 stays off the tensor cores: TF32 would break
+# the f32 tolerances the reduced configs rely on.  The same table is
+# route_of in flash_fwd.cu and in flash_bwd.cu (tests hold the three
+# together).
+TENSOR_CORE = frozenset({(torch.bfloat16, 64), (torch.bfloat16, 80),
+                         (torch.bfloat16, 128)})
 ROUTES = ("tensor_core", "cuda_core")
 _lib: Optional[ctypes.CDLL] = None
 _bwd_lib: Optional[ctypes.CDLL] = None
 
 
 def route(dtype: torch.dtype, head_dim: int) -> str:
-    """The route of K1 for q/k/v of ``dtype`` and ``head_dim``:
+    """The route of K1, K2 and K3 for q/k/v of ``dtype`` and ``head_dim``:
     ``"tensor_core"`` or ``"cuda_core"``."""
     return ROUTES[0] if (dtype, head_dim) in TENSOR_CORE else ROUTES[1]
-
-
-def bwd_route(dtype: torch.dtype, head_dim: int) -> str:
-    """The route of K2 and K3 for q/k/v of ``dtype`` and ``head_dim``:
-    ``"tensor_core"`` or ``"cuda_core"``."""
-    return ROUTES[0] if (dtype, head_dim) in BWD_TENSOR_CORE else ROUTES[1]
 
 
 def library() -> ctypes.CDLL:
@@ -223,8 +215,8 @@ def flash_attention_bwd_dq_kernel(q, k, v, do, lse, delta, *, causal: bool,
         code = lib.flash_bwd_dq(*head, dq.data_ptr(), *tail)
     _raise_on(code, "flash_bwd_dq")
     flash_attention_bwd_dq_kernel.launches += 1
-    flash_attention_bwd_dq_kernel.launches_by_route[bwd_route(
-        q.dtype, q.shape[3])] += 1
+    flash_attention_bwd_dq_kernel.launches_by_route[route(q.dtype,
+                                                          q.shape[3])] += 1
     return dq
 
 
@@ -246,8 +238,8 @@ def flash_attention_bwd_dkv_kernel(q, k, v, do, lse, delta, *, causal: bool,
         code = lib.flash_bwd_dkv(*head, dk.data_ptr(), dv.data_ptr(), *tail)
     _raise_on(code, "flash_bwd_dkv")
     flash_attention_bwd_dkv_kernel.launches += 1
-    flash_attention_bwd_dkv_kernel.launches_by_route[bwd_route(
-        q.dtype, q.shape[3])] += 1
+    flash_attention_bwd_dkv_kernel.launches_by_route[route(q.dtype,
+                                                           q.shape[3])] += 1
     return dk, dv
 
 

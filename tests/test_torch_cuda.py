@@ -1,7 +1,7 @@
 """The hand-written CUDA kernels (flash-attention forward K1, backward K2
 and K3, the SSD chunk scan K4 and the percentile stretch K5) against their
 plain PyTorch versions, a small train step, reduced hubert (non-causal,
-hd 80: K1 on the CUDA cores, K2 and K3 on the tensor cores) and llava
+hd 80: K1, K2 and K3 on the tensor cores) and llava
 (patches ahead of the tokens) training and prefill, reduced mamba2, MoE
 and hybrid serving, a dropped engine's memory, the continuous scheduler's
 eviction resume and a reduced vision run, on the card.  Every test here
@@ -20,7 +20,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
     flash_attention_bwd_dkv_kernel, flash_attention_bwd_dq_kernel,
-    bwd_library, bwd_route, flash_attention_bwd_kernel,
+    bwd_library, flash_attention_bwd_kernel,
     flash_attention_fwd_kernel, library, route)
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     attention_bwd_ref, attention_ref, row_delta)
@@ -96,6 +96,12 @@ TC_CASES = [
     (2, 600, 600, 32, 2, 128, True, None, False),   # GQA 16 at hd 128 (glm4)
     (2, 500, 500, 16, 16, 64, False, None, False),  # non-causal, ragged
     (1, 384, 384, 8, 8, 128, False, None, False),   # non-causal, hd 128
+    # hd 80 (two boxes a row, the second 16 columns of data): non-causal
+    # and ragged with q cut from a fused qkv tensor, causal GQA, a window
+    # off the tile grid
+    (2, 333, 333, 4, 4, 80, False, None, True),
+    (2, 300, 300, 8, 2, 80, True, None, False),
+    (1, 700, 700, 4, 1, 80, True, 100, False),
 ]
 
 
@@ -136,17 +142,13 @@ def test_tensor_core_route_matches_plain_and_repeats_bitwise(case, dev):
 
 
 # K2/K3 on the tensor-core route: TC_CASES (Sq 1 / 17 / 1000, cross
-# length, window 100, GQA rep 4, MHA, hd 128), with q, k and v all cut from
-# one fused qkv tensor where the last field says so, plus a causal cross
-# length (kv tiles past Sq get no query), a non-causal window, and hd 80
-# (two boxes a row, the second 16 columns of data): causal GQA, non-causal
-# ragged and strided, a window off the tile grid
+# length, window 100, GQA rep 4, MHA, hd 128, hd 80's three), with q, k and
+# v all cut from one fused qkv tensor where the last field says so, plus a
+# causal cross length (kv tiles past Sq get no query) and a non-causal
+# window
 TC_BWD_CASES = TC_CASES + [
     (1, 64, 300, 4, 2, 64, True, None, False),
     (1, 400, 400, 4, 1, 128, False, 150, True),
-    (2, 300, 300, 8, 2, 80, True, None, False),
-    (2, 333, 333, 4, 4, 80, False, None, True),
-    (1, 700, 700, 4, 1, 80, True, 100, False),
 ]
 
 
@@ -171,7 +173,7 @@ def test_tensor_core_bwd_matches_plain_and_repeats_bitwise(case, dev):
     causal, window = case[6], case[7]
     mask = dict(causal=causal, window=window)
     q, k, v, do = _tc_bwd_inputs(case, dev)
-    assert bwd_route(q.dtype, q.shape[-1]) == "tensor_core"
+    assert route(q.dtype, q.shape[-1]) == "tensor_core"
     out, lse = attention_ref(q, k, v, **mask)
     delta = row_delta(out, do)
     kernels = (flash_attention_bwd_dq_kernel, flash_attention_bwd_dkv_kernel)
@@ -199,7 +201,7 @@ def test_routes_follow_the_table(dev):
     for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
         for hd in range(16, 257, 16):
             for fn, table in ((lib.flash_fwd_route, route),
-                              (bwd.flash_bwd_route, bwd_route)):
+                              (bwd.flash_bwd_route, route)):
                 assert ("tensor_core" if fn(code, hd)
                         else "cuda_core") == table(dtype, hd)
     # f32 and bf16 at another head dim launch the CUDA-core kernels
@@ -532,11 +534,10 @@ def test_moe_and_hybrid_serve_on_the_card(arch, dev):
 
 def test_hubert_trains_through_k1_k3_at_hd_80_on_the_card(dev):
     """The reduced hubert widened to 4 heads of 80 (d_model 320), bf16:
-    a non-causal encoder whose K1 launches take the CUDA-core route (hd 80
-    is not in the forward's tensor-core table) and whose K2 and K3
-    launches take the tensor cores (the backward's table has it), remat
-    running each layer's forward twice; the loss through the kernels
-    agrees with the plain attention's."""
+    a non-causal encoder whose K1, K2 and K3 launches all take the tensor
+    cores (hd 80 is in the table), remat running each layer's forward
+    twice; the loss through the kernels agrees with the plain
+    attention's."""
     import dataclasses
     from repro_torch.configs import get_reduced
     from repro_torch.data import make_batch
@@ -546,8 +547,7 @@ def test_hubert_trains_through_k1_k3_at_hd_80_on_the_card(dev):
     cfg = dataclasses.replace(get_reduced("hubert-xlarge"), d_model=320,
                               param_dtype="bfloat16")
     assert cfg.head_dim == 80 and not cfg.causal
-    assert route(torch.bfloat16, 80) == "cuda_core"
-    assert bwd_route(torch.bfloat16, 80) == "tensor_core"
+    assert route(torch.bfloat16, 80) == "tensor_core"
     opt = adamw()
     state = init_train_state(torch.Generator(device=dev).manual_seed(0), cfg,
                              opt, device=dev)
@@ -562,7 +562,7 @@ def test_hubert_trains_through_k1_k3_at_hd_80_on_the_card(dev):
     state, met = step(state, batch)
     torch.cuda.synchronize()
     for fn, before, want in zip(
-            kernels, n0, ({"cuda_core": 2 * cfg.n_layers, "tensor_core": 0},
+            kernels, n0, ({"cuda_core": 0, "tensor_core": 2 * cfg.n_layers},
                           {"cuda_core": 0, "tensor_core": cfg.n_layers},
                           {"cuda_core": 0, "tensor_core": cfg.n_layers})):
         assert {r: fn.launches_by_route[r] - before[r] for r in want} == \

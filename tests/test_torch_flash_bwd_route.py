@@ -2,8 +2,8 @@
 of its tensor-core route.
 
 * Which (dtype, head_dim) pairs K2 (dQ) and K3 (dK/dV) send to the
-  tensor-core kernels (the backward's table: the forward's and bf16 at hd
-  80), that ``flash_bwd.cu`` dispatches on the same table and has a kernel
+  tensor-core kernels (the forward's table: bf16 at hd 64, 80 and 128),
+  that ``flash_bwd.cu`` dispatches on the same table and has a kernel
   of each of its widths, that both wrappers count launches by route and
   that the CPU path launches nothing.
 * The tensor-core kernels' arithmetic, emulated here: S = Q K^T and dP =
@@ -46,13 +46,12 @@ BWD_TOL = 2e-4
 @pytest.mark.parametrize("hd", HEAD_DIMS)
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_backward_routes_as_the_forward(dtype, hd):
-    # the backward's own table: as the forward, bf16 at hd 64 and 128 on
-    # the tensor cores, and bf16 at hd 80 too; f32 never (TF32 would break
-    # the f32 tolerance)
+    # the forward's table: bf16 at hd 64, 80 and 128 on the tensor cores;
+    # f32 never (TF32 would break the f32 tolerance)
     dtype = getattr(torch, dtype)
     want = ("tensor_core" if dtype == torch.bfloat16 and hd in (64, 80, 128)
             else "cuda_core")
-    assert fa.bwd_route(dtype, hd) == want
+    assert fa.route(dtype, hd) == want
 
 
 def test_the_cuda_source_dispatches_on_the_same_table():
@@ -63,7 +62,7 @@ def test_the_cuda_source_dispatches_on_the_same_table():
     expr = body.group(1)
     assert "dtype == 1" in expr      # bf16 in flash_bwd's dtype codes
     assert sorted(int(d) for d in re.findall(r"hd == (\d+)", expr)) == \
-        sorted(hd for dt, hd in fa.BWD_TENSOR_CORE)
+        sorted(hd for dt, hd in fa.TENSOR_CORE)
     # both kernels dispatch through it, and the library exports it
     assert "if (route_of(dtype, hd)) return tc::launch<DQ>(hd, a);" in src
     assert "int flash_bwd_route(int dtype, int hd)" in src
@@ -76,7 +75,7 @@ def test_the_cuda_source_dispatches_on_the_same_table():
                        r"launch_dkv<(\d+)>\(a\);", launch.group(1))
     assert all(a == b == c for a, b, c in cases)
     assert sorted(int(a) for a, _, _ in cases) == \
-        sorted(hd for _, hd in fa.BWD_TENSOR_CORE)
+        sorted(hd for _, hd in fa.TENSOR_CORE)
     assert launch.group(1).rstrip().endswith(
         "default: return cudaErrorInvalidValue;\n  }")
 

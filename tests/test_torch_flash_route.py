@@ -1,8 +1,9 @@
-"""The flash-attention forward's route table on the CPU: which (dtype,
-head_dim) pairs the wrapper sends to the tensor-core kernel and which to the
-CUDA-core one, that ``flash_fwd.cu`` dispatches on the same table, that the
-backward's table differs from it only by bf16 at hd 80, and that the CPU
-path launches nothing.  The kernels themselves run only on the card
+"""The flash-attention route table on the CPU: which (dtype, head_dim)
+pairs the forward's wrapper sends to the tensor-core kernel and which to
+the CUDA-core one, that ``flash_fwd.cu`` dispatches on the same table (each
+of its head dims to a kernel of its own width), that K1, K2 and K3 share
+the table, that hubert-xlarge's heads take the tensor cores, and that the
+CPU path launches nothing.  The kernels themselves run only on the card
 (``tests/test_torch_cuda.py``)."""
 import re
 from pathlib import Path
@@ -19,8 +20,8 @@ HEAD_DIMS = list(range(16, 257, 16))
 
 
 @pytest.mark.parametrize("hd", HEAD_DIMS)
-def test_bf16_takes_the_tensor_cores_only_at_64_and_128(hd):
-    want = "tensor_core" if hd in (64, 128) else "cuda_core"
+def test_bf16_takes_the_tensor_cores_only_at_64_80_and_128(hd):
+    want = "tensor_core" if hd in (64, 80, 128) else "cuda_core"
     assert fa.route(torch.bfloat16, hd) == want
 
 
@@ -38,6 +39,17 @@ def test_the_models_on_a_main_path_take_the_tensor_cores():
         assert fa.route(torch.bfloat16, cfg.head_dim) == "tensor_core"
 
 
+def test_hubert_takes_the_tensor_cores_in_all_three_kernels():
+    # hubert-xlarge's 16 heads of 80 in bf16, through the one table that
+    # K1, K2 and K3 read (the backward has no table of its own)
+    from repro_torch.configs import get_config
+    cfg = get_config("hubert-xlarge")
+    assert cfg.head_dim == 80 and cfg.param_dtype == "bfloat16"
+    assert fa.route(torch.bfloat16, cfg.head_dim) == "tensor_core"
+    assert not hasattr(fa, "BWD_TENSOR_CORE")
+    assert not hasattr(fa, "bwd_route")
+
+
 def test_the_cuda_source_dispatches_on_the_same_table():
     src = Path(fa.SOURCE).read_text()
     body = re.search(r"int route_of\(int dtype, int hd\) \{\s*return ([^;]*);",
@@ -49,14 +61,39 @@ def test_the_cuda_source_dispatches_on_the_same_table():
         sorted(hd for dt, hd in fa.TENSOR_CORE)
     assert {dt for dt, _ in fa.TENSOR_CORE} == {torch.bfloat16}
     assert fa._DTYPES[torch.bfloat16] == 1
+    # the tensor-core route dispatches through tc::launch, which names an
+    # instantiation of every hd of the table and refuses any other: no hd
+    # reaches a kernel of another width
+    assert ("if (route_of(dtype, hd))\n    return tc::launch(hd, q, k, v, "
+            "o, l, B, H, Kh, Sq, Sk, strides, causal,") in src
+    launch = re.search(r"int launch\(int hd, A\.\.\. a\) \{(.*?)\n\}", src,
+                       re.S)
+    assert launch, "tc::launch(hd, ...) not found in flash_fwd.cu"
+    cases = re.findall(r"case (\d+): return launch<(\d+)>\(a\.\.\.\);",
+                       launch.group(1))
+    assert all(a == b for a, b in cases)
+    assert sorted(int(a) for a, _ in cases) == \
+        sorted(hd for _, hd in fa.TENSOR_CORE)
+    assert launch.group(1).rstrip().endswith(
+        "default: return cudaErrorInvalidValue;\n  }")
 
 
-def test_the_backward_table_adds_only_bf16_at_hd_80():
-    # K2 and K3 take hubert's hd 80 on the tensor cores; K1 does not
-    assert fa.BWD_TENSOR_CORE - fa.TENSOR_CORE == {(torch.bfloat16, 80)}
-    assert fa.TENSOR_CORE <= fa.BWD_TENSOR_CORE
-    assert fa.route(torch.bfloat16, 80) == "cuda_core"
-    assert fa.bwd_route(torch.bfloat16, 80) == "tensor_core"
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_k1_k2_and_k3_route_every_pair_alike(dtype):
+    # route_of in flash_fwd.cu (K1) and in flash_bwd.cu (K2, K3), evaluated
+    # at every head dim, agrees with route(), by which all three wrappers
+    # count their launches
+    code = fa._DTYPES[getattr(torch, dtype)]
+    exprs = [re.search(r"int route_of\(int dtype, int hd\) \{\s*return "
+                       r"([^;]*);", Path(src).read_text()).group(1)
+             .replace("&&", " and ").replace("||", " or ")
+             for src in (fa.SOURCE, fa.BWD_SOURCE)]
+    for hd in HEAD_DIMS:
+        tc = fa.route(getattr(torch, dtype), hd) == "tensor_core"
+        assert [bool(eval(e, {"dtype": code, "hd": hd})) for e in exprs] \
+            == [tc, tc], hd
+    wrappers = Path(fa.__file__).read_text()
+    assert wrappers.count("launches_by_route[route(q.dtype") == 3
 
 
 def test_counters_start_per_route():

@@ -88,8 +88,8 @@ Phases, each of which fails the run if it fails:
    and f32 at mamba2-2.7b's serving prefill shape (Bs 8, S 2048, 80 heads
    of 64, g 1, N 128, Q 256), and in bf16 at a ragged S 1000, jamba's
    widths (128 heads of 128, g 8), the one-period jamba's prefill (Bs 8,
-   S 2048, 64 heads of 128, g 8) and its ragged S 1000, and Q 64 at
-   S 4096; each shape's route
+   S 2048, 64 heads of 128, g 8) and its ragged S 1000, Q 64 at S 4096,
+   and phase 28's mamba2 prefill (Bs 2, S 32 768); each shape's route
    (tensor cores for bf16, CUDA cores for f32, checked by the route
    counters) and two launches bitwise equal; ptxas's registers and spills
    of the tensor-core entries (a second nvcc, ``-Xptxas -v``, in phase 1);
@@ -217,7 +217,36 @@ Phases, each of which fails the run if it fails:
     succeeds at its second attempt, resumed from the last published
     step, its losses within ``GANG_LOSS_RTOL`` of an uninterrupted
     world-1 run; the log replays consistent; whether its final checkpoint
-    equals the world-1 run's bit for bit (not gated: the sums differ).
+    equals the world-1 run's bit for bit (not gated: the sums differ);
+27. (started before phase 1, read after it) ``python -m
+    repro_torch.launch run dryrun --arch all --shape train_4k`` as a
+    subprocess on the host, beside the kernels' build and under no timed
+    phase:
+    every arch's train step built and run on the meta device (the
+    kernels' meta formulas; the card's host has no JAX, so this also
+    proves the import graph), every cell ``ok``; one line per arch with
+    the traced / analytic FLOPs, the bytes by kind, the traced peak,
+    ``fits_one_card``, ``max_batch_one_card`` and its peak; then one cell
+    (granite-3-2b x prefill_32k) in this process, which must leave
+    ``torch.cuda.memory_allocated()`` as it was;
+28. K1 at granite-3-2b x prefill_32k's one-card shape (B 2, S 32 768,
+    its window of 8192) against the plain forward on every row of two kv
+    groups' heads, and K2 and K3 at stablelm-1.6b x train_4k's (B 16, S
+    4 096) against the plain backward on every batch row, with their
+    times beside SDPA's; then ``run perfprobe`` in this process for
+    stablelm-1.6b x train_4k,
+    granite-3-2b x prefill_32k, mamba2-2.7b x prefill_32k and granite-3-2b
+    x decode_32k, each at the dry run's one-card batch and the shape's
+    whole sequence: ``succeeded`` on cuda; K1 2 x 24 launches a training
+    step and K2 and K3 24, K1 40 a granite prefill, K4 64 a mamba2
+    prefill, none in decode, all on the tensor cores; peak memory under
+    the one-card budget the dry run cut the batch to (80 GB less
+    ``MemoryBudget``'s reserve); the measured step, on the host's clock
+    and as the profiled device-busy time, not below the analytic lower
+    bound; a finite loss or logits; the step's profile (K1-K4's device ms).
+
+Phases 2 and 3 time each kernel and SDPA as the median of five windows
+and print the least and most beside it.
 
 The line before the last lists each ported kernel with its launches on
 its main path (K1-K3 training, and K1 on each serving path, qwen3-moe's
@@ -227,8 +256,10 @@ in phases 14, 16 and 17 as ``launches_run_api``, the subprocesses'
 K1 and K4 launches of phase 15 as ``launches_run_api_cli`` and of phase
 19's campaign children as ``launches_campaign``, K1-K3's in phases 22
 and 23 as ``launches_train_hubert``, ``launches_run_api_hubert``,
-``launches_prefill_llava`` and ``launches_train_llava``, and each rank's
-of phase 25's gang as ``launches_train_gang``), K1-K4's route
+``launches_prefill_llava`` and ``launches_train_llava``, each rank's
+of phase 25's gang as ``launches_train_gang``, and phase 28's by cell as
+``launches_perfprobe``, with each cell's profiled ms as
+``perfprobe_profiled``), K1-K4's route
 (``core_route``) and its numbers at the training shape (K2, K3),
 granite's prefill shape (K1, with glm4's, codeqwen's and qwen3's beside
 it; K1-K3 with hubert's, the non-causal hd-64 shape's and the two hd-80
@@ -238,6 +269,7 @@ it, the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import functools
@@ -332,6 +364,8 @@ SSD_SHAPES = [
     ("jamba_cut_ragged_s1000", 2, 1000, 64, 128, 8, 128, 256,
      ("bfloat16",)),
     ("chunk64_s4096", 1, 4096, 80, 64, 1, 128, 64, ("bfloat16",)),
+    # phase 28's mamba2-2.7b x prefill_32k cell: the probe's one-card cut
+    ("mamba2_prefill_32k", 2, 32768, 80, 64, 1, 128, 256, ("bfloat16",)),
 ]
 # K4 against the plain chunked scan, (atol, rtol).  Both compute in f32
 # from the same inputs and differ by summation order, an error that scales
@@ -405,6 +439,15 @@ def cuda_ms(torch, fn, reps: int, warmup: int = 1) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def cuda_ms_median(torch, fn, reps: int, repeats: int = 5):
+    """The median over ``repeats`` of :func:`cuda_ms` (each the mean of
+    ``reps`` calls), and the least and most of them: one window of a few
+    launches can read several times high (K3 once read 4.7x its re-timed
+    value)."""
+    times = sorted(cuda_ms(torch, fn, reps) for _ in range(repeats))
+    return times[len(times) // 2], [times[0], times[-1]]
 
 
 def valid_pairs(sq: int, sk: int, causal: bool, window) -> int:
@@ -642,8 +685,9 @@ def kernel_vs_plain(torch, F, fa, attention_ref):
                                        rtol=tol["lse"])
             del ref_out, ref_lse
 
-            kernel_ms = cuda_ms(torch, lambda: fa_kernel(
-                q, k, v, causal=causal, window=window), reps=10)
+            kernel_ms, kernel_spread = cuda_ms_median(
+                torch, lambda: fa_kernel(q, k, v, causal=causal,
+                                         window=window), reps=10)
             # the wrapper's host time per call (checks, outputs, tensor
             # maps, launch): back-to-back calls cannot beat it
             torch.cuda.synchronize()
@@ -664,7 +708,7 @@ def kernel_vs_plain(torch, F, fa, attention_ref):
                 mask = (kp <= qp) & (kp > qp - window)
                 lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
                     qt, kt, vt, attn_mask=mask, enable_gqa=True)
-            library_ms = cuda_ms(torch, lib, reps=10)
+            library_ms, library_spread = cuda_ms_median(torch, lib, reps=10)
             bound_ms, bound_by, flops = bound(B, Sq, Sk, H, Kh, hd, causal,
                                               window, dtype_name,
                                               q.element_size())
@@ -673,8 +717,10 @@ def kernel_vs_plain(torch, F, fa, attention_ref):
                        window=window, dtype=dtype_name, route=route,
                        bitwise_repeat=bitwise,
                        max_abs_err_o=err_o, max_abs_err_lse=err_l,
-                       tol=tol, kernel_ms=kernel_ms, host_ms=host_ms,
+                       tol=tol, kernel_ms=kernel_ms,
+                       kernel_ms_min_max=kernel_spread, host_ms=host_ms,
                        plain_ms=plain_ms, library_ms=library_ms,
+                       library_ms_min_max=library_spread,
                        bound_ms=bound_ms, bound_by=bound_by,
                        kernel_tflops=flops / kernel_ms / 1e9,
                        share_of_bound=bound_ms / kernel_ms)
@@ -736,10 +782,12 @@ def bwd_vs_plain(torch, F, fa, ref):
             del got, want
             torch.cuda.empty_cache()
 
-            dq_ms = cuda_ms(torch, lambda: fa.flash_attention_bwd_dq_kernel(
-                q, k, v, do, lse, delta, **mask), reps=5)
-            dkv_ms = cuda_ms(torch, lambda: fa.flash_attention_bwd_dkv_kernel(
-                q, k, v, do, lse, delta, **mask), reps=5)
+            dq_ms, dq_spread = cuda_ms_median(
+                torch, lambda: fa.flash_attention_bwd_dq_kernel(
+                    q, k, v, do, lse, delta, **mask), reps=5)
+            dkv_ms, dkv_spread = cuda_ms_median(
+                torch, lambda: fa.flash_attention_bwd_dkv_kernel(
+                    q, k, v, do, lse, delta, **mask), reps=5)
             # each wrapper's host time per call (checks, outputs, tensor
             # maps, launch): back-to-back calls cannot beat it
             host_ms = {}
@@ -766,8 +814,9 @@ def bwd_vs_plain(torch, F, fa, ref):
                     qt, kt, vt, attn_mask=(kp <= qp) & (kp > qp - window),
                     enable_gqa=True)
             dot = do.transpose(1, 2)
-            library_ms = cuda_ms(torch, lambda: torch.autograd.grad(
-                lo, (qt, kt, vt), dot, retain_graph=True), reps=5)
+            library_ms, library_spread = cuda_ms_median(
+                torch, lambda: torch.autograd.grad(
+                    lo, (qt, kt, vt), dot, retain_graph=True), reps=5)
             del lo, qt, kt, vt
             b = bwd_bounds(B, Sq, Sk, H, Kh, hd, causal, window, dtype_name,
                            q.element_size())
@@ -776,8 +825,10 @@ def bwd_vs_plain(torch, F, fa, ref):
                        window=window, dtype=dtype_name, route=route,
                        bitwise_repeat=bitwise, max_abs_err=errs, tol=BWD_TOL,
                        dq_kernel_ms=dq_ms, dkv_kernel_ms=dkv_ms,
+                       dq_ms_min_max=dq_spread, dkv_ms_min_max=dkv_spread,
                        host_ms=host_ms,
                        plain_ms=plain_ms, library_ms=library_ms,
+                       library_ms_min_max=library_spread,
                        dq_bound_ms=b["dq"]["ms"], dq_bound_by=b["dq"]["by"],
                        dkv_bound_ms=b["dkv"]["ms"],
                        dkv_bound_by=b["dkv"]["by"],
@@ -1787,32 +1838,18 @@ def serve_main_continuous(torch, m, counts):
 
 
 def device_profile(torch, run, **labels):
-    """``torch.profiler`` over ``run()``: device time by kernel, the device's
-    busy share of the wall time.  Emits one JSON line; returns busy ms.
-    Only the CUDA activity is traced: tracing every aten op on the host as
-    well slows the host loop being measured and takes several times longer
-    to aggregate, for the same device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    # device-side events only (kernels, memcpys), not the runtime's calls
-    rows = [(ev.self_device_time_total / 1e3, ev.key, ev.count)
-            for ev in prof.key_averages()
-            if ev.device_type == DeviceType.CUDA
-            and ev.self_device_time_total > 0]
-    rows.sort(reverse=True)
-    busy_ms = sum(r[0] for r in rows)
-    emit(phase="profile", **labels, wall_ms=wall_ms, device_busy_ms=busy_ms,
-         idle_share=1 - busy_ms / wall_ms,
-         top=[{"op": k[:60], "ms": ms, "calls": n} for ms, k, n in rows[:8]])
-    if not busy_ms:
+    """``torch.profiler`` over ``run()`` through the port's
+    :func:`repro_torch.analysis.profile.device_profile`: device time by
+    kernel, the device's busy share of the wall time.  Emits one JSON
+    line; returns busy ms."""
+    from repro_torch.analysis.profile import device_profile as profile_of
+    rec = profile_of(run)
+    emit(phase="profile", **labels, wall_ms=rec["wall_ms"],
+         device_busy_ms=rec["device_busy_ms"], idle_share=rec["idle_share"],
+         peak_mem_gb=rec["peak_mem_gb"], top=rec["top"])
+    if not rec["device_busy_ms"]:
         raise AssertionError(f"the profiler saw no device time: {labels}")
-    return busy_ms
+    return rec["device_busy_ms"]
 
 
 def profile_steps(torch, cfg, params, prompts, prefill, decode_step):
@@ -3044,6 +3081,334 @@ def dist_gang_chaos(torch, m) -> None:
          phase_wall_s=time.perf_counter() - t0)
 
 
+# phase 27: the dry run's sweep over every arch at one shape, on the meta
+# device in a subprocess (the card's host has no JAX: this also proves the
+# import graph), and one cell in this process
+DRYRUN_SHAPE = "train_4k"
+DRYRUN_TIMEOUT = 300
+DRYRUN_CELL = ("granite-3-2b", "prefill_32k")
+# phase 28: the probe's cells, each run on the card through `run
+# perfprobe` in this process at the dry run's one-card batch
+PROBE_CELLS = (("stablelm-1.6b", "train_4k"),
+               ("granite-3-2b", "prefill_32k"),
+               ("mamba2-2.7b", "prefill_32k"),
+               ("granite-3-2b", "decode_32k"))
+# the probe's steps: a warm-up, the measured step, the profiled step
+PROBE_STEPS = 3
+
+
+# phase 28's attention shapes, which no other phase runs: K1 at
+# granite-3-2b x prefill_32k's one-card cut (B 2, S 32 768, granite's
+# window of 8192 binding) and K1-K3 at stablelm-1.6b x train_4k's (B 16,
+# S 4 096; its window of 8192 does not bind); name, B, S, H, Kh, hd,
+# window
+LONG_FWD = ("granite_prefill_32k", 2, 32768, 32, 8, 64, 8192)
+LONG_BWD = ("stablelm_train_4k", 16, 4096, 32, 32, 64, None)
+# K1's rows are held against the plain forward in chunks of this many, on
+# the heads of the first and the last kv group (the whole (S, S) scores of
+# every head would take 275 GB)
+LONG_ROWS = 2048
+
+
+def _rows_ref(torch, q, k, v, r0: int, window):
+    """The plain forward (``ref.attention_ref``'s arithmetic: f32 scores of
+    the pre-scaled query, P rounded to V's dtype before P V) for query rows
+    ``r0 ..`` of one head, causal (and windowed) from absolute positions.
+    q: (R, hd); k, v: (Sk, hd).  Returns ``(out in q's dtype, lse)``."""
+    scale = 1.0 / q.shape[-1] ** 0.5
+    s = (q.float() * scale) @ k.float().T
+    qp = torch.arange(r0, r0 + q.shape[0], device=q.device)[:, None]
+    kp = torch.arange(k.shape[0], device=q.device)[None, :]
+    ok = (kp <= qp) & ((kp > qp - window) if window else True)
+    s = torch.where(ok, s, torch.full((), -1e30, device=q.device))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    out = (p.to(v.dtype).float() @ v.float()) / l
+    return out.to(q.dtype), (m + torch.log(l))[:, 0]
+
+
+def long_sequence_vs_plain(torch, F, fa, ref) -> dict:
+    """Phase 28's kernel shapes against their plain versions, in bf16 on
+    the tensor cores: K1 at (2, 32 768) causal with a window of 8192, all
+    rows of the first and the last kv group's heads in chunks; K2 and K3
+    at (16, 4 096) causal,
+    every batch row against the plain backward.  Each kernel's time (the
+    median of five windows), SDPA's and the bound.  Returns the records by
+    kernel name."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+    recs = {}
+    name, B, S, H, Kh, hd, window = LONG_FWD
+    q, k, v = rnd(B, S, H, hd), rnd(B, S, Kh, hd), rnd(B, S, Kh, hd)
+    kern = fa.flash_attention_fwd_kernel
+    before = dict(kern.launches_by_route)
+    out, lse = kern(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    if kern.launches_by_route["tensor_core"] != before["tensor_core"] + 1:
+        raise AssertionError(f"K1 {name}: not on the tensor cores")
+    lse = lse.reshape(B, H, S)
+    err_o = err_l = 0.0
+    rep = H // Kh
+    for b in range(B):
+        for h in list(range(rep)) + list(range(H - rep, H)):
+            for r0 in range(0, S, LONG_ROWS):
+                o_r, l_r = _rows_ref(torch, q[b, r0:r0 + LONG_ROWS, h],
+                                     k[b, :, h // rep], v[b, :, h // rep], r0,
+                                     window)
+                got_o = out[b, r0:r0 + LONG_ROWS, h].float()
+                torch.testing.assert_close(got_o, o_r.float(),
+                                           atol=TOL["bfloat16"]["o"],
+                                           rtol=TOL["bfloat16"]["o"])
+                torch.testing.assert_close(lse[b, h, r0:r0 + LONG_ROWS], l_r,
+                                           atol=TOL["bfloat16"]["lse"],
+                                           rtol=TOL["bfloat16"]["lse"])
+                err_o = max(err_o, (got_o - o_r.float()).abs().max().item())
+                err_l = max(err_l, (lse[b, h, r0:r0 + LONG_ROWS]
+                                    - l_r).abs().max().item())
+    del out, lse
+    ms, spread = cuda_ms_median(
+        torch, lambda: kern(q, k, v, causal=True, window=window), reps=3)
+    # SDPA under the window's (S, S) mask: the memory-efficient kernel
+    # (the math one would form 275 GB of scores), which takes no GQA, so
+    # K and V are repeated to every query head
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    qt = q.transpose(1, 2)
+    kt, vt = (x.repeat_interleave(rep, dim=2).transpose(1, 2)
+              for x in (k, v))
+    qp = torch.arange(S, device="cuda")[:, None]
+    kp = torch.arange(S, device="cuda")[None, :]
+    mask = (kp <= qp) & (kp > qp - window)
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        lib_ms, lib_spread = cuda_ms_median(
+            torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask), reps=3)
+    del mask
+    bound_ms, bound_by, flops = bound(B, S, S, H, Kh, hd, True, window,
+                                      "bfloat16", 2)
+    recs["flash_attention_fwd"] = dict(
+        shape=name, dims=[B, S, S, H, Kh, hd], window=window, ms=ms,
+        ms_min_max=spread, library_ms=lib_ms, library_ms_min_max=lib_spread,
+        bound_ms=bound_ms, bound_by=bound_by, share_of_bound=bound_ms / ms,
+        max_abs_err_o=err_o, max_abs_err_lse=err_l,
+        checked="all rows of heads " + ", ".join(
+            map(str, list(range(rep)) + list(range(H - rep, H)))),
+        plain_ms=None)
+    emit(phase="long_sequence_vs_plain", kernel="flash_attention_fwd",
+         **recs["flash_attention_fwd"])
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+
+    name, B, S, H, Kh, hd, window = LONG_BWD
+    q, k, v, do = (rnd(B, S, H, hd), rnd(B, S, Kh, hd), rnd(B, S, Kh, hd),
+                   rnd(B, S, H, hd))
+    out, lse = fa.flash_attention_fwd_kernel(q, k, v, causal=True,
+                                                window=None)
+    delta = ref.row_delta(out, do)
+    kernels = (fa.flash_attention_bwd_dq_kernel,
+               fa.flash_attention_bwd_dkv_kernel)
+    before = [dict(fn.launches_by_route) for fn in kernels]
+    dq, dk, dv = fa.flash_attention_bwd_kernel(q, k, v, do, lse, delta,
+                                               causal=True, window=None)
+    torch.cuda.synchronize()
+    if any(fn.launches_by_route["tensor_core"] != n["tensor_core"] + 1
+           for fn, n in zip(kernels, before)):
+        raise AssertionError(f"K2/K3 {name}: not on the tensor cores")
+    errs = dict.fromkeys(("dq", "dk", "dv"), 0.0)
+    lse_b = lse.reshape(B, H, S)
+    for b in range(B):
+        want = ref.attention_bwd_ref(
+            q[b:b + 1], k[b:b + 1], v[b:b + 1], out[b:b + 1],
+            lse_b[b].reshape(H, S), do[b:b + 1], causal=True)
+        for what, g, w in zip(errs, (dq[b:b + 1], dk[b:b + 1],
+                                     dv[b:b + 1]), want):
+            torch.testing.assert_close(g, w, atol=BWD_TOL, rtol=BWD_TOL)
+            errs[what] = max(errs[what], (g - w).abs().max().item())
+        del want
+    del dq, dk, dv
+    torch.cuda.empty_cache()
+    bounds = bwd_bounds(B, S, S, H, Kh, hd, True, None, "bfloat16", 2)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                  for x in (q, k, v))
+    lo = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                        enable_gqa=True)
+    lib_ms, lib_spread = cuda_ms_median(torch, lambda: torch.autograd.grad(
+        lo, (qt, kt, vt), do.transpose(1, 2), retain_graph=True), reps=3)
+    for kname, what, fn in (("flash_attention_bwd_dq", "dq", kernels[0]),
+                            ("flash_attention_bwd_dkv", "dkv", kernels[1])):
+        ms, spread = cuda_ms_median(torch, lambda: fn(
+            q, k, v, do, lse, delta, causal=True, window=None), reps=3)
+        recs[kname] = dict(
+            shape=name, dims=[B, S, S, H, Kh, hd], ms=ms, ms_min_max=spread,
+            library_ms=lib_ms, library_ms_min_max=lib_spread,
+            bound_ms=bounds[what]["ms"], bound_by=bounds[what]["by"],
+            share_of_bound=bounds[what]["ms"] / ms,
+            max_abs_err=(errs["dq"] if what == "dq"
+                         else max(errs["dk"], errs["dv"])),
+            checked="every batch row", plain_ms=None)
+        emit(phase="long_sequence_vs_plain", kernel=kname, **recs[kname])
+    del q, k, v, do, out, lse, delta, lo, qt, kt, vt
+    torch.cuda.empty_cache()
+    return recs
+
+
+def _kill_group(proc) -> None:
+    """SIGKILL ``proc``'s process group (it runs in a session of its own)
+    and reap it; a group already gone is fine."""
+    try:
+        os.killpg(proc.pid, signal.SIGKILL)
+    except ProcessLookupError:
+        pass
+    proc.wait()
+
+
+def dryrun_start():
+    """Start phase 27's sweep, ``python -m repro_torch.launch run dryrun
+    --arch all --shape train_4k``, in a process group of its own, writing
+    its records to a temporary directory.  It needs no card, so it runs
+    on the host beside the kernels' build, where no phase is timed; the
+    group is killed when this script exits, whatever the exit."""
+    out_dir = tempfile.mkdtemp()
+    argv = [sys.executable, "-m", "repro_torch.launch", "run", "dryrun",
+            "--arch", "all", "--shape", DRYRUN_SHAPE, "--out", out_dir]
+    proc = subprocess.Popen(argv, env=dict(os.environ, PYTHONPATH=str(SRC)),
+                            cwd=out_dir, text=True, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, start_new_session=True)
+    atexit.register(_kill_group, proc)
+    atexit.register(shutil.rmtree, out_dir, True)
+    return proc, time.perf_counter()
+
+
+def dryrun_finish(torch, m, proc, t0: float) -> dict:
+    """Phase 27: the sweep's report (every cell ``ok``, or a structural
+    skip), one line per arch (traced / analytic FLOPs, bytes by kind, the
+    one-card fit), then one cell in this process, which must leave the
+    card's allocated memory as it was."""
+    try:
+        out, err = proc.communicate(timeout=DRYRUN_TIMEOUT)
+    finally:
+        _kill_group(proc)
+    wall = time.perf_counter() - t0
+    report = _report_of(out)
+    results = report["metrics"]["results"]
+    skips = m["STRUCTURAL_SKIPS"]
+    bad = [r for r in results if r["status"] != "ok"
+           and (r["arch"], r["shape"]) not in skips]
+    if proc.returncode != 0 or report["status"] != "succeeded" or bad \
+            or len(results) != len(m["list_archs"]()):
+        raise AssertionError(f"run dryrun: exit {proc.returncode}, "
+                             f"{report['status']}, cells {bad}: "
+                             f"{err[-2000:]}")
+    for r in results:
+        emit(phase="dryrun", arch=r["arch"], shape=r["shape"],
+             status=r["status"], traced=r["traced"],
+             traced_flops=r["traced_flops"],
+             traced_over_analytic=r["traced_over_analytic"],
+             bytes_gb={k: v / 1e9 for k, v in (r["bytes"] or {}).items()},
+             peak_gb=r["peak_bytes"] / 1e9,
+             fits_one_card=r["fits_one_card"],
+             max_batch_one_card=r["max_batch_one_card"],
+             peak_gb_one_card=(r["peak_bytes_one_card"] or 0) / 1e9)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t1 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        cell = m["dryrun_run_one"](*DRYRUN_CELL, False, "fsdp_tp", None)
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    if cell["status"] != "ok" or after != before:
+        raise AssertionError(f"dryrun {DRYRUN_CELL} in process: "
+                             f"{cell['status']} {cell.get('error')}, card "
+                             f"memory {before} -> {after}")
+    emit(phase="dryrun_sweep", argv=proc.args[2:], cells=len(results),
+         ok=report["metrics"]["ok"], skipped=report["metrics"]["skipped"],
+         sweep_s=report["wall_s"], started_to_read_s=wall,
+         in_process_cell=list(DRYRUN_CELL),
+         in_process_s=time.perf_counter() - t1,
+         in_process_traced_flops=cell["traced_flops"],
+         card_memory_allocated=[before, after])
+    return report
+
+
+def probe_launches(cfg, kind: str) -> dict:
+    """K1-K5's launches in one step of a probe cell: a train step's
+    (``train_launches``), a prefill's (``prefill_launches``), none in a
+    decode step."""
+    one = dict.fromkeys(_Counts.ROUTED + ("percentile_norm",), 0)
+    if kind == "train":
+        one.update(train_launches(cfg, 1))
+    elif kind == "prefill":
+        one.update(prefill_launches(cfg))
+    return one
+
+
+def perfprobe_cells(torch, m, counts) -> dict:
+    """Phase 28: ``run perfprobe`` in this process for each of
+    ``PROBE_CELLS`` on the card.  Each report ``succeeded`` on cuda; the
+    kernels launched as a step of the cell predicts (three steps: warm-up,
+    measured, profiled), every launch on the tensor cores, and the
+    record's measured step the same; the peak memory under the budget the
+    dry run cut the batch to; the measured step, on the host's clock and
+    as the profiled device-busy time (``bound_share`` at most 1), not
+    below the analytic lower bound (one faster than the bound means a
+    count is wrong); a finite loss or logits.  Returns the launches and
+    the profiled kernel times by cell."""
+    out = {}
+    for arch, shape in PROBE_CELLS:
+        torch.cuda.empty_cache()
+        argv = ["run", "perfprobe", "--arch", arch, "--shape", shape]
+        counts.zero()
+        t0 = time.perf_counter()
+        rc, report = launch_run(m, argv)
+        wall = time.perf_counter() - t0
+        launches, routes = counts.read(), counts.routes()
+        _check_report(rc, report, " ".join(argv))
+        rec = report["metrics"]
+        step = probe_launches(m["get_config"](arch), rec["kind"])
+        want = {k: PROBE_STEPS * n for k, n in step.items()}
+        want_routes = {k: {"tensor_core": want[k], "cuda_core": 0}
+                       for k in counts.ROUTED}
+        measured = {k: sum(r.values()) for k, r in rec["launches"].items()}
+        lower = rec["analytic"]["step_time_lower_bound_s"]
+        peak = max(rec["peak_mem_gb"], rec["profile"]["peak_mem_gb"]) * 1e9
+        budget = rec["one_card"]["budget_bytes"]
+        share = rec["profile_terms"]["bound_share"]
+        if (rec["device"] != "cuda" or launches != want
+                or routes != want_routes
+                or measured != {k: step[k] for k in counts.ROUTED}
+                or peak > budget or rec["step_s"] < lower or share > 1
+                or not rec["finite"]):
+            raise AssertionError(
+                f"{' '.join(argv)}: device {rec['device']}, launches "
+                f"{launches} (want {want}), routes {routes}, measured step "
+                f"{measured}, peak {peak} of {budget}, step {rec['step_s']} "
+                f"s and device busy share {share} of the bound {lower} s, "
+                f"finite {rec['finite']}")
+        prof = rec["profile"]
+        emit(phase="perfprobe", arch=arch, shape=shape, cut=rec["cut"],
+             batch=rec["batch"], seq=rec["seq"], traced=rec["traced"],
+             step_s=rec["step_s"], lower_bound_s=lower,
+             dominant=rec["analytic"]["dominant"],
+             device_busy_ms=prof["device_busy_ms"],
+             idle_share=prof["idle_share"],
+             bound_share=share,
+             kernel_ms=prof["kernel_ms"], top=prof["top"],
+             peak_mem_gb=rec["peak_mem_gb"],
+             profiled_peak_mem_gb=prof["peak_mem_gb"],
+             estimate_peak_gb=rec["one_card"]["estimate_peak_bytes"] / 1e9,
+             traced_peak_gb=rec["one_card"]["traced_peak_bytes"] / 1e9,
+             budget_gb=budget / 1e9,
+             one_card=rec["one_card"], launches=launches,
+             loss=rec.get("loss"), allreduce_bytes=rec["allreduce_bytes"],
+             report_wall_s=report["wall_s"], call_wall_s=wall)
+        out[f"{arch} x {shape}"] = {"launches": launches,
+                                    "kernel_ms": prof["kernel_ms"]}
+    return out
+
+
 def _map(tree, fn):
     if isinstance(tree, dict):
         return {k: _map(v, fn) for k, v in tree.items()}
@@ -3065,7 +3430,7 @@ def load_port() -> dict:
                                   node_specs_from_json, replay_events)
     from repro_torch.core import executor
     from repro_torch.core.autobatch import MemoryBudget, autobatch
-    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.configs import get_config, get_reduced, list_archs
     from repro_torch.kernels.common import build_libraries
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_attention import kernel as fa
@@ -3082,6 +3447,8 @@ def load_port() -> dict:
     from repro_torch.kernels.ssd_scan import ssd_scan
     from repro_torch.kernels.ssd_scan.ref import ssd_chunked_ref
     from repro_torch.launch import vision
+    from repro_torch.launch.dryrun import STRUCTURAL_SKIPS
+    from repro_torch.launch.dryrun import run_one as dryrun_run_one
     from repro_torch.launch.__main__ import main as launch_main
     from repro_torch.launch.serve import serve_main
     from repro_torch.launch.train import _LMDictBatches, train_main
@@ -3136,7 +3503,9 @@ def load_port() -> dict:
              pn_ref=pn_ref, F=F, flash_attention=flash_attention,
              naive_attention=naive_attention,
              ssd_chunked_ref=ssd_chunked_ref,
-             build_libraries=build_libraries)
+             build_libraries=build_libraries,
+             STRUCTURAL_SKIPS=STRUCTURAL_SKIPS, dryrun_run_one=dryrun_run_one,
+             list_archs=list_archs)
     return m
 
 
@@ -3163,6 +3532,9 @@ def main() -> int:
     card = card_line()
     print(card, flush=True)
 
+    # phase 27's sweep needs no card: it runs on the host beside the
+    # build, where no phase is timed, and is read once the build is done
+    sweep = dryrun_start()
     # phase 1: one nvcc per source, all started together, and three more
     # for K4's, K1's and K2/K3's ptxas reports
     t0 = time.perf_counter()
@@ -3186,6 +3558,7 @@ def main() -> int:
          tensor_core=flash_ptxas(ptxas_report(ptxas_bwd, "_wgmma"),
                                  ("K2", "K3")))
     shutil.rmtree(ptxas_dir)
+    dryrun_finish(torch, m, *sweep)
 
     k1_recs = kernel_vs_plain(torch, F, fa, ref.attention_ref)
     kb_recs = bwd_vs_plain(torch, F, fa, ref)
@@ -3252,6 +3625,11 @@ def main() -> int:
     dist_world1_bitwise(torch, m)
     gang_launches = dist_gang_full_width(torch, m, counts)
     dist_gang_chaos(torch, m)
+
+    # the analysis kinds: the probe runs its cells on the card
+    long_recs = long_sequence_vs_plain(torch, F, fa, ref)
+    probes = perfprobe_cells(torch, m, counts)
+    torch.cuda.empty_cache()
 
     # the vision paths: both studies normalize every scene through K5
     k5 = k5_vs_plain(torch, pn, pn_ref)
@@ -3345,6 +3723,17 @@ def main() -> int:
                  "ms": k5["kernel_ms"], "plain_ms": k5["plain_ms"],
                  "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
                  "library_ms": None})
+    # phase 28's launches by cell (its three steps), and each kernel's
+    # device ms and calls in the cell's profiled step
+    for row in rows:
+        if row["name"] in _Counts.ROUTED:
+            row["launches_perfprobe"] = {
+                cell: p["launches"][row["name"]] for cell, p in probes.items()}
+            row["perfprobe_profiled"] = {
+                cell: p["kernel_ms"][row["name"]] for cell, p in probes.items()
+                if p["kernel_ms"][row["name"]]["calls"]}
+            if row["name"] in long_recs:
+                row["long_sequence"] = long_recs[row["name"]]
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

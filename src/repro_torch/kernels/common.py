@@ -31,13 +31,15 @@ def resolve_backend(backend: str, x: torch.Tensor) -> str:
 
     ``"torch"`` and ``"cuda"`` are explicit.  ``"auto"`` picks the
     hand-written CUDA kernel for a CUDA tensor and the plain PyTorch
-    version for a CPU tensor.
+    version for a CPU tensor.  A ``meta`` tensor (the dry run's trace)
+    takes the kernel's route too, as on the card: there the kernels' meta
+    versions give shapes and count the kernels' work.
     """
     if backend not in BACKENDS:
         raise ValueError(f"unknown kernel backend {backend!r}; "
                          f"known: {BACKENDS}")
     if backend == "auto":
-        return "cuda" if x.is_cuda else "torch"
+        return "cuda" if (x.is_cuda or x.is_meta) else "torch"
     return backend
 
 

@@ -10,7 +10,9 @@ which sum dK/dV over the GQA group themselves.
 A CPU tensor goes to the plain PyTorch versions (``ref.attention_ref``,
 ``ref.attention_bwd_ref``) through the same ``Function``; a CUDA tensor
 goes to the kernels or raises.  No failure on the CUDA path falls back to
-the plain versions.
+the plain versions.  A ``meta`` tensor (the dry run's trace) goes to
+:mod:`.meta`: the kernels' output shapes, and their operations counted for
+``FlopCounterMode``; nothing runs.
 """
 from __future__ import annotations
 
@@ -20,6 +22,8 @@ import torch
 
 from repro_torch.kernels.flash_attention.kernel import (
     flash_attention_bwd_kernel, flash_attention_fwd_kernel)
+from repro_torch.kernels.flash_attention.meta import (flash_bwd_meta,
+                                                      flash_fwd_meta)
 from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
                                                      attention_ref,
                                                      row_delta)
@@ -50,6 +54,8 @@ class _FlashAttention(torch.autograd.Function):
         if q.is_cuda:
             out, lse = flash_attention_fwd_kernel(q, k, v, causal=causal,
                                                   window=window)
+        elif q.is_meta:
+            out, lse = flash_fwd_meta(q, k, v, causal=causal, window=window)
         else:
             out, lse = attention_ref(q, k, v, causal=causal, window=window)
         # residual is `out` itself, as in the reference: autograd keeps it
@@ -66,6 +72,9 @@ class _FlashAttention(torch.autograd.Function):
             dq, dk, dv = flash_attention_bwd_kernel(
                 q, k, v, do, lse, row_delta(out, do), causal=ctx.causal,
                 window=ctx.window)
+        elif q.is_meta:
+            dq, dk, dv = flash_bwd_meta(q, k, v, do, lse, row_delta(out, do),
+                                        causal=ctx.causal, window=ctx.window)
         else:
             dq, dk, dv = attention_bwd_ref(q, k, v, out, lse, do,
                                            causal=ctx.causal,
@@ -79,11 +88,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (B, Sq, H, hd); k/v: (B, Sk, Kh, hd) -> (B, Sq, H, hd).
 
     Differentiable: a gradient through this op runs the backward kernels
-    on CUDA tensors and their plain versions on CPU tensors.
+    on CUDA tensors and their plain versions on CPU tensors; on meta
+    tensors both directions give shapes and counted operations only.
     """
     _validate(q, k, v, window)
     devices = {q.device.type, k.device.type, v.device.type}
-    if devices not in ({"cpu"}, {"cuda"}):
-        raise ValueError(f"q/k/v must all lie on the CPU or all on CUDA; "
-                         f"got {q.device}, {k.device}, {v.device}")
+    if devices not in ({"cpu"}, {"cuda"}, {"meta"}):
+        raise ValueError(f"q/k/v must all lie on the CPU, all on CUDA or "
+                         f"all on meta; got {q.device}, {k.device}, "
+                         f"{v.device}")
     return _FlashAttention.apply(q, k, v, causal, window)

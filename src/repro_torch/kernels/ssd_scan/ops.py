@@ -7,7 +7,9 @@ hand-written CUDA kernel (K4) on CUDA tensors and the plain chunked scan
 back to the plain version.  Its backward recomputes the forward through the
 plain chunked scan under autograd and differentiates that, as the
 reference's ``_ssd_bwd`` differentiates ``_ssd_jnp_equiv``: the JAX package
-has no Pallas backward for this kernel.
+has no Pallas backward for this kernel.  On ``meta`` tensors (the dry run's
+trace) both directions go to :mod:`.meta`: shapes, and the operations
+counted for ``FlopCounterMode``; nothing runs.
 
 B and C keep their ``(Bs, S, g, N)`` group layout all the way into the
 kernel; they are never repeated per head.
@@ -19,6 +21,7 @@ from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels.common import resolve_backend
 from repro_torch.kernels.ssd_scan.kernel import ssd_scan_kernel
+from repro_torch.kernels.ssd_scan.meta import ssd_scan_bwd_meta, ssd_scan_meta
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked_ref
 
 
@@ -28,6 +31,8 @@ class _SSDScan(torch.autograd.Function):
     def forward(ctx, x, dt, A, B, C, chunk):
         if x.is_cuda:
             y, h = ssd_scan_kernel(x, dt, A, B, C, chunk=chunk)
+        elif x.is_meta:
+            y, h = ssd_scan_meta(x, dt, A, B, C, chunk)
         else:
             y, h = ssd_chunked_ref(x, dt, A, B, C, chunk)
         ctx.save_for_backward(x, dt, A, B, C)
@@ -37,11 +42,19 @@ class _SSDScan(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, dy, dh):
-        inputs = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
-        with torch.enable_grad():
-            y, h = ssd_chunked_ref(*inputs, ctx.chunk)
-            grads = torch.autograd.grad((y, h), inputs, (dy, dh))
-        return (*grads, None)
+        if dy.is_meta:
+            return (*ssd_scan_bwd_meta(*ctx.saved_tensors, dy, dh,
+                                       ctx.chunk), None)
+        return (*plain_backward(*ctx.saved_tensors, dy, dh, ctx.chunk), None)
+
+
+def plain_backward(x, dt, A, B, C, dy, dh, chunk: int):
+    """The scan's gradients on the CPU and the card: autograd of the plain
+    chunked scan, recomputed from the inputs."""
+    inputs = [t.detach().requires_grad_(True) for t in (x, dt, A, B, C)]
+    with torch.enable_grad():
+        y, h = ssd_chunked_ref(*inputs, chunk)
+        return torch.autograd.grad((y, h), inputs, (dy, dh))
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -53,7 +66,8 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
     ``backend``: ``"auto"`` or ``"cuda"`` go through the differentiable
     ``Function`` (K4 on CUDA tensors, the plain chunked scan on CPU
-    tensors); ``"torch"`` runs the plain chunked scan under autograd.
+    tensors, shapes and counted work on meta tensors); ``"torch"`` runs the
+    plain chunked scan under autograd.
     dt and A are taken in f32, as the kernel reads them.
     """
     if x.dim() != 4 or B.dim() != 4 or C.shape != B.shape \
@@ -62,9 +76,9 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                          f"multiple of g; got {tuple(x.shape)}, "
                          f"{tuple(B.shape)}, {tuple(C.shape)}")
     devices = {t.device.type for t in (x, dt, A, B, C)}
-    if devices not in ({"cpu"}, {"cuda"}):
+    if devices not in ({"cpu"}, {"cuda"}, {"meta"}):
         raise ValueError(f"x/dt/A/B/C must all lie on the CPU or all on "
-                         f"CUDA; got {sorted(devices)}")
+                         f"CUDA or all on meta; got {sorted(devices)}")
     dt, A = dt.float(), A.float()
     if resolve_backend(backend, x) == "torch":
         y, h = ssd_chunked_ref(x, dt, A, B, C, chunk)

@@ -6,6 +6,8 @@ Every workload goes through the same door:
     python -m repro_torch.launch run train     --arch stablelm-1.6b --steps 50
     python -m repro_torch.launch run serve     --arch granite-3-2b --requests 8
     python -m repro_torch.launch run simulate  --campaign burned_area
+    python -m repro_torch.launch run dryrun    --arch all --shape train_4k
+    python -m repro_torch.launch run perfprobe --arch glm4-9b --shape decode_32k
     python -m repro_torch.launch campaign run --jobs jobs.json --workdir DIR
     python -m repro_torch.launch campaign status [events.jsonl | workdir]
     python -m repro_torch.launch kinds
@@ -20,8 +22,11 @@ otherwise.  The per-kind module entry points
 (``python -m repro_torch.launch.train`` etc.) are thin shims over this
 same registry.
 
-``dryrun`` and ``perfprobe`` are registered, but they are tied to XLA and
-their runners raise, so ``run`` reports them ``failed``.
+``dryrun`` builds each (arch x shape) step on the ``meta`` device and
+counts its FLOPs and bytes for one card (nothing is allocated, no card is
+needed); ``perfprobe`` runs one cell on the card at the batch the dry run
+says fits it (``--device cpu`` for a CPU run; ``layout`` ``dp`` only
+until ``sharding/`` is ported).
 
 ``campaign run`` drives a whole campaign from a jobs file (a JSON list
 of RunSpec dicts): it submits every spec to an Orchestrator and executes

@@ -1,0 +1,400 @@
+"""The (arch x shape) dry run on the ``meta`` device (the port's
+counterpart of ``repro.launch.dryrun``).
+
+    python -m repro_torch.launch.dryrun --arch stablelm-1.6b --shape train_4k
+
+The reference lowers and compiles each step for a 256- or 512-chip TPU
+mesh and records XLA's memory and cost analyses.  The port builds each
+step on ``meta`` (:mod:`repro_torch.launch.steps`) and runs it there:
+every tensor has a shape and a dtype and no data, so nothing is allocated
+on any device.  The kernels take their meta route
+(``kernels/*/meta.py``): their output shapes, and their own operations
+counted.  Each record keeps the reference's keys where they mean the same
+thing (``arch``, ``shape``, ``kind``, ``mesh``, ``layout``, ``seq``,
+``batch``, ``status``, ``roofline``, ``total_s``) and adds what the trace
+measures for one card, world 1 under ``dp``, at the shape's global
+batch:
+
+* ``traced_flops``: ``FlopCounterMode``'s count of the step, by operator
+  too, and its ratio to the analytic count for one chip (a train step's
+  forward and backward as the trainer runs them, remat included; its
+  optimizer update is elementwise, counts no FLOPs and saves nothing, and
+  is left out of the trace but for its temporaries);
+* ``bytes``: parameters, gradients, optimizer state (``pick_optimizer``'s
+  dtype), inputs, decode state, and the activations autograd saves for the
+  backward (summed over distinct storages with ``saved_tensors_hooks``,
+  under remat as the trainer runs it: each layer's input and what is saved
+  outside the checkpointed layers);
+* ``peak_bytes``: the most bytes of storage alive at once in the step
+  (:class:`LivePeak`): the kinds above at their highest point plus the
+  transient working set (a layer's recompute in the backward, the chunked
+  loss's logits, a prefill layer's f32 intermediates, the optimizer's
+  temporaries, K4's backward as the card runs it: ``CARD_WORKSPACE``),
+  what ``torch.cuda.max_memory_allocated`` reads on the card;
+* ``fits_one_card``: whether that peak fits 80 GB less
+  :class:`repro_torch.core.autobatch.MemoryBudget`'s reserve;
+* ``max_batch_one_card``: the largest batch, halving from the shape's
+  batch over the reference's data axis (16), whose peak fits, and
+  ``peak_bytes_one_card``, that peak (:func:`peak_at`: parameters,
+  gradients and optimizer state stay, the rest scales with the batch).
+
+``roofline`` is :func:`repro_torch.analysis.analytic.analytic_roofline`
+on the reference's production mesh for ``layout``, with the H100's
+figures.  The probe (:mod:`repro_torch.launch.perfprobe`) runs a cell at
+its one-card batch and measures the peak on the card.
+"""
+from __future__ import annotations
+
+import argparse
+import functools
+import itertools
+import json
+import os
+import time
+import traceback
+import weakref
+from typing import Dict, List, Tuple
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_flatten
+from torch.utils.flop_counter import FlopCounterMode
+
+from repro_torch.analysis.analytic import (MeshDims, analytic_roofline,
+                                           flops_per_chip)
+from repro_torch.configs import get_config, list_archs
+from repro_torch.core.autobatch import MemoryBudget
+from repro_torch.kernels.ssd_scan.ops import plain_backward
+from repro_torch.launch.mesh import INPUT_SHAPES, mesh_tag, production_dims
+from repro_torch.launch.steps import build, effective_config, pick_optimizer
+from repro_torch.train.step import _global_sq_norm, make_loss_and_grads
+from repro_torch.tree import tree_leaves
+
+# (arch, shape) pairs that are structurally skipped (encoder-only has no
+# autoregressive decode) — recorded, not silently dropped.
+STRUCTURAL_SKIPS = {
+    ("hubert-xlarge", "decode_32k"): "encoder-only: no decode step",
+    ("hubert-xlarge", "long_500k"): "encoder-only: no decode step",
+}
+
+CARD_BYTES = 80e9                 # one H100 80GB
+DATA_AXIS = production_dims()["data"]
+TRACED = "meta: kernel formulas; world 1, dp"
+ONE_CHIP = MeshDims(pod=1, data=1, model=1)
+
+
+def _nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def one_card_budget() -> float:
+    """Bytes a step may hold on one card: 80 GB less the reserve."""
+    budget = MemoryBudget(device_gb=CARD_BYTES / 1e9)
+    return budget.device_gb * 1e9 * (1 - budget.reserve_frac)
+
+
+def _specs(args) -> tuple:
+    """Arguments with each tensor as its (shape, dtype): nothing held."""
+    return tuple((tuple(a.shape), a.dtype) if isinstance(a, torch.Tensor)
+                 else a for a in args)
+
+
+@functools.lru_cache(maxsize=None)
+def ssd_backward_workspace(specs: tuple) -> int:
+    """The bytes K4's backward holds beyond its inputs on the card, where
+    it is autograd of the plain chunked scan (``ssd_scan.ops.
+    plain_backward``): the recompute's saved tensors and the gradients.
+    The meta route's backward allocates only the gradients, so the card's
+    own code is traced on meta at ``specs`` (the operator's arguments)."""
+    *tensors, chunk = specs
+    args = [torch.empty(shape, dtype=dtype, device="meta")
+            for shape, dtype in tensors]
+    live = LivePeak()
+    for t in args:
+        live.track(t)
+    held = live.now
+    with live:
+        plain_backward(*args, chunk)
+    return live.peak - held
+
+
+# what an operator of the meta route holds on the card beyond its inputs
+# and outputs, where that is more than nothing
+CARD_WORKSPACE = {
+    torch.ops.repro_torch.ssd_scan_bwd.default: ssd_backward_workspace}
+
+
+class LivePeak(TorchDispatchMode):
+    """The most bytes of storage alive at once while the mode is on, as
+    the card's allocator would hold them (less its block rounding).  A
+    storage counts from the first operator that returns it, or from
+    :meth:`track`, until it is freed: a finalizer on the storage object,
+    which lives as long as the storage does.  Views and in-place results
+    share their base's storage and add nothing.  Each storage gets a
+    serial number that no later storage reuses.  A call of an operator in
+    ``watch`` is noted with its arguments' shapes and the bytes alive when
+    it starts (``calls``)."""
+
+    def __init__(self, watch=()):
+        super().__init__()
+        self.live: Dict[int, Tuple[int, int]] = {}   # key -> serial, bytes
+        self.now = self.peak = 0
+        self._serials = itertools.count()
+        self.watch = set(watch)
+        self.calls: List[Tuple[object, tuple, int]] = []
+
+    def track(self, t: torch.Tensor) -> int:
+        storage = t.untyped_storage()
+        key = storage._cdata
+        hit = self.live.get(key)
+        if hit is None:
+            hit = self.live[key] = (next(self._serials), storage.nbytes())
+            self.now += hit[1]
+            self.peak = max(self.peak, self.now)
+            weakref.finalize(storage, self._free, key)
+        return hit[0]
+
+    def _free(self, key: int) -> None:
+        self.now -= self.live.pop(key)[1]
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func in self.watch:
+            self.calls.append((func, _specs(args), self.now))
+        out = func(*args, **(kwargs or {}))
+        for t in tree_flatten(out)[0]:
+            if isinstance(t, torch.Tensor):
+                self.track(t)
+        return out
+
+
+def trace_step(kind: str, cfg, batch: int, seq: int,
+               microbatches: int = 1) -> Dict:
+    """Build the step on ``meta`` and run it once under ``FlopCounterMode``,
+    a saved-tensor hook and :class:`LivePeak`.  Returns the traced FLOPs
+    (in all and by operator), the bytes by kind and the peak of live
+    bytes (``peak_bytes``: what the step holds at its highest point, the
+    transient working set included, and what an operator of the meta
+    route holds on the card beyond its inputs, ``CARD_WORKSPACE``)."""
+    kw = {"microbatches": microbatches} if kind == "train" else {}
+    fn, args = build(kind, cfg, batch, seq, device="meta", **kw)
+    if kind == "train":
+        # the trainer's forward and backward; the update after them counts
+        # no FLOPs, saves nothing and adds to the peak only one leaf's
+        # temporaries at a time (update_transient)
+        state, inputs = args
+        params, opt = state.params, state.opt_state
+        fn = make_loss_and_grads(cfg, remat=True, microbatches=microbatches)
+        args = (params, inputs)
+    elif kind == "prefill":
+        (params, inputs), opt = args, None
+    else:
+        params, state, tokens, position = args
+        inputs, opt = {"tokens": tokens, "position": position}, None
+    param_leaves = tree_leaves(params)
+    live = LivePeak(watch=CARD_WORKSPACE)
+    held = param_leaves + list(inputs.values()) + (
+        tree_leaves(opt) if opt is not None else []) + (
+        tree_leaves(state) if kind == "decode" else [])
+    known = {live.track(t) for t in held}
+    saved: Dict[int, int] = {}
+
+    def pack(t):
+        key = live.track(t)
+        if key not in known:
+            saved[key] = t.untyped_storage().nbytes()
+        return t
+
+    with FlopCounterMode(display=False) as counter, live, \
+            torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        out = fn(*args)
+    by_op = {str(op): int(n)
+             for op, n in counter.get_flop_counts()["Global"].items()}
+    decode_state = 0
+    if kind == "decode":
+        decode_state = _nbytes(tree_leaves(state))
+    elif kind == "prefill" and isinstance(out, tuple):
+        decode_state = _nbytes(tree_leaves(out[1]))
+    p_bytes = _nbytes(param_leaves)
+    nbytes = {"params": p_bytes,
+              "grads": p_bytes if kind == "train" else 0,
+              "optimizer_state": (_nbytes(tree_leaves(opt))
+                                  if opt is not None else 0),
+              "inputs": _nbytes(inputs.values()),
+              "decode_state": decode_state,
+              "saved_activations": sum(saved.values())}
+    peak = max([live.peak] + [now + CARD_WORKSPACE[func](specs)
+                              for func, specs, now in live.calls])
+    if kind == "train":
+        # what the step holds once the gradients are out, plus the update
+        peak = max(peak, live.now + update_transient(cfg, param_leaves,
+                                                     out[1]))
+    return {"traced_flops": int(counter.get_total_flops()),
+            "traced_flops_by_op": by_op, "bytes": nbytes,
+            "peak_bytes": peak}
+
+
+def update_transient(cfg, param_leaves: list, grads: list) -> int:
+    """The bytes that the gradient norm and the optimizer update hold
+    beyond the step's tensors.  Both run leaf by leaf, so this is the
+    largest leaf's temporaries, traced on that leaf alone: tracing the
+    update of every leaf on ``meta`` would cost as much as the rest of the
+    step and find the same peak."""
+    i = max(range(len(param_leaves)), key=lambda j: param_leaves[j].numel())
+    p, g = {"w": param_leaves[i]}, {"w": grads[i]}
+    optimizer = pick_optimizer(cfg)
+    opt = optimizer.init(p)
+    live = LivePeak()
+    for t in tree_leaves(p) + tree_leaves(g) + tree_leaves(opt):
+        live.track(t)
+    held = live.now
+    with live:
+        _global_sq_norm(g)
+        optimizer.update(g, opt, p, 0, 1e-4)
+    return live.peak - held
+
+
+def peak_at(traced: Dict, batch: int, rows: int) -> float:
+    """The peak at ``rows`` from the one traced at ``batch``: parameters,
+    gradients and optimizer state stay, everything else scales with the
+    rows.  Every gradient is alive at once at the end of the backward, so
+    taking them all as fixed over-reads any point of the step where some
+    are not (by their share of ``1 - rows / batch``)."""
+    nb = traced["bytes"]
+    fixed = nb["params"] + nb["grads"] + nb["optimizer_state"]
+    return fixed + (traced["peak_bytes"] - fixed) * rows / batch
+
+
+def one_card_fit(traced: Dict, batch: int):
+    """``(fits at batch, largest batch that fits)`` from the peak traced
+    at ``batch``: halving from ``batch // DATA_AXIS`` (at least 1); 0 if
+    none fits."""
+    budget = one_card_budget()
+    b = max(batch // DATA_AXIS, 1)
+    while b and peak_at(traced, batch, b) > budget:
+        b //= 2
+    return traced["peak_bytes"] <= budget, b
+
+
+def _write(rec: dict, out_dir: str) -> None:
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+        tag = f"{rec['arch']}_{rec['shape']}_{rec['mesh']}_{rec['layout']}"
+        with open(os.path.join(out_dir, tag + ".json"), "w") as f:
+            json.dump(rec, f, indent=1, default=str)
+
+
+def run_one(arch: str, shape_name: str, multi_pod: bool, layout: str,
+            out_dir: str, microbatches: int = 1) -> dict:
+    seq, batch, kind = INPUT_SHAPES[shape_name]
+    rec = {
+        "arch": arch, "shape": shape_name, "kind": kind,
+        "mesh": mesh_tag(multi_pod), "layout": layout, "seq": seq,
+        "batch": batch,
+    }
+    if (arch, shape_name) in STRUCTURAL_SKIPS:
+        rec["status"] = "skipped"
+        rec["reason"] = STRUCTURAL_SKIPS[(arch, shape_name)]
+        _write(rec, out_dir)
+        return rec
+
+    t0 = time.time()
+    try:
+        cfg = effective_config(get_config(arch), shape_name)
+        rec["roofline"] = analytic_roofline(
+            cfg, batch, seq, kind, production_dims(multi_pod), layout)
+        traced = trace_step(kind, cfg, batch, seq, microbatches)
+        analytic = flops_per_chip(cfg, batch, seq, kind, ONE_CHIP)
+        fits, max_batch = one_card_fit(traced, batch)
+        rec.update(
+            traced=TRACED, one_card={"world_size": 1, "layout": "dp",
+                                     "batch": batch, "seq": seq},
+            traced_flops=traced["traced_flops"],
+            traced_flops_by_op=traced["traced_flops_by_op"],
+            analytic_flops_one_chip=analytic,
+            traced_over_analytic=traced["traced_flops"] / analytic,
+            bytes=traced["bytes"],
+            bytes_total=sum(traced["bytes"].values()),
+            peak_bytes=traced["peak_bytes"],
+            peak_bytes_one_card=(peak_at(traced, batch, max_batch)
+                                 if max_batch else None),
+            one_card_budget_bytes=one_card_budget(),
+            fits_one_card=fits, max_batch_one_card=max_batch,
+            trace_s=round(time.time() - t0, 2))
+        rec["status"] = "ok"
+        r = rec["roofline"]
+        print(f"  analytic: compute={r['compute_s']*1e3:.2f}ms "
+              f"memory={r['memory_s']*1e3:.2f}ms "
+              f"collective={r['collective_s']*1e3:.2f}ms "
+              f"dominant={r['dominant']} "
+              f"mfu_ub={r['mfu_upper_bound']:.2f}")
+        gb = {k: round(v / 1e9, 2) for k, v in rec["bytes"].items()}
+        print(f"  one card: traced/analytic="
+              f"{rec['traced_over_analytic']:.4f} bytes={gb} GB "
+              f"peak={rec['peak_bytes'] / 1e9:.2f} GB fits={fits} "
+              f"max_batch={max_batch}")
+    except Exception as e:  # noqa: BLE001 — a dry-run failure is a bug report
+        rec["status"] = "error"
+        rec["error"] = f"{type(e).__name__}: {e}"
+        rec["traceback"] = traceback.format_exc()[-4000:]
+        print(f"  ERROR {type(e).__name__}: {str(e)[:400]}")
+    rec["total_s"] = round(time.time() - t0, 1)
+    _write(rec, out_dir)
+    return rec
+
+
+def dryrun_sweep(archs="all", shapes="all", meshes="single",
+                 layout="fsdp_tp", microbatches: int = 1,
+                 out: str = "experiments/dryrun_torch") -> list:
+    """The full (arch x shape x mesh) sweep; the body behind both the
+    ``repro_torch.api`` dryrun runner and this module's CLI shim."""
+    arch_list = list_archs() if archs == "all" else archs.split(",")
+    shape_list = list(INPUT_SHAPES) if shapes == "all" else [shapes]
+    mesh_list = {"single": [False], "multi": [True],
+                 "both": [False, True]}[meshes]
+
+    results = []
+    for arch in arch_list:
+        for shape in shape_list:
+            for mp in mesh_list:
+                print(f"[dryrun] {arch} x {shape} x {mesh_tag(mp)} x "
+                      f"{layout}", flush=True)
+                rec = run_one(arch, shape, mp, layout, out, microbatches)
+                results.append(rec)
+                print(f"  -> {rec['status']} ({rec.get('total_s', 0)}s)",
+                      flush=True)
+
+    n_ok = sum(r["status"] == "ok" for r in results)
+    n_skip = sum(r["status"] == "skipped" for r in results)
+    n_err = len(results) - n_ok - n_skip
+    print(f"\n[dryrun] ok={n_ok} skipped={n_skip} error={n_err}")
+    for r in results:
+        if r["status"] == "error":
+            print(f"  FAILED: {r['arch']} x {r['shape']} x {r['mesh']}: "
+                  f"{r['error'][:200]}")
+    return results
+
+
+def main():
+    # thin shim over the repro_torch.api registry (RunSpec in, RunReport out)
+    ap = argparse.ArgumentParser(description="one-card dry run on meta")
+    ap.add_argument("--arch", default="all")
+    ap.add_argument("--shape", default="all",
+                    choices=["all", *INPUT_SHAPES])
+    ap.add_argument("--mesh", default="single",
+                    choices=["single", "multi", "both"])
+    ap.add_argument("--layout", default="fsdp_tp",
+                    choices=["fsdp_tp", "fsdp_sp", "dp"])
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--out", default="experiments/dryrun_torch")
+    args = ap.parse_args()
+
+    from repro_torch.api import RunSpec, run
+    report = run(RunSpec(kind="dryrun", arch=args.arch, overrides={
+        "shape": args.shape, "mesh": args.mesh, "layout": args.layout,
+        "microbatches": args.microbatches, "out": args.out}))
+    if not report.ok:
+        raise SystemExit(1)
+
+
+if __name__ == "__main__":
+    main()

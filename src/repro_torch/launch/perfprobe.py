@@ -1,0 +1,230 @@
+"""Run one (arch x shape) cell on the card and measure it (the port's
+counterpart of ``repro.launch.perfprobe``).
+
+    python -m repro_torch.launch.perfprobe --arch stablelm-1.6b --shape train_4k
+
+The reference lowers and compiles a cell for the production TPU mesh and
+reports XLA's collective bytes and temp memory beside the analytic
+roofline.  The port runs the cell: one warm-up step, one measured step
+(host clock around a synchronize) and one step under ``torch.profiler``.
+``INPUT_SHAPES`` are pod-sized, so the batch is cut to what one card holds:
+the dry run's ``max_batch_one_card`` (:mod:`repro_torch.launch.dryrun`);
+the sequence is never cut.  A train cell builds ``init_train_state``'s
+state and ``make_train_step``'s step, a prefill cell ``prefill``, a decode
+cell ``decode_step`` on a cache of ``seq`` (:mod:`repro_torch.launch.
+steps`).  The record holds the step's time, the device profile (the
+longest ops, K1-K4's ms and calls, busy and idle, peak memory), K1-K4's
+launches by route in the
+measured step, the all-reduce bytes (0: world 1 issues no collective),
+:func:`analytic_roofline` for one chip, and :func:`profile_terms`, the
+measured device time against the analytic FLOPs and bytes.
+
+Only ``layout="dp"`` runs: ``fsdp_tp`` and ``fsdp_sp`` shard parameters,
+and ``sharding/`` is not ported yet.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import time
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.analysis.analytic import analytic_roofline
+from repro_torch.analysis.profile import device_profile
+from repro_torch.analysis.roofline import profile_terms
+from repro_torch.configs import get_config, get_reduced
+from repro_torch.kernels.common import resolve_device
+from repro_torch.kernels.flash_attention import kernel as fa
+from repro_torch.kernels.ssd_scan import kernel as ssd
+from repro_torch.launch.dryrun import (one_card_budget, one_card_fit,
+                                       peak_at, trace_step)
+from repro_torch.launch.mesh import INPUT_SHAPES
+from repro_torch.launch.steps import build, effective_config
+
+LAYOUTS = ("dp", "fsdp_tp", "fsdp_sp")
+ONE_CARD = {"data": 1, "model": 1}
+# the launch counters of K1-K4, by the names chip_smoke.py prints
+KERNELS = {"flash_attention_fwd": fa.flash_attention_fwd_kernel,
+           "flash_attention_bwd_dq": fa.flash_attention_bwd_dq_kernel,
+           "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv_kernel,
+           "ssd_scan": ssd.ssd_scan_kernel}
+# what each kernel's CUDA entry points are called in a profiler trace
+TRACE_NAMES = {"flash_attention_fwd": "flash_fwd_",
+               "flash_attention_bwd_dq": "flash_bwd_dq_",
+               "flash_attention_bwd_dkv": "flash_bwd_dkv_",
+               "ssd_scan": "ssd_scan_"}
+
+
+def _launches() -> Dict[str, Dict[str, int]]:
+    return {name: dict(fn.launches_by_route) for name, fn in KERNELS.items()}
+
+
+def _kernel_ms(kernels: Dict[str, Dict]) -> Dict[str, Dict]:
+    """K1-K4's device ms and calls in a profile's ``kernels``."""
+    out = {}
+    for name, part in TRACE_NAMES.items():
+        rows = [v for key, v in kernels.items() if part in key]
+        out[name] = {"ms": sum(r["ms"] for r in rows),
+                     "calls": sum(r["calls"] for r in rows)}
+    return out
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _outcome(kind: str, out) -> Dict:
+    """The step's loss (train) or whether its logits are finite."""
+    if kind == "train":
+        loss = float(out[1]["loss"])
+        return {"loss": loss, "finite": math.isfinite(loss)}
+    logits = out[0] if isinstance(out, tuple) else out
+    return {"logits_shape": list(logits.shape),
+            "finite": bool(torch.isfinite(logits.float()).all())}
+
+
+def probe(arch: str, shape: str, layout: str = "dp", *,
+          multi_pod: bool = False, microbatches: int = 1,
+          save: Optional[str] = None, device=None, seed: int = 0,
+          reduced: bool = False, batch: Optional[int] = None,
+          seq: Optional[int] = None) -> dict:
+    """One cell on ``device`` (default ``cuda``, which must exist).
+
+    ``batch`` and ``seq`` default to the dry run's one-card batch and the
+    shape's sequence; ``reduced`` takes the arch's reduced config.  The
+    three are for CPU tests: the record names whatever cut was taken.
+    The probe runs one card: ``multi_pod`` (the reference's two-pod mesh)
+    raises, as do the sharded layouts.
+    """
+    if layout not in LAYOUTS:
+        raise ValueError(f"unknown layout {layout!r} (have {LAYOUTS})")
+    if layout != "dp":
+        raise ValueError(f"layout {layout!r} shards the parameters; "
+                         f"sharding/ is not ported yet, so the probe runs "
+                         f"only layout='dp'")
+    if multi_pod:
+        raise ValueError("the probe runs one card; the two-pod mesh needs "
+                         "sharding/, which is not ported yet")
+    seq_of, batch_of, kind = INPUT_SHAPES[shape]
+    device = resolve_device(device)
+    cfg = effective_config(get_reduced(arch) if reduced else get_config(arch),
+                           shape)
+    seq = seq or seq_of
+    one_card = None
+    if batch is None:
+        traced = trace_step(kind, cfg, batch_of, seq, microbatches)
+        fits, batch = one_card_fit(traced, batch_of)
+        if not batch:
+            raise ValueError(f"{arch} x {shape}: even batch 1 does not fit "
+                             f"one card (peak {traced['peak_bytes']} bytes "
+                             f"at batch {batch_of})")
+        # the peak at the cut, traced there too, to read beside the card's
+        at_cut = trace_step(kind, cfg, batch, seq, microbatches)
+        one_card = {"estimate_bytes": traced["bytes"],
+                    "fits_at_batch_of": fits, "max_batch_one_card": batch,
+                    "estimate_peak_bytes": peak_at(traced, batch_of, batch),
+                    "traced_peak_bytes": at_cut["peak_bytes"],
+                    "budget_bytes": one_card_budget()}
+    kw = {"microbatches": microbatches} if kind == "train" else {}
+    t0 = time.time()
+    fn, args = build(kind, cfg, batch, seq, device=device, seed=seed, **kw)
+    _sync(device)
+    build_s = time.time() - t0
+
+    t0 = time.time()
+    out = fn(*args)
+    _sync(device)
+    warmup_s = time.time() - t0
+    del out
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    before = _launches()
+    t0 = time.time()
+    out = fn(*args)
+    _sync(device)
+    step_s = time.time() - t0
+    after = _launches()
+    outcome = _outcome(kind, out)
+    del out
+    launches = {name: {r: after[name][r] - before[name][r]
+                       for r in after[name]} for name in KERNELS}
+    profile = None
+    peak_gb = None
+    if device.type == "cuda":
+        peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+        profile = device_profile(lambda: fn(*args))
+        profile["kernel_ms"] = _kernel_ms(profile.pop("kernels"))
+    analytic = analytic_roofline(cfg, batch, seq, kind, ONE_CARD, "dp")
+    measured_s = (profile["device_busy_ms"] / 1e3 if profile is not None
+                  else step_s)
+    rec = {
+        "arch": cfg.name, "shape": shape, "kind": kind, "layout": layout,
+        "mesh": "1 card", "world_size": 1, "microbatches": microbatches,
+        "device": device.type,
+        "device_name": (torch.cuda.get_device_name(device)
+                        if device.type == "cuda" else "cpu"),
+        "reduced": reduced, "seq": seq, "seq_of": seq_of, "batch": batch,
+        "batch_of": batch_of,
+        "cut": f"batch {batch} of {batch_of}" + (
+            f", seq {seq} of {seq_of}" if seq != seq_of else ", seq uncut"),
+        "traced": (f"{device.type}: K1-K4 on their routes; world 1, dp"
+                   if device.type == "cuda"
+                   else f"{device.type}: the kernels' plain versions; "
+                        f"world 1, dp"),
+        "one_card": one_card, "build_s": build_s, "warmup_s": warmup_s,
+        "step_s": step_s, "step_measured_by": "host clock, synchronized",
+        "peak_mem_gb": peak_gb, "profile": profile, "launches": launches,
+        "allreduce_bytes": 0,
+        "allreduce": "world 1: no collective is issued",
+        "analytic": analytic,
+        "profile_terms": dict(profile_terms(
+            measured_s, analytic["flops_per_chip"],
+            analytic["hbm_bytes_per_chip"], 0),
+            measured_by=("device busy time (torch.profiler)"
+                         if profile is not None else "host step time")),
+        **outcome,
+    }
+    print(f"[{cfg.name} x {shape} x {layout}] {rec['cut']} on "
+          f"{rec['device_name']}: step {step_s * 1e3:.1f} ms, lower bound "
+          f"{analytic['step_time_lower_bound_s'] * 1e3:.1f} ms "
+          f"({analytic['dominant']})")
+    if save:
+        os.makedirs(os.path.dirname(save) or ".", exist_ok=True)
+        with open(save, "w") as f:
+            json.dump(rec, f, indent=1, default=str)
+    return rec
+
+
+def main():
+    # thin shim over the repro_torch.api registry (RunSpec in, RunReport out)
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--shape", required=True, choices=list(INPUT_SHAPES))
+    ap.add_argument("--layout", default="dp", choices=list(LAYOUTS))
+    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--save", default=None)
+    ap.add_argument("--device", default=None)
+    args = ap.parse_args()
+
+    from repro_torch.api import RunSpec, run
+    overrides = {"shape": args.shape, "layout": args.layout,
+                 "multi_pod": args.multi_pod,
+                 "microbatches": args.microbatches}
+    if args.save:
+        overrides["save"] = args.save
+    if args.device:
+        overrides["device"] = args.device
+    report = run(RunSpec(kind="perfprobe", arch=args.arch,
+                         overrides=overrides))
+    if not report.ok:
+        raise SystemExit(1)
+
+
+if __name__ == "__main__":
+    main()

@@ -157,6 +157,13 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
     return params
 
 
+def param_specs(cfg: ArchConfig) -> Dict[str, Any]:
+    """The parameter tree on the ``meta`` device: shapes and dtypes, no
+    allocation (the reference's ``param_specs``).  The draws come from a
+    CPU generator: ``torch.Generator`` has no meta device."""
+    return init_params(cfg, torch.Generator().manual_seed(0), device="meta")
+
+
 # --------------------------------------------------------------------------
 # forward (train / prefill)
 # --------------------------------------------------------------------------

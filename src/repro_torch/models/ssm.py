@@ -142,7 +142,9 @@ def ssm_apply(params: dict, x: torch.Tensor, cfg: SSMConfig,
         return out
     W = cfg.conv_width
     if seq_len is None:
-        conv_state = (conv_in[:, -(W - 1):, :] if S >= W - 1
+        # a copy, not a view: a view of the last W-1 rows would keep the
+        # whole (B, S, C) conv input alive in every layer's decode state
+        conv_state = (conv_in[:, -(W - 1):, :].clone() if S >= W - 1
                       else F.pad(conv_in, (0, 0, W - 1 - S, 0)))
     else:
         # per-row window of the last W-1 real inputs (zeros before the

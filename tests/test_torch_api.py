@@ -41,6 +41,7 @@ from repro.core.experiment import \
 from repro_torch.api import registry as tregistry  # noqa: E402
 from repro_torch.api.runners.train import port_backend  # noqa: E402
 from repro_torch.core import Resources  # noqa: E402
+from repro_torch.core.executor import parse_trailing_report  # noqa: E402
 from repro_torch.core.experiment import paper_burned_area_grid  # noqa: E402
 from repro_torch.launch.__main__ import main as launch_main  # noqa: E402
 from repro_torch.launch.serve import serve_main  # noqa: E402
@@ -201,8 +202,10 @@ def test_typo_guard_matches_the_reference():
 
 
 @pytest.mark.parametrize("kind,overrides,what", [
-    ("dryrun", {}, "NotImplementedError"),
-    ("perfprobe", {"shape": "decode_32k"}, "NotImplementedError"),
+    # the reference's own errors of the analysis kinds: a dry run on an
+    # unknown mesh, a probe without its shape
+    ("dryrun", {"mesh": "ring"}, "ValueError"),
+    ("perfprobe", {}, "ValueError"),
     # the reference's own errors of a data-parallel rank: no coordinator,
     # a rank outside the world, a global batch the ranks cannot split
     ("train", {"world_size": 2, "dist_rank": 0, "device": "cpu"},
@@ -295,15 +298,20 @@ def test_runners_equal_direct_calls():
             assert r.metrics[key] == d[key], key
 
 
-def test_the_launch_main_in_process(capsys):
+def test_the_launch_main_in_process(capsys, tmp_path):
     assert launch_main(["help"]) == 0
     assert "usage: python -m repro_torch.launch" in capsys.readouterr().out
     assert launch_main(["run"]) == 2
     assert launch_main(["frobnicate"]) == 2
     assert launch_main(["run", "train", "stray"]) == 2
     capsys.readouterr()
-    assert launch_main(["run", "dryrun"]) == 1
-    assert json.loads(capsys.readouterr().out)["status"] == "failed"
+    # a dry run traces on the meta device: no card needed
+    assert launch_main(["run", "dryrun", "--arch", "stablelm-1.6b",
+                        "--shape", "train_4k", "--out",
+                        str(tmp_path)]) == 0
+    report = parse_trailing_report(capsys.readouterr().out)
+    assert report["status"] == "succeeded"
+    assert report["metrics"]["results"][0]["status"] == "ok"
 
 
 def _cli(*args, timeout=120):

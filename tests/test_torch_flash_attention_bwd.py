@@ -30,6 +30,7 @@ from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     attention_bwd_ref, attention_ref, row_delta)
 from repro_torch.models.layers import naive_attention  # noqa: E402
+from torch_one_thread import one_thread  # noqa: E402,F401
 
 # a subset of tests/test_kernels.py FLASH_CASES: GQA, padding, cross-length,
 # window + odd sizes

@@ -28,6 +28,7 @@ from repro_torch.configs import MoEConfig, SSMConfig, get_reduced  # noqa: E402
 from repro_torch.convert import params_from_flat, params_to_flat  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
+from torch_one_thread import one_thread  # noqa: E402,F401
 
 ATOL = 1e-4
 ARCHS = ["granite-3-2b", "stablelm-1.6b", "mamba2-2.7b", "glm4-9b",

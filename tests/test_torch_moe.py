@@ -21,6 +21,7 @@ from repro.models import moe as JMOE  # noqa: E402
 from repro_torch.configs.base import MoEConfig  # noqa: E402
 from repro_torch.models import layers as TL  # noqa: E402
 from repro_torch.models import moe as TMOE  # noqa: E402
+from torch_one_thread import one_thread  # noqa: E402,F401
 
 ATOL = 1e-5
 # bf16: both packages round each of the three expert products and the

@@ -49,6 +49,7 @@ from repro_torch.optim import adamw, constant  # noqa: E402
 from repro_torch.serve import ServeEngine, ServeScheduler  # noqa: E402
 from repro_torch.train import Preemption, TrainState, make_train_step  # noqa: E402,E501
 from repro_torch.tree import tree_leaves, tree_unflatten  # noqa: E402
+from torch_one_thread import one_thread  # noqa: E402,F401
 
 ARCHS = ["hubert-xlarge", "llava-next-mistral-7b"]
 B, S, CHUNK = 2, 32, 12

@@ -39,13 +39,16 @@ from repro_torch.launch.train import train_main  # noqa: E402
 from repro_torch.models.model import period_len  # noqa: E402
 from repro_torch.train import (Preemption, TrainLoop,  # noqa: E402
                                TrainState, init_train_state)
+from torch_one_thread import one_thread  # noqa: E402,F401
 
 ROOT = Path(__file__).resolve().parents[1]
 KW = dict(batch=2, seq=16, log_every=0, seed=0, device="cpu")
 
 
 def _subproc_env(**extra):
-    env = dict(os.environ)
+    """The child's env: the port on its path, one thread like the oracle
+    in this process (a CPU matmul's sums depend on the count)."""
+    env = dict(os.environ, OMP_NUM_THREADS="1")
     src = str(ROOT / "src")
     existing = env.get("PYTHONPATH", "")
     env["PYTHONPATH"] = src + (os.pathsep + existing if existing else "")

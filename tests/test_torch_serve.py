@@ -18,6 +18,7 @@ from repro_torch.configs import get_reduced  # noqa: E402
 from repro_torch.convert import params_from_flat  # noqa: E402
 from repro_torch.launch.serve import serve_main  # noqa: E402
 from repro_torch.serve import Request, ServeEngine, validate_request  # noqa: E402
+from torch_one_thread import one_thread  # noqa: E402,F401
 
 ARCH = "granite-3-2b"
 CFG = get_reduced(ARCH)

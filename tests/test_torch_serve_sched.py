@@ -29,6 +29,7 @@ from repro_torch.convert import params_from_flat  # noqa: E402
 from repro_torch.launch.serve import serve_main  # noqa: E402
 from repro_torch.serve import (Request, ServeEngine, ServeScheduler,  # noqa: E402
                                VirtualClock, make_trace, poisson_trace)
+from torch_one_thread import one_thread  # noqa: E402,F401
 
 CFG = get_reduced("granite-3-2b")
 

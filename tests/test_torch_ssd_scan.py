@@ -32,6 +32,7 @@ from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import (ssd_chunked_ref,  # noqa: E402
                                               ssd_ref)
 from repro_torch.models.ssm import ssd_chunked  # noqa: E402
+from torch_one_thread import one_thread  # noqa: E402,F401
 
 CASES = [
     # Bs, S, nh, hp, g, N, chunk

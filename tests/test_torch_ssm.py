@@ -28,6 +28,7 @@ from repro.configs import get_reduced as jax_reduced  # noqa: E402
 from repro.models import ssm as JS  # noqa: E402
 from repro_torch.configs import get_reduced  # noqa: E402
 from repro_torch.models import ssm as TS  # noqa: E402
+from torch_one_thread import one_thread  # noqa: E402,F401
 
 TOL = 1e-4
 ARCH = "mamba2-2.7b"

@@ -51,6 +51,7 @@ from repro_torch.optim import constant, sgd  # noqa: E402
 from repro_torch.train import (TrainState, init_train_state,  # noqa: E402
                                make_eval_step, make_train_step)
 from repro_torch.tree import tree_leaves, tree_unflatten  # noqa: E402
+from torch_one_thread import one_thread  # noqa: E402,F401
 
 NO_MOE_ARCHS = ["stablelm-1.6b", "granite-3-2b", "mamba2-2.7b"]
 MOE_ARCHS = ["qwen3-moe-30b-a3b", "jamba-1.5-large-398b",

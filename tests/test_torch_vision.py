@@ -39,6 +39,7 @@ from repro_torch.launch import vision  # noqa: E402
 from repro_torch.models.segmentation import seg_loss  # noqa: E402
 from repro_torch.optim import get_optimizer  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
+from torch_one_thread import one_thread  # noqa: E402,F401
 
 EXAMPLES = Path(__file__).resolve().parent.parent / "examples"
 

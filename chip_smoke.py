@@ -243,7 +243,28 @@ Phases, each of which fails the run if it fails:
     the one-card budget the dry run cut the batch to (80 GB less
     ``MemoryBudget``'s reserve); the measured step, on the host's clock
     and as the profiled device-busy time, not below the analytic lower
-    bound; a finite loss or logits; the step's profile (K1-K4's device ms).
+    bound; a finite loss or logits; the step's profile (K1-K4's device ms);
+29. ``run perfprobe --layout fsdp_tp --world_size 2`` on full-width
+    stablelm-1.6b (bf16, global 8 x 2048, a warm-up and a measured step)
+    as a subprocess: two ranks on ``cuda:0`` (gloo, the tensor
+    collectives), each holding half of every sharded parameter and
+    moment; beside it the ``dp`` gang of the same weights, batch and
+    steps (``RANK_JOBS``).  The losses within ``GANG_LOSS_RTOL`` of the
+    dp gang's; each rank's peak at least 5 GB under phase 25's; each
+    rank's collective bytes by mechanism beside the analytic model's for
+    {data: 2, model: 1}; K1-K3 as a training step predicts, on the
+    tensor cores;
+30. full-width mamba2-2.7b under ``fsdp_sp``, its depth cut to 4 of 64
+    layers (global 4 x 2048): K4 8 launches a rank in the measured step,
+    on the tensor cores; the ranks' losses equal.  Phase 29's dp gang and
+    this one are ``RANK_JOBS``, run by one gang of this script's own
+    ranks (``--sharded-rank``), each job through ``steps.build_train``
+    on a data grid;
+31. ``ssd_seq_parallel`` at mamba2's widths, 8 x 2048 in 4 segments: one
+    K4 launch for all segments, its scan of the folded segments against
+    the plain scan under K4's tolerance, and the whole against the plain
+    scan of the whole sequence (y with one bf16 rounding of each addend
+    allowed beside it); its time beside one K4 scan's and the plain's.
 
 Phases 2 and 3 time each kernel and SDPA as the median of five windows
 and print the least and most beside it.
@@ -257,7 +278,9 @@ K1 and K4 launches of phase 15 as ``launches_run_api_cli`` and of phase
 19's campaign children as ``launches_campaign``, K1-K3's in phases 22
 and 23 as ``launches_train_hubert``, ``launches_run_api_hubert``,
 ``launches_prefill_llava`` and ``launches_train_llava``, each rank's
-of phase 25's gang as ``launches_train_gang``, and phase 28's by cell as
+of phase 25's gang as ``launches_train_gang``, each rank's of phase 29's
+(K1-K3) or phase 30's (K4) measured step as ``launches_sharded_gang``,
+phase 31's K4 launch as ``launches_seq_parallel``, and phase 28's by cell as
 ``launches_perfprobe``, with each cell's profiled ms as
 ``perfprobe_profiled``), K1-K4's route
 (``core_route``) and its numbers at the training shape (K2, K3),
@@ -2995,7 +3018,7 @@ def _gang(torch, m, one: dict, world: int) -> list:
          launches=launches, report_wall_s=report["wall_s"],
          process_wall_s=wall, world1_call_wall_s=one["call_wall_s"],
          parent_reserved_gb=reserved_gb)
-    return launches
+    return launches, [d["peak_mem_gb"] for d in ranks]
 
 
 def dist_gang_chaos(torch, m) -> None:
@@ -3409,6 +3432,329 @@ def perfprobe_cells(torch, m, counts) -> dict:
     return out
 
 
+# phases 29-31: the parameter-sharded layouts on the data axis.  Phase 29
+# runs full-width stablelm-1.6b under fsdp_tp as a world-2 perfprobe gang
+# on the one card, beside a dp gang of the same weights, batch and steps;
+# phase 30 full-width mamba2-2.7b under fsdp_sp, its depth cut; phase 31
+# the sequence-parallel scan through K4
+SHARDED_ARGV = ["run", "perfprobe", "--arch", "stablelm-1.6b", "--shape",
+                "train_4k", "--layout", "fsdp_tp", "--world_size", "2",
+                "--batch", "8", "--seq", "2048"]
+# the steps a gang runs: warm-up, measured (a rank's trace is not the
+# shared card's, so no profiled step)
+SHARDED_STEPS = 2
+# FSDP drops half of the resident parameters, gradients and moments
+# (13.16 GB at world 1 in bf16) from each of two ranks
+SHARDED_PEAK_SAVING_GB = 5.0
+# phase 29's dp gang and phase 30's, run one after the other by the same
+# two processes of this script (RANK_FLAG), each through
+# steps.build_train on a data grid; "layers" cuts the depth (mamba2's to
+# 4 of 64: the gang is gloo-bound, and its time grows with the gathered
+# layers)
+RANK_JOBS = {
+    "stablelm_dp": {"arch": "stablelm-1.6b", "layers": None, "batch": 8,
+                    "seq": 2048, "layout": "dp"},
+    "mamba2_fsdp_sp": {"arch": "mamba2-2.7b", "layers": 4, "batch": 4,
+                       "seq": 2048, "layout": "fsdp_sp"},
+}
+RANK_FLAG = "--sharded-rank"
+# B, S, heads, head dim, groups, N, chunk, segments: mamba2-2.7b's widths
+SEQ_PARALLEL = (8, 2048, 80, 64, 1, 128, 256, 4)
+# one bf16 rounding of an addend: 2**-8 of its magnitude (twice bf16's
+# unit roundoff, as each addend may be off by a rounding already)
+BF16_ROUNDING = 2.0 ** -8
+
+
+def _job_config(get_config, job: dict):
+    cfg = get_config(job["arch"])
+    return (cfg if job["layers"] is None
+            else dataclasses.replace(cfg, n_layers=job["layers"]))
+
+
+def sharded_rank(rank: int, coordinator: str) -> int:
+    """One rank of the gang of ``RANK_JOBS`` (this script run with
+    ``RANK_FLAG RANK COORDINATOR``): each job's config through
+    ``steps.build_train`` on a data grid of two ranks (both on
+    ``cuda:0``, gloo), a warm-up and a measured step, its memory freed
+    before the next.  Prints, as its last line, each job's record: the
+    losses, the measured step's collective bytes by mechanism, K1-K4's
+    launches by route, step time and peak memory."""
+    sys.path.insert(0, str(SRC))
+    import torch
+    from repro_torch.analysis.analytic import (collective_bytes_per_chip,
+                                               mesh_dims)
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import init_distributed
+    from repro_torch.launch.perfprobe import KERNELS as PROBED
+    from repro_torch.launch.steps import build_train
+    from repro_torch.sharding.grid import data_grid
+
+    def routes():
+        return {k: dict(fn.launches_by_route) for k, fn in PROBED.items()}
+
+    ctx = init_distributed(2, rank, coordinator)
+    out = {}
+    try:
+        grid = data_grid(ctx)
+        dev = grid.device
+        for name, job in RANK_JOBS.items():
+            cfg = _job_config(get_config, job)
+            fn, (state, batch) = build_train(
+                cfg, job["batch"], job["seq"], device=dev,
+                layout=job["layout"], grid=grid)
+            state, met = fn(state, batch)
+            losses = [float(met["loss"])]
+            torch.cuda.reset_peak_memory_stats(dev)
+            launched, sent = routes(), dict(ctx.collective_bytes)
+            t0 = time.perf_counter()
+            state, met = fn(state, batch)
+            losses.append(float(met["loss"]))
+            torch.cuda.synchronize(dev)
+            step_s = time.perf_counter() - t0
+            now = routes()
+            out[name] = {
+                "rank": rank, "backend": ctx.backend, "device": str(dev),
+                "losses": losses, "step_s": step_s,
+                "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+                "collective_bytes": {k: v - sent.get(k, 0.0) for k, v in
+                                     ctx.collective_bytes.items()},
+                "kernel_launches": {k: {r: n - launched[k][r]
+                                        for r, n in now[k].items()}
+                                    for k in now},
+                "analytic_collective_bytes": collective_bytes_per_chip(
+                    cfg, job["batch"], job["seq"], "train",
+                    mesh_dims({"data": 2, "model": 1}), job["layout"])}
+            del fn, state, batch, met
+            torch.cuda.empty_cache()
+    finally:
+        ctx.close()
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def rank_jobs_gang(torch, timeout: int = 600) -> dict:
+    """The gang of ``RANK_JOBS``: two processes of this script with
+    ``RANK_FLAG``, each in a process group of its own, killed whole when
+    the gang ends; their output in files.  Returns each job's rank
+    records (both on ``cuda:0`` with gloo, a finite loss at each step)
+    and the gang's wall seconds under ``"wall_s"``."""
+    from repro_torch.distributed.gang import free_port
+    torch.cuda.empty_cache()
+    coordinator = f"127.0.0.1:{free_port()}"
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = []
+        try:
+            for r in range(2):
+                with open(os.path.join(tmp, f"{r}.out"), "w") as out, \
+                        open(os.path.join(tmp, f"{r}.err"), "w") as err:
+                    procs.append(subprocess.Popen(
+                        [sys.executable, str(Path(__file__).resolve()),
+                         RANK_FLAG, str(r), coordinator], env=env, cwd=tmp,
+                        stdout=out, stderr=err, start_new_session=True))
+            deadline = time.monotonic() + timeout
+            while (any(p.poll() is None for p in procs)
+                   and not any(p.poll() for p in procs)
+                   and time.monotonic() < deadline):
+                time.sleep(0.1)
+        finally:
+            for p in procs:
+                with contextlib.suppress(ProcessLookupError):
+                    os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+        logs = [(Path(tmp, f"{r}.out").read_text(),
+                 Path(tmp, f"{r}.err").read_text()) for r in range(2)]
+    rcs = [p.returncode for p in procs]
+    if any(rcs):
+        raise AssertionError(f"{RANK_FLAG} gang: exit codes {rcs}: " + "".join(
+            f"rank {r}: {err[-3000:]}{out[-2000:]}"
+            for r, (out, err) in enumerate(logs)))
+    ranks = [json.loads(out.strip().splitlines()[-1]) for out, _ in logs]
+    jobs = {name: [rk[name] for rk in ranks] for name in RANK_JOBS}
+    for name, recs in jobs.items():
+        _check_gang_ranks(recs, recs[0]["losses"], f"{RANK_FLAG} {name}")
+    return dict(jobs, wall_s=time.perf_counter() - t0)
+
+
+def _check_gang_ranks(ranks: list, losses, what: str) -> None:
+    """Both ranks on ``cuda:0`` with gloo, a finite loss at every step."""
+    if ([d["rank"] for d in ranks] != [0, 1]
+            or any(d["device"] != "cuda:0" or d["backend"] != "gloo"
+                   for d in ranks)
+            or len(losses) != SHARDED_STEPS
+            or not np.all(np.isfinite(losses))):
+        raise AssertionError(f"{what}: losses {losses}, ranks {ranks}")
+
+
+def sharded_gang_full_width(torch, m, dp_gang_peaks: list, dp: list) -> list:
+    """Phase 29: ``run perfprobe --layout fsdp_tp --world_size 2`` on
+    full-width stablelm-1.6b (bf16, global 8 x 2048, a warm-up and a
+    measured step) as a subprocess: each rank keeps its half of every
+    sharded parameter and moment, gathers each layer inside its
+    checkpointed forward (and again in the recompute) and gets its
+    gradients reduce-scattered.  ``dp`` is the ranks' records of
+    ``RANK_JOBS["stablelm_dp"]``, the dp gang of the same weights, batch
+    and steps.  The two losses within ``GANG_LOSS_RTOL`` of the dp gang's;
+    each rank's peak at least ``SHARDED_PEAK_SAVING_GB`` under phase 25's
+    dp gang at the same batch; each rank's collective bytes of the
+    measured step by mechanism beside ``collective_bytes_per_chip`` for
+    {data: 2, model: 1} (the gathers between half and all of it: the
+    embedding and the head are gathered once, the layers twice; the
+    reduce-scatter within 1% below it: the norms are all-reduced
+    instead); K1-K3 as a training step predicts, on the tensor cores, in
+    both gangs.  Returns each rank's K1-K3 launches in the measured
+    step."""
+    cfg = m["get_config"]("stablelm-1.6b")
+    torch.cuda.empty_cache()
+    what = " ".join(SHARDED_ARGV)
+    t0 = time.perf_counter()
+    proc = _cli(SHARDED_ARGV, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"{what}: exit {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}{proc.stdout[-3000:]}")
+    report = _report_of(proc.stdout)
+    fs = report["metrics"]
+    ranks = fs["gang"]["ranks"]
+    if report["status"] != "succeeded":
+        raise AssertionError(f"{what}: {report['status']}")
+    _check_gang_ranks(ranks, fs["losses"], what)
+    _gang_rank_launches(cfg, dp, 1, "the dp gang of phase 29")
+    rel = _max_rel(fs["losses"], dp[0]["losses"])
+    peaks = [d["peak_mem_gb"] for d in ranks]
+    analytic = fs["analytic_collective_bytes"]
+    measured = [d["collective_bytes"] for d in ranks]
+    launches = _gang_rank_launches(cfg, ranks, 1, what)
+    if (rel > GANG_LOSS_RTOL
+            or any(p > q - SHARDED_PEAK_SAVING_GB
+                   for p, q in zip(peaks, dp_gang_peaks))
+            or any(not 0.5 * analytic["fsdp_allgather"]
+                   < b["fsdp_allgather"] <= analytic["fsdp_allgather"]
+                   or not 0.99 * analytic["grad_reducescatter"]
+                   < b["grad_reducescatter"]
+                   <= analytic["grad_reducescatter"] for b in measured)):
+        raise AssertionError(
+            f"fsdp_tp gang: losses {fs['losses']} vs dp "
+            f"{dp[0]['losses']} (rel {rel}); peaks {peaks} GB vs phase "
+            f"25's {dp_gang_peaks}; bytes {measured} vs analytic {analytic}")
+    emit(phase="sharded_gang_full_width", card=card_line(),
+         argv=SHARDED_ARGV, cut=fs["cut"], losses=fs["losses"],
+         dp_losses=dp[0]["losses"], losses_max_rel_err=rel,
+         loss_rtol=GANG_LOSS_RTOL, peak_mem_gb=peaks,
+         dp_peak_mem_gb=[d["peak_mem_gb"] for d in dp],
+         phase25_dp_peak_mem_gb=dp_gang_peaks,
+         collective_bytes=measured,
+         dp_collective_bytes=[d["collective_bytes"] for d in dp],
+         analytic_collective_bytes=analytic,
+         dp_analytic_collective_bytes=dp[0]["analytic_collective_bytes"],
+         step_s=[d["step_s"] for d in ranks],
+         dp_step_s=[d["step_s"] for d in dp],
+         launches=launches, process_wall_s=wall)
+    return launches
+
+
+def sharded_mamba2(torch, m, ranks: list, gang_wall_s: float) -> list:
+    """Phase 30: ``RANK_JOBS["mamba2_fsdp_sp"]``, full-width mamba2-2.7b
+    under ``fsdp_sp`` (bf16, global 4 x 2048, its depth cut to 4 of 64
+    layers) as a world-2 gang sharing the card: each rank's K4 launches
+    as a training step predicts, on the tensor cores; the ranks' losses
+    equal; its collective bytes beside the analytic model's.  Returns
+    each rank's K4 launches in the measured step."""
+    job = RANK_JOBS["mamba2_fsdp_sp"]
+    want = train_launches(_job_config(m["get_config"], job), 1)["ssd_scan"]
+    got = [d["kernel_launches"]["ssd_scan"] for d in ranks]
+    losses = [d["losses"] for d in ranks]
+    if (any(g != {"tensor_core": want, "cuda_core": 0} for g in got)
+            or losses[1] != losses[0]):
+        raise AssertionError(f"fsdp_sp mamba2: K4 launches {got}, want "
+                             f"{want} on the tensor cores; losses {losses}")
+    emit(phase="sharded_mamba2", card=card_line(), job=job,
+         losses=losses[0], peak_mem_gb=[d["peak_mem_gb"] for d in ranks],
+         collective_bytes=[d["collective_bytes"] for d in ranks],
+         analytic_collective_bytes=ranks[0]["analytic_collective_bytes"],
+         step_s=[d["step_s"] for d in ranks],
+         launches=[g["tensor_core"] for g in got],
+         rank_gang_wall_s=gang_wall_s)
+    return [g["tensor_core"] for g in got]
+
+
+def seq_parallel_vs_plain(torch, m, counts) -> int:
+    """Phase 31: ``ssd_seq_parallel`` at mamba2-2.7b's widths (80 heads of
+    64, N 128, chunk 256), 8 x 2048 in 4 segments (bf16 x, B and C as
+    strided views, as the mixer hands them over): its segments folded into
+    one K4 launch on the tensor cores, the combine and the correction in
+    plain tensor code.  Held, first, K4's scan of the folded segments
+    against the plain chunked scan of the same inputs under K4's bf16
+    tolerance; then the whole against the plain scan of the whole
+    sequence: h under K4's tolerance, y within it plus one bf16 rounding
+    (``BF16_ROUNDING``) of each addend of ``y_loc + y_corr`` (the
+    reference adds them in the input dtype, so where the segment's local
+    output and the incoming state's correction cancel, the rounding of
+    each stays).  Returns the launches."""
+    Bs, S, nh, hp, g, N, Q, n_seg = SEQ_PARALLEL
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    buf = torch.randn((Bs, S, nh * hp + 2 * g * N), generator=gen,
+                      device="cuda").to(torch.bfloat16)
+    x = buf[..., :nh * hp].reshape(Bs, S, nh, hp)
+    B = buf[..., nh * hp:nh * hp + g * N].reshape(Bs, S, g, N)
+    C = buf[..., nh * hp + g * N:].reshape(Bs, S, g, N)
+    dt = torch.nn.functional.softplus(torch.randn((Bs, S, nh), generator=gen,
+                                                  device="cuda"))
+    A = -torch.exp(0.3 * torch.randn(nh, generator=gen, device="cuda"))
+    cfg = m["SSMConfig"](d_state=N, head_dim=hp, n_groups=g, chunk=Q)
+    seq_parallel = m["ssm"].ssd_seq_parallel
+    counts.zero()
+    y, h = seq_parallel(x, dt, A, B, C, cfg, n_seg)
+    torch.cuda.synchronize()
+    routes = counts.routes(("ssd_scan",))["ssd_scan"]
+    if routes != {"tensor_core": 1, "cuda_core": 0}:
+        raise AssertionError(f"ssd_seq_parallel: K4 launches {routes}, want "
+                             f"one on the tensor cores")
+    tol = SSD_TOL["bfloat16"]
+
+    def fold(t):
+        return t.reshape((Bs * n_seg, S // n_seg) + tuple(t.shape[2:]))
+
+    folded = (fold(x), fold(dt), A, fold(B), fold(C))
+    y_loc, h_seg = m["ssd_scan"](*folded, chunk=Q, return_state=True)
+    yr, hr = m["ssd_chunked_ref"](*folded, Q)
+    _ssd_close(torch, y_loc.float(), yr.float(), tol["y"])
+    _ssd_close(torch, h_seg, hr, tol["h"])
+    seg_err = (y_loc.float() - yr.float()).abs().max().item()
+    del yr, hr, h_seg
+    yr, hr = m["ssd_chunked_ref"](x, dt, A, B, C, Q)
+    atol_h = _ssd_close(torch, h, hr, tol["h"])
+    y_loc = y_loc.reshape(y.shape).float()
+    _, a, r = tol["y"]
+    err = (y.float() - yr.float()).abs()
+    allowed = (a + r * yr.float().abs() + BF16_ROUNDING
+               * (y_loc.abs() + (y.float() - y_loc).abs()))
+    worst = (err / allowed).max().item()
+    err_y, err_h = err.max().item(), (h - hr).abs().max().item()
+    beyond_k4 = int((err > a + r * yr.float().abs()).sum().item())
+    del yr, hr, y_loc, err, allowed
+    torch.cuda.empty_cache()
+    if worst > 1:
+        raise AssertionError(f"ssd_seq_parallel: y off the plain scan by "
+                             f"{worst} of its allowance (max abs {err_y})")
+    ms = cuda_ms(torch, lambda: seq_parallel(x, dt, A, B, C, cfg, n_seg),
+                 reps=5)
+    one_ms = cuda_ms(torch, lambda: m["ssd_scan"](
+        x, dt, A, B, C, chunk=Q, return_state=True), reps=5)
+    plain_ms = cuda_ms(torch, lambda: m["ssd_chunked_ref"](
+        x, dt, A, B, C, Q), reps=2)
+    emit(phase="seq_parallel_vs_plain", card=card_line(),
+         dims=list(SEQ_PARALLEL), routes=routes,
+         segments_max_abs_err_y=seg_err, max_abs_err_y=err_y,
+         max_abs_err_h=err_h, tol=tol, atol_h=atol_h,
+         bf16_rounding=BF16_ROUNDING, worst_share_of_allowance=worst,
+         elements_beyond_k4_tol=beyond_k4, ms=ms, one_scan_ms=one_ms,
+         plain_ms=plain_ms)
+    del buf, x, B, C, dt, A, y, h
+    torch.cuda.empty_cache()
+    return routes["tensor_core"]
+
 def _map(tree, fn):
     if isinstance(tree, dict):
         return {k: _map(v, fn) for k, v in tree.items()}
@@ -3457,6 +3803,8 @@ def load_port() -> dict:
     from repro_torch.models.segmentation import seg_apply, seg_init, seg_loss
     from repro_torch.models import init_params
     from repro_torch.models import moe
+    from repro_torch.models import ssm
+    from repro_torch.configs.base import SSMConfig
     from repro_torch.models.layers import naive_attention
     from repro_torch.models.model import (cast_floating, decode_step,
                                           prefill, train_loss, unused_leaves)
@@ -3491,7 +3839,8 @@ def load_port() -> dict:
              seg_apply=seg_apply, seg_loss=seg_loss,
              changeformer_init=changeformer_init,
              changeformer_apply=changeformer_apply, ChipLoader=ChipLoader,
-             prefetch=prefetch, moe=moe, ssd_scan=ssd_scan,
+             prefetch=prefetch, moe=moe, ssm=ssm, SSMConfig=SSMConfig,
+             ssd_scan=ssd_scan,
              launch_main=launch_main, ExperimentGrid=ExperimentGrid,
              Orchestrator=Orchestrator, PersistentVolume=PersistentVolume,
              S3Store=S3Store, MemoryBudget=MemoryBudget, autobatch=autobatch,
@@ -3623,13 +3972,22 @@ def main() -> int:
     # data-parallel training: world 1 is the single process, a full-width
     # world-2 gang shares the card, and a gang under the executor's chaos
     dist_world1_bitwise(torch, m)
-    gang_launches = dist_gang_full_width(torch, m, counts)
+    gang_launches, gang_peaks = dist_gang_full_width(torch, m, counts)
     dist_gang_chaos(torch, m)
 
     # the analysis kinds: the probe runs its cells on the card
     long_recs = long_sequence_vs_plain(torch, F, fa, ref)
     probes = perfprobe_cells(torch, m, counts)
     torch.cuda.empty_cache()
+
+    # the parameter-sharded layouts on the data axis: world-2 gangs that
+    # share the card, then the sequence-parallel scan through K4
+    rank_jobs = rank_jobs_gang(torch)
+    sharded_launches = sharded_gang_full_width(torch, m, gang_peaks,
+                                               rank_jobs["stablelm_dp"])
+    sharded_k4 = sharded_mamba2(torch, m, rank_jobs["mamba2_fsdp_sp"],
+                                rank_jobs["wall_s"])
+    seq_parallel_k4 = seq_parallel_vs_plain(torch, m, counts)
 
     # the vision paths: both studies normalize every scene through K5
     k5 = k5_vs_plain(torch, pn, pn_ref)
@@ -3667,6 +4025,7 @@ def main() -> int:
         rec["launches_train_llava"] = llava["train"][name]
         rec["launches_run_api_hubert"] = hubert["run_api"][name]
         rec["launches_train_gang"] = [r[name] for r in gang_launches]
+        rec["launches_sharded_gang"] = [r[name] for r in sharded_launches]
     k1 = k1_recs[("granite_prefill", "bfloat16")]
     k1 = dict(ms=k1["kernel_ms"], bound_ms=k1["bound_ms"],
               bound_by=k1["bound_by"], max_abs_err=k1["max_abs_err_o"],
@@ -3687,6 +4046,8 @@ def main() -> int:
               launches_train_llava=llava["train"]["flash_attention_fwd"],
               launches_train_gang=[r["flash_attention_fwd"]
                                    for r in gang_launches],
+              launches_sharded_gang=[r["flash_attention_fwd"]
+                                     for r in sharded_launches],
               shapes={name: {k: k1_recs[(name, "bfloat16")][k] for k in (
                   "kernel_ms", "bound_ms", "bound_by", "plain_ms",
                   "library_ms", "max_abs_err_o", "route")}
@@ -3711,6 +4072,8 @@ def main() -> int:
                  "launches_train": ssd_train_launches,
                  "launches_run_api_cli": api_cli["mamba2-2.7b"],
                  "launches_campaign": campaign["ssd_scan"],
+                 "launches_sharded_gang": sharded_k4,
+                 "launches_seq_parallel": seq_parallel_k4,
                  "max_abs_err": max(k4["max_abs_err_y"], k4["max_abs_err_h"]),
                  "ms": k4["kernel_ms"], "plain_ms": k4["plain_ms"],
                  "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"],
@@ -3743,4 +4106,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == [RANK_FLAG]:
+        sys.exit(sharded_rank(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

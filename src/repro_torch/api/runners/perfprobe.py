@@ -2,13 +2,22 @@
 (the port's copy of ``repro.api.runners.perfprobe``).
 
 The probe runs one (arch x shape) cell on the card at the batch the dry
-run says fits it.  Its default ``layout`` is ``dp`` until ``sharding/``
-is ported (the reference's is ``fsdp_tp``); ``fsdp_tp`` and ``fsdp_sp``
-raise ``ValueError``.  One override is the port's own: ``device``
-(default ``None``: ``cuda``, which must exist).
+run says fits it.  Its default ``layout`` is the reference's,
+``fsdp_tp``.  Three branches, as ``run train``'s: ``world_size > 1``
+without ``dist_rank`` self-gangs (:func:`repro_torch.distributed.gang.
+run_gang_local` spawns one ``run perfprobe`` process per rank and adopts
+rank 0's report, every rank's ``dist`` section under ``gang``); with
+``dist_rank`` (and ``coordinator``) this process is one rank of a data
+grid (:func:`repro_torch.sharding.grid.data_grid`); otherwise world 1,
+where every layout is the ``dp`` step.  The port's own overrides:
+``device`` (default ``None``: ``cuda``, which must exist), and
+``reduced``, ``batch`` and ``seq`` for a cut of the cell (the CPU tests
+run the reduced config; ``chip_smoke.py`` a gang at phase 25's batch).
 """
 from __future__ import annotations
 
+import json
+import os
 import time
 
 from repro_torch.api.report import RunReport
@@ -17,26 +26,62 @@ from repro_torch.api.spec import RunSpec
 
 DEFAULTS = {
     "shape": None,          # required
-    "layout": "dp",
+    "layout": "fsdp_tp",
     "multi_pod": False,
     "microbatches": 1,
     "save": None,
     "device": None,         # torch device; None = cuda, which must exist
+    "reduced": False,       # the arch's reduced config
+    "batch": None,          # global batch; None = the dry run's cut
+    "seq": None,            # None = the shape's sequence
+    "world_size": 1,        # >1 = a gang of ranks on a data grid
+    "dist_rank": None,      # set per rank by the gang launcher
+    "coordinator": None,    # rank 0's host:port
 }
+
+
+def _int(v):
+    return None if v is None else int(v)
 
 
 @register_runner("perfprobe")
 def run_perfprobe(spec: RunSpec) -> RunReport:
-    from repro_torch.launch.perfprobe import probe
     o = spec.merged_overrides(DEFAULTS)
     if not o["shape"]:
         raise ValueError("perfprobe requires a --shape override")
     t0 = time.time()
-    rec = probe(spec.arch, o["shape"], o["layout"],
-                multi_pod=bool(o["multi_pod"]),
-                microbatches=int(o["microbatches"]), save=o["save"],
-                device=o["device"], seed=spec.seed)
+    world = int(o["world_size"] or 1)
+    if world > 1 and o["dist_rank"] is None:
+        from repro_torch.distributed.gang import run_gang_local
+        rec = run_gang_local(spec, world)
+        if o["save"]:
+            os.makedirs(os.path.dirname(o["save"]) or ".", exist_ok=True)
+            with open(o["save"], "w") as f:
+                json.dump(rec, f, indent=1, default=str)
+    else:
+        rec = _one_rank(spec, o, world)
     return RunReport(kind="perfprobe", name=spec.run_name, metrics=rec,
                      wall_s=round(time.time() - t0, 3),
                      artifacts=(o["save"],) if o["save"] else (),
                      spec=spec.to_dict())
+
+
+def _one_rank(spec: RunSpec, o: dict, world: int) -> dict:
+    """World 1, or this process as rank ``dist_rank`` of a gang."""
+    from repro_torch.launch.perfprobe import probe
+    kw = dict(multi_pod=bool(o["multi_pod"]),
+              microbatches=int(o["microbatches"]), save=o["save"],
+              seed=spec.seed, reduced=bool(o["reduced"]),
+              batch=_int(o["batch"]), seq=_int(o["seq"]))
+    if o["dist_rank"] is None:
+        return probe(spec.arch, o["shape"], o["layout"], device=o["device"],
+                     **kw)
+    from repro_torch.distributed.context import init_distributed
+    from repro_torch.sharding.grid import data_grid
+    ctx = init_distributed(world, int(o["dist_rank"]), o["coordinator"],
+                           o["device"])
+    try:
+        return probe(spec.arch, o["shape"], o["layout"],
+                     grid=data_grid(ctx), **kw)
+    finally:
+        ctx.close()

@@ -13,6 +13,13 @@ holding its bit pattern: numpy has no bf16 type of its own, and ``V2`` is
 what ``np.load`` returns for the reference's bf16 (``ml_dtypes``) leaves,
 so both packages' checkpoints restore bitwise without ``ml_dtypes``.
 
+A parameter-sharded state (:class:`repro_torch.sharding.fsdp.FSDP`: each
+rank holds its shards) goes to the flat keys through ``FSDP.full_tree``
+and comes back through ``FSDP.shard_tree``
+(:func:`sharded_params_to_flat`, :func:`sharded_params_from_flat`): the
+gather concatenates the shards and the shard slices them, so the round
+trip is bitwise too.
+
 The vision models (``models/segmentation.py``, ``models/changeformer.py``)
 have no ``ArchConfig`` and hold lists: the reference's ``_flatten`` names a
 list index as a path segment (``"enc/0/c1/w"``,
@@ -135,6 +142,21 @@ def params_to_flat(params, period: int = 1) -> Dict[str, np.ndarray]:
             flat[slot_prefix(j) + key] = np.stack(
                 [_to_numpy(l[key]) for l in per_layer])
     return flat
+
+
+def sharded_params_to_flat(shards, fsdp, period: int = 1
+                           ) -> Dict[str, np.ndarray]:
+    """A rank's shards (under ``fsdp``) -> the whole tree's flat arrays.
+    Every rank of the grid must call it: it gathers."""
+    return params_to_flat(fsdp.full_tree(shards), period)
+
+
+def sharded_params_from_flat(flat: Dict[str, np.ndarray], cfg: ArchConfig,
+                             fsdp, *, device=None,
+                             dtype: Optional[torch.dtype] = None):
+    """Flat arrays -> this rank's shards under ``fsdp``."""
+    return fsdp.shard_tree(params_from_flat(flat, cfg, device=device,
+                                            dtype=dtype))
 
 
 def vision_params_from_flat(flat: Dict[str, np.ndarray], *, device=None,

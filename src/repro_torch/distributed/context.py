@@ -16,16 +16,28 @@ collective.
   device).  Nothing swaps one backend or device for another after a
   failure.
 
+* **The sharded collectives**: the parameter gather and the gradient
+  reduce-scatter of the sharded layouts (:mod:`repro_torch.sharding.
+  fsdp`) are ``all_gather_into_tensor`` and ``reduce_scatter_tensor`` on
+  every backend.  gloo takes both, and ``all_to_all_single``, on CPU
+  tensors (torch 2.13) and on CUDA tensors of two ranks that share an
+  H100 (torch 2.11), in f32 and bf16, with the right sums.
+
 Collectives run on the rank's own device.  The gradient sum
 (:meth:`DistContext.allreduce_`) reduces flat buckets of the leaves in
 their given order; a small gather (:meth:`DistContext.allgather`) is a
-sum of one-hot rank slots, exact for any value.
+sum of one-hot rank slots, exact for any value.  Every collective's
+bytes are counted per rank by the analytic model's mechanism
+(``collective_bytes``; ``repro_torch.analysis.analytic.
+collective_bytes_per_chip``'s names), in its ring convention: a gather
+or a reduce-scatter of F full bytes moves ``(N-1)/N * F`` a rank, an
+all-reduce twice that.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -106,6 +118,11 @@ class DistContext:
     allreduce_s: float = 0.0
     allgather_s: float = 0.0
     agree_calls: int = 0
+    # per rank, by mechanism: ring-convention bytes and calls
+    collective_bytes: Dict[str, float] = dataclasses.field(
+        default_factory=dict)
+    collective_calls: Dict[str, int] = dataclasses.field(
+        default_factory=dict)
 
     @property
     def is_coordinator(self) -> bool:
@@ -148,12 +165,46 @@ class DistContext:
                                f"{gathered.tolist()}")
         return value
 
-    def allreduce_(self, tensors: List[torch.Tensor]) -> List[torch.Tensor]:
+    def _count(self, mechanism: str, full_bytes: int, passes: int) -> None:
+        n = self.world_size
+        self.collective_bytes[mechanism] = (
+            self.collective_bytes.get(mechanism, 0.0)
+            + passes * full_bytes * (n - 1) / n)
+        self.collective_calls[mechanism] = (
+            self.collective_calls.get(mechanism, 0) + 1)
+
+    def all_gather(self, shard: torch.Tensor, dim: int,
+                   mechanism: str = "fsdp_allgather") -> torch.Tensor:
+        """The ranks' ``shard``s concatenated along ``dim``, rank order
+        (one ``all_gather_into_tensor`` of the shards with ``dim``
+        moved first; the result is a view with ``dim`` back in place)."""
+        x = shard.movedim(dim, 0).contiguous()
+        out = x.new_empty((self.world_size * x.shape[0],) + x.shape[1:])
+        torch.distributed.all_gather_into_tensor(out, x)
+        self._count(mechanism, out.numel() * out.element_size(), 1)
+        return out.movedim(0, dim)
+
+    def reduce_scatter(self, full: torch.Tensor, dim: int,
+                       mechanism: str = "grad_reducescatter"
+                       ) -> torch.Tensor:
+        """This rank's block along ``dim`` of ``full`` summed over the
+        ranks (one ``reduce_scatter_tensor``)."""
+        x = full.movedim(dim, 0).contiguous()
+        out = x.new_empty((x.shape[0] // self.world_size,) + x.shape[1:])
+        torch.distributed.reduce_scatter_tensor(out, x)
+        self._count(mechanism, x.numel() * x.element_size(), 1)
+        return out.movedim(0, dim)
+
+    def allreduce_(self, tensors: List[torch.Tensor],
+                   mechanism: str = "grad_reducescatter"
+                   ) -> List[torch.Tensor]:
         """Sum ``tensors`` over the ranks, in place: flat buckets of
         consecutive same-dtype tensors, in the order given (every rank
         gives the same), one ``all_reduce`` each.  The identity at world
         1.  Counts the calls, the bytes and the seconds (the card is
-        synchronised around them, so the time is the reduction's)."""
+        synchronised around them, so the time is the reduction's), and
+        the bytes under ``mechanism`` (the data-parallel gradient sum is
+        the analytic model's ``grad_reducescatter``)."""
         if self.world_size == 1 or not tensors:
             return tensors
         cuda = self.device.type == "cuda"
@@ -174,6 +225,7 @@ class DistContext:
                     off += n
             self.allreduce_calls += 1
             self.allreduce_bytes += flat.numel() * flat.element_size()
+            self._count(mechanism, flat.numel() * flat.element_size(), 2)
         if cuda:
             torch.cuda.synchronize(self.device)
         self.allreduce_s += time.perf_counter() - t0

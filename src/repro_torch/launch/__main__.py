@@ -24,9 +24,11 @@ same registry.
 
 ``dryrun`` builds each (arch x shape) step on the ``meta`` device and
 counts its FLOPs and bytes for one card (nothing is allocated, no card is
-needed); ``perfprobe`` runs one cell on the card at the batch the dry run
-says fits it (``--device cpu`` for a CPU run; ``layout`` ``dp`` only
-until ``sharding/`` is ported).
+needed; each record adds the per-device bytes of its layout on the
+production mesh); ``perfprobe`` runs one cell on the card at the batch
+the dry run says fits it (``--device cpu`` for a CPU run), and with
+``--world_size N`` self-gangs N ranks on a data grid: ``fsdp_tp`` (the
+default) and ``fsdp_sp`` shard the parameters, ``dp`` replicates them.
 
 ``campaign run`` drives a whole campaign from a jobs file (a JSON list
 of RunSpec dicts): it submits every spec to an Orchestrator and executes

@@ -38,6 +38,14 @@ batch:
   ``peak_bytes_one_card``, that peak (:func:`peak_at`: parameters,
   gradients and optimizer state stay, the rest scales with the batch).
 
+``sharded_bytes`` is what one device of the reference's production mesh
+holds under the record's layout: parameters, gradients (a train step's,
+sharded like the parameters), optimizer state and decode state, each
+leaf's shard from the rules' specs (:func:`repro_torch.sharding.rules.
+per_device_bytes`): the counterpart of the reference's
+``memory_analysis`` argument sizes.  The traced step and the one-card
+fields stay world 1 under ``dp``.
+
 ``roofline`` is :func:`repro_torch.analysis.analytic.analytic_roofline`
 on the reference's production mesh for ``layout``, with the H100's
 figures.  The probe (:mod:`repro_torch.launch.perfprobe`) runs a cell at
@@ -67,6 +75,8 @@ from repro_torch.core.autobatch import MemoryBudget
 from repro_torch.kernels.ssd_scan.ops import plain_backward
 from repro_torch.launch.mesh import INPUT_SHAPES, mesh_tag, production_dims
 from repro_torch.launch.steps import build, effective_config, pick_optimizer
+from repro_torch.models.model import init_decode_state, param_specs
+from repro_torch.sharding import rules
 from repro_torch.train.step import _global_sq_norm, make_loss_and_grads
 from repro_torch.tree import tree_leaves
 
@@ -275,6 +285,28 @@ def one_card_fit(traced: Dict, batch: int):
     return traced["peak_bytes"] <= budget, b
 
 
+def sharded_bytes(cfg, kind: str, batch: int, seq: int, mesh,
+                  layout: str) -> Dict:
+    """Bytes one device of ``mesh`` (an axis-size dict) holds under
+    ``layout``, by kind, from the rules' specs of the meta trees."""
+    params = param_specs(cfg)
+    p_bytes = rules.per_device_bytes(
+        params, rules.param_shardings(params, mesh, layout), mesh)
+    out = {"params": p_bytes, "grads": 0, "optimizer_state": 0,
+           "decode_state": 0}
+    if kind == "train":
+        opt = pick_optimizer(cfg).init(params)
+        out["grads"] = p_bytes
+        out["optimizer_state"] = rules.per_device_bytes(
+            opt, rules.param_shardings(opt, mesh, layout), mesh)
+    elif not cfg.is_encoder_only:
+        # decode: the cache it reads; prefill: the cache it fills
+        state = init_decode_state(cfg, batch, seq, device="meta")
+        out["decode_state"] = rules.per_device_bytes(
+            state, rules.decode_state_shardings(state, mesh, layout), mesh)
+    return out
+
+
 def _write(rec: dict, out_dir: str) -> None:
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
@@ -302,6 +334,10 @@ def run_one(arch: str, shape_name: str, multi_pod: bool, layout: str,
         cfg = effective_config(get_config(arch), shape_name)
         rec["roofline"] = analytic_roofline(
             cfg, batch, seq, kind, production_dims(multi_pod), layout)
+        mesh = production_dims(multi_pod)
+        rec["sharded_bytes"] = dict(
+            sharded_bytes(cfg, kind, batch, seq, mesh, layout),
+            mesh=mesh_tag(multi_pod), layout=layout)
         traced = trace_step(kind, cfg, batch, seq, microbatches)
         analytic = flops_per_chip(cfg, batch, seq, kind, ONE_CHIP)
         fits, max_batch = one_card_fit(traced, batch)

@@ -6,7 +6,8 @@ counterpart of ``repro.launch.perfprobe``).
 The reference lowers and compiles a cell for the production TPU mesh and
 reports XLA's collective bytes and temp memory beside the analytic
 roofline.  The port runs the cell: one warm-up step, one measured step
-(host clock around a synchronize) and one step under ``torch.profiler``.
+(host clock around a synchronize) and, at world 1, one step under
+``torch.profiler``.
 ``INPUT_SHAPES`` are pod-sized, so the batch is cut to what one card holds:
 the dry run's ``max_batch_one_card`` (:mod:`repro_torch.launch.dryrun`);
 the sequence is never cut.  A train cell builds ``init_train_state``'s
@@ -19,8 +20,19 @@ measured step, the all-reduce bytes (0: world 1 issues no collective),
 :func:`analytic_roofline` for one chip, and :func:`profile_terms`, the
 measured device time against the analytic FLOPs and bytes.
 
-Only ``layout="dp"`` runs: ``fsdp_tp`` and ``fsdp_sp`` shard parameters,
-and ``sharding/`` is not ported yet.
+A grid of ranks (``grid``, a :class:`repro_torch.sharding.grid.RankGrid`
+on the data axis: the runner's ``world_size`` self-gangs as ``run train``
+does) runs the cell as a gang: ``fsdp_tp`` and ``fsdp_sp`` keep each
+rank's shards of the parameters and moments and gather each layer where
+it runs (on the data axis the reference's rules make both ZeRO-3), and
+``dp`` is the data-parallel gang.  Each rank adds a ``dist`` section: its
+collective bytes in the measured step by the analytic model's mechanism
+(``fsdp_allgather``, ``grad_reducescatter``, ``replicated_allreduce``,
+``norm_allreduce``), its peak memory, launches and losses; the record
+holds :func:`collective_bytes_per_chip` for ``{data: N, model: 1}``
+beside them.  On a grid of one rank every layout is the ``dp`` step.
+The reference's two-pod mesh (``multi_pod``) is 512 cards, not one host:
+it raises.
 """
 from __future__ import annotations
 
@@ -33,7 +45,9 @@ from typing import Dict, Optional
 
 import torch
 
-from repro_torch.analysis.analytic import analytic_roofline
+from repro_torch.analysis.analytic import (analytic_roofline,
+                                           collective_bytes_per_chip,
+                                           mesh_dims)
 from repro_torch.analysis.profile import device_profile
 from repro_torch.analysis.roofline import profile_terms
 from repro_torch.configs import get_config, get_reduced
@@ -78,6 +92,18 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _dist_record(grid, before: Dict, launches: Dict, step_s: float,
+                 losses) -> Dict:
+    """A gang rank's own measurements of the measured step."""
+    d = grid.dist
+    return {"rank": d.rank, "world_size": d.world_size, "grid": grid.mesh,
+            "backend": d.backend, "device": str(d.device),
+            "collective_bytes": {k: v - before.get(k, 0.0)
+                                 for k, v in d.collective_bytes.items()},
+            "step_s": step_s, "kernel_launches": launches,
+            "losses": losses}
+
+
 def _outcome(kind: str, out) -> Dict:
     """The step's loss (train) or whether its logits are finite."""
     if kind == "train":
@@ -92,26 +118,24 @@ def probe(arch: str, shape: str, layout: str = "dp", *,
           multi_pod: bool = False, microbatches: int = 1,
           save: Optional[str] = None, device=None, seed: int = 0,
           reduced: bool = False, batch: Optional[int] = None,
-          seq: Optional[int] = None) -> dict:
-    """One cell on ``device`` (default ``cuda``, which must exist).
+          seq: Optional[int] = None, grid=None) -> dict:
+    """One cell on ``device`` (default ``cuda``, which must exist), or on
+    ``grid``'s rank (its device) as one rank of a gang.
 
-    ``batch`` and ``seq`` default to the dry run's one-card batch and the
-    shape's sequence; ``reduced`` takes the arch's reduced config.  The
-    three are for CPU tests: the record names whatever cut was taken.
-    The probe runs one card: ``multi_pod`` (the reference's two-pod mesh)
-    raises, as do the sharded layouts.
+    ``batch`` (the GLOBAL batch of a gang) and ``seq`` default to the dry
+    run's one-card batch and the shape's sequence; ``reduced`` takes the
+    arch's reduced config.  The record names whatever cut was taken.
+    ``multi_pod`` (the reference's two-pod mesh) raises.
     """
     if layout not in LAYOUTS:
         raise ValueError(f"unknown layout {layout!r} (have {LAYOUTS})")
-    if layout != "dp":
-        raise ValueError(f"layout {layout!r} shards the parameters; "
-                         f"sharding/ is not ported yet, so the probe runs "
-                         f"only layout='dp'")
     if multi_pod:
-        raise ValueError("the probe runs one card; the two-pod mesh needs "
-                         "sharding/, which is not ported yet")
+        raise ValueError("the two-pod mesh is 2 x 16 x 16 = 512 cards; the "
+                         "probe runs one card or a gang on one host")
     seq_of, batch_of, kind = INPUT_SHAPES[shape]
-    device = resolve_device(device)
+    world = 1 if grid is None else grid.world_size
+    step_layout = layout if world > 1 else "dp"
+    device = grid.device if grid is not None else resolve_device(device)
     cfg = effective_config(get_reduced(arch) if reduced else get_config(arch),
                            shape)
     seq = seq or seq_of
@@ -130,22 +154,36 @@ def probe(arch: str, shape: str, layout: str = "dp", *,
                     "estimate_peak_bytes": peak_at(traced, batch_of, batch),
                     "traced_peak_bytes": at_cut["peak_bytes"],
                     "budget_bytes": one_card_budget()}
+    if batch % world:
+        raise ValueError(f"global batch {batch} does not divide over "
+                         f"{world} ranks")
     kw = {"microbatches": microbatches} if kind == "train" else {}
     t0 = time.time()
-    fn, args = build(kind, cfg, batch, seq, device=device, seed=seed, **kw)
+    fn, args = build(kind, cfg, batch, seq, device=device, seed=seed,
+                     layout=layout, grid=grid, **kw)
     _sync(device)
     build_s = time.time() - t0
 
+    losses = []       # a train cell's loss at each step it runs
+
+    def run():
+        out = fn(*args)
+        if kind == "train":
+            losses.append(float(out[1]["loss"]))
+        return out
+
     t0 = time.time()
-    out = fn(*args)
+    out = run()
     _sync(device)
     warmup_s = time.time() - t0
     del out
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     before = _launches()
+    bytes_before = {} if grid is None else dict(grid.dist.collective_bytes)
+    allreduce_before = 0 if grid is None else grid.dist.allreduce_bytes
     t0 = time.time()
-    out = fn(*args)
+    out = run()
     _sync(device)
     step_s = time.time() - t0
     after = _launches()
@@ -153,18 +191,30 @@ def probe(arch: str, shape: str, layout: str = "dp", *,
     del out
     launches = {name: {r: after[name][r] - before[name][r]
                        for r in after[name]} for name in KERNELS}
+    dist = None
+    if world > 1:
+        dist = _dist_record(grid, bytes_before, launches, step_s, losses)
     profile = None
     peak_gb = None
     if device.type == "cuda":
         peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
-        profile = device_profile(lambda: fn(*args))
+    if device.type == "cuda" and world == 1:
+        # a gang's ranks may share the card: one rank's trace would not
+        # be the card's busy time, so a gang runs no profiled step
+        profile = device_profile(run)
         profile["kernel_ms"] = _kernel_ms(profile.pop("kernels"))
-    analytic = analytic_roofline(cfg, batch, seq, kind, ONE_CARD, "dp")
+    mesh = ONE_CARD if world == 1 else {"data": world, "model": 1}
+    analytic = analytic_roofline(cfg, batch, seq, kind, mesh, step_layout)
     measured_s = (profile["device_busy_ms"] / 1e3 if profile is not None
                   else step_s)
+    coll = 0.0 if dist is None else sum(dist["collective_bytes"].values())
+    if dist is not None:
+        dist["peak_mem_gb"] = peak_gb
     rec = {
         "arch": cfg.name, "shape": shape, "kind": kind, "layout": layout,
-        "mesh": "1 card", "world_size": 1, "microbatches": microbatches,
+        "step_layout": step_layout,
+        "mesh": "1 card" if world == 1 else f"data {world} (one host)",
+        "world_size": world, "microbatches": microbatches,
         "device": device.type,
         "device_name": (torch.cuda.get_device_name(device)
                         if device.type == "cuda" else "cpu"),
@@ -172,28 +222,38 @@ def probe(arch: str, shape: str, layout: str = "dp", *,
         "batch_of": batch_of,
         "cut": f"batch {batch} of {batch_of}" + (
             f", seq {seq} of {seq_of}" if seq != seq_of else ", seq uncut"),
-        "traced": (f"{device.type}: K1-K4 on their routes; world 1, dp"
-                   if device.type == "cuda"
+        "traced": (f"{device.type}: K1-K4 on their routes; world {world}, "
+                   f"{step_layout}" if device.type == "cuda"
                    else f"{device.type}: the kernels' plain versions; "
-                        f"world 1, dp"),
+                        f"world {world}, {step_layout}"),
         "one_card": one_card, "build_s": build_s, "warmup_s": warmup_s,
         "step_s": step_s, "step_measured_by": "host clock, synchronized",
         "peak_mem_gb": peak_gb, "profile": profile, "launches": launches,
-        "allreduce_bytes": 0,
-        "allreduce": "world 1: no collective is issued",
+        "allreduce_bytes": (0 if grid is None else
+                            grid.dist.allreduce_bytes - allreduce_before),
+        "allreduce": ("world 1: no collective is issued" if world == 1 else
+                      "the measured step's all-reduced bytes (gradients "
+                      "under dp; replicated leaves, the loss and the norm "
+                      "under fsdp_*); all collectives in dist"),
         "analytic": analytic,
         "profile_terms": dict(profile_terms(
             measured_s, analytic["flops_per_chip"],
-            analytic["hbm_bytes_per_chip"], 0),
+            analytic["hbm_bytes_per_chip"], coll),
             measured_by=("device busy time (torch.profiler)"
                          if profile is not None else "host step time")),
         **outcome,
     }
+    if kind == "train":
+        rec["losses"] = losses
+    if dist is not None:
+        rec["dist"] = dist
+        rec["analytic_collective_bytes"] = collective_bytes_per_chip(
+            cfg, batch, seq, kind, mesh_dims(mesh), step_layout)
     print(f"[{cfg.name} x {shape} x {layout}] {rec['cut']} on "
           f"{rec['device_name']}: step {step_s * 1e3:.1f} ms, lower bound "
           f"{analytic['step_time_lower_bound_s'] * 1e3:.1f} ms "
           f"({analytic['dominant']})")
-    if save:
+    if save and (grid is None or grid.rank == 0):
         os.makedirs(os.path.dirname(save) or ".", exist_ok=True)
         with open(save, "w") as f:
             json.dump(rec, f, indent=1, default=str)
@@ -205,17 +265,19 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--shape", required=True, choices=list(INPUT_SHAPES))
-    ap.add_argument("--layout", default="dp", choices=list(LAYOUTS))
+    ap.add_argument("--layout", default="fsdp_tp", choices=list(LAYOUTS))
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--save", default=None)
     ap.add_argument("--device", default=None)
+    ap.add_argument("--world-size", type=int, default=1)
     args = ap.parse_args()
 
     from repro_torch.api import RunSpec, run
     overrides = {"shape": args.shape, "layout": args.layout,
                  "multi_pod": args.multi_pod,
-                 "microbatches": args.microbatches}
+                 "microbatches": args.microbatches,
+                 "world_size": args.world_size}
     if args.save:
         overrides["save"] = args.save
     if args.device:

@@ -1,12 +1,28 @@
 """Shared step builders (the port's copy of ``repro.launch.steps``): given
-(arch config, input shape) produce the step function and its argument
-tensors, on the device the caller names: ``meta`` for the dry run (shapes
-only, nothing allocated) or the card for the probe.
+(arch config, input shape, layout, rank grid) produce the step function
+and its argument tensors, on the device the caller names: ``meta`` for
+the dry run (shapes only, nothing allocated) or the card for the probe.
 
-The reference returns a jitted step with in/out shardings over a device
-mesh and lowers it (``lower_step``, ``shard_ctx_for``).  The port has no
-parameter-sharded layout yet: under ``dp`` a step is world 1, and a
-builder returns a plain callable.
+The reference returns a jitted step whose ``in_shardings`` come from the
+rules over a device mesh, and lowers it under :func:`shard_ctx_for`'s
+ctx.  The port returns a plain callable over one rank's tensors:
+
+* no grid, or a grid of one rank: today's world-1 step, whatever the
+  layout (``dp`` bit for bit);
+* ``dp`` on a grid of N: the data-parallel gang's step (replicated
+  parameters, the gradients all-reduced);
+* ``fsdp_tp`` / ``fsdp_sp`` on a data grid of N: the rank keeps its
+  shards of the parameters and moments
+  (:class:`repro_torch.sharding.fsdp.FSDP`, the rules'
+  :func:`state_shardings`), and the step gathers each layer where it
+  runs.
+
+Every rank draws the full parameters and the global batch from the seed
+and keeps its shards and its rows, so a gang computes the world-1 step's
+numbers.  A rank's rows are its MoE dispatch group and its sequence one
+segment, as with no :class:`repro_torch.sharding.ShardCtx`, so a step
+runs under none (:func:`shard_ctx_for` is the reference's ctx of the
+whole mesh).  ``lower_step`` has no counterpart: nothing is lowered.
 """
 from __future__ import annotations
 
@@ -18,10 +34,13 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.data.inputs import (decode_specs, input_specs, make_batch,
                                      make_decode_batch)
+from repro_torch.distributed.data import shard_rows
 from repro_torch.models.model import (decode_step, forward,
                                       init_decode_state, init_params,
                                       param_specs, prefill, require_decoder)
 from repro_torch.optim import get_optimizer
+from repro_torch.sharding import ShardCtx, rules
+from repro_torch.sharding.fsdp import FSDP
 from repro_torch.train.step import TrainState, make_train_step
 
 BIG_PARAM_THRESHOLD = 20e9   # above this, optimizer moments go bf16
@@ -43,6 +62,39 @@ def effective_config(cfg: ArchConfig, shape_name: str) -> ArchConfig:
     return cfg
 
 
+def shard_ctx_for(mesh, layout: str) -> ShardCtx:
+    """The reference's ctx for a mesh (an axis-size dict) and layout."""
+    return ShardCtx(mesh, rules.logical_axes(mesh, layout))
+
+
+def state_shardings(cfg: ArchConfig, mesh, layout: str,
+                    optimizer=None) -> TrainState:
+    """The train state's specs on ``mesh`` (the reference's
+    ``in_shardings`` of the state): the parameters' by the rules, the
+    optimizer moments' the same, the step replicated."""
+    optimizer = optimizer or pick_optimizer(cfg)
+    params = param_specs(cfg)
+    return TrainState(rules.param_shardings(params, mesh, layout),
+                      rules.param_shardings(optimizer.init(params), mesh,
+                                            layout), ())
+
+
+def _sharding(layout: str, grid, params):
+    """``(dist, fsdp)`` of a step on ``grid``: none at world 1; the
+    rank's context, and FSDP storage unless the layout is ``dp``."""
+    if grid is None or grid.world_size == 1:
+        return None, None
+    if layout == "dp":
+        return grid.dist, None
+    return grid.dist, FSDP(grid, params, layout)
+
+
+def _rows(inputs, grid):
+    if grid is None or grid.world_size == 1:
+        return inputs
+    return shard_rows(inputs, grid.rank, grid.world_size)
+
+
 def _is_meta(device) -> bool:
     return torch.device(device).type == "meta"
 
@@ -62,49 +114,70 @@ def _inputs(cfg: ArchConfig, batch: int, seq: int, device, seed: int):
 
 # --------------------------------------------------------------------------
 def build_train(cfg: ArchConfig, batch: int, seq: int, *, device,
-                microbatches: int = 1, remat: bool = True,
-                seed: int = 0) -> Tuple[Callable, tuple]:
+                layout: str = "dp", grid=None, microbatches: int = 1,
+                remat: bool = True, seed: int = 0) -> Tuple[Callable, tuple]:
     """``train_step(state, batch) -> (state, metrics)`` (the optimizer
-    updates ``state`` in place) and ``(state, batch)``."""
+    updates ``state`` in place) and ``(state, batch)``: on a grid of N,
+    the rank's state (its shards under ``fsdp_*``) and its rows of the
+    global ``batch``."""
     optimizer = pick_optimizer(cfg)
-    step_fn = make_train_step(cfg, optimizer, remat=remat,
-                              microbatches=microbatches)
     params = _params(cfg, device, seed)
+    dist, fsdp = _sharding(layout, grid, params)
+    step_fn = make_train_step(cfg, optimizer, remat=remat,
+                              microbatches=microbatches, dist=dist,
+                              fsdp=fsdp)
+    if fsdp is not None:
+        params = fsdp.shard_tree(params)
     state = TrainState(params, optimizer.init(params), 0)
-    return step_fn, (state, _inputs(cfg, batch, seq, device, seed))
+    return step_fn, (state, _rows(_inputs(cfg, batch, seq, device, seed),
+                                  grid))
 
 
 def build_prefill(cfg: ArchConfig, batch: int, seq: int, *, device,
+                  layout: str = "dp", grid=None,
                   seed: int = 0) -> Tuple[Callable, tuple]:
     """``fn(params, batch) -> (last logits, decode state)`` (an
     encoder-only config: the last position's logits) and ``(params,
-    batch)``."""
+    batch)``: on a grid of N the rank's params (shards under
+    ``fsdp_*``) and rows."""
+    params = _params(cfg, device, seed)
+    _, fsdp = _sharding(layout, grid, params)
     if cfg.is_encoder_only:
         @torch.no_grad()
         def fn(params, batch_in):
-            return forward(params, cfg, batch_in, remat=False)[:, -1, :]
+            return forward(params, cfg, batch_in, remat=False,
+                           fsdp=fsdp)[:, -1, :]
     else:
         def fn(params, batch_in):
-            return prefill(params, cfg, batch_in, cache_len=seq)
-    return fn, (_params(cfg, device, seed),
-                _inputs(cfg, batch, seq, device, seed))
+            return prefill(params, cfg, batch_in, cache_len=seq, fsdp=fsdp)
+    if fsdp is not None:
+        params = fsdp.shard_tree(params)
+    return fn, (params, _rows(_inputs(cfg, batch, seq, device, seed), grid))
 
 
 def build_decode(cfg: ArchConfig, batch: int, seq: int, *, device,
+                 layout: str = "dp", grid=None,
                  seed: int = 0) -> Tuple[Callable, tuple]:
     """serve_step: ONE new token against a cache of ``seq`` positions.
     ``fn(params, state, tokens, position) -> (logits, state)`` and its
-    arguments; the token sits at position ``seq - 1``."""
+    arguments; the token sits at position ``seq - 1``.  On a grid of N
+    the rank's params (shards under ``fsdp_*``), its rows of the tokens
+    and positions, and a decode state of its rows (the rules' batch
+    axis)."""
     require_decoder(cfg)
+    params = _params(cfg, device, seed)
+    _, fsdp = _sharding(layout, grid, params)
 
     def fn(params, state, tokens, position):
-        return decode_step(params, cfg, state, tokens, position)
+        return decode_step(params, cfg, state, tokens, position, fsdp=fsdp)
 
-    state = init_decode_state(cfg, batch, seq, device=device)
-    d = (decode_specs(cfg, batch) if _is_meta(device)
-         else make_decode_batch(cfg, batch, seq - 1, seed, device=device))
-    return fn, (_params(cfg, device, seed), state, d["tokens"],
-                d["position"])
+    if fsdp is not None:
+        params = fsdp.shard_tree(params)
+    d = _rows(decode_specs(cfg, batch) if _is_meta(device)
+              else make_decode_batch(cfg, batch, seq - 1, seed,
+                                     device=device), grid)
+    state = init_decode_state(cfg, d["tokens"].shape[0], seq, device=device)
+    return fn, (params, state, d["tokens"], d["position"])
 
 
 def build(kind: str, cfg: ArchConfig, batch: int, seq: int, *, device,

@@ -4,7 +4,12 @@ and gated MLPs.  Port of ``repro.models.layers``.
 
 Parameters are plain dicts of tensors, as in the reference; every layer is
 an ``init`` + ``apply`` pair of functions.  The reference's sharding
-constraints have no counterpart on one card and are dropped.
+constraints (``constrain``) have no counterpart: the port's activations
+are one rank's own tensors (:mod:`repro_torch.sharding`).  Nor has its
+``_multi_device``: the reference leaves its Pallas attention under a
+multi-device ctx because ``pallas_call`` has no GSPMD partitioning rule,
+but a rank of the port runs local tensors, so K1-K3 stay on the
+parameter-sharded path too.
 """
 from __future__ import annotations
 

@@ -23,6 +23,19 @@ over the SSD layers, each layer indexing its own kind's axis in layer
 order; :func:`decode_step` updates it in place (the reference donates
 it).
 
+Under a parameter-sharded layout (``fsdp``, a
+:class:`repro_torch.sharding.fsdp.FSDP`) the params are the rank's
+shards: :func:`loss_terms`, :func:`forward`, :func:`prefill` and
+:func:`decode_step` gather the embedding, head and final norm where they
+are used and each layer's leaves inside its own (checkpointed) forward,
+so the recompute of the backward gathers them again.  Each layer also
+re-installs the :class:`repro_torch.sharding.ShardCtx` the backbone was
+called under, which the recompute may run without.  No entry point of
+the port installs a ctx yet (a data-grid step runs under none, see
+:mod:`repro_torch.launch.steps`), so there the ctx is ``None``; only
+direct callers (the tests) reach the grouped MoE dispatch and
+``ssd_seq_parallel`` through it until the model-axis step installs one.
+
 An SSD layer with no FFN keeps ``norm2``, as the reference's slot does,
 although nothing reads it, and the audio family keeps an untied embedding
 table that its frame inputs bypass; :func:`unused_leaves` marks those
@@ -41,6 +54,7 @@ from repro_torch.kernels.common import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
+from repro_torch.sharding.ctx import current_ctx, use_ctx
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -248,14 +262,32 @@ def _ffn(layer, cfg: ArchConfig, x, token_mask=None):
     return x + y, aux
 
 
-def _layer_forward(layer, x, positions, cfg: ArchConfig, spec: L.AttnSpec):
-    h = L.norm_apply(cfg.norm, layer["norm1"], x)
-    if "ssm" in layer:
-        mix = SSM.ssm_apply(layer["ssm"], h, cfg.ssm,
-                            backend=cfg.mixer_backend)
-    else:
-        mix = L.attn_apply(layer["attn"], h, spec, positions)
-    return _ffn(layer, cfg, x + mix)
+def _layer_forward(layer, x, positions, cfg: ArchConfig, spec: L.AttnSpec,
+                   ctx=None, gather=None):
+    """One layer; ``ctx`` is installed around it and ``gather`` (an
+    FSDP layer gather) turns its shards into whole leaves first."""
+    with use_ctx(ctx):
+        if gather is not None:
+            layer = gather(layer)
+        h = L.norm_apply(cfg.norm, layer["norm1"], x)
+        if "ssm" in layer:
+            mix = SSM.ssm_apply(layer["ssm"], h, cfg.ssm,
+                                backend=cfg.mixer_backend)
+        else:
+            mix = L.attn_apply(layer["attn"], h, spec, positions)
+        return _ffn(layer, cfg, x + mix)
+
+
+def _unused_outer(cfg: ArchConfig) -> tuple:
+    """Top-level params no output reads (see :func:`unused_leaves`): an
+    FSDP step does not gather them."""
+    return ("embed",) if cfg.family == "audio" and not cfg.tie_embeddings \
+        else ()
+
+
+def _gather_outer(params, cfg: ArchConfig, fsdp):
+    return params if fsdp is None else fsdp.gather_outer(
+        params, skip=_unused_outer(cfg))
 
 
 def unused_leaves(params, cfg: ArchConfig) -> List[bool]:
@@ -265,39 +297,46 @@ def unused_leaves(params, cfg: ArchConfig) -> List[bool]:
     whose gradient is zero.  Differentiating only the others keeps
     autograd's check that every other parameter reaches the loss."""
     flags = tree_map(lambda _: False, params)
-    if cfg.family == "audio" and not cfg.tie_embeddings:
-        flags["embed"]["w"] = True
+    for key in _unused_outer(cfg):
+        flags[key] = tree_map(lambda _: True, flags[key])
     for layer in flags["layers"]:
         if "ssm" in layer and "mlp" not in layer and "moe" not in layer:
             layer["norm2"] = tree_map(lambda _: True, layer["norm2"])
     return tree_leaves(flags)
 
 
-def backbone(params, cfg: ArchConfig, x, positions, remat: bool = True):
+def backbone(params, cfg: ArchConfig, x, positions, remat: bool = True,
+             fsdp=None):
     """The layer stack and the final norm.  Returns (x, aux): the MoE aux
     loss summed over the layers in layer order (f32 zero without MoE).
     With ``remat`` each layer is one ``checkpoint`` (the reference's
     ``nothing_saveable`` per period): only its input is kept, and its
-    forward runs again in the backward pass."""
+    forward (its FSDP gathers too) runs again in the backward pass.
+    ``params["final_norm"]`` must be whole (see :func:`_gather_outer`)."""
     spec = attn_spec(cfg)
+    ctx = current_ctx()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for layer in params["layers"]:
+    for i, layer in enumerate(params["layers"]):
+        gather = None if fsdp is None else fsdp.layer_gather(i)
         if remat:
             # the layer draws no random numbers: no RNG state to keep
             x, a = checkpoint(_layer_forward, layer, x, positions, cfg, spec,
-                              use_reentrant=False, preserve_rng_state=False)
+                              ctx, gather, use_reentrant=False,
+                              preserve_rng_state=False)
         else:
-            x, a = _layer_forward(layer, x, positions, cfg, spec)
+            x, a = _layer_forward(layer, x, positions, cfg, spec, ctx,
+                                  gather)
         if a is not None:
             aux = aux + a
     return L.norm_apply(cfg.norm, params["final_norm"], x), aux
 
 
-def forward(params, cfg: ArchConfig, batch, remat: bool = True):
+def forward(params, cfg: ArchConfig, batch, remat: bool = True, fsdp=None):
     """Full forward -> logits (B,S,V) (the MoE aux loss is
     :func:`backbone`'s second output)."""
+    params = _gather_outer(params, cfg, fsdp)
     x, positions, _ = embed_inputs(params, cfg, batch)
-    x, _ = backbone(params, cfg, x, positions, remat=remat)
+    x, _ = backbone(params, cfg, x, positions, remat=remat, fsdp=fsdp)
     return logits_fn(params, cfg, x)
 
 
@@ -344,7 +383,7 @@ def cast_compute_params(params, dtype):
 
 
 def train_loss(params, cfg: ArchConfig, batch, remat: bool = True,
-               loss_chunk: int = 512, compute_dtype=None):
+               loss_chunk: int = 512, compute_dtype=None, fsdp=None):
     """Scalar mean cross entropy plus the MoE aux loss, sequence-chunked
     so the (B,S,V) logits are never materialised at once: next-token
     prediction for the text and vlm families, masked prediction of every
@@ -357,22 +396,23 @@ def train_loss(params, cfg: ArchConfig, batch, remat: bool = True,
     """
     tot, cnt, aux = loss_terms(params, cfg, batch, remat=remat,
                                loss_chunk=loss_chunk,
-                               compute_dtype=compute_dtype)
+                               compute_dtype=compute_dtype, fsdp=fsdp)
     return tot / cnt.clamp_min(1.0) + aux
 
 
 def loss_terms(params, cfg: ArchConfig, batch, remat: bool = True,
-               loss_chunk: int = 512, compute_dtype=None):
+               loss_chunk: int = 512, compute_dtype=None, fsdp=None):
     """:func:`train_loss`'s parts ``(tot, cnt, aux)``: the f32 sum of the
     scored positions' cross entropy, their count and the MoE aux loss.
     The loss is ``tot / max(cnt, 1) + aux``; a data-parallel rank divides
     its ``tot`` by the count summed over every rank instead."""
     if compute_dtype is not None:
         params = cast_compute_params(params, compute_dtype)
+    params = _gather_outer(params, cfg, fsdp)
     x, positions, loss_mask = embed_inputs(params, cfg, batch)
     if compute_dtype is not None:
         x = x.to(_as_dtype(compute_dtype))
-    x, aux = backbone(params, cfg, x, positions, remat=remat)
+    x, aux = backbone(params, cfg, x, positions, remat=remat, fsdp=fsdp)
     w = _head_weight(params, cfg)
 
     if cfg.family == "audio":
@@ -415,7 +455,7 @@ def loss_terms(params, cfg: ArchConfig, batch, remat: bool = True,
 # --------------------------------------------------------------------------
 @torch.no_grad()
 def prefill(params, cfg: ArchConfig, batch, cache_len: int,
-            lengths: Optional[torch.Tensor] = None):
+            lengths: Optional[torch.Tensor] = None, fsdp=None):
     """Inference prefill over the prompt (a vlm's patches, then its
     tokens).  Returns (last_logits (B,V), decode_state).
 
@@ -431,6 +471,7 @@ def prefill(params, cfg: ArchConfig, batch, cache_len: int,
     spec = attn_spec(cfg)
     dtype = param_dtype(cfg)
     attn_len = _attn_len(cfg, cache_len)
+    params = _gather_outer(params, cfg, fsdp)
     x, positions, _ = embed_inputs(params, cfg, batch)
     token_mask = None
     if lengths is not None:
@@ -438,7 +479,9 @@ def prefill(params, cfg: ArchConfig, batch, cache_len: int,
         token_mask = (torch.arange(x.shape[1], device=x.device)[None, :]
                       < lengths[:, None])
     states = {"attn": [], "ssm": []}
-    for layer in params["layers"]:
+    for i, layer in enumerate(params["layers"]):
+        if fsdp is not None:
+            layer = fsdp.layer_gather(i)(layer)
         h = L.norm_apply(cfg.norm, layer["norm1"], x)
         if "ssm" in layer:
             mix, st = SSM.ssm_apply(layer["ssm"], h, cfg.ssm,
@@ -492,7 +535,8 @@ def init_decode_state(cfg: ArchConfig, batch: int, cache_len: int, *,
 
 
 @torch.no_grad()
-def decode_step(params, cfg: ArchConfig, state, tokens, position):
+def decode_step(params, cfg: ArchConfig, state, tokens, position,
+                fsdp=None):
     """One decode step.  tokens: (B,1) int; position: (B,) absolute.
     Returns (logits (B,V), state); ``state`` is updated in place.  The MoE
     routes with no token mask: every row, idle slots included, claims
@@ -500,9 +544,13 @@ def decode_step(params, cfg: ArchConfig, state, tokens, position):
     ``ValueError``."""
     require_decoder(cfg)
     spec = attn_spec(cfg)
+    params = _gather_outer(params, cfg, fsdp)
     x = params["embed"]["w"][tokens.long()]                  # (B,1,d)
     seen = {"attn": 0, "ssm": 0}           # each layer's index in its kind
-    for layer, kind in zip(params["layers"], cfg.layer_kinds()):
+    for i, (layer, kind) in enumerate(zip(params["layers"],
+                                          cfg.layer_kinds())):
+        if fsdp is not None:
+            layer = fsdp.layer_gather(i)(layer)
         h = L.norm_apply(cfg.norm, layer["norm1"], x)
         own = {name: state[name][seen[kind]] for name in STATE_KEYS[kind]}
         seen[kind] += 1

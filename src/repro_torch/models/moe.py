@@ -9,12 +9,16 @@ dropped; the aux load-balance loss keeps drops rare.  The reference also
 computes this product outside any Pallas kernel, so the port has no
 kernel here either.
 
-There is one dispatch group (G = 1): the reference's ``_dispatch_groups``
-returns that without a mesh.  Under its data-parallel layout the groups
-are the ranks' row shards, so a data-parallel rank that dispatches its own
-rows as one group computes what the reference does; the grouped
-all-to-all of a sharded expert layout belongs with ``sharding/``, not
-ported.  Every detail that decides which tokens an
+Tokens are dispatched in G = gb x gs groups, each with its own capacity
+(:func:`_dispatch_groups`, the reference's: the extents of the active
+:class:`repro_torch.sharding.ShardCtx`'s ``batch`` and ``seq`` axes; one
+group without a ctx).  Routing, ranking, the capacity scatter and the
+gather are group-local; the expert FFN runs every group's slots in one
+batched product.  On a rank of a data grid the ctx has every extent at
+1, so each rank's rows are its group: what the reference's data-parallel
+layout dispatches.  The experts' all-to-all across ranks of a ``model``
+axis is not ported (ROADMAP.md Queue 1 item 1 step 5).  Every detail
+that decides which tokens an
 expert takes follows the reference: the router in f32, top-k by k
 iterated argmaxes (a tie goes to the first index), ranks by a stable sort
 with masked tokens under a sentinel expert id E, the capacity counted over
@@ -27,6 +31,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
 from repro_torch.models.layers import DEFAULT_INIT_SCALE, dense_init
+from repro_torch.sharding.ctx import axis_extent_of
 
 
 def moe_init(generator: torch.Generator, d_model: int, cfg: MoEConfig,
@@ -65,6 +70,23 @@ def load_balance_loss(probs, expert_mask):
     f = expert_mask.mean(dim=0)           # fraction of tokens per expert
     p = probs.mean(dim=0)
     return E * torch.sum(f * p)
+
+
+def _axis_extent(logical_name: str) -> int:
+    return axis_extent_of(logical_name)
+
+
+def _dispatch_groups(B: int, S: int):
+    """(batch groups, seq groups): one group per (data shard x seq
+    shard) of the active ctx, an axis that does not divide its dim
+    counting 1."""
+    gs = _axis_extent("seq")
+    if gs <= 1 or S % gs:
+        gs = 1
+    gb = _axis_extent("batch")
+    if gb <= 1 or B % gb:
+        gb = 1
+    return gb, gs
 
 
 def _local_top_k(x: torch.Tensor, k: int):
@@ -109,11 +131,13 @@ def capacity_of(n_tokens: int, cfg: MoEConfig,
                4)
 
 
-def route(params, xt, cfg: MoEConfig, capacity: int, token_mask=None):
-    """Routing of the (T, d) tokens: router probabilities (T, E), the
-    renormalised gates (T, K), and per (token, k) entry its expert id
-    ``e`` (E for a masked token), its rank in that expert, whether it is
-    kept and the buffer slot it reads."""
+def route(params, xt, cfg: MoEConfig, capacity: int, token_mask=None,
+          groups: int = 1):
+    """Routing of the (T, d) tokens, ``groups`` consecutive groups of T /
+    groups: router probabilities (T, E), the renormalised gates (T, K),
+    and per (token, k) entry its expert id ``e`` (E for a masked token),
+    its group ``g``, its rank in that expert within its group, whether it
+    is kept and the buffer slot it reads."""
     E, K = cfg.n_experts, cfg.top_k
     T = xt.shape[0]
     probs, _ = router_probs(params, xt)                    # (T, E)
@@ -123,25 +147,37 @@ def route(params, xt, cfg: MoEConfig, capacity: int, token_mask=None):
     if token_mask is not None:
         expert_idx = torch.where(token_mask.reshape(T, 1), expert_idx, E)
     e = expert_idx.reshape(T * K)
-    rank = _ranks_in_expert(e, E)
+    # each entry's group, 0 for one group (no group arithmetic then)
+    g = 0 if groups == 1 else torch.arange(
+        groups, device=e.device).repeat_interleave(T * K // groups)
+    # one segment per (group, expert id), the sentinel's included
+    rank = _ranks_in_expert(_in_group(g, e, E + 1), groups * (E + 1) - 1)
     keep = rank < capacity
-    return {"probs": probs, "gates": gate_vals, "e": e, "rank": rank,
+    return {"probs": probs, "gates": gate_vals, "e": e, "g": g, "rank": rank,
             "keep": keep, "slot": torch.where(keep, rank, capacity - 1)}
 
 
-def dispatch(xt, r: dict, E: int, K: int, capacity: int):
-    """The (E, capacity, d) expert buffer.  The reference scatter-adds
-    x * keep at (e, slot) and drops the sentinel rows; a dropped token adds
-    zeros, so writing only the kept rows of real experts gives the same
-    buffer bit for bit.  The other rows go to one spare row past the end,
-    which is cut off: no mask of data-dependent length, so no wait for the
-    device."""
+def _in_group(g, ids, width: int):
+    """``ids`` moved to their group's block of ``width`` (``g`` is 0 for
+    one group: the ids as they are)."""
+    return ids if isinstance(g, int) else g * width + ids
+
+
+def dispatch(xt, r: dict, E: int, K: int, capacity: int, groups: int = 1):
+    """The (groups * E, capacity, d) expert buffer, group-major.  The
+    reference scatter-adds x * keep at (e, slot) and drops the sentinel
+    rows; a dropped token adds zeros, so writing only the kept rows of
+    real experts gives the same buffer bit for bit.  The other rows go
+    to one spare row past the end, which is cut off: no mask of
+    data-dependent length, so no wait for the device."""
     d = xt.shape[1]
+    rows = groups * E * capacity
     put = r["keep"] & (r["e"] < E)
-    row = torch.where(put, r["e"] * capacity + r["rank"], E * capacity)
-    buf = xt.new_zeros((E * capacity + 1, d))
+    row = torch.where(put, _in_group(r["g"], r["e"], E) * capacity
+                      + r["rank"], rows)
+    buf = xt.new_zeros((rows + 1, d))
     buf[row] = xt.repeat_interleave(K, dim=0)
-    return buf[:-1].view(E, capacity, d)
+    return buf[:-1].view(groups * E, capacity, d)
 
 
 def expert_ffn(params, buf, act: str):
@@ -156,27 +192,32 @@ def expert_ffn(params, buf, act: str):
 
 
 def combine(out_buf, r: dict, masked: bool):
-    """(T, d): each token's kept expert outputs weighted by its gates.  The
-    gather clamps the sentinel E to E - 1, as a JAX gather does; with a
-    token mask its gradient drops the sentinel rows, as the JAX gather's
-    transpose does."""
-    E = out_buf.shape[0]
+    """(T, d): each token's kept expert outputs weighted by its gates,
+    from the (groups * E, capacity, d) buffer.  The gather clamps the
+    sentinel E to E - 1, as a JAX gather does; with a token mask its
+    gradient drops the sentinel rows, as the JAX gather's transpose
+    does."""
     T, K = r["gates"].shape
-    y = out_buf[r["e"].clamp_max(E - 1), r["slot"]]
+    E = r["probs"].shape[1]
+    y = out_buf[_in_group(r["g"], r["e"].clamp_max(E - 1), E), r["slot"]]
     if masked and torch.is_grad_enabled():
         y = torch.where((r["e"] < E)[:, None], y, y.detach())
     w = (r["gates"] * r["keep"].reshape(T, K)).to(y.dtype)
     return (y.reshape(T, K, -1) * w[..., None]).sum(dim=1)
 
 
-def aux_loss(r: dict, E: int):
-    """GShard load balance over the routed (pre-drop) entries: the counts
-    drop the sentinel, but the divisor counts every entry."""
+def aux_loss(r: dict, E: int, groups: int = 1):
+    """GShard load balance over the routed (pre-drop) entries, per group
+    and then averaged over the groups: the counts drop the sentinel, but
+    the divisor counts every entry of the group."""
     e = r["e"]
-    counts = torch.zeros(E + 1, dtype=torch.float32, device=e.device)
-    counts.index_add_(0, e, torch.ones(e.shape, device=e.device))
-    f = counts[:E] / e.numel()
-    return E * torch.sum(f * r["probs"].mean(dim=0))
+    counts = torch.zeros(groups * (E + 1), dtype=torch.float32,
+                         device=e.device)
+    counts.index_add_(0, _in_group(r["g"], e, E + 1),
+                      torch.ones(e.shape, device=e.device))
+    f = counts.view(groups, E + 1)[:, :E] / (e.numel() // groups)
+    p = r["probs"].view(groups, -1, E).mean(dim=1)
+    return E / groups * torch.sum(f * p)
 
 
 def moe_apply(params: dict, x: torch.Tensor, cfg: MoEConfig, act: str,
@@ -191,9 +232,25 @@ def moe_apply(params: dict, x: torch.Tensor, cfg: MoEConfig, act: str,
     positions."""
     B, S, d = x.shape
     E, K = cfg.n_experts, cfg.top_k
-    capacity = capacity_of(B * S, cfg, capacity_factor)
-    xt = x.reshape(B * S, d)
-    r = route(params, xt, cfg, capacity, token_mask)
-    out_buf = expert_ffn(params, dispatch(xt, r, E, K, capacity), act)
-    y = combine(out_buf, r, token_mask is not None)
-    return y.reshape(B, S, d), cfg.router_aux_weight * aux_loss(r, E)
+    GB, GS = _dispatch_groups(B, S)
+    G, Bl, Sg = GB * GS, B // GB, S // GS
+    capacity = capacity_of(Bl * Sg, cfg, capacity_factor)
+
+    def grouped(t):
+        # (B, S, ...) -> (G * Tg, ...): group (b, s) holds rows b of its
+        # batch block and positions s of its sequence block
+        rest = tuple(t.shape[2:])
+        return t.reshape((GB, Bl, GS, Sg) + rest).transpose(1, 2).reshape(
+            (B * S,) + rest)
+
+    xt = grouped(x)
+    mask = None if token_mask is None else grouped(token_mask)
+    r = route(params, xt, cfg, capacity, mask, groups=G)
+    buf = dispatch(xt, r, E, K, capacity, G)
+    # every group's slots of an expert in one batched product
+    out = expert_ffn(params, buf.view(G, E, capacity, d).transpose(0, 1)
+                     .reshape(E, G * capacity, d), act)
+    out = out.reshape(E, G, capacity, d).transpose(0, 1)
+    y = combine(out.reshape(G * E, capacity, d), r, token_mask is not None)
+    y = y.reshape(GB, GS, Bl, Sg, d).transpose(1, 2).reshape(B, S, d)
+    return y, cfg.router_aux_weight * aux_loss(r, E, G)

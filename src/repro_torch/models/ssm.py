@@ -10,10 +10,17 @@ on CUDA tensors), or the plain chunked scan :func:`ssd_chunked`
 recurrent update :func:`ssd_decode`, plain tensor code: the JAX package
 has no kernel for it.
 
-The reference's sequence-parallel scan (``ssd_seq_parallel``) serves
-sequence-sharded meshes (its ``fsdp_sp`` layout); it belongs with
-``sharding/`` and is not ported.  The data-parallel layout shards only
-the batch, so there the reference takes this scan too.
+Under a :class:`repro_torch.sharding.ShardCtx` whose ``seq`` axis has an
+extent above 1 (``fsdp_sp`` on a mesh with a ``model`` axis) the mixer
+takes the reference's sequence-parallel scan, :func:`ssd_seq_parallel`,
+as the reference's ``ssm_apply`` does.  Its segments are folded into the
+batch, so that one scan call covers them all (K4 on CUDA tensors, the
+plain chunked scan on CPU tensors); the cross-segment combine and the
+local correction are plain tensor code, as in the reference.  Unlike the
+reference, which leaves its Pallas kernel under a multi-device ctx
+(``pallas_call`` has no GSPMD rule), the port's tensors are a rank's own,
+so K4 stays on the sharded path.  A rank of a data grid holds its rows
+whole: its ctx has one segment, and the scan is the one above.
 """
 from __future__ import annotations
 
@@ -25,6 +32,7 @@ from repro_torch.kernels.common import resolve_backend
 from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked_ref
 from repro_torch.models.layers import dense, dense_init, norm_apply
+from repro_torch.sharding.ctx import axis_extent_of
 
 
 def ssm_init(generator: torch.Generator, d_model: int, cfg: SSMConfig,
@@ -88,6 +96,62 @@ def ssd_decode(h, x, dt, A, B_, C_):
     return y, h_new
 
 
+def _seq_shards(S: int) -> int:
+    """Sequence shard count from the active ctx (``fsdp_sp``'s ``seq``
+    axis), else 1; 1 too when it does not divide ``S``."""
+    g = axis_extent_of("seq")
+    return g if (g > 1 and S % g == 0) else 1
+
+
+def _scan(x, dt, A, B_, C_, cfg: SSMConfig, backend: str):
+    """``(y, h_final)`` of the chunked scan: K4 on CUDA tensors (and
+    ``backend="cuda"``), the plain scan otherwise."""
+    if resolve_backend(backend, x) == "cuda":
+        return ssd_scan(x, dt, A, B_, C_, chunk=cfg.chunk,
+                        return_state=True, backend="cuda")
+    return ssd_chunked(x, dt, A, B_, C_, cfg)
+
+
+def ssd_seq_parallel(x, dt, A, B_, C_, cfg: SSMConfig, n_seg: int,
+                     backend: str = "auto"):
+    """Sequence-parallel SSD (the reference's): the chunk recurrence is
+    an associative scan, so each of ``n_seg`` sequence segments runs from
+    a zero state, the segments' final states are combined in one tiny
+    scan over the segments, and each segment adds the incoming state's
+    correction.  The segments are folded into the batch: one scan call
+    runs them all.  Shapes and return as :func:`ssd_chunked`."""
+    Bsz, S, nh, hp = x.shape
+    g, N = B_.shape[2], B_.shape[3]
+    rep = nh // g
+    Sl = S // n_seg
+
+    def fold(t):
+        return t.reshape((Bsz * n_seg, Sl) + tuple(t.shape[2:]))
+
+    y_loc, h_seg = _scan(fold(x), fold(dt), A, fold(B_), fold(C_), cfg,
+                         backend)
+    h_seg = h_seg.reshape(Bsz, n_seg, nh, hp, N)
+
+    # per-segment total decay and incoming states (the tiny combine)
+    la_seg = torch.cumsum(dt.reshape(Bsz, n_seg, Sl, nh) * A, dim=2)
+    seg_decay = torch.exp(la_seg[:, :, -1, :])               # (B,n_seg,nh)
+    h = torch.zeros_like(h_seg[:, 0])
+    h_ins = []
+    for s in range(n_seg):
+        h_ins.append(h)
+        h = seg_decay[:, s, :, None, None] * h + h_seg[:, s]
+    h_in = torch.stack(h_ins, dim=1)                      # (B,n_seg,nh,hp,N)
+
+    # local correction: y[t] += C_t . (exp(la_local[t]) * h_in[segment])
+    Ch = C_.reshape(Bsz, n_seg, Sl, g, N).float().repeat_interleave(
+        rep, dim=3)                                       # (B,n_seg,Sl,nh,N)
+    y_corr = torch.einsum("bsthn,bshpn->bsthp",
+                          Ch * torch.exp(la_seg)[..., None], h_in)
+    y = y_loc.reshape(Bsz, n_seg, Sl, nh, hp) + y_corr.to(y_loc.dtype)
+    # h, after the last segment, is the final state
+    return y.reshape(Bsz, S, nh, hp), h
+
+
 def ssm_apply(params: dict, x: torch.Tensor, cfg: SSMConfig,
               return_state: bool = False, seq_len=None,
               backend: str = "auto"):
@@ -128,11 +192,12 @@ def ssm_apply(params: dict, x: torch.Tensor, cfg: SSMConfig,
     Bg = Bc.reshape(B, S, cfg.n_groups, cfg.d_state)
     Cg = Cc.reshape(B, S, cfg.n_groups, cfg.d_state)
 
-    if resolve_backend(backend, xh) == "cuda":
-        y, h_final = ssd_scan(xh, dt, A, Bg, Cg, chunk=cfg.chunk,
-                              return_state=True, backend="cuda")
+    n_seg = _seq_shards(S)
+    if n_seg > 1 and (S // n_seg) >= cfg.chunk:
+        y, h_final = ssd_seq_parallel(xh, dt, A, Bg, Cg, cfg, n_seg,
+                                      backend)
     else:
-        y, h_final = ssd_chunked(xh, dt, A, Bg, Cg, cfg)
+        y, h_final = _scan(xh, dt, A, Bg, Cg, cfg, backend)
     y = y + params["D"].to(y.dtype)[None, None, :, None] * xh
     y = y.reshape(B, S, di)
     y = norm_apply("rmsnorm", {"scale": params["norm_scale"]},

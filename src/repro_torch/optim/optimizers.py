@@ -10,6 +10,12 @@ writes the new parameters and optimizer state **in place** under
 ``torch.no_grad()`` and returns the same trees.  Arithmetic is f32 and the
 results are cast back to each parameter's and state's dtype, so the
 optimizer state may be held in bf16 (``state_dtype``).
+
+Under a parameter-sharded layout the trees hold a rank's shards.  SGD,
+SGDM and Adam(W) are elementwise and run on them unchanged; LAMB's trust
+ratio needs each leaf's whole norms, so ``update`` takes ``reduce_sq``
+(:meth:`repro_torch.sharding.fsdp.FSDP.reduce_sq`), which sums a leaf's
+squared-norm partials over the ranks holding its shards.
 """
 from __future__ import annotations
 
@@ -22,7 +28,8 @@ from repro_torch.tree import tree_leaves, tree_map
 
 class Optimizer(NamedTuple):
     init: Callable     # params -> state
-    update: Callable   # (grads, state, params, step, lr) -> (params, state)
+    # (grads, state, params, step, lr, reduce_sq=None) -> (params, state)
+    update: Callable
     name: str = ""
 
 
@@ -40,7 +47,7 @@ def sgd(weight_decay: float = 0.0) -> Optimizer:
         return {}
 
     @torch.no_grad()
-    def update(grads, state, params, step, lr):
+    def update(grads, state, params, step, lr, reduce_sq=None):
         for p, g in zip(tree_leaves(params), tree_leaves(grads)):
             g = g.float() + weight_decay * p.float()
             p.copy_(p.float() - lr * g)
@@ -55,7 +62,7 @@ def sgdm(momentum: float = 0.9, weight_decay: float = 0.0,
         return {"m": _tree_zeros_like(params, state_dtype)}
 
     @torch.no_grad()
-    def update(grads, state, params, step, lr):
+    def update(grads, state, params, step, lr, reduce_sq=None):
         for p, g, m in zip(tree_leaves(params), tree_leaves(grads),
                            tree_leaves(state["m"])):
             g = g.float() + weight_decay * p.float()
@@ -68,7 +75,7 @@ def sgdm(momentum: float = 0.9, weight_decay: float = 0.0,
 
 
 def _adam_core(grads, state, params, step, lr, b1, b2, eps, wd,
-               trust_ratio: bool):
+               trust_ratio: bool, reduce_sq=None):
     ps = tree_leaves(params)
     # bias correction at t = step + 1, in f32 as the reference's
     f32 = dict(dtype=torch.float32, device=ps[0].device)
@@ -77,7 +84,7 @@ def _adam_core(grads, state, params, step, lr, b1, b2, eps, wd,
     c2 = 1 - torch.tensor(b2, **f32) ** t
     leaves = zip(ps, tree_leaves(grads), tree_leaves(state["m"]),
                  tree_leaves(state["v"]))
-    for p, g, m, v in leaves:
+    for i, (p, g, m, v) in enumerate(leaves):
         gf = g.float()
         m_new = b1 * m.float() + (1 - b1) * gf
         v_new = b2 * v.float() + (1 - b2) * gf.square()
@@ -87,9 +94,14 @@ def _adam_core(grads, state, params, step, lr, b1, b2, eps, wd,
         if wd:
             # added to the update before lr: not torch's decoupled decay
             u = u + wd * p.float()
-        if trust_ratio:
+        if trust_ratio and reduce_sq is not None:
+            # the whole leaf's norms from its shards' squares
+            pn, un = reduce_sq(i, torch.stack([p.float().square().sum(),
+                                               u.square().sum()])).sqrt()
+        elif trust_ratio:
             pn = torch.linalg.vector_norm(p.float())
             un = torch.linalg.vector_norm(u)
+        if trust_ratio:
             ratio = torch.where((pn > 0) & (un > 0),
                                 pn / un.clamp_min(1e-9), 1.0)
             u = ratio * u
@@ -105,9 +117,9 @@ def _adam_family(name, b1, b2, eps, wd, trust_ratio, state_dtype):
                 "v": _tree_zeros_like(params, state_dtype)}
 
     @torch.no_grad()
-    def update(grads, state, params, step, lr):
+    def update(grads, state, params, step, lr, reduce_sq=None):
         return _adam_core(grads, state, params, step, lr, b1, b2, eps, wd,
-                          trust_ratio)
+                          trust_ratio, reduce_sq)
 
     return Optimizer(init, update, name)
 

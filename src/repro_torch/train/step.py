@@ -17,6 +17,11 @@ with optional microbatch gradient accumulation (port of
   over the ranks before the norm, the clip and the update (see
   :func:`make_loss_and_grads`).  At world 1 it calls no collective and
   is the single-process step.
+* with ``fsdp`` too (a :class:`repro_torch.sharding.fsdp.FSDP`) the
+  state holds the rank's shards: the model gathers each leaf where it
+  is used, the gradients come back as shards already reduce-scattered
+  over the ranks, only the replicated leaves' gradients and the loss are
+  all-reduced, and the norm adds the shards' squares over the ranks.
 """
 from __future__ import annotations
 
@@ -58,9 +63,17 @@ def _split_microbatches(batch: Dict[str, torch.Tensor], n: int):
             for i in range(n)]
 
 
-def _global_sq_norm(grads) -> torch.Tensor:
-    """Single global reduction: sum of squared gradient entries (f32)."""
-    return sum(g.float().square().sum() for g in tree_leaves(grads))
+def _global_sq_norm(grads, fsdp=None) -> torch.Tensor:
+    """Single global reduction: sum of squared gradient entries (f32).
+    Under ``fsdp`` the sharded leaves' squares are summed over the ranks
+    (one all-reduce of a scalar) and each replicated leaf counts once."""
+    sq = [g.float().square().sum() for g in tree_leaves(grads)]
+    if fsdp is None:
+        return sum(sq)
+    shards = sum((q for q, rep in zip(sq, fsdp.replicated) if not rep),
+                 sq[0].new_zeros(()))
+    fsdp.grid.dist.allreduce_([shards], mechanism="norm_allreduce")
+    return shards + sum(q for q, rep in zip(sq, fsdp.replicated) if rep)
 
 
 def _global_counts(dist, cfg: ArchConfig, mbs) -> list:
@@ -82,7 +95,7 @@ def _global_counts(dist, cfg: ArchConfig, mbs) -> list:
 def make_loss_and_grads(cfg: ArchConfig, *, remat: bool = True,
                         microbatches: int = 1, loss_chunk: int = 512,
                         precision: Union[str, Precision, None] = "f32",
-                        dist=None):
+                        dist=None, fsdp=None):
     """Returns ``loss_and_grads(params, batch) -> (loss, grads)``: the
     step's loss and its gradient leaves in ``tree_leaves`` order,
     averaged over ``microbatches`` (accumulated in the policy's gradient
@@ -98,6 +111,11 @@ def make_loss_and_grads(cfg: ArchConfig, *, remat: bool = True,
     before the backward, and one all-reduce sums the ranks' gradients
     and losses: the global gradient and loss.  At world 1 no collective
     runs.
+
+    ``fsdp``: ``params`` are the rank's shards (see :mod:`repro_torch.
+    sharding.fsdp`); the gather's backward reduce-scatters each sharded
+    leaf's gradient, so the all-reduce takes only the replicated leaves'
+    gradients and the loss.
     """
     prec = get_precision(precision)
     grad_dtype = getattr(torch, prec.grad_dtype)
@@ -108,10 +126,10 @@ def make_loss_and_grads(cfg: ArchConfig, *, remat: bool = True,
         if count is None:
             return train_loss(params, cfg, mb, remat=remat,
                               loss_chunk=loss_chunk,
-                              compute_dtype=compute_dtype)
+                              compute_dtype=compute_dtype, fsdp=fsdp)
         tot, _, aux = loss_terms(params, cfg, mb, remat=remat,
                                  loss_chunk=loss_chunk,
-                                 compute_dtype=compute_dtype)
+                                 compute_dtype=compute_dtype, fsdp=fsdp)
         return tot / count.clamp_min(1.0) + aux / world
 
     def value_and_grad(params, mb, count):
@@ -148,9 +166,14 @@ def make_loss_and_grads(cfg: ArchConfig, *, remat: bool = True,
             grads = [g / microbatches for g in grads]
         if world > 1:
             # one sum over the ranks, the loss riding in the gradients'
-            # last bucket
+            # last bucket (under fsdp: the replicated leaves' gradients)
             loss = loss.reshape(1)
-            dist.allreduce_(grads + [loss])
+            if fsdp is None:
+                dist.allreduce_(grads + [loss])
+            else:
+                dist.allreduce_([g for g, rep in zip(grads, fsdp.replicated)
+                                 if rep] + [loss],
+                                mechanism="replicated_allreduce")
             loss = loss[0]
         return loss, grads
 
@@ -162,7 +185,8 @@ def make_train_step(cfg: ArchConfig, optimizer: Optional[Optimizer] = None,
                     remat: bool = True, microbatches: int = 1,
                     loss_chunk: int = 512,
                     precision: Union[str, Precision, None] = "f32",
-                    grad_clip: Optional[float] = None, dist=None):
+                    grad_clip: Optional[float] = None, dist=None,
+                    fsdp=None):
     """Returns ``train_step(state, batch) -> (state, metrics)``.
 
     The step updates ``state.params`` and ``state.opt_state`` in place and
@@ -170,27 +194,31 @@ def make_train_step(cfg: ArchConfig, optimizer: Optional[Optimizer] = None,
     ``grad_clip`` clips the global gradient norm to the given value using
     the same reduction that produces the ``grad_norm`` metric.  With
     ``dist`` (see :func:`make_loss_and_grads`) the norm and the clip see
-    the gradient summed over the ranks.
+    the gradient summed over the ranks; with ``fsdp`` the state holds
+    shards, and the norm and LAMB's trust ratios are taken over the
+    whole leaves.
     """
     optimizer = optimizer or get_optimizer(cfg.optimizer)
     lr_schedule = lr_schedule or constant(1e-4)
     loss_and_grads = make_loss_and_grads(
         cfg, remat=remat, microbatches=microbatches, loss_chunk=loss_chunk,
-        precision=precision, dist=dist)
+        precision=precision, dist=dist, fsdp=fsdp)
+    # only LAMB reads it (its trust ratio's whole-leaf norms)
+    update_kw = {} if fsdp is None else {"reduce_sq": fsdp.reduce_sq}
 
     def train_step(state: TrainState, batch):
         params = state.params
         loss, grads = loss_and_grads(params, batch)
 
         # one global reduction feeds both the metric and the clip scale
-        gnorm = torch.sqrt(_global_sq_norm(grads))
+        gnorm = torch.sqrt(_global_sq_norm(grads, fsdp))
         if grad_clip is not None and grad_clip > 0:
             scale = torch.clamp(grad_clip / gnorm.clamp_min(1e-12), max=1.0)
             grads = [(g.float() * scale).to(g.dtype) for g in grads]
 
         lr = lr_schedule(state.step)
         optimizer.update(tree_unflatten(params, grads), state.opt_state,
-                         params, state.step, float(lr))
+                         params, state.step, float(lr), **update_kw)
         metrics = {"loss": loss, "lr": lr, "grad_norm": gnorm}
         return state._replace(step=state.step + 1), metrics
 

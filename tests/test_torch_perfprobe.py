@@ -1,10 +1,17 @@
 """The probe (``repro_torch.launch.perfprobe``) on the CPU: reduced configs
 at an explicit tiny cut, since the cell's own batch and sequence are the
 card's.  Its record has the documented fields, names its cut and its
-path, holds the analytic roofline for one chip, and never falls back: a
-sharded layout raises, and ``cuda`` without a card fails."""
+path, holds the analytic roofline for one chip, and never falls back:
+the two-pod mesh raises, and ``cuda`` without a card fails.  The sharded
+layouts run as a world-2 gang of ``run perfprobe`` processes (gloo, one
+thread a rank) whose losses are the world-1 step's."""
 import math
+import os
+import subprocess
+import sys
+from pathlib import Path
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -13,8 +20,12 @@ from repro_torch.analysis.analytic import analytic_roofline  # noqa: E402
 from repro_torch.api import RunSpec, run  # noqa: E402
 from repro_torch.configs import get_reduced  # noqa: E402
 from repro_torch.launch.perfprobe import probe  # noqa: E402
+from repro_torch.core.executor import parse_trailing_report  # noqa: E402
 from repro_torch.launch.steps import effective_config  # noqa: E402
+from test_torch_campaign_chaos import ONE_THREAD  # noqa: E402
 from torch_one_thread import one_thread  # noqa: E402,F401
+
+ROOT = Path(__file__).resolve().parent.parent
 
 FIELDS = {"arch", "shape", "kind", "layout", "mesh", "world_size",
           "device", "device_name", "seq", "seq_of", "batch", "batch_of",
@@ -55,13 +66,58 @@ def test_probe_on_the_cpu(arch, shape):
     assert terms["flops"] == rec["analytic"]["flops_per_chip"]
 
 
+def _gang_probe(layout: str, tmp_path) -> dict:
+    src = str(ROOT / "src")
+    path = os.environ.get("PYTHONPATH", "")
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch", "run", "perfprobe",
+         "--arch", "stablelm-1.6b", "--shape", "train_4k", "--layout",
+         layout, "--world_size=2", "--device=cpu", "--reduced=true",
+         "--batch=4", "--seq=32"], cwd=tmp_path, capture_output=True,
+        text=True, timeout=240, env={**os.environ, **ONE_THREAD,
+                                     "PYTHONPATH": src + (
+                                         os.pathsep + path if path else "")})
+    assert proc.returncode == 0, proc.stderr[-3000:] + proc.stdout[-3000:]
+    report = parse_trailing_report(proc.stdout)
+    assert report["status"] == "succeeded"
+    return report["metrics"]
+
+
 @pytest.mark.parametrize("layout,multi_pod", [("fsdp_tp", False),
                                               ("fsdp_sp", False),
                                               ("dp", True)])
-def test_sharded_layouts_raise(layout, multi_pod):
-    with pytest.raises(ValueError, match="sharding/.* not ported"):
-        probe("stablelm-1.6b", "train_4k", layout, multi_pod=multi_pod,
-              device="cpu", reduced=True, batch=2, seq=32)
+def test_sharded_layouts_raise(layout, multi_pod, tmp_path):
+    """The sharded layouts run on the CPU as a world-2 gang, their losses
+    those of world 1 (the ``dp`` step) within the gang's f32 tolerance,
+    each rank's collective bytes beside the analytic model's; the two-pod
+    mesh raises."""
+    if multi_pod:
+        with pytest.raises(ValueError, match="512 cards"):
+            probe("stablelm-1.6b", "train_4k", layout, multi_pod=True,
+                  device="cpu", reduced=True, batch=2, seq=32)
+        return
+    met = _gang_probe(layout, tmp_path)
+    one = probe("stablelm-1.6b", "train_4k", layout, device="cpu",
+                reduced=True, batch=4, seq=32)
+    assert one["step_layout"] == "dp" and one["world_size"] == 1
+    assert (met["layout"], met["step_layout"], met["world_size"]) == (
+        layout, layout, 2)
+    assert met["traced"] == f"cpu: the kernels' plain versions; world 2, " \
+        f"{layout}"
+    np.testing.assert_allclose(met["losses"], one["losses"], rtol=1e-5)
+    ranks = met["gang"]["ranks"]
+    assert [d["rank"] for d in ranks] == [0, 1]
+    want = met["analytic_collective_bytes"]
+    for d in ranks:
+        got = d["collective_bytes"]
+        assert d["backend"] == "gloo"
+        # the embedding and the head are gathered once, the layers twice
+        assert 0.5 * want["fsdp_allgather"] < got["fsdp_allgather"] \
+            < want["fsdp_allgather"]
+        # the replicated norms are all-reduced instead
+        assert 0.95 * want["grad_reducescatter"] < got[
+            "grad_reducescatter"] < want["grad_reducescatter"]
+        assert got["replicated_allreduce"] > 0
 
 
 def test_the_dry_run_picks_the_batch():
@@ -86,6 +142,6 @@ def test_the_runner_fails_without_a_card(monkeypatch):
                     overrides={"shape": "decode_32k"}))
     assert r.status == "failed" and "no CUDA device" in r.error
     r = run(RunSpec(kind="perfprobe", arch="stablelm-1.6b",
-                    overrides={"shape": "decode_32k", "layout": "fsdp_tp",
+                    overrides={"shape": "decode_32k", "multi_pod": True,
                                "device": "cpu"}))
     assert r.status == "failed" and r.error.startswith("ValueError")

@@ -264,7 +264,23 @@ Phases, each of which fails the run if it fails:
     K4 launch for all segments, its scan of the folded segments against
     the plain scan under K4's tolerance, and the whole against the plain
     scan of the whole sequence (y with one bf16 rounding of each addend
-    allowed beside it); its time beside one K4 scan's and the plain's.
+    allowed beside it); its time beside one K4 scan's and the plain's;
+32. ``fsdp_tp`` on the grid ``{model: 2}``: four more ``RANK_JOBS`` of
+    the same gang at full width, depth cut, each rank computing half the
+    heads, MLP columns, SSD heads, experts and (where the rules split it)
+    vocabulary: stablelm-1.6b training (4 layers, 4 x 2048; K1 8, K2 4,
+    K3 4 a rank at 16 q heads) against world 1 (first loss and
+    ``grad_norm``, second loss within ``GANG_LOSS_RTOL``); granite-3-2b
+    (4 layers, prefill 4 x 2048 and 8 decode steps; its logits), mamba2
+    (4 layers, 2 x 2048 + 8; K4 at 40 heads a rank; its prefill's logits
+    and decode state) and qwen3-moe (2 layers, 64 experts a rank; its
+    prefill's decode state) no more than twice as far from an f32 run as
+    world 1's bf16 run; every rank's ``tp_allreduce`` bytes the port's
+    count from the shapes, beside the analytic model's.
+
+The subprocesses of phases 29-32 (the ``--sharded-rank`` gang, then
+phase 29's probe gang) and phase 21 run beside phase 20, whose reduced
+jobs leave the card nearly idle; each phase's checks run in its place.
 
 Phases 2 and 3 time each kernel and SDPA as the median of five windows
 and print the least and most beside it.
@@ -280,6 +296,7 @@ and 23 as ``launches_train_hubert``, ``launches_run_api_hubert``,
 ``launches_prefill_llava`` and ``launches_train_llava``, each rank's
 of phase 25's gang as ``launches_train_gang``, each rank's of phase 29's
 (K1-K3) or phase 30's (K4) measured step as ``launches_sharded_gang``,
+each rank's of phase 32's jobs by job as ``launches_tp_gang``,
 phase 31's K4 launch as ``launches_seq_parallel``, and phase 28's by cell as
 ``launches_perfprobe``, with each cell's profiled ms as
 ``perfprobe_profiled``), K1-K4's route
@@ -305,6 +322,7 @@ import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -3446,17 +3464,34 @@ SHARDED_STEPS = 2
 # FSDP drops half of the resident parameters, gradients and moments
 # (13.16 GB at world 1 in bf16) from each of two ranks
 SHARDED_PEAK_SAVING_GB = 5.0
-# phase 29's dp gang and phase 30's, run one after the other by the same
-# two processes of this script (RANK_FLAG), each through
-# steps.build_train on a data grid; "layers" cuts the depth (mamba2's to
-# 4 of 64: the gang is gloo-bound, and its time grows with the gathered
-# layers)
+# phase 29's dp gang, phase 30's and phase 32's, run one after the other
+# by the same two processes of this script (RANK_FLAG): the first two
+# through steps.build_train on a data grid; "layers" cuts the depth
+# (mamba2's to 4 of 64: the gang is gloo-bound, and its time grows with
+# the gathered layers).  Phase 32's ("model": 2) run fsdp_tp on the grid
+# {model: 2} at full width, depth and batch cut: a train job (a warm-up
+# and a measured step) and serve jobs (a prefill of batch x seq and
+# "decode" steps fed seeded tokens), each held against world 1 of the
+# same cut, weights and batch in rank 0's process, and a serve job
+# against an f32 run too
 RANK_JOBS = {
     "stablelm_dp": {"arch": "stablelm-1.6b", "layers": None, "batch": 8,
                     "seq": 2048, "layout": "dp"},
     "mamba2_fsdp_sp": {"arch": "mamba2-2.7b", "layers": 4, "batch": 4,
                        "seq": 2048, "layout": "fsdp_sp"},
+    "stablelm_tp": {"arch": "stablelm-1.6b", "layers": 4, "batch": 4,
+                    "seq": 2048, "layout": "fsdp_tp", "model": 2},
+    "granite_tp": {"arch": "granite-3-2b", "layers": 4, "batch": 4,
+                   "seq": 2048, "layout": "fsdp_tp", "model": 2,
+                   "decode": 8, "judged_on": ("logits",)},
+    "mamba2_tp": {"arch": "mamba2-2.7b", "layers": 4, "batch": 2,
+                  "seq": 2048, "layout": "fsdp_tp", "model": 2,
+                  "decode": 8, "judged_on": ("prefill_logits", "state")},
+    "qwen3_moe_tp": {"arch": "qwen3-moe-30b-a3b", "layers": 2, "batch": 4,
+                     "seq": 2048, "layout": "fsdp_tp", "model": 2,
+                     "decode": 8, "judged_on": ("state",)},
 }
+TP_JOBS = tuple(k for k, j in RANK_JOBS.items() if j.get("model", 1) > 1)
 RANK_FLAG = "--sharded-rank"
 # B, S, heads, head dim, groups, N, chunk, segments: mamba2-2.7b's widths
 SEQ_PARALLEL = (8, 2048, 80, 64, 1, 128, 256, 4)
@@ -3471,61 +3506,205 @@ def _job_config(get_config, job: dict):
             else dataclasses.replace(cfg, n_layers=job["layers"]))
 
 
-def sharded_rank(rank: int, coordinator: str) -> int:
-    """One rank of the gang of ``RANK_JOBS`` (this script run with
-    ``RANK_FLAG RANK COORDINATOR``): each job's config through
-    ``steps.build_train`` on a data grid of two ranks (both on
-    ``cuda:0``, gloo), a warm-up and a measured step, its memory freed
-    before the next.  Prints, as its last line, each job's record: the
-    losses, the measured step's collective bytes by mechanism, K1-K4's
-    launches by route, step time and peak memory."""
+def _port_of_rank() -> dict:
+    """What a rank of the gang drives, by name (imported in the rank's
+    process, from ``src/`` beside this script)."""
     sys.path.insert(0, str(SRC))
-    import torch
     from repro_torch.analysis.analytic import (collective_bytes_per_chip,
                                                mesh_dims)
     from repro_torch.configs import get_config
+    from repro_torch.data import make_batch
     from repro_torch.distributed import init_distributed
     from repro_torch.launch.perfprobe import KERNELS as PROBED
     from repro_torch.launch.steps import build_train
-    from repro_torch.sharding.grid import data_grid
+    from repro_torch.models import init_params
+    from repro_torch.models.model import decode_step, prefill
+    from repro_torch.sharding.fsdp import FSDP
+    from repro_torch.sharding.grid import model_grid
+    from repro_torch.sharding.tp import tp_allreduce_bytes
+    return dict(collective_bytes_per_chip=collective_bytes_per_chip,
+                mesh_dims=mesh_dims, get_config=get_config,
+                make_batch=make_batch, init_distributed=init_distributed,
+                PROBED=PROBED, build_train=build_train,
+                init_params=init_params, decode_step=decode_step,
+                prefill=prefill, FSDP=FSDP, model_grid=model_grid,
+                tp_allreduce_bytes=tp_allreduce_bytes)
 
-    def routes():
-        return {k: dict(fn.launches_by_route) for k, fn in PROBED.items()}
 
-    ctx = init_distributed(2, rank, coordinator)
+def _routes(P) -> dict:
+    return {k: dict(fn.launches_by_route) for k, fn in P["PROBED"].items()}
+
+
+def _since(now: dict, then: dict) -> dict:
+    return {k: {r: n - then[k][r] for r, n in now[k].items()} for k in now}
+
+
+def _rank_train_job(torch, P, cfg, job: dict, grid) -> dict:
+    """A train job on one rank: a warm-up and a measured step through
+    ``steps.build_train`` on ``grid``; on a model axis, rank 0 then runs
+    world 1 of the same cut, weights and batch (two steps, the peak of
+    the second)."""
+    ctx, dev = grid.dist, grid.device
+    B, S = job["batch"], job["seq"]
+    mesh = {"data": grid.extent("data"), "model": grid.extent("model")}
+
+    def two_steps(layout, g):
+        fn, (state, batch) = P["build_train"](cfg, B, S, device=dev,
+                                              layout=layout, grid=g)
+        state, met = fn(state, batch)
+        losses, norms = [float(met["loss"])], [float(met["grad_norm"])]
+        if g is not None and g.world_size > 1:
+            torch.distributed.barrier()
+        torch.cuda.reset_peak_memory_stats(dev)
+        launched, sent = _routes(P), dict(ctx.collective_bytes)
+        t0 = time.perf_counter()
+        state, met = fn(state, batch)
+        losses.append(float(met["loss"]))
+        norms.append(float(met["grad_norm"]))
+        torch.cuda.synchronize(dev)
+        rec = {"losses": losses, "grad_norms": norms,
+               "step_s": time.perf_counter() - t0,
+               "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+               "collective_bytes": {k: v - sent.get(k, 0.0) for k, v in
+                                    ctx.collective_bytes.items()},
+               "kernel_launches": _since(_routes(P), launched)}
+        del fn, state, batch, met
+        torch.cuda.empty_cache()
+        return rec
+
+    rec = {"rank": grid.rank, "backend": ctx.backend, "device": str(dev),
+           "grid": mesh, **two_steps(job["layout"], grid),
+           "analytic_collective_bytes": P["collective_bytes_per_chip"](
+               cfg, B, S, "train", P["mesh_dims"](mesh), job["layout"])}
+    if mesh["model"] > 1:
+        rec["tp_allreduce_shape_bytes"] = P["tp_allreduce_bytes"](
+            cfg, B // mesh["data"], S, "train", mesh["model"],
+            getattr(torch, cfg.param_dtype).itemsize)
+        if grid.rank == 0:
+            one = two_steps("dp", None)
+            rec["world1"] = {k: one[k] for k in ("losses", "grad_norms",
+                                                 "step_s", "peak_mem_gb")}
+    return rec
+
+
+def _rank_serve_job(torch, P, cfg, job: dict, grid) -> dict:
+    """A serve job on one rank of the model axis: the full weights from
+    seed 0 kept as the rank's blocks (``FSDP.shard_tree``), a prefill of
+    ``make_batch``'s tokens and ``decode`` steps fed seeded tokens, the
+    whole logits of each and the decode state after the prefill gathered
+    from the ranks.  Rank 0 then runs world 1 of the same cut, weights,
+    batch and tokens in bf16 through the kernels, and in f32 through the
+    plain versions, and returns the relative distances of the gang's and
+    of world 1's logits and state from the f32 run's (``_rel``,
+    ``_state_rel``)."""
+    import dataclasses as dc
+    dev = grid.device
+    B, S, n = job["batch"], job["seq"], job["decode"]
+
+    def weights():
+        return P["init_params"](
+            cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+
+    batch = P["make_batch"](cfg, B, S, 0, device=dev)
+    toks = torch.randint(cfg.vocab, (n, B, 1), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(32))
+
+    def serve(p, c, fsdp):
+        """(logits of the prefill and each step, the prefill's decode
+        state whole, prefill s, decode s a step) on the host clock, a
+        gang's from a barrier."""
+        if fsdp is not None:
+            torch.distributed.barrier()
+        t0 = time.perf_counter()
+        logits, state = P["prefill"](p, c, batch, S + n, fsdp=fsdp)
+        torch.cuda.synchronize(dev)
+        prefill_s = time.perf_counter() - t0
+        st = state if fsdp is None else fsdp.tp.full_decode_state(state, c)
+        st = {k: v.clone() for k, v in st.items()}
+        outs = [logits.float()]
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for i in range(n):
+            pos = torch.full((B,), S + i, dtype=torch.int32, device=dev)
+            logits, state = P["decode_step"](p, c, state, toks[i], pos,
+                                             fsdp=fsdp)
+            outs.append(logits.float())
+        torch.cuda.synchronize(dev)
+        return (torch.stack(outs), st, prefill_s,
+                (time.perf_counter() - t0) / n)
+
+    ctx = grid.dist
+    esize = getattr(torch, cfg.param_dtype).itemsize
+    params = weights()
+    fsdp = P["FSDP"](grid, params, "fsdp_tp", cfg)
+    shards = fsdp.shard_tree(params)
+    del params                 # the rank keeps its blocks only
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    launched, sent = _routes(P), dict(ctx.collective_bytes)
+    logits, st, prefill_s, decode_s = serve(shards, cfg, fsdp)
+    rec = {"rank": grid.rank, "backend": ctx.backend, "device": str(dev),
+           "grid": {"data": 1, "model": grid.extent("model")},
+           "prefill_s": prefill_s, "decode_s_per_step": decode_s,
+           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+           "kernel_launches": _since(_routes(P), launched),
+           "collective_bytes": {k: v - sent.get(k, 0.0) for k, v in
+                                ctx.collective_bytes.items()},
+           "tp_allreduce_shape_bytes": sum(
+               k * P["tp_allreduce_bytes"](cfg, B, s, kind,
+                                           grid.extent("model"), esize)
+               for k, s, kind in ((1, S, "prefill"), (n, 1, "decode")))}
+    del shards, fsdp
+    torch.cuda.empty_cache()
+    if grid.rank == 0:
+        torch.cuda.reset_peak_memory_stats(dev)
+        params = weights()
+        one, one_st, one_prefill_s, one_decode_s = serve(params, cfg, None)
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        c32 = dc.replace(cfg, param_dtype="float32",
+                         attention_backend="torch", mixer_backend="torch")
+        ref, ref_st, _, _ = serve(_map(params, lambda t: t.float()), c32,
+                                  None)
+        rec["world1"] = {
+            "peak_mem_gb": peak, "prefill_s": one_prefill_s,
+            "decode_s_per_step": one_decode_s,
+            "rel_err_vs_f32": {
+                "logits": _rel(one, ref), "prefill_logits": _rel(one[0],
+                                                                 ref[0]),
+                "state": _state_rel(one_st, ref_st)},
+            "tp_rel_err_vs_f32": {
+                "logits": _rel(logits, ref),
+                "prefill_logits": _rel(logits[0], ref[0]),
+                "state": _state_rel(st, ref_st)},
+            "tp_rel_err_vs_world1": {"logits": _rel(logits, one),
+                                     "state": _state_rel(st, one_st)},
+            "argmax_agree_tp_world1": int((logits.argmax(-1)
+                                           == one.argmax(-1)).sum().item()),
+            "finite": bool(torch.isfinite(logits).all().item())}
+        del params
+        torch.cuda.empty_cache()
+    return rec
+
+
+def sharded_rank(rank: int, coordinator: str) -> int:
+    """One rank of the gang of ``RANK_JOBS`` (this script run with
+    ``RANK_FLAG RANK COORDINATOR``), both ranks on ``cuda:0`` with gloo:
+    each job on its grid (a data grid of two ranks, or ``{model: 2}``),
+    its memory freed before the next.  Prints, as its last line, each
+    job's record: the losses (train) or the serve times, the collective
+    bytes by mechanism, K1-K4's launches by route, step time and peak
+    memory, and on a model axis the port's ``tp_allreduce`` count from
+    the shapes and, in rank 0's, world 1's numbers."""
+    import torch
+    P = _port_of_rank()
+    ctx = P["init_distributed"](2, rank, coordinator)
     out = {}
     try:
-        grid = data_grid(ctx)
-        dev = grid.device
         for name, job in RANK_JOBS.items():
-            cfg = _job_config(get_config, job)
-            fn, (state, batch) = build_train(
-                cfg, job["batch"], job["seq"], device=dev,
-                layout=job["layout"], grid=grid)
-            state, met = fn(state, batch)
-            losses = [float(met["loss"])]
-            torch.cuda.reset_peak_memory_stats(dev)
-            launched, sent = routes(), dict(ctx.collective_bytes)
-            t0 = time.perf_counter()
-            state, met = fn(state, batch)
-            losses.append(float(met["loss"]))
-            torch.cuda.synchronize(dev)
-            step_s = time.perf_counter() - t0
-            now = routes()
-            out[name] = {
-                "rank": rank, "backend": ctx.backend, "device": str(dev),
-                "losses": losses, "step_s": step_s,
-                "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
-                "collective_bytes": {k: v - sent.get(k, 0.0) for k, v in
-                                     ctx.collective_bytes.items()},
-                "kernel_launches": {k: {r: n - launched[k][r]
-                                        for r, n in now[k].items()}
-                                    for k in now},
-                "analytic_collective_bytes": collective_bytes_per_chip(
-                    cfg, job["batch"], job["seq"], "train",
-                    mesh_dims({"data": 2, "model": 1}), job["layout"])}
-            del fn, state, batch, met
-            torch.cuda.empty_cache()
+            cfg = _job_config(P["get_config"], job)
+            grid = P["model_grid"](ctx, job.get("model", 1))
+            run = _rank_serve_job if "decode" in job else _rank_train_job
+            out[name] = run(torch, P, cfg, job, grid)
     finally:
         ctx.close()
     print(json.dumps(out), flush=True)
@@ -3573,21 +3752,57 @@ def rank_jobs_gang(torch, timeout: int = 600) -> dict:
     ranks = [json.loads(out.strip().splitlines()[-1]) for out, _ in logs]
     jobs = {name: [rk[name] for rk in ranks] for name in RANK_JOBS}
     for name, recs in jobs.items():
-        _check_gang_ranks(recs, recs[0]["losses"], f"{RANK_FLAG} {name}")
+        _check_gang_ranks(recs, recs[0].get("losses"), f"{RANK_FLAG} {name}")
     return dict(jobs, wall_s=time.perf_counter() - t0)
 
 
 def _check_gang_ranks(ranks: list, losses, what: str) -> None:
-    """Both ranks on ``cuda:0`` with gloo, a finite loss at every step."""
+    """Both ranks on ``cuda:0`` with gloo, a finite loss at every step
+    (``losses`` None: a serve job, which has none)."""
     if ([d["rank"] for d in ranks] != [0, 1]
             or any(d["device"] != "cuda:0" or d["backend"] != "gloo"
                    for d in ranks)
-            or len(losses) != SHARDED_STEPS
-            or not np.all(np.isfinite(losses))):
+            or (losses is not None and (len(losses) != SHARDED_STEPS
+                                        or not np.all(np.isfinite(losses))))):
         raise AssertionError(f"{what}: losses {losses}, ranks {ranks}")
 
 
-def sharded_gang_full_width(torch, m, dp_gang_peaks: list, dp: list) -> list:
+class _Background:
+    """``fn(*args)`` in a thread, started at once; :meth:`result` joins
+    it and returns its value or raises its exception."""
+
+    def __init__(self, fn, *args):
+        self.out = {}
+
+        def run():
+            try:
+                self.out["value"] = fn(*args)
+            except BaseException as e:      # re-raised by result()
+                self.out["error"] = e
+
+        self.thread = threading.Thread(target=run, daemon=True)
+        self.thread.start()
+
+    def result(self):
+        self.thread.join()
+        if "error" in self.out:
+            raise self.out["error"]
+        return self.out["value"]
+
+
+def sharded_gangs(torch) -> tuple:
+    """The subprocesses of phases 29-32, one after the other: the gang of
+    ``RANK_JOBS`` (:func:`rank_jobs_gang`), then phase 29's probe gang
+    (``SHARDED_ARGV``).  Returns the rank gang's jobs and ``(the probe's
+    CompletedProcess, its wall s)``."""
+    jobs = rank_jobs_gang(torch)
+    t0 = time.perf_counter()
+    proc = _cli(SHARDED_ARGV, timeout=600)
+    return jobs, (proc, time.perf_counter() - t0)
+
+
+def sharded_gang_full_width(torch, m, dp_gang_peaks: list, dp: list,
+                            probe: tuple) -> list:
     """Phase 29: ``run perfprobe --layout fsdp_tp --world_size 2`` on
     full-width stablelm-1.6b (bf16, global 8 x 2048, a warm-up and a
     measured step) as a subprocess: each rank keeps its half of every
@@ -3603,14 +3818,12 @@ def sharded_gang_full_width(torch, m, dp_gang_peaks: list, dp: list) -> list:
     embedding and the head are gathered once, the layers twice; the
     reduce-scatter within 1% below it: the norms are all-reduced
     instead); K1-K3 as a training step predicts, on the tensor cores, in
-    both gangs.  Returns each rank's K1-K3 launches in the measured
+    both gangs.  ``probe`` is the probe gang's run (:func:`sharded_gangs`,
+    beside phase 20).  Returns each rank's K1-K3 launches in the measured
     step."""
     cfg = m["get_config"]("stablelm-1.6b")
-    torch.cuda.empty_cache()
     what = " ".join(SHARDED_ARGV)
-    t0 = time.perf_counter()
-    proc = _cli(SHARDED_ARGV, timeout=600)
-    wall = time.perf_counter() - t0
+    proc, wall = probe
     if proc.returncode != 0:
         raise AssertionError(f"{what}: exit {proc.returncode}: "
                              f"{proc.stderr[-3000:]}{proc.stdout[-3000:]}")
@@ -3677,6 +3890,87 @@ def sharded_mamba2(torch, m, ranks: list, gang_wall_s: float) -> list:
          launches=[g["tensor_core"] for g in got],
          rank_gang_wall_s=gang_wall_s)
     return [g["tensor_core"] for g in got]
+
+
+def _tp_launches(cfg, job: dict, ranks: list, what: str) -> dict:
+    """Each rank's K1-K4 launches in a model-axis job: a train job's as
+    ``train_launches`` predicts for one step, a serve job's one prefill's
+    (``prefill_launches``; decode launches none), all on the tensor
+    cores.  Returns the launched kernels' counts per rank."""
+    want = (train_launches(cfg, 1) if "decode" not in job
+            else prefill_launches(cfg))
+    want = {k: v for k, v in want.items() if v}
+    out = {}
+    for name in _Counts.ROUTED:
+        got = [d["kernel_launches"][name] for d in ranks]
+        if any(g != {"tensor_core": want.get(name, 0), "cuda_core": 0}
+               for g in got):
+            raise AssertionError(f"{what}: {name} launches {got}, want "
+                                 f"{want.get(name, 0)} on the tensor cores")
+        if name in want:
+            out[name] = [g["tensor_core"] for g in got]
+    return out
+
+
+def tp_gangs(torch, m, jobs: dict) -> dict:
+    """Phase 32: ``fsdp_tp`` on the grid ``{model: 2}``, run by the
+    ``RANK_FLAG`` gang (both ranks on ``cuda:0``, gloo), each rank
+    computing its half of the heads, MLP columns, SSM heads, experts and
+    vocabulary (``TP_JOBS``).  Gates: the train job's first loss and
+    ``grad_norm`` and its second loss within ``GANG_LOSS_RTOL`` of world
+    1's, the ranks' losses equal; a serve job's logits or decode state
+    (its ``judged_on``) no more than twice as far from the f32 run's as
+    world 1's bf16 run (the repo's prefill gate rule: a row-parallel
+    partial sum adds a bf16 rounding before its all-reduce); every
+    rank's ``tp_allreduce`` bytes the port's count from the shapes, to
+    the byte; K1-K4 launched as one step or one prefill predicts, on the
+    tensor cores.  Reports each rank's bytes by mechanism beside the
+    analytic model's for ``{data: 1, model: 2}`` and its peak memory
+    beside world 1's.  Returns the launches by job, per rank."""
+    launches, recs = {}, {}
+    for name in TP_JOBS:
+        job, ranks = RANK_JOBS[name], jobs[name]
+        cfg = _job_config(m["get_config"], job)
+        what = f"{name} ({cfg.name}, {job['layers']} layers, fsdp_tp)"
+        launches[name] = _tp_launches(cfg, job, ranks, what)
+        one = ranks[0]["world1"]
+        got = [d["collective_bytes"].get("tp_allreduce") for d in ranks]
+        want = [d["tp_allreduce_shape_bytes"] for d in ranks]
+        rec = {"job": job, "tp_allreduce": got, "tp_allreduce_shapes": want,
+               "collective_bytes": [d["collective_bytes"] for d in ranks],
+               "peak_mem_gb": [d["peak_mem_gb"] for d in ranks],
+               "world1_peak_mem_gb": one["peak_mem_gb"],
+               "launches": launches[name]}
+        if "decode" in job:
+            rec.update(prefill_s=[d["prefill_s"] for d in ranks],
+                       decode_s_per_step=[d["decode_s_per_step"]
+                                          for d in ranks], world1=one)
+            tp, w1 = one["tp_rel_err_vs_f32"], one["rel_err_vs_f32"]
+            bad = [k for k in job["judged_on"] if tp[k] > 2 * w1[k]]
+            bad += [] if one["finite"] else ["finite"]
+        else:
+            a = ranks[0]
+            rec.update(losses=a["losses"], grad_norms=a["grad_norms"],
+                       world1_losses=one["losses"],
+                       world1_grad_norms=one["grad_norms"],
+                       step_s=[d["step_s"] for d in ranks],
+                       world1_step_s=one["step_s"],
+                       analytic_collective_bytes=a[
+                           "analytic_collective_bytes"])
+            rel = _max_rel([a["losses"][0], a["grad_norms"][0],
+                            a["losses"][1]],
+                           [one["losses"][0], one["grad_norms"][0],
+                            one["losses"][1]])
+            rec["max_rel_err_vs_world1"] = rel
+            bad = ["losses"] if (rel > GANG_LOSS_RTOL or ranks[1]["losses"]
+                                 != a["losses"]) else []
+        if got != want:
+            bad.append("tp_allreduce")
+        emit(phase="tp_gang", name=name, card=card_line(), **rec)
+        if bad:
+            raise AssertionError(f"{what}: {bad}: {rec}")
+        recs[name] = rec
+    return launches
 
 
 def seq_parallel_vs_plain(torch, m, counts) -> int:
@@ -3754,6 +4048,12 @@ def seq_parallel_vs_plain(torch, m, counts) -> int:
     del buf, x, B, C, dt, A, y, h
     torch.cuda.empty_cache()
     return routes["tensor_core"]
+
+def _by_job(launches: dict, kernel: str) -> dict:
+    """A kernel's per-rank launches in each phase-32 job that runs it."""
+    return {job: got[kernel] for job, got in launches.items()
+            if kernel in got}
+
 
 def _map(tree, fn):
     if isinstance(tree, dict):
@@ -3966,8 +4266,19 @@ def main() -> int:
 
     # the campaign executor: jobs as `run <kind>` subprocesses on the card
     campaign = campaign_cluster_full_width(torch, m, api_train, api_cli)
-    campaign_chaos_resume(torch, m)
-    campaign_scheduler_sigkill_resume(m)
+    # phases 20 and 21 run reduced jobs that leave the card nearly idle:
+    # phase 21's campaign subprocess and the gangs of phases 29-32 (their
+    # subprocesses; the checks stay in place below) run beside phase 20
+    torch.cuda.empty_cache()
+    beside = [_Background(campaign_scheduler_sigkill_resume, m),
+              _Background(sharded_gangs, torch)]
+    try:
+        campaign_chaos_resume(torch, m)
+    finally:
+        for job in beside:
+            job.thread.join()
+    beside[0].result()
+    rank_jobs, probe_gang = beside[1].result()
 
     # data-parallel training: world 1 is the single process, a full-width
     # world-2 gang shares the card, and a gang under the executor's chaos
@@ -3982,12 +4293,14 @@ def main() -> int:
 
     # the parameter-sharded layouts on the data axis: world-2 gangs that
     # share the card, then the sequence-parallel scan through K4
-    rank_jobs = rank_jobs_gang(torch)
     sharded_launches = sharded_gang_full_width(torch, m, gang_peaks,
-                                               rank_jobs["stablelm_dp"])
+                                               rank_jobs["stablelm_dp"],
+                                               probe_gang)
     sharded_k4 = sharded_mamba2(torch, m, rank_jobs["mamba2_fsdp_sp"],
                                 rank_jobs["wall_s"])
     seq_parallel_k4 = seq_parallel_vs_plain(torch, m, counts)
+    # the model axis: fsdp_tp's jobs of the same gang
+    tp_launches = tp_gangs(torch, m, rank_jobs)
 
     # the vision paths: both studies normalize every scene through K5
     k5 = k5_vs_plain(torch, pn, pn_ref)
@@ -4026,6 +4339,7 @@ def main() -> int:
         rec["launches_run_api_hubert"] = hubert["run_api"][name]
         rec["launches_train_gang"] = [r[name] for r in gang_launches]
         rec["launches_sharded_gang"] = [r[name] for r in sharded_launches]
+        rec["launches_tp_gang"] = _by_job(tp_launches, name)
     k1 = k1_recs[("granite_prefill", "bfloat16")]
     k1 = dict(ms=k1["kernel_ms"], bound_ms=k1["bound_ms"],
               bound_by=k1["bound_by"], max_abs_err=k1["max_abs_err_o"],
@@ -4048,6 +4362,7 @@ def main() -> int:
                                    for r in gang_launches],
               launches_sharded_gang=[r["flash_attention_fwd"]
                                      for r in sharded_launches],
+              launches_tp_gang=_by_job(tp_launches, "flash_attention_fwd"),
               shapes={name: {k: k1_recs[(name, "bfloat16")][k] for k in (
                   "kernel_ms", "bound_ms", "bound_by", "plain_ms",
                   "library_ms", "max_abs_err_o", "route")}
@@ -4073,6 +4388,7 @@ def main() -> int:
                  "launches_run_api_cli": api_cli["mamba2-2.7b"],
                  "launches_campaign": campaign["ssd_scan"],
                  "launches_sharded_gang": sharded_k4,
+                 "launches_tp_gang": _by_job(tp_launches, "ssd_scan"),
                  "launches_seq_parallel": seq_parallel_k4,
                  "max_abs_err": max(k4["max_abs_err_y"], k4["max_abs_err_h"]),
                  "ms": k4["kernel_ms"], "plain_ms": k4["plain_ms"],

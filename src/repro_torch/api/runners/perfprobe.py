@@ -7,12 +7,15 @@ run says fits it.  Its default ``layout`` is the reference's,
 without ``dist_rank`` self-gangs (:func:`repro_torch.distributed.gang.
 run_gang_local` spawns one ``run perfprobe`` process per rank and adopts
 rank 0's report, every rank's ``dist`` section under ``gang``); with
-``dist_rank`` (and ``coordinator``) this process is one rank of a data
-grid (:func:`repro_torch.sharding.grid.data_grid`); otherwise world 1,
-where every layout is the ``dp`` step.  The port's own overrides:
-``device`` (default ``None``: ``cuda``, which must exist), and
-``reduced``, ``batch`` and ``seq`` for a cut of the cell (the CPU tests
-run the reduced config; ``chip_smoke.py`` a gang at phase 25's batch).
+``dist_rank`` (and ``coordinator``) this process is one rank of the
+grid ``{data: world_size / model, model: model}`` (:func:`repro_torch.
+sharding.grid.model_grid`); otherwise world 1, where every layout is
+the ``dp`` step.  The port's own overrides: ``device`` (default
+``None``: ``cuda``, which must exist), ``reduced``, ``batch`` and
+``seq`` for a cut of the cell (the CPU tests run the reduced config;
+``chip_smoke.py`` a gang at phase 25's batch), and ``model``, the
+grid's model extent (``fsdp_tp`` only: ``dp`` and ``fsdp_sp`` on a
+model axis raise).
 """
 from __future__ import annotations
 
@@ -34,7 +37,8 @@ DEFAULTS = {
     "reduced": False,       # the arch's reduced config
     "batch": None,          # global batch; None = the dry run's cut
     "seq": None,            # None = the shape's sequence
-    "world_size": 1,        # >1 = a gang of ranks on a data grid
+    "world_size": 1,        # >1 = a gang of ranks on a {data, model} grid
+    "model": 1,             # the grid's model extent (divides world_size)
     "dist_rank": None,      # set per rank by the gang launcher
     "coordinator": None,    # rank 0's host:port
 }
@@ -51,6 +55,9 @@ def run_perfprobe(spec: RunSpec) -> RunReport:
         raise ValueError("perfprobe requires a --shape override")
     t0 = time.time()
     world = int(o["world_size"] or 1)
+    if world % int(o["model"]):
+        raise ValueError(f"model {o['model']} does not divide world_size "
+                         f"{world}")
     if world > 1 and o["dist_rank"] is None:
         from repro_torch.distributed.gang import run_gang_local
         rec = run_gang_local(spec, world)
@@ -77,11 +84,11 @@ def _one_rank(spec: RunSpec, o: dict, world: int) -> dict:
         return probe(spec.arch, o["shape"], o["layout"], device=o["device"],
                      **kw)
     from repro_torch.distributed.context import init_distributed
-    from repro_torch.sharding.grid import data_grid
+    from repro_torch.sharding.grid import model_grid
     ctx = init_distributed(world, int(o["dist_rank"]), o["coordinator"],
                            o["device"])
     try:
         return probe(spec.arch, o["shape"], o["layout"],
-                     grid=data_grid(ctx), **kw)
+                     grid=model_grid(ctx, int(o["model"])), **kw)
     finally:
         ctx.close()

@@ -29,15 +29,22 @@ their given order; a small gather (:meth:`DistContext.allgather`) is a
 sum of one-hot rank slots, exact for any value.  Every collective's
 bytes are counted per rank by the analytic model's mechanism
 (``collective_bytes``; ``repro_torch.analysis.analytic.
-collective_bytes_per_chip``'s names), in its ring convention: a gather
-or a reduce-scatter of F full bytes moves ``(N-1)/N * F`` a rank, an
+collective_bytes_per_chip``'s names, ``tp_allreduce`` among them), in
+its ring convention over the N ranks of its group: a gather or a
+reduce-scatter of F full bytes moves ``(N-1)/N * F`` a rank, an
 all-reduce twice that.
+
+* **Groups**: each collective takes a :class:`Group` (a grid's data row
+  or model column, :class:`repro_torch.sharding.grid.RankGrid`), by
+  default the whole world.  A group of one rank is the identity; the
+  grid makes one ``torch.distributed`` subgroup per row and column, on
+  the world's backend (gloo on CUDA tensors where ranks share a card).
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -47,6 +54,22 @@ from repro_torch.kernels.common import resolve_device
 # the gradient all-reduce's flat buckets: consecutive leaves of one dtype
 # up to this many bytes (a larger leaf is reduced alone, in place)
 BUCKET_BYTES = 128 << 20
+
+
+@dataclasses.dataclass(frozen=True)
+class Group:
+    """Some ranks of the world that reduce together: their global
+    ranks in group order, this rank's index among them, and the
+    ``torch.distributed`` group (``None``: the default group, which a
+    group of the whole world uses)."""
+
+    ranks: Tuple[int, ...]
+    index: int
+    pg: Optional[object] = None
+
+    @property
+    def size(self) -> int:
+        return len(self.ranks)
 
 
 def rank_device(world_size: int, rank: int, device=None) -> torch.device:
@@ -138,19 +161,27 @@ class DistContext:
         return self.rank * per, (self.rank + 1) * per
 
     # ------------------------------------------------------ collectives
-    def allgather(self, value) -> torch.Tensor:
-        """Every rank's ``value`` (a small tensor or number), stacked to
-        ``(world, ...)`` on this rank's device.  Each rank writes its own
-        slot of zeros and the slots are summed, so the result is exact
-        on any backend and device."""
+    @property
+    def world(self) -> Group:
+        """The whole world as a :class:`Group` (the default group)."""
+        return Group(tuple(range(self.world_size)), self.rank)
+
+    def allgather(self, value, group: Optional[Group] = None
+                  ) -> torch.Tensor:
+        """Every rank's ``value`` (a small tensor or number) in ``group``
+        (default: the world), stacked to ``(group size, ...)`` on this
+        rank's device.  Each rank writes its own slot of zeros and the
+        slots are summed, so the result is exact on any backend and
+        device."""
+        group = group or self.world
         t = torch.as_tensor(value, device=self.device)
-        if self.world_size == 1:
+        if group.size == 1:
             return t[None]
         t0 = time.perf_counter()
-        buf = torch.zeros((self.world_size,) + tuple(t.shape),
+        buf = torch.zeros((group.size,) + tuple(t.shape),
                           dtype=t.dtype, device=self.device)
-        buf[self.rank] = t
-        torch.distributed.all_reduce(buf)
+        buf[group.index] = t
+        torch.distributed.all_reduce(buf, group=group.pg)
         self.allgather_s += time.perf_counter() - t0
         return buf
 
@@ -165,8 +196,9 @@ class DistContext:
                                f"{gathered.tolist()}")
         return value
 
-    def _count(self, mechanism: str, full_bytes: int, passes: int) -> None:
-        n = self.world_size
+    def _count(self, mechanism: str, full_bytes: int, passes: int,
+               n: Optional[int] = None) -> None:
+        n = self.world_size if n is None else n
         self.collective_bytes[mechanism] = (
             self.collective_bytes.get(mechanism, 0.0)
             + passes * full_bytes * (n - 1) / n)
@@ -174,38 +206,67 @@ class DistContext:
             self.collective_calls.get(mechanism, 0) + 1)
 
     def all_gather(self, shard: torch.Tensor, dim: int,
-                   mechanism: str = "fsdp_allgather") -> torch.Tensor:
-        """The ranks' ``shard``s concatenated along ``dim``, rank order
-        (one ``all_gather_into_tensor`` of the shards with ``dim``
-        moved first; the result is a view with ``dim`` back in place)."""
+                   mechanism: str = "fsdp_allgather",
+                   group: Optional[Group] = None) -> torch.Tensor:
+        """The ``group``'s (default: the world's) ``shard``s concatenated
+        along ``dim``, in group order (one ``all_gather_into_tensor`` of
+        the shards with ``dim`` moved first; the result is a view with
+        ``dim`` back in place)."""
+        group = group or self.world
+        if group.size == 1:
+            return shard
         x = shard.movedim(dim, 0).contiguous()
-        out = x.new_empty((self.world_size * x.shape[0],) + x.shape[1:])
-        torch.distributed.all_gather_into_tensor(out, x)
-        self._count(mechanism, out.numel() * out.element_size(), 1)
+        out = x.new_empty((group.size * x.shape[0],) + x.shape[1:])
+        torch.distributed.all_gather_into_tensor(out, x, group=group.pg)
+        self._count(mechanism, out.numel() * out.element_size(), 1,
+                    group.size)
         return out.movedim(0, dim)
 
     def reduce_scatter(self, full: torch.Tensor, dim: int,
-                       mechanism: str = "grad_reducescatter"
-                       ) -> torch.Tensor:
+                       mechanism: str = "grad_reducescatter",
+                       group: Optional[Group] = None) -> torch.Tensor:
         """This rank's block along ``dim`` of ``full`` summed over the
-        ranks (one ``reduce_scatter_tensor``)."""
+        ``group``'s ranks (default: the world; one
+        ``reduce_scatter_tensor``)."""
+        group = group or self.world
+        if group.size == 1:
+            return full
         x = full.movedim(dim, 0).contiguous()
-        out = x.new_empty((x.shape[0] // self.world_size,) + x.shape[1:])
-        torch.distributed.reduce_scatter_tensor(out, x)
-        self._count(mechanism, x.numel() * x.element_size(), 1)
+        out = x.new_empty((x.shape[0] // group.size,) + x.shape[1:])
+        torch.distributed.reduce_scatter_tensor(out, x, group=group.pg)
+        self._count(mechanism, x.numel() * x.element_size(), 1,
+                    group.size)
         return out.movedim(0, dim)
 
+    def all_reduce(self, t: torch.Tensor, mechanism: str,
+                   group: Group, op: str = "sum") -> torch.Tensor:
+        """``t`` reduced (``op``: ``"sum"`` or ``"max"``) over the
+        ``group``'s ranks into a new tensor: the model axis's activation
+        all-reduces (:mod:`repro_torch.sharding.tp`), counted, not
+        timed (they run inside the step's forward and backward)."""
+        out = t.contiguous().clone()
+        if group.size == 1:
+            return out
+        red = (torch.distributed.ReduceOp.SUM if op == "sum"
+               else torch.distributed.ReduceOp.MAX)
+        torch.distributed.all_reduce(out, op=red, group=group.pg)
+        self._count(mechanism, out.numel() * out.element_size(), 2,
+                    group.size)
+        return out
+
     def allreduce_(self, tensors: List[torch.Tensor],
-                   mechanism: str = "grad_reducescatter"
-                   ) -> List[torch.Tensor]:
-        """Sum ``tensors`` over the ranks, in place: flat buckets of
-        consecutive same-dtype tensors, in the order given (every rank
-        gives the same), one ``all_reduce`` each.  The identity at world
-        1.  Counts the calls, the bytes and the seconds (the card is
-        synchronised around them, so the time is the reduction's), and
-        the bytes under ``mechanism`` (the data-parallel gradient sum is
-        the analytic model's ``grad_reducescatter``)."""
-        if self.world_size == 1 or not tensors:
+                   mechanism: str = "grad_reducescatter",
+                   group: Optional[Group] = None) -> List[torch.Tensor]:
+        """Sum ``tensors`` over the ``group``'s ranks (default: the
+        world), in place: flat buckets of consecutive same-dtype tensors,
+        in the order given (every rank gives the same), one
+        ``all_reduce`` each.  The identity in a group of one.  Counts the
+        calls, the bytes and the seconds (the card is synchronised around
+        them, so the time is the reduction's), and the bytes under
+        ``mechanism`` (the data-parallel gradient sum is the analytic
+        model's ``grad_reducescatter``)."""
+        group = group or self.world
+        if group.size == 1 or not tensors:
             return tensors
         cuda = self.device.type == "cuda"
         if cuda:
@@ -214,10 +275,10 @@ class DistContext:
         for bucket in _buckets(tensors):
             if len(bucket) == 1 and bucket[0].is_contiguous():
                 flat = bucket[0]
-                torch.distributed.all_reduce(flat)
+                torch.distributed.all_reduce(flat, group=group.pg)
             else:
                 flat = torch.cat([t.reshape(-1) for t in bucket])
-                torch.distributed.all_reduce(flat)
+                torch.distributed.all_reduce(flat, group=group.pg)
                 off = 0
                 for t in bucket:
                     n = t.numel()
@@ -225,7 +286,8 @@ class DistContext:
                     off += n
             self.allreduce_calls += 1
             self.allreduce_bytes += flat.numel() * flat.element_size()
-            self._count(mechanism, flat.numel() * flat.element_size(), 2)
+            self._count(mechanism, flat.numel() * flat.element_size(), 2,
+                        group.size)
         if cuda:
             torch.cuda.synchronize(self.device)
         self.allreduce_s += time.perf_counter() - t0

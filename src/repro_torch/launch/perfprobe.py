@@ -21,16 +21,21 @@ measured step, the all-reduce bytes (0: world 1 issues no collective),
 measured device time against the analytic FLOPs and bytes.
 
 A grid of ranks (``grid``, a :class:`repro_torch.sharding.grid.RankGrid`
-on the data axis: the runner's ``world_size`` self-gangs as ``run train``
-does) runs the cell as a gang: ``fsdp_tp`` and ``fsdp_sp`` keep each
-rank's shards of the parameters and moments and gather each layer where
-it runs (on the data axis the reference's rules make both ZeRO-3), and
-``dp`` is the data-parallel gang.  Each rank adds a ``dist`` section: its
-collective bytes in the measured step by the analytic model's mechanism
-(``fsdp_allgather``, ``grad_reducescatter``, ``replicated_allreduce``,
-``norm_allreduce``), its peak memory, launches and losses; the record
-holds :func:`collective_bytes_per_chip` for ``{data: N, model: 1}``
-beside them.  On a grid of one rank every layout is the ``dp`` step.
+on ``{data: D, model: M}``: the runner's ``world_size`` self-gangs as
+``run train`` does, and its ``model`` is M) runs the cell as a gang:
+``fsdp_tp`` and ``fsdp_sp`` keep each rank's shards of the parameters
+and moments and gather each layer where it runs (on the data axis the
+reference's rules make both ZeRO-3), ``fsdp_tp`` on a model axis
+computes each rank's heads, experts and vocabulary rows
+(:mod:`repro_torch.sharding.tp`), and ``dp`` is the data-parallel gang.
+Each rank adds a ``dist`` section: its collective bytes in the measured
+step by the analytic model's mechanism (``fsdp_allgather``,
+``grad_reducescatter``, ``tp_allreduce``, and the port's
+``replicated_allreduce``, ``norm_allreduce``, ``tp_weights``,
+``vocab_allgather``), the port's own ``tp_allreduce`` count from the
+shapes, its peak memory, launches and losses; the record holds
+:func:`collective_bytes_per_chip` for ``{data: D, model: M}`` beside
+them.  On a grid of one rank every layout is the ``dp`` step.
 The reference's two-pod mesh (``multi_pod``) is 512 cards, not one host:
 it raises.
 """
@@ -58,6 +63,7 @@ from repro_torch.launch.dryrun import (one_card_budget, one_card_fit,
                                        peak_at, trace_step)
 from repro_torch.launch.mesh import INPUT_SHAPES
 from repro_torch.launch.steps import build, effective_config
+from repro_torch.sharding.tp import tp_allreduce_bytes
 
 LAYOUTS = ("dp", "fsdp_tp", "fsdp_sp")
 ONE_CARD = {"data": 1, "model": 1}
@@ -134,6 +140,7 @@ def probe(arch: str, shape: str, layout: str = "dp", *,
                          "probe runs one card or a gang on one host")
     seq_of, batch_of, kind = INPUT_SHAPES[shape]
     world = 1 if grid is None else grid.world_size
+    rows_of = 1 if grid is None else grid.extent("data")
     step_layout = layout if world > 1 else "dp"
     device = grid.device if grid is not None else resolve_device(device)
     cfg = effective_config(get_reduced(arch) if reduced else get_config(arch),
@@ -154,9 +161,9 @@ def probe(arch: str, shape: str, layout: str = "dp", *,
                     "estimate_peak_bytes": peak_at(traced, batch_of, batch),
                     "traced_peak_bytes": at_cut["peak_bytes"],
                     "budget_bytes": one_card_budget()}
-    if batch % world:
+    if batch % rows_of:
         raise ValueError(f"global batch {batch} does not divide over "
-                         f"{world} ranks")
+                         f"{rows_of} data ranks")
     kw = {"microbatches": microbatches} if kind == "train" else {}
     t0 = time.time()
     fn, args = build(kind, cfg, batch, seq, device=device, seed=seed,
@@ -192,8 +199,14 @@ def probe(arch: str, shape: str, layout: str = "dp", *,
     launches = {name: {r: after[name][r] - before[name][r]
                        for r in after[name]} for name in KERNELS}
     dist = None
+    mesh = ONE_CARD if world == 1 else {"data": rows_of,
+                                        "model": grid.extent("model")}
     if world > 1:
         dist = _dist_record(grid, bytes_before, launches, step_s, losses)
+        dist["tp_allreduce_shape_bytes"] = (tp_allreduce_bytes(
+            cfg, batch // rows_of, seq, kind, mesh["model"],
+            getattr(torch, cfg.param_dtype).itemsize)
+            if step_layout == "fsdp_tp" else 0.0)
     profile = None
     peak_gb = None
     if device.type == "cuda":
@@ -203,7 +216,6 @@ def probe(arch: str, shape: str, layout: str = "dp", *,
         # be the card's busy time, so a gang runs no profiled step
         profile = device_profile(run)
         profile["kernel_ms"] = _kernel_ms(profile.pop("kernels"))
-    mesh = ONE_CARD if world == 1 else {"data": world, "model": 1}
     analytic = analytic_roofline(cfg, batch, seq, kind, mesh, step_layout)
     measured_s = (profile["device_busy_ms"] / 1e3 if profile is not None
                   else step_s)
@@ -213,7 +225,8 @@ def probe(arch: str, shape: str, layout: str = "dp", *,
     rec = {
         "arch": cfg.name, "shape": shape, "kind": kind, "layout": layout,
         "step_layout": step_layout,
-        "mesh": "1 card" if world == 1 else f"data {world} (one host)",
+        "mesh": ("1 card" if world == 1 else f"data {mesh['data']} x "
+                 f"model {mesh['model']} (one host)"),
         "world_size": world, "microbatches": microbatches,
         "device": device.type,
         "device_name": (torch.cuda.get_device_name(device)
@@ -271,13 +284,14 @@ def main():
     ap.add_argument("--save", default=None)
     ap.add_argument("--device", default=None)
     ap.add_argument("--world-size", type=int, default=1)
+    ap.add_argument("--model", type=int, default=1)
     args = ap.parse_args()
 
     from repro_torch.api import RunSpec, run
     overrides = {"shape": args.shape, "layout": args.layout,
                  "multi_pod": args.multi_pod,
                  "microbatches": args.microbatches,
-                 "world_size": args.world_size}
+                 "world_size": args.world_size, "model": args.model}
     if args.save:
         overrides["save"] = args.save
     if args.device:

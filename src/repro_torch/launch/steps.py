@@ -15,14 +15,22 @@ ctx.  The port returns a plain callable over one rank's tensors:
   shards of the parameters and moments
   (:class:`repro_torch.sharding.fsdp.FSDP`, the rules'
   :func:`state_shardings`), and the step gathers each layer where it
-  runs.
+  runs;
+* ``fsdp_tp`` on a ``{data: D, model: M}`` grid: the rank keeps its
+  ``(data, model)`` block of each leaf and computes on its heads,
+  experts, MLP columns and vocabulary rows (:mod:`repro_torch.sharding.
+  tp`); a model group's ranks hold the same rows.
 
 Every rank draws the full parameters and the global batch from the seed
-and keeps its shards and its rows, so a gang computes the world-1 step's
-numbers.  A rank's rows are its MoE dispatch group and its sequence one
-segment, as with no :class:`repro_torch.sharding.ShardCtx`, so a step
-runs under none (:func:`shard_ctx_for` is the reference's ctx of the
-whole mesh).  ``lower_step`` has no counterpart: nothing is lowered.
+and keeps its blocks and its data row's rows (:func:`_rows` splits over
+data only), so a gang computes the world-1 step's numbers.  A rank's
+rows are its MoE dispatch group and its sequence one segment, as with no
+:class:`repro_torch.sharding.ShardCtx`, so a step runs under none
+(:func:`shard_ctx_for` is the reference's ctx of the whole mesh).  A
+``model`` extent above 1 under ``dp`` or ``fsdp_sp`` raises: ``dp``
+would run duplicated ranks, and ``fsdp_sp`` needs its sequence shards
+across ranks (ROADMAP.md Queue 1 item 1 step 5).  ``lower_step`` has no
+counterpart: nothing is lowered.
 """
 from __future__ import annotations
 
@@ -79,20 +87,34 @@ def state_shardings(cfg: ArchConfig, mesh, layout: str,
                                             layout), ())
 
 
-def _sharding(layout: str, grid, params):
+SP_NEXT = ("fsdp_sp on a model axis needs its sequence shards across "
+           "ranks (K1's query offset over gathered K/V, the SSD "
+           "segment-state exchange and the conv halo): ROADMAP.md Queue 1 "
+           "item 1 step 5, its next part")
+
+
+def _sharding(cfg: ArchConfig, layout: str, grid, params):
     """``(dist, fsdp)`` of a step on ``grid``: none at world 1; the
     rank's context, and FSDP storage unless the layout is ``dp``."""
     if grid is None or grid.world_size == 1:
         return None, None
+    if grid.extent("model") > 1:
+        if layout == "fsdp_sp":
+            raise NotImplementedError(f"grid {grid.mesh}: {SP_NEXT}")
+        if layout == "dp":
+            raise ValueError(f"grid {grid.mesh}: dp replicates every "
+                             f"parameter, so a model axis would run "
+                             f"duplicated ranks; use fsdp_tp")
     if layout == "dp":
         return grid.dist, None
-    return grid.dist, FSDP(grid, params, layout)
+    return grid.dist, FSDP(grid, params, layout, cfg)
 
 
 def _rows(inputs, grid):
-    if grid is None or grid.world_size == 1:
+    """The rank's rows of the global batch: its data row's share."""
+    if grid is None or grid.extent("data") == 1:
         return inputs
-    return shard_rows(inputs, grid.rank, grid.world_size)
+    return shard_rows(inputs, grid.coord("data"), grid.extent("data"))
 
 
 def _is_meta(device) -> bool:
@@ -122,7 +144,7 @@ def build_train(cfg: ArchConfig, batch: int, seq: int, *, device,
     global ``batch``."""
     optimizer = pick_optimizer(cfg)
     params = _params(cfg, device, seed)
-    dist, fsdp = _sharding(layout, grid, params)
+    dist, fsdp = _sharding(cfg, layout, grid, params)
     step_fn = make_train_step(cfg, optimizer, remat=remat,
                               microbatches=microbatches, dist=dist,
                               fsdp=fsdp)
@@ -141,7 +163,7 @@ def build_prefill(cfg: ArchConfig, batch: int, seq: int, *, device,
     batch)``: on a grid of N the rank's params (shards under
     ``fsdp_*``) and rows."""
     params = _params(cfg, device, seed)
-    _, fsdp = _sharding(layout, grid, params)
+    _, fsdp = _sharding(cfg, layout, grid, params)
     if cfg.is_encoder_only:
         @torch.no_grad()
         def fn(params, batch_in):
@@ -166,7 +188,7 @@ def build_decode(cfg: ArchConfig, batch: int, seq: int, *, device,
     axis)."""
     require_decoder(cfg)
     params = _params(cfg, device, seed)
-    _, fsdp = _sharding(layout, grid, params)
+    _, fsdp = _sharding(cfg, layout, grid, params)
 
     def fn(params, state, tokens, position):
         return decode_step(params, cfg, state, tokens, position, fsdp=fsdp)
@@ -176,7 +198,8 @@ def build_decode(cfg: ArchConfig, batch: int, seq: int, *, device,
     d = _rows(decode_specs(cfg, batch) if _is_meta(device)
               else make_decode_batch(cfg, batch, seq - 1, seed,
                                      device=device), grid)
-    state = init_decode_state(cfg, d["tokens"].shape[0], seq, device=device)
+    state = init_decode_state(cfg, d["tokens"].shape[0], seq, device=device,
+                              grid=grid)
     return fn, (params, state, d["tokens"], d["position"])
 
 

@@ -10,6 +10,15 @@ are one rank's own tensors (:mod:`repro_torch.sharding`).  Nor has its
 multi-device ctx because ``pallas_call`` has no GSPMD partitioning rule,
 but a rank of the port runs local tensors, so K1-K3 stay on the
 parameter-sharded path too.
+
+Under a model axis (``tp``, a :class:`repro_torch.sharding.tp.TP`) the
+attention runs on the rank's ``n_heads / M`` query heads and their kv
+heads, K1-K3 called on those local heads unchanged, and ``wo`` is
+row-parallel; the MLP's ``up``/``gate`` are column-parallel and its
+``down`` row-parallel.  The KV cache holds the rank's kv heads.  The
+reference asks XLA for the cache's sequence split over ``model``
+instead (``decode_state_shardings``); where both divide, a rank holds
+the same bytes either way.
 """
 from __future__ import annotations
 
@@ -97,7 +106,16 @@ def mlp_init(generator, d: int, d_ff: int, act: str, dtype, device) -> dict:
     return p
 
 
-def mlp_apply(params: dict, x: torch.Tensor, act: str) -> torch.Tensor:
+def mlp_apply(params: dict, x: torch.Tensor, act: str,
+              tp=None) -> torch.Tensor:
+    """The MLP of ``x``; under ``tp`` on the rank's ``d_ff / M``
+    columns, the partial sums all-reduced."""
+    if tp is None:
+        return _mlp(params, x, act)
+    return tp.exit(_mlp(params, tp.enter(x), act))
+
+
+def _mlp(params: dict, x: torch.Tensor, act: str) -> torch.Tensor:
     h = dense(params["up"], x)
     if act == "silu":
         h = F.silu(dense(params["gate"], x)) * h
@@ -180,9 +198,14 @@ def naive_attention(q, k, v, *, causal, window):
 
 
 def attn_apply(params: dict, x: torch.Tensor, spec: AttnSpec,
-               positions: torch.Tensor, return_kv: bool = False):
-    """Prefill self-attention.  x: (B,S,d); positions: (B,S)."""
+               positions: torch.Tensor, return_kv: bool = False, tp=None):
+    """Prefill self-attention.  x: (B,S,d); positions: (B,S).  Under
+    ``tp`` the rank's heads (and its kv heads' K/V), ``wo``'s partial
+    sums all-reduced."""
     B, S, _ = x.shape
+    if tp is not None:
+        params, spec = tp.attn(params, spec)
+        x = tp.enter(x)
     q = _split_heads(dense(params["wq"], x), spec.n_heads, spec.head_dim)
     k = _split_heads(dense(params["wk"], x), spec.n_kv_heads, spec.head_dim)
     v = _split_heads(dense(params["wv"], x), spec.n_kv_heads, spec.head_dim)
@@ -195,6 +218,8 @@ def attn_apply(params: dict, x: torch.Tensor, spec: AttnSpec,
         out = naive_attention(q, k, v, causal=spec.causal, window=window)
     out = out.reshape(B, S, spec.n_heads * spec.head_dim)
     out = dense(params["wo"], out)
+    if tp is not None:
+        out = tp.exit(out)
     if return_kv:
         return out, (k, v)
     return out
@@ -242,16 +267,20 @@ def kv_cache_init(batch: int, cache_len: int, spec: AttnSpec, dtype,
 
 
 def attn_decode(params: dict, cache: dict, x: torch.Tensor, spec: AttnSpec,
-                position: torch.Tensor):
+                position: torch.Tensor, tp=None):
     """One-token decode.  x: (B,1,d); position: (B,) absolute position.
 
     The cache holds RoPE'd keys at absolute positions; the slot for
     position p is ``p % cache_len``, and slots further than ``window`` back
     (or not yet written) are masked out.  The new key and value are written
     into ``cache`` **in place** (the reference donates the cache to get the
-    same effect); the updated cache is also returned.
+    same effect); the updated cache is also returned.  Under ``tp`` the
+    cache holds the rank's kv heads.
     """
     B = x.shape[0]
+    if tp is not None:
+        params, spec = tp.attn(params, spec)
+        x = tp.enter(x)
     cache_len = cache["k"].shape[1]
     q = _split_heads(dense(params["wq"], x), spec.n_heads, spec.head_dim)
     k = _split_heads(dense(params["wk"], x), spec.n_kv_heads, spec.head_dim)
@@ -282,4 +311,5 @@ def attn_decode(params: dict, cache: dict, x: torch.Tensor, spec: AttnSpec,
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bgrqk,bkgd->bqgrd", probs, cache["v"].float())
     out = out.reshape(B, 1, spec.n_heads * hd).to(x.dtype)
-    return dense(params["wo"], out), cache
+    out = dense(params["wo"], out)
+    return (out if tp is None else tp.exit(out)), cache

@@ -36,6 +36,16 @@ the port installs a ctx yet (a data-grid step runs under none, see
 direct callers (the tests) reach the grouped MoE dispatch and
 ``ssd_seq_parallel`` through it until the model-axis step installs one.
 
+On a grid with a ``model`` axis (``fsdp_tp``) the storage carries a
+:class:`repro_torch.sharding.tp.TP` (``fsdp.tp``) and every layer
+computes on the rank's heads, experts, MLP columns and vocabulary rows
+(:mod:`repro_torch.sharding.tp`): the embedding is a vocab-parallel
+lookup where the rules split ``embed/w``'s vocabulary (the plain lookup
+where they drop ``tp``), the loss a vocab-parallel cross entropy, and
+:func:`prefill` and :func:`decode_step` return whole logits on every
+rank.  The backbone hands each checkpointed layer the TP context as it
+hands it the ctx, so the recompute takes the same groups.
+
 An SSD layer with no FFN keeps ``norm2``, as the reference's slot does,
 although nothing reads it, and the audio family keeps an untied embedding
 table that its frame inputs bypass; :func:`unused_leaves` marks those
@@ -43,6 +53,7 @@ leaves, whose gradient is zero.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any, Dict, List, Optional
 
@@ -181,7 +192,20 @@ def param_specs(cfg: ArchConfig) -> Dict[str, Any]:
 # --------------------------------------------------------------------------
 # forward (train / prefill)
 # --------------------------------------------------------------------------
-def embed_inputs(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor]):
+def _tp_of(fsdp):
+    return None if fsdp is None else fsdp.tp
+
+
+def _lookup(params, tokens, tp=None):
+    """The token embeddings: vocab-parallel under ``tp`` where the
+    embedding's vocabulary is split."""
+    if tp is not None and tp.vocab_sharded():
+        return tp.embed(params["embed"]["w"], tokens)
+    return params["embed"]["w"][tokens.long()]
+
+
+def embed_inputs(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
+                 tp=None):
     """Returns (x (B,S,d), positions (B,S), loss_mask (B,S) bool).
 
     audio: the frame embeddings in the config's dtype, and the batch's
@@ -192,7 +216,7 @@ def embed_inputs(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor]):
     if cfg.family == "audio":
         x = batch["features"].to(dtype)
     else:
-        x = params["embed"]["w"][batch["tokens"].long()]
+        x = _lookup(params, batch["tokens"], tp)
         if cfg.family == "vlm":
             patches = batch["patches"].to(dtype)
             # jnp.concatenate's promotion: bf16 patches, f32 tokens -> f32
@@ -242,11 +266,16 @@ def _promote_matmul(x, w):
     return x.to(dt) @ w.to(dt)
 
 
-def logits_fn(params, cfg: ArchConfig, x):
+def logits_fn(params, cfg: ArchConfig, x, tp=None):
+    """Whole logits; under ``tp`` with a split vocabulary each rank's
+    columns, gathered."""
+    if tp is not None and tp.vocab_sharded():
+        return tp.gather_vocab(_promote_matmul(tp.enter(x),
+                                               _head_weight(params, cfg)))
     return _promote_matmul(x, _head_weight(params, cfg))
 
 
-def _ffn(layer, cfg: ArchConfig, x, token_mask=None):
+def _ffn(layer, cfg: ArchConfig, x, token_mask=None, tp=None):
     """The FFN after the mixer: a dense MLP, or the MoE (plus its shared
     expert), or nothing (an SSD layer's norm2 is then unread).  Returns
     (x, the MoE's aux loss or None)."""
@@ -254,28 +283,29 @@ def _ffn(layer, cfg: ArchConfig, x, token_mask=None):
         return x, None
     h = L.norm_apply(cfg.norm, layer["norm2"], x)
     if "mlp" in layer:
-        return x + L.mlp_apply(layer["mlp"], h, cfg.act), None
+        return x + L.mlp_apply(layer["mlp"], h, cfg.act, tp), None
     y, aux = MOE.moe_apply(layer["moe"], h, cfg.moe, cfg.act,
-                           token_mask=token_mask)
+                           token_mask=token_mask, tp=tp)
     if "shared_mlp" in layer:
-        y = y + L.mlp_apply(layer["shared_mlp"], h, cfg.act)
+        y = y + L.mlp_apply(layer["shared_mlp"], h, cfg.act, tp)
     return x + y, aux
 
 
 def _layer_forward(layer, x, positions, cfg: ArchConfig, spec: L.AttnSpec,
-                   ctx=None, gather=None):
-    """One layer; ``ctx`` is installed around it and ``gather`` (an
-    FSDP layer gather) turns its shards into whole leaves first."""
+                   ctx=None, gather=None, tp=None):
+    """One layer; ``ctx`` is installed around it, ``gather`` (an FSDP
+    layer gather) turns its shards into its model blocks first, and
+    ``tp`` (a :class:`repro_torch.sharding.tp.TP`) computes on them."""
     with use_ctx(ctx):
         if gather is not None:
             layer = gather(layer)
         h = L.norm_apply(cfg.norm, layer["norm1"], x)
         if "ssm" in layer:
             mix = SSM.ssm_apply(layer["ssm"], h, cfg.ssm,
-                                backend=cfg.mixer_backend)
+                                backend=cfg.mixer_backend, tp=tp)
         else:
-            mix = L.attn_apply(layer["attn"], h, spec, positions)
-        return _ffn(layer, cfg, x + mix)
+            mix = L.attn_apply(layer["attn"], h, spec, positions, tp=tp)
+        return _ffn(layer, cfg, x + mix, tp=tp)
 
 
 def _unused_outer(cfg: ArchConfig) -> tuple:
@@ -315,17 +345,18 @@ def backbone(params, cfg: ArchConfig, x, positions, remat: bool = True,
     ``params["final_norm"]`` must be whole (see :func:`_gather_outer`)."""
     spec = attn_spec(cfg)
     ctx = current_ctx()
+    tp = _tp_of(fsdp)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, layer in enumerate(params["layers"]):
         gather = None if fsdp is None else fsdp.layer_gather(i)
         if remat:
             # the layer draws no random numbers: no RNG state to keep
             x, a = checkpoint(_layer_forward, layer, x, positions, cfg, spec,
-                              ctx, gather, use_reentrant=False,
+                              ctx, gather, tp, use_reentrant=False,
                               preserve_rng_state=False)
         else:
             x, a = _layer_forward(layer, x, positions, cfg, spec, ctx,
-                                  gather)
+                                  gather, tp)
         if a is not None:
             aux = aux + a
     return L.norm_apply(cfg.norm, params["final_norm"], x), aux
@@ -335,9 +366,10 @@ def forward(params, cfg: ArchConfig, batch, remat: bool = True, fsdp=None):
     """Full forward -> logits (B,S,V) (the MoE aux loss is
     :func:`backbone`'s second output)."""
     params = _gather_outer(params, cfg, fsdp)
-    x, positions, _ = embed_inputs(params, cfg, batch)
+    tp = _tp_of(fsdp)
+    x, positions, _ = embed_inputs(params, cfg, batch, tp)
     x, _ = backbone(params, cfg, x, positions, remat=remat, fsdp=fsdp)
-    return logits_fn(params, cfg, x)
+    return logits_fn(params, cfg, x, tp)
 
 
 # --------------------------------------------------------------------------
@@ -409,11 +441,21 @@ def loss_terms(params, cfg: ArchConfig, batch, remat: bool = True,
     if compute_dtype is not None:
         params = cast_compute_params(params, compute_dtype)
     params = _gather_outer(params, cfg, fsdp)
-    x, positions, loss_mask = embed_inputs(params, cfg, batch)
+    tp = _tp_of(fsdp)
+    x, positions, loss_mask = embed_inputs(params, cfg, batch, tp)
     if compute_dtype is not None:
         x = x.to(_as_dtype(compute_dtype))
     x, aux = backbone(params, cfg, x, positions, remat=remat, fsdp=fsdp)
     w = _head_weight(params, cfg)
+    if tp is None or not tp.vocab_sharded():
+        xent = _xent_chunk
+    else:
+        # the head is the rank's vocabulary columns
+        x = tp.enter(x)
+
+        def xent(xc, wc, labels, mask):
+            return tp.xent_chunk(_promote_matmul(xc, wc).float(), labels,
+                                 mask)
 
     if cfg.family == "audio":
         # no shift: each frame is scored against its own label where the
@@ -445,7 +487,7 @@ def loss_terms(params, cfg: ArchConfig, batch, remat: bool = True,
     if S - n * c:
         bounds.append((n * c, S))
     for a, b in bounds:
-        s, m = _xent_chunk(xs[:, a:b], w, ls[:, a:b], ms[:, a:b])
+        s, m = xent(xs[:, a:b], w, ls[:, a:b], ms[:, a:b])
         tot, cnt = tot + s, cnt + m
     return tot, cnt, aux
 
@@ -472,7 +514,8 @@ def prefill(params, cfg: ArchConfig, batch, cache_len: int,
     dtype = param_dtype(cfg)
     attn_len = _attn_len(cfg, cache_len)
     params = _gather_outer(params, cfg, fsdp)
-    x, positions, _ = embed_inputs(params, cfg, batch)
+    tp = _tp_of(fsdp)
+    x, positions, _ = embed_inputs(params, cfg, batch, tp)
     token_mask = None
     if lengths is not None:
         lengths = lengths.to(x.device)
@@ -486,21 +529,21 @@ def prefill(params, cfg: ArchConfig, batch, cache_len: int,
         if "ssm" in layer:
             mix, st = SSM.ssm_apply(layer["ssm"], h, cfg.ssm,
                                     return_state=True, seq_len=lengths,
-                                    backend=cfg.mixer_backend)
+                                    backend=cfg.mixer_backend, tp=tp)
             states["ssm"].append(st)
         else:
             mix, (k, v) = L.attn_apply(layer["attn"], h, spec, positions,
-                                       return_kv=True)
+                                       return_kv=True, tp=tp)
             states["attn"].append(L.kv_to_cache(k, v, attn_len, dtype,
                                                 lengths=lengths))
-        x, _ = _ffn(layer, cfg, x + mix, token_mask)
+        x, _ = _ffn(layer, cfg, x + mix, token_mask, tp)
     x = L.norm_apply(cfg.norm, params["final_norm"], x)
     if lengths is None:
         x_last = x[:, -1]
     else:
         last = (lengths.long() - 1).clamp(0, x.shape[1] - 1)
         x_last = x[torch.arange(x.shape[0], device=x.device), last]
-    logits = logits_fn(params, cfg, x_last)
+    logits = logits_fn(params, cfg, x_last, tp)
     return logits, {name: torch.stack([st[name] for st in sts])
                     for kind, sts in states.items() if sts
                     for name in STATE_KEYS[kind]}
@@ -510,13 +553,27 @@ def prefill(params, cfg: ArchConfig, batch, cache_len: int,
 # decode (serve_step)
 # --------------------------------------------------------------------------
 def init_decode_state(cfg: ArchConfig, batch: int, cache_len: int, *,
-                      device=None) -> Dict[str, Any]:
+                      device=None, grid=None) -> Dict[str, Any]:
     """Zeroed decode state: KV caches ``{"k", "v"}`` (n_attn, B, L, Kh, hd)
     over the attention layers and SSM states ``{"h", "conv"}`` (n_ssm,
     ...) over the SSD layers; a stack without one kind has no keys for
-    it.  An encoder-only config has none and raises ``ValueError``."""
+    it.  On a ``grid`` with a ``model`` axis, the rank's kv heads, SSM
+    heads and ``[x, B, C]`` channels (:class:`repro_torch.sharding.tp.
+    Plan`).  An encoder-only config has none and raises
+    ``ValueError``."""
     require_decoder(cfg)
     device = resolve_device(device)
+    spec, heads, groups = attn_spec(cfg), None, None
+    if grid is not None and grid.extent("model") > 1:
+        from repro_torch.sharding.tp import Plan
+        plan = Plan.of(cfg, grid.extent("model"), grid.coord("model"))
+        if plan.kv_heads is not None:
+            spec = dataclasses.replace(
+                spec, n_heads=plan.q_heads[1] - plan.q_heads[0],
+                n_kv_heads=plan.kv_heads[1] - plan.kv_heads[0])
+        if plan.ssm_heads is not None:
+            heads = plan.ssm_heads[1] - plan.ssm_heads[0]
+            groups = plan.ssm_groups[1] - plan.ssm_groups[0]
     kinds = cfg.layer_kinds()
     state = {}
     for kind, n in (("attn", kinds.count("attn")),
@@ -525,10 +582,11 @@ def init_decode_state(cfg: ArchConfig, batch: int, cache_len: int, *,
             continue
         if kind == "ssm":
             one = SSM.ssm_state_init(batch, cfg.d_model, cfg.ssm,
-                                     param_dtype(cfg), device)
+                                     param_dtype(cfg), device, heads,
+                                     groups)
         else:
-            one = L.kv_cache_init(batch, _attn_len(cfg, cache_len),
-                                  attn_spec(cfg), param_dtype(cfg), device)
+            one = L.kv_cache_init(batch, _attn_len(cfg, cache_len), spec,
+                                  param_dtype(cfg), device)
         state.update({name: t[None].repeat((n,) + (1,) * t.dim())
                       for name, t in one.items()})
     return state
@@ -545,7 +603,8 @@ def decode_step(params, cfg: ArchConfig, state, tokens, position,
     require_decoder(cfg)
     spec = attn_spec(cfg)
     params = _gather_outer(params, cfg, fsdp)
-    x = params["embed"]["w"][tokens.long()]                  # (B,1,d)
+    tp = _tp_of(fsdp)
+    x = _lookup(params, tokens, tp)                          # (B,1,d)
     seen = {"attn": 0, "ssm": 0}           # each layer's index in its kind
     for i, (layer, kind) in enumerate(zip(params["layers"],
                                           cfg.layer_kinds())):
@@ -555,14 +614,16 @@ def decode_step(params, cfg: ArchConfig, state, tokens, position,
         own = {name: state[name][seen[kind]] for name in STATE_KEYS[kind]}
         seen[kind] += 1
         if kind == "ssm":
-            mix, new = SSM.ssm_decode_step(layer["ssm"], own, h, cfg.ssm)
+            mix, new = SSM.ssm_decode_step(layer["ssm"], own, h, cfg.ssm,
+                                           tp)
             for name, t in new.items():
                 own[name].copy_(t)
         else:
-            mix, _ = L.attn_decode(layer["attn"], own, h, spec, position)
-        x, _ = _ffn(layer, cfg, x + mix)
+            mix, _ = L.attn_decode(layer["attn"], own, h, spec, position,
+                                   tp)
+        x, _ = _ffn(layer, cfg, x + mix, tp=tp)
     x = L.norm_apply(cfg.norm, params["final_norm"], x)
-    logits = logits_fn(params, cfg, x)
+    logits = logits_fn(params, cfg, x, tp)
     return logits[:, 0, :], state
 
 

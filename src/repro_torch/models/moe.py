@@ -16,8 +16,16 @@ group without a ctx).  Routing, ranking, the capacity scatter and the
 gather are group-local; the expert FFN runs every group's slots in one
 batched product.  On a rank of a data grid the ctx has every extent at
 1, so each rank's rows are its group: what the reference's data-parallel
-layout dispatches.  The experts' all-to-all across ranks of a ``model``
-axis is not ported (ROADMAP.md Queue 1 item 1 step 5).  Every detail
+layout dispatches.  Under ``fsdp_tp`` on a ``model`` axis (``tp``, a
+:class:`repro_torch.sharding.tp.TP`) the tokens are replicated over the
+axis, so the dispatch stays rank-local: the router is replicated and
+routes identically on every model rank, each rank runs its ``E / M``
+experts on the slots routed to them, and the partial combines are
+all-reduced (the tokens and the gates enter the experts' region through
+an all-reduce of their gradients; the aux loss, computed alike on every
+rank, counts once).  The experts' all-to-all, which exists only under
+``fsdp_sp``'s sequence groups, is not ported (ROADMAP.md Queue 1 item 1
+step 5).  Every detail
 that decides which tokens an
 expert takes follows the reference: the router in f32, top-k by k
 iterated argmaxes (a tie goes to the first index), ranks by a stable sort
@@ -163,21 +171,31 @@ def _in_group(g, ids, width: int):
     return ids if isinstance(g, int) else g * width + ids
 
 
-def dispatch(xt, r: dict, E: int, K: int, capacity: int, groups: int = 1):
+def dispatch(xt, r: dict, E: int, K: int, capacity: int, groups: int = 1,
+             experts=None):
     """The (groups * E, capacity, d) expert buffer, group-major.  The
     reference scatter-adds x * keep at (e, slot) and drops the sentinel
     rows; a dropped token adds zeros, so writing only the kept rows of
     real experts gives the same buffer bit for bit.  The other rows go
     to one spare row past the end, which is cut off: no mask of
-    data-dependent length, so no wait for the device."""
+    data-dependent length, so no wait for the device.  ``experts``
+    ``(lo, hi)`` keeps the rows of those experts only (a model rank's):
+    a (groups * (hi - lo), capacity, d) buffer."""
     d = xt.shape[1]
-    rows = groups * E * capacity
-    put = r["keep"] & (r["e"] < E)
-    row = torch.where(put, _in_group(r["g"], r["e"], E) * capacity
-                      + r["rank"], rows)
+    lo, hi = (0, E) if experts is None else experts
+    n = hi - lo
+    rows = groups * n * capacity
+    e = r["e"]
+    if experts is None:
+        put = r["keep"] & (e < E)
+    else:
+        put = r["keep"] & (e >= lo) & (e < hi)
+        e = e - lo
+    row = torch.where(put, _in_group(r["g"], e, n) * capacity + r["rank"],
+                      rows)
     buf = xt.new_zeros((rows + 1, d))
     buf[row] = xt.repeat_interleave(K, dim=0)
-    return buf[:-1].view(groups * E, capacity, d)
+    return buf[:-1].view(groups * n, capacity, d)
 
 
 def expert_ffn(params, buf, act: str):
@@ -191,18 +209,30 @@ def expert_ffn(params, buf, act: str):
     return torch.bmm(h, params["down"])
 
 
-def combine(out_buf, r: dict, masked: bool):
-    """(T, d): each token's kept expert outputs weighted by its gates,
-    from the (groups * E, capacity, d) buffer.  The gather clamps the
-    sentinel E to E - 1, as a JAX gather does; with a token mask its
-    gradient drops the sentinel rows, as the JAX gather's transpose
-    does."""
-    T, K = r["gates"].shape
+def combine(out_buf, r: dict, masked: bool, gates=None, experts=None):
+    """(T, d): each token's kept expert outputs weighted by its gates
+    (``gates``, default the route's), from the (groups * E, capacity, d)
+    buffer.  The gather clamps the sentinel E to E - 1, as a JAX gather
+    does; with a token mask its gradient drops the sentinel rows, as the
+    JAX gather's transpose does.  ``experts`` ``(lo, hi)``: the buffer
+    holds those experts only, and the entries routed elsewhere weigh
+    zero (a model rank's partial sums)."""
+    gates = r["gates"] if gates is None else gates
+    T, K = gates.shape
     E = r["probs"].shape[1]
-    y = out_buf[_in_group(r["g"], r["e"].clamp_max(E - 1), E), r["slot"]]
+    e = r["e"].clamp_max(E - 1)
+    w = gates * r["keep"].reshape(T, K)
+    if experts is None:
+        y = out_buf[_in_group(r["g"], e, E), r["slot"]]
+    else:
+        lo, hi = experts
+        mine = (e >= lo) & (e < hi)
+        y = out_buf[_in_group(r["g"], (e - lo).clamp(0, hi - lo - 1),
+                              hi - lo), r["slot"]]
+        w = w * mine.reshape(T, K)
     if masked and torch.is_grad_enabled():
         y = torch.where((r["e"] < E)[:, None], y, y.detach())
-    w = (r["gates"] * r["keep"].reshape(T, K)).to(y.dtype)
+    w = w.to(y.dtype)
     return (y.reshape(T, K, -1) * w[..., None]).sum(dim=1)
 
 
@@ -221,7 +251,7 @@ def aux_loss(r: dict, E: int, groups: int = 1):
 
 
 def moe_apply(params: dict, x: torch.Tensor, cfg: MoEConfig, act: str,
-              capacity_factor: float = None, token_mask=None):
+              capacity_factor: float = None, token_mask=None, tp=None):
     """x: (B, S, d) -> (y (B, S, d), aux_loss f32 scalar).
 
     ``token_mask`` ((B, S) bool, optional): False marks pad/dummy tokens
@@ -229,7 +259,8 @@ def moe_apply(params: dict, x: torch.Tensor, cfg: MoEConfig, act: str,
     expert id E, so they claim no capacity and take no slot in the
     buffer; their outputs are garbage (the gather reads expert E - 1, as
     the reference's clamping gather does), and callers only read unmasked
-    positions."""
+    positions.  Under ``tp`` the rank's experts, their partial sums
+    all-reduced."""
     B, S, d = x.shape
     E, K = cfg.n_experts, cfg.top_k
     GB, GS = _dispatch_groups(B, S)
@@ -246,11 +277,22 @@ def moe_apply(params: dict, x: torch.Tensor, cfg: MoEConfig, act: str,
     xt = grouped(x)
     mask = None if token_mask is None else grouped(token_mask)
     r = route(params, xt, cfg, capacity, mask, groups=G)
-    buf = dispatch(xt, r, E, K, capacity, G)
+    # before the experts: the layer's last op is then the combine, which
+    # a checkpoint's recompute skips (nothing after it is saved)
+    aux = cfg.router_aux_weight * aux_loss(r, E, G)
+    experts, gates, n = None, None, E
+    if tp is not None:
+        experts = tp.plan.experts
+        n = experts[1] - experts[0]
+        xt, gates = tp.enter(xt), tp.enter(r["gates"])
+    buf = dispatch(xt, r, E, K, capacity, G, experts)
     # every group's slots of an expert in one batched product
-    out = expert_ffn(params, buf.view(G, E, capacity, d).transpose(0, 1)
-                     .reshape(E, G * capacity, d), act)
-    out = out.reshape(E, G, capacity, d).transpose(0, 1)
-    y = combine(out.reshape(G * E, capacity, d), r, token_mask is not None)
+    out = expert_ffn(params, buf.view(G, n, capacity, d).transpose(0, 1)
+                     .reshape(n, G * capacity, d), act)
+    out = out.reshape(n, G, capacity, d).transpose(0, 1)
+    y = combine(out.reshape(G * n, capacity, d), r, token_mask is not None,
+                gates, experts)
     y = y.reshape(GB, GS, Bl, Sg, d).transpose(1, 2).reshape(B, S, d)
-    return y, cfg.router_aux_weight * aux_loss(r, E, G)
+    if tp is not None:
+        y = tp.exit(y)
+    return y, aux

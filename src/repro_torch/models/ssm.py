@@ -21,6 +21,18 @@ reference, which leaves its Pallas kernel under a multi-device ctx
 (``pallas_call`` has no GSPMD rule), the port's tensors are a rank's own,
 so K4 stays on the sharded path.  A rank of a data grid holds its rows
 whole: its ctx has one segment, and the scan is the one above.
+
+Under a model axis (``tp``, a :class:`repro_torch.sharding.tp.TP`) the
+mixer runs on the rank's ``nh / M`` heads through K4 (or the plain scan
+on CPU tensors), with the B/C groups those heads read; ``in_z``,
+``in_x``, ``in_dt`` are column-parallel and ``out`` row-parallel.  The
+gated RMSNorm is over the whole ``d_inner``, as in the reference, so its
+sum of squares is all-reduced over ``model``.  The conv weights are
+split over the concatenated ``[x, B, C]`` channels, so a rank gathers
+them and keeps its own channels.  The decode state holds the rank's
+heads (``h``) and its ``[x, B, C]`` channels (``conv``: its x channels
+and the B/C groups it reads, which ranks sharing a group both hold);
+the reference splits ``conv``'s channel dim evenly instead.
 """
 from __future__ import annotations
 
@@ -152,9 +164,32 @@ def ssd_seq_parallel(x, dt, A, B_, C_, cfg: SSMConfig, n_seg: int,
     return y.reshape(Bsz, S, nh, hp), h
 
 
+def _gated_norm(params, y, z, tp):
+    """The gated RMSNorm of ``y * silu(z)`` over the whole d_inner
+    (eps 1e-6, in f32): under ``tp`` the rank's columns, the sum of
+    squares all-reduced."""
+    if tp is None:
+        return norm_apply("rmsnorm", {"scale": params["norm_scale"]},
+                          y * F.silu(z))
+    v = y * F.silu(z)
+    vf = v.float()
+    ss = tp.psum(vf.square().sum(dim=-1, keepdim=True))
+    var = ss / (vf.shape[-1] * tp.M)
+    return (vf * torch.rsqrt(var + 1e-6)
+            * params["norm_scale"].float()).to(v.dtype)
+
+
+def _local(params, cfg: SSMConfig, d: int, tp):
+    """``(params, heads, groups)``: as given, or the rank's under
+    ``tp``."""
+    if tp is None:
+        return params, cfg.n_heads(d), cfg.n_groups
+    return tp.ssm(params, cfg, d)
+
+
 def ssm_apply(params: dict, x: torch.Tensor, cfg: SSMConfig,
               return_state: bool = False, seq_len=None,
-              backend: str = "auto"):
+              backend: str = "auto", tp=None):
     """Training/prefill Mamba2 block.  x: (B,S,d) -> (B,S,d).
 
     ``seq_len`` ((B,) int, optional) marks the true per-row sequence length
@@ -163,12 +198,15 @@ def ssm_apply(params: dict, x: torch.Tensor, cfg: SSMConfig,
     zero contribution), and the returned conv state is the window ending at
     the last real token.  Outputs at padded positions are garbage and must
     be ignored by the caller.  With ``return_state`` it also returns the
-    decode state ``{"h": (B,nh,hp,N) f32, "conv": (B,W-1,C) in x's dtype}``.
+    decode state ``{"h": (B,nh,hp,N) f32, "conv": (B,W-1,C) in x's dtype}``
+    (under ``tp``: the rank's heads and channels).
     """
     B, S, d = x.shape
-    di = cfg.d_inner(d)
-    nh = cfg.n_heads(d)
-    gN = cfg.n_groups * cfg.d_state
+    params, nh, groups = _local(params, cfg, d, tp)
+    if tp is not None:
+        x = tp.enter(x)
+    di = nh * cfg.head_dim
+    gN = groups * cfg.d_state
 
     z = dense(params["in_z"], x)
     xc = dense(params["in_x"], x)
@@ -189,8 +227,8 @@ def ssm_apply(params: dict, x: torch.Tensor, cfg: SSMConfig,
     A = -torch.exp(params["A_log"])
     # views of conv_out: the kernel reads them through their strides
     xh = xc.reshape(B, S, nh, cfg.head_dim)
-    Bg = Bc.reshape(B, S, cfg.n_groups, cfg.d_state)
-    Cg = Cc.reshape(B, S, cfg.n_groups, cfg.d_state)
+    Bg = Bc.reshape(B, S, groups, cfg.d_state)
+    Cg = Cc.reshape(B, S, groups, cfg.d_state)
 
     n_seg = _seq_shards(S)
     if n_seg > 1 and (S // n_seg) >= cfg.chunk:
@@ -199,10 +237,10 @@ def ssm_apply(params: dict, x: torch.Tensor, cfg: SSMConfig,
     else:
         y, h_final = _scan(xh, dt, A, Bg, Cg, cfg, backend)
     y = y + params["D"].to(y.dtype)[None, None, :, None] * xh
-    y = y.reshape(B, S, di)
-    y = norm_apply("rmsnorm", {"scale": params["norm_scale"]},
-                   y * F.silu(z))
+    y = _gated_norm(params, y.reshape(B, S, di), z, tp)
     out = dense(params["out"], y)
+    if tp is not None:
+        out = tp.exit(out)
     if not return_state:
         return out
     W = cfg.conv_width
@@ -223,10 +261,12 @@ def ssm_apply(params: dict, x: torch.Tensor, cfg: SSMConfig,
 
 
 def ssm_state_init(batch: int, d_model: int, cfg: SSMConfig, dtype,
-                   device) -> dict:
-    di = cfg.d_inner(d_model)
-    nh = cfg.n_heads(d_model)
-    conv_ch = di + 2 * cfg.n_groups * cfg.d_state
+                   device, heads: int = None, groups: int = None) -> dict:
+    """The zeroed decode state; ``heads`` and ``groups`` (default: the
+    config's) are a model rank's."""
+    nh = cfg.n_heads(d_model) if heads is None else heads
+    groups = cfg.n_groups if groups is None else groups
+    conv_ch = nh * cfg.head_dim + 2 * groups * cfg.d_state
     return {
         "h": torch.zeros((batch, nh, cfg.head_dim, cfg.d_state),
                          dtype=torch.float32, device=device),
@@ -236,12 +276,15 @@ def ssm_state_init(batch: int, d_model: int, cfg: SSMConfig, dtype,
 
 
 def ssm_decode_step(params: dict, state: dict, x: torch.Tensor,
-                    cfg: SSMConfig):
-    """One-token decode.  x: (B,1,d) -> (y (B,1,d), new_state)."""
+                    cfg: SSMConfig, tp=None):
+    """One-token decode.  x: (B,1,d) -> (y (B,1,d), new_state); under
+    ``tp`` the state is the rank's."""
     B, _, d = x.shape
-    di = cfg.d_inner(d)
-    nh = cfg.n_heads(d)
-    gN = cfg.n_groups * cfg.d_state
+    params, nh, groups = _local(params, cfg, d, tp)
+    if tp is not None:
+        x = tp.enter(x)
+    di = nh * cfg.head_dim
+    gN = groups * cfg.d_state
     xt = x[:, 0, :]
 
     z = dense(params["in_z"], xt)
@@ -259,13 +302,13 @@ def ssm_decode_step(params: dict, state: dict, x: torch.Tensor,
     dt = F.softplus(dt + params["dt_bias"])
     A = -torch.exp(params["A_log"])
     xh = xc.reshape(B, nh, cfg.head_dim).float()
-    Bg = Bc.reshape(B, cfg.n_groups, cfg.d_state).float()
-    Cg = Cc.reshape(B, cfg.n_groups, cfg.d_state).float()
+    Bg = Bc.reshape(B, groups, cfg.d_state).float()
+    Cg = Cc.reshape(B, groups, cfg.d_state).float()
 
     y, h_new = ssd_decode(state["h"], xh, dt, A, Bg, Cg)
     y = y + params["D"][None, :, None] * xh
-    y = y.reshape(B, di).to(x.dtype)
-    y = norm_apply("rmsnorm", {"scale": params["norm_scale"]},
-                   y * F.silu(z))
+    y = _gated_norm(params, y.reshape(B, di).to(x.dtype), z, tp)
     out = dense(params["out"], y)
+    if tp is not None:
+        out = tp.exit(out)
     return out[:, None, :], {"h": h_new, "conv": new_conv}

@@ -15,7 +15,8 @@ Under a parameter-sharded layout the trees hold a rank's shards.  SGD,
 SGDM and Adam(W) are elementwise and run on them unchanged; LAMB's trust
 ratio needs each leaf's whole norms, so ``update`` takes ``reduce_sq``
 (:meth:`repro_torch.sharding.fsdp.FSDP.reduce_sq`), which sums a leaf's
-squared-norm partials over the ranks holding its shards.
+squared-norm partials over the ranks holding its blocks: over its data
+group, its model group, or both for a leaf split over both axes.
 """
 from __future__ import annotations
 

@@ -21,7 +21,10 @@ with optional microbatch gradient accumulation (port of
   state holds the rank's shards: the model gathers each leaf where it
   is used, the gradients come back as shards already reduce-scattered
   over the ranks, only the replicated leaves' gradients and the loss are
-  all-reduced, and the norm adds the shards' squares over the ranks.
+  all-reduced, and the norm adds the shards' squares over the ranks.  On
+  a grid with a ``model`` axis those reductions run over the rank's
+  **data** group: the ranks of a model group hold the same rows and the
+  same loss, and each leaf's square counts once across both axes.
 """
 from __future__ import annotations
 
@@ -65,20 +68,32 @@ def _split_microbatches(batch: Dict[str, torch.Tensor], n: int):
 
 def _global_sq_norm(grads, fsdp=None) -> torch.Tensor:
     """Single global reduction: sum of squared gradient entries (f32).
-    Under ``fsdp`` the sharded leaves' squares are summed over the ranks
-    (one all-reduce of a scalar) and each replicated leaf counts once."""
+    Under ``fsdp`` each leaf's squares are summed over the ranks that
+    split it (one all-reduce of a scalar for each kind of split: over
+    data, over model, over both) and each replicated leaf counts once."""
     sq = [g.float().square().sum() for g in tree_leaves(grads)]
     if fsdp is None:
         return sum(sq)
-    shards = sum((q for q, rep in zip(sq, fsdp.replicated) if not rep),
-                 sq[0].new_zeros(()))
-    fsdp.grid.dist.allreduce_([shards], mechanism="norm_allreduce")
-    return shards + sum(q for q, rep in zip(sq, fsdp.replicated) if rep)
+    grid = fsdp.grid
+    split = list(zip(fsdp.replicated, fsdp.model_sharded))
+    total = sum(q for q, s in zip(sq, split) if s == (True, False))
+    # data only (a data grid's one reduction), model only, both
+    for key, group in (((False, False), grid.group("data")),
+                       ((True, True), grid.group("model")),
+                       ((False, True), grid.dist.world)):
+        if any(s == key for s in split):
+            part = sum((q for q, s in zip(sq, split) if s == key),
+                       sq[0].new_zeros(()))
+            grid.dist.allreduce_([part], mechanism="norm_allreduce",
+                                 group=group)
+            total = part + total
+    return total
 
 
-def _global_counts(dist, cfg: ArchConfig, mbs) -> list:
+def _global_counts(dist, cfg: ArchConfig, mbs, group) -> list:
     """Each local microbatch's normalizer: the scored positions of the
-    *global* microbatch it belongs to, summed over the ranks.
+    *global* microbatch it belongs to, summed over the data ``group``'s
+    ranks (N of them; rank r its r-th).
 
     The single process cuts the global batch into ``n`` microbatches of
     consecutive rows.  Rank r holds rows ``[r B/N, (r+1) B/N)`` and cuts
@@ -86,10 +101,10 @@ def _global_counts(dist, cfg: ArchConfig, mbs) -> list:
     microbatch ``(r n + j) // N``, which is the local microbatches
     ``i N .. i N + N - 1`` of the rank-major order.  One small all-gather
     of every rank's ``n`` counts gives all of them."""
-    n, world = len(mbs), dist.world_size
+    n, world = len(mbs), group.size
     local = torch.stack([loss_count(cfg, mb) for mb in mbs])
-    per_global = dist.allgather(local).reshape(n, world).sum(dim=1)
-    return [per_global[(dist.rank * n + j) // world] for j in range(n)]
+    per_global = dist.allgather(local, group).reshape(n, world).sum(dim=1)
+    return [per_global[(group.index * n + j) // world] for j in range(n)]
 
 
 def make_loss_and_grads(cfg: ArchConfig, *, remat: bool = True,
@@ -115,12 +130,16 @@ def make_loss_and_grads(cfg: ArchConfig, *, remat: bool = True,
     ``fsdp``: ``params`` are the rank's shards (see :mod:`repro_torch.
     sharding.fsdp`); the gather's backward reduce-scatters each sharded
     leaf's gradient, so the all-reduce takes only the replicated leaves'
-    gradients and the loss.
+    gradients and the loss.  N, the counts, the loss and those
+    gradients are the grid's data group's: a model group's ranks hold
+    the same rows and compute the same loss.
     """
     prec = get_precision(precision)
     grad_dtype = getattr(torch, prec.grad_dtype)
     compute_dtype = prec.compute_dtype if prec.casts_compute else None
-    world = 1 if dist is None else dist.world_size
+    group = (None if dist is None else dist.world if fsdp is None
+             else fsdp.grid.group("data"))
+    world = 1 if dist is None else group.size
 
     def objective(params, mb, count):
         if count is None:
@@ -151,7 +170,7 @@ def make_loss_and_grads(cfg: ArchConfig, *, remat: bool = True,
         mbs = ([batch] if microbatches == 1
                else _split_microbatches(batch, microbatches))
         counts = ([None] * microbatches if world == 1
-                  else _global_counts(dist, cfg, mbs))
+                  else _global_counts(dist, cfg, mbs, group))
         if microbatches == 1:
             loss, grads = value_and_grad(params, batch, counts[0])
         else:
@@ -173,7 +192,8 @@ def make_loss_and_grads(cfg: ArchConfig, *, remat: bool = True,
             else:
                 dist.allreduce_([g for g, rep in zip(grads, fsdp.replicated)
                                  if rep] + [loss],
-                                mechanism="replicated_allreduce")
+                                mechanism="replicated_allreduce",
+                                group=group)
             loss = loss[0]
         return loss, grads
 

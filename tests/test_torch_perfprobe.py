@@ -66,14 +66,14 @@ def test_probe_on_the_cpu(arch, shape):
     assert terms["flops"] == rec["analytic"]["flops_per_chip"]
 
 
-def _gang_probe(layout: str, tmp_path) -> dict:
+def _gang_probe(layout: str, tmp_path, *extra) -> dict:
     src = str(ROOT / "src")
     path = os.environ.get("PYTHONPATH", "")
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch", "run", "perfprobe",
          "--arch", "stablelm-1.6b", "--shape", "train_4k", "--layout",
          layout, "--world_size=2", "--device=cpu", "--reduced=true",
-         "--batch=4", "--seq=32"], cwd=tmp_path, capture_output=True,
+         "--batch=4", "--seq=32", *extra], cwd=tmp_path, capture_output=True,
         text=True, timeout=240, env={**os.environ, **ONE_THREAD,
                                      "PYTHONPATH": src + (
                                          os.pathsep + path if path else "")})
@@ -118,6 +118,26 @@ def test_sharded_layouts_raise(layout, multi_pod, tmp_path):
         assert 0.95 * want["grad_reducescatter"] < got[
             "grad_reducescatter"] < want["grad_reducescatter"]
         assert got["replicated_allreduce"] > 0
+
+
+def test_the_model_axis_probe(tmp_path):
+    """``--model 2``: the gang's ranks on ``{data: 1, model: 2}`` under
+    ``fsdp_tp``, its losses world 1's, each rank's ``tp_allreduce`` bytes
+    its count from the shapes, beside the analytic model's for the same
+    grid; a model extent that does not divide the world raises."""
+    met = _gang_probe("fsdp_tp", tmp_path, "--model=2")
+    one = probe("stablelm-1.6b", "train_4k", "fsdp_tp", device="cpu",
+                reduced=True, batch=4, seq=32)
+    np.testing.assert_allclose(met["losses"], one["losses"], rtol=1e-5)
+    assert met["mesh"] == "data 1 x model 2 (one host)"
+    assert met["analytic_collective_bytes"]["tp_allreduce"] > 0
+    for d in met["gang"]["ranks"]:
+        assert d["grid"] == {"data": 1, "model": 2}
+        assert d["collective_bytes"]["tp_allreduce"] == d[
+            "tp_allreduce_shape_bytes"] > 0
+    bad = run(RunSpec(kind="perfprobe", arch="stablelm-1.6b", overrides={
+        "shape": "train_4k", "world_size": 2, "model": 4, "device": "cpu"}))
+    assert bad.status == "failed" and "does not divide" in bad.error
 
 
 def test_the_dry_run_picks_the_batch():

@@ -7,8 +7,9 @@ array's spec (batch 1 too) equals the reference's ``NamedSharding.spec``
 the leading period dim of a stacked ``periods/slot{j}`` leaf, which the
 port holds as ``layers[p*P + j]``.  The bytes one device holds under the
 port's specs equal the sum of the reference's ``shard_shape``s.  Then
-the ctx and the grid: ``ShardCtx`` readers, a rank's coordinates, and a
-grid with a model axis above 1 raising."""
+the ctx and the grid: ``ShardCtx`` readers, a rank's coordinates and
+groups on ``{data: 2, model: 2}``, and a grid with a pod axis above 1
+raising."""
 import functools
 import math
 
@@ -203,8 +204,19 @@ def test_grid_coordinates_and_the_missing_axes():
     with_model = RankGrid({"data": 4, "model": 1}, _dist(4, 2))
     assert with_model.shard_of(("data", "model")) == (2, 4)
     for mesh in ({"data": 2, "model": 2}, {"pod": 2, "data": 2}):
-        with pytest.raises(NotImplementedError, match="step 5"):
-            RankGrid(mesh, _dist(4, 0))
+        if "pod" in mesh:
+            with pytest.raises(NotImplementedError, match="step 5"):
+                RankGrid(mesh, _dist(4, 0))
+            continue
+        # rank 3 = d 1, m 1 (row-major); its data group is its model
+        # column, its model group its data row
+        tp = RankGrid(mesh, _dist(4, 3))
+        assert tp.coords == {"data": 1, "model": 1}
+        assert tp.shard_of("model") == (1, 2)
+        assert tp.shard_of(("data", "model")) == (3, 4)
+        assert (tp.group("data").ranks, tp.group("data").index) == ((1, 3), 1)
+        assert (tp.group("model").ranks, tp.group("model").index) == ((2, 3),
+                                                                      1)
     with pytest.raises(ValueError, match="has 2 ranks"):
         RankGrid({"data": 2}, _dist(4, 0))
 

@@ -1,0 +1,186 @@
+"""``fsdp_tp`` on the grid ``{model: 2}``: a world-2 gang (gloo on the
+CPU, one thread a rank) of ``torch_tp_worker.py`` computes, for reduced
+f32 stablelm, mamba2, qwen3-moe and jamba (the hybrid), the
+tensor-parallel loss and gradients, an AdamW and a LAMB step, the
+flat-key round trip, a prefill and four greedy decode steps.  Held
+against:
+
+* the port's world-1 step on the same weights and global batch: the loss
+  (rtol 1e-5), the gradients and the steps' loss and ``grad_norm`` (atol
+  1e-5, rtol 1e-4: f32 partial sums added in another order); both steps'
+  updates against world 1's update by the gang's own gradients; the
+  prefill's and every decode step's whole logits, and the decode state
+  after the prefill and after the last step (gathered from the ranks'
+  heads and channels), within the same tolerance;
+* the rules: each rank holds exactly its spec's block of each leaf on
+  ``{model: 2}``, its gradients come back in the same shapes, and its
+  decode state holds its kv heads, SSM heads and channels;
+* the shape count: each rank's ``tp_allreduce`` bytes in the step, the
+  prefill and a decode step equal :func:`repro_torch.sharding.tp.
+  tp_allreduce_bytes`;
+* the reference's own ``build_train(cfg, mesh, "fsdp_tp")`` on a host
+  mesh ``(data 1, model 2)`` of two CPU devices, in a subprocess
+  (``jax_tp_step.py``), from the same weights and batch: its loss and
+  ``grad_norm`` before its update.
+"""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import numpy as np  # noqa: E402
+
+from repro_torch.configs import get_reduced  # noqa: E402
+from repro_torch.convert import params_from_flat  # noqa: E402
+from repro_torch.distributed import init_distributed  # noqa: E402
+from repro_torch.launch.steps import build_train  # noqa: E402
+from repro_torch.sharding import rules  # noqa: E402
+from repro_torch.sharding.grid import RankGrid  # noqa: E402
+from repro_torch.sharding.tp import Plan, tp_allreduce_bytes  # noqa: E402
+from repro_torch.tree import tree_leaves  # noqa: E402
+
+from torch_one_thread import one_thread  # noqa: E402,F401
+import torch_tp_worker as W  # noqa: E402
+import tp_gang_common as C  # noqa: E402
+
+CASES = W.CASES["model2"]
+IDS = [a for a, _, _ in CASES]
+
+
+@pytest.fixture(scope="module")
+def gang(tmp_path_factory):
+    work = tmp_path_factory.mktemp("tp_gang")
+    C.start(work, "model2", 2, 2)
+    return work
+
+
+@pytest.fixture(scope="module")
+def world1(gang):
+    return {(arch, W.tag(arch, mesh)): C.world1(gang, arch, mesh, serve)
+            for arch, mesh, serve in CASES}
+
+
+def _state_close(got, want, what):
+    assert set(got) == set(want), what
+    for k, w in want.items():
+        C.close(got[k], w.numpy(), f"{what} {k}")
+
+
+@pytest.mark.parametrize("arch,mesh,serve", CASES, ids=IDS)
+def test_loss_grads_and_steps_equal_world1(gang, world1, arch, mesh, serve):
+    want = world1[(arch, W.tag(arch, mesh))]
+    for rank in range(2):
+        got, info = C.load(gang, rank, arch, mesh)
+        np.testing.assert_allclose(float(got["loss"]), want["loss"],
+                                   rtol=C.LOSS_RTOL)
+        for key, w in want["grad"].items():
+            C.close(got[f"grad/{key}"], w, f"{arch} grad {key}")
+        grads = {k[len("grad/"):]: v for k, v in got.items()
+                 if k.startswith("grad/")}
+        for name in (get_reduced(arch).optimizer, "lamb"):
+            metrics = want[name]
+            np.testing.assert_allclose(info[name]["loss"], metrics["loss"],
+                                       rtol=C.LOSS_RTOL)
+            C.close(info[name]["grad_norm"], metrics["grad_norm"],
+                    f"{arch} {name} grad_norm")
+            for key, w in C.update(gang, arch, name, grads).items():
+                C.close(got[f"{name}/{key}"], w, f"{arch} {name} {key}")
+        assert info["round_trip_bitwise"]
+
+
+@pytest.mark.parametrize("arch,mesh,serve", CASES, ids=IDS)
+def test_prefill_and_decode_equal_world1(gang, world1, arch, mesh, serve):
+    want = world1[(arch, W.tag(arch, mesh))]
+    for rank in range(2):
+        got, _ = C.load(gang, rank, arch, mesh)
+        for i, w in enumerate(want["logits"]):
+            C.close(got[f"logits/{i}"], w.numpy(), f"{arch} logits {i}")
+        for when in ("prefill_state", "decode_state"):
+            _state_close({k.split("/", 1)[1]: v for k, v in got.items()
+                          if k.startswith(when + "/")}, want[when],
+                         f"{arch} {when}")
+
+
+@pytest.mark.parametrize("arch,mesh,serve", CASES, ids=IDS)
+def test_each_rank_holds_its_block(gang, arch, mesh, serve):
+    """Block shapes by the rules on ``{model: 2}``, gradients in the same
+    shapes, and the decode state of the rank's heads and channels."""
+    cfg = get_reduced(arch)
+    params = params_from_flat(dict(np.load(gang / f"{arch}.params.npz")),
+                              cfg, device="cpu")
+    specs = tree_leaves(rules.param_shardings(params, mesh, "fsdp_tp"))
+    leaves = tree_leaves(params)
+    want = [list(rules.shard_shape(t.shape, s, mesh))
+            for t, s in zip(leaves, specs)]
+    assert sum(w != list(t.shape) for w, t in zip(want, leaves)) > 4
+    for rank in range(2):
+        _, info = C.load(gang, rank, arch, mesh)
+        assert info["coords"] == {"model": rank}
+        assert info["groups"] == {"data": [rank], "model": [0, 1]}
+        assert info["shard_shapes"] == want
+        assert info["grad_shapes"] == want
+        plan = Plan.of(cfg, 2, rank)
+        assert info["state_shapes"] == info["init_state_shapes"]
+        shapes = info["state_shapes"]
+        if "k" in shapes:
+            assert shapes["k"][3] == plan.kv_heads[1] - plan.kv_heads[0]
+        if "h" in shapes:
+            nh = cfg.ssm.n_heads(cfg.d_model) // 2
+            groups = plan.ssm_groups[1] - plan.ssm_groups[0]
+            assert shapes["h"][2] == nh
+            assert shapes["conv"][3] == (nh * cfg.ssm.head_dim + 2 * groups
+                                         * cfg.ssm.d_state)
+
+
+@pytest.mark.parametrize("arch,mesh,serve", CASES, ids=IDS)
+def test_tp_allreduce_bytes_are_the_shape_count(gang, arch, mesh, serve):
+    """The step (forward, remat, backward), the prefill and one decode
+    step: each rank's ``tp_allreduce`` bytes, f32 throughout."""
+    cfg = get_reduced(arch)
+    for rank in range(2):
+        _, info = C.load(gang, rank, arch, mesh)
+        assert info["bytes"]["tp_allreduce"] == tp_allreduce_bytes(
+            cfg, W.B, W.S, "train", 2, 4)
+        assert info["prefill_bytes"]["tp_allreduce"] == tp_allreduce_bytes(
+            cfg, W.B, W.S, "prefill", 2, 4)
+        assert info["decode_bytes"]["tp_allreduce"] == tp_allreduce_bytes(
+            cfg, W.B, 1, "decode", 2, 4)
+        # nothing over data on a grid of one data row
+        assert not {"fsdp_allgather", "grad_reducescatter"} & set(
+            info["bytes"])
+
+
+@pytest.mark.parametrize("arch,mesh,serve", W.REF["model2"],
+                         ids=IDS[:len(W.REF["model2"])])
+def test_matches_the_reference_fsdp_tp_step(gang, arch, mesh, serve):
+    """The reference's ``build_train`` on a ``(data 1, model 2)`` host
+    mesh: loss and ``grad_norm`` before its update."""
+    import json
+    ref = json.loads((gang / f"ref.{W.tag(arch, mesh)}.json").read_text())
+    _, info = C.load(gang, 0, arch, mesh)
+    got = info[get_reduced(arch).optimizer]
+    np.testing.assert_allclose(got["loss"], ref["loss"], rtol=C.LOSS_RTOL)
+    C.close(got["grad_norm"], ref["grad_norm"], f"{arch} grad_norm")
+
+
+def _dist(world, rank):
+    from repro_torch.distributed import DistContext
+    return DistContext(world_size=world, rank=rank, coordinator=None,
+                       device=torch.device("cpu"), backend=None)
+
+
+@pytest.mark.parametrize("layout,error", [("fsdp_sp", NotImplementedError),
+                                          ("dp", ValueError)])
+def test_a_model_axis_runs_only_fsdp_tp(layout, error):
+    """``fsdp_sp`` on a model axis raises, naming the next step; ``dp``
+    would run duplicated ranks and raises too; a grid of one rank is
+    still the ``dp`` step."""
+    grid = RankGrid({"data": 1, "model": 2}, _dist(2, 1))
+    with pytest.raises(error, match="step 5" if layout == "fsdp_sp"
+                       else "duplicated"):
+        build_train(get_reduced("stablelm-1.6b"), 2, 16, device="cpu",
+                    layout=layout, grid=grid)
+    one = RankGrid({"data": 1}, init_distributed(1, device="cpu"))
+    step, (state, batch) = build_train(get_reduced("stablelm-1.6b"), 2, 16,
+                                       device="cpu", layout=layout,
+                                       grid=one)
+    assert torch.isfinite(step(state, batch)[1]["loss"])

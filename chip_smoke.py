@@ -18,7 +18,10 @@ Phases, each of which fails the run if it fails:
    a window of 8192 that binds nowhere at 2048), at hubert-xlarge's
    training shape (non-causal, 16 heads of 80), at hd 80 a causal GQA
    shape and a ragged one, at a non-causal hd-64 shape (the tensor cores'
-   non-causal branch) and at ragged, windowed and MHA hd=128 shapes (one
+   non-causal branch), at ragged, windowed and MHA hd=128 shapes, and at
+   fsdp_sp's blocks (``SP_SHAPES``: 1024 queries against 2048 keys at
+   q_offset 1024, hd 64 and 80, causal and windowed, and the first
+   block's at q_offset 0, against SDPA with the same boolean mask) (one
    JSON line per shape: K1's route, tensor cores for bf16 at hd 64, 80 and
    128, CUDA cores otherwise, checked by its route counter; on the tensor
    cores two launches bitwise equal; errors, kernel / plain / library ms,
@@ -27,7 +30,8 @@ Phases, each of which fails the run if it fails:
 3. hold K2 and K3 against the plain backward, in bf16 and f32, at
    stablelm-1.6b's training shape, granite-3-2b's GQA shape, hubert's and
    the non-causal hd-64 shape, ragged, windowed and MHA hd=128 shapes, and
-   at hd 80 a causal GQA shape and a ragged one, the same way (their
+   at hd 80 a causal GQA shape and a ragged one, and at ``SP_SHAPES``,
+   the same way (their
    route by K1's table: the tensor cores for bf16 at hd 64, 80 and 128,
    checked by their route counters; two launches bitwise equal; each
    kernel's share of its bound and the wrapper's host ms per call); then
@@ -276,9 +280,27 @@ Phases, each of which fails the run if it fails:
     and decode state) and qwen3-moe (2 layers, 64 experts a rank; its
     prefill's decode state) no more than twice as far from an f32 run as
     world 1's bf16 run; every rank's ``tp_allreduce`` bytes the port's
-    count from the shapes, beside the analytic model's.
+    count from the shapes, beside the analytic model's;
+33. ``fsdp_sp`` on the grid ``{model: 2}``: three more ``RANK_JOBS`` of
+    the same gang at full width, depth cut, each rank on its half of the
+    sequence (K1-K3 its 1024 queries against the 2048 gathered keys at
+    q_offset 0 and 1024, K4 its segment, the segment states exchanged
+    and the conv halo): stablelm-1.6b training (4 layers, 4 x 2048; K1
+    8, K2 4, K3 4 a rank a step) against world 1 at four seeds (first
+    loss, first ``grad_norm`` and second loss within ``TRAIN_RTOL``, the
+    ranks' losses and norms equal), and once with the model all-reduce
+    of the leaves replicated over model dropped, which must fail that
+    gate; granite-3-2b's prefill (4 layers, 4 x 2048: its
+    logits and assembled K/V cache no more than twice as far from an f32
+    run as world 1's, the cache no farther from world 1's than world 1's
+    is from f32); mamba2 (4 layers, 2 x 2048, its decays slowed so that
+    a block's incoming state counts: training as stablelm's, K4 one
+    launch a layer a pass, then a prefill judged as granite's); every
+    rank's bytes by sequence-parallel mechanism the port's count from the
+    shapes (``sp_bytes``), to the byte, its peak memory and host step
+    time beside world 1's.
 
-The subprocesses of phases 29-32 (the ``--sharded-rank`` gang, then
+The subprocesses of phases 29-33 (the ``--sharded-rank`` gang, then
 phase 29's probe gang) and phase 21 run beside phase 20, whose reduced
 jobs leave the card nearly idle; each phase's checks run in its place.
 
@@ -296,14 +318,15 @@ and 23 as ``launches_train_hubert``, ``launches_run_api_hubert``,
 ``launches_prefill_llava`` and ``launches_train_llava``, each rank's
 of phase 25's gang as ``launches_train_gang``, each rank's of phase 29's
 (K1-K3) or phase 30's (K4) measured step as ``launches_sharded_gang``,
-each rank's of phase 32's jobs by job as ``launches_tp_gang``,
+each rank's of phase 32's jobs by job as ``launches_tp_gang`` and of
+phase 33's by job and part as ``launches_sp_gang``,
 phase 31's K4 launch as ``launches_seq_parallel``, and phase 28's by cell as
 ``launches_perfprobe``, with each cell's profiled ms as
 ``perfprobe_profiled``), K1-K4's route
 (``core_route``) and its numbers at the training shape (K2, K3),
 granite's prefill shape (K1, with glm4's, codeqwen's and qwen3's beside
-it; K1-K3 with hubert's, the non-causal hd-64 shape's and the two hd-80
-edge shapes'), mamba2's prefill shape (K4) or the 4-band Sentinel-2 tile
+it; K1-K3 with hubert's, the non-causal hd-64 shape's, the two hd-80
+edge shapes' and ``SP_SHAPES``'), mamba2's prefill shape (K4) or the 4-band Sentinel-2 tile
 (K5); the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the repository beside
 it, the script exits non-zero and prints no result.
 """
@@ -349,7 +372,19 @@ KERNELS = {
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
 
-# name, B, Sq, Sk, H, Kh, hd, causal, window
+# fsdp_sp's blocks on {model: 2} (phase 33): the second half's queries
+# at q_offset 1024 against the 2048 gathered keys, hd 64 (stablelm's
+# heads) and hd 80, causal and windowed, in phases 2 and 3 (both dtypes)
+SP_SHAPES = [
+    ("sp_offset_hd64", 4, 1024, 2048, 32, 32, 64, True, None, 1024),
+    # the first block's (rank 0's) queries against the same keys: the
+    # causal imbalance between the two ranks' K1-K3
+    ("sp_first_block_hd64", 4, 1024, 2048, 32, 32, 64, True, None, 0),
+    ("sp_offset_hd64_window", 4, 1024, 2048, 32, 8, 64, True, 512, 1024),
+    ("sp_offset_hd80", 4, 1024, 2048, 16, 16, 80, True, None, 1024),
+    ("sp_offset_hd80_window", 4, 1024, 2048, 16, 4, 80, True, 700, 1024),
+]
+# name, B, Sq, Sk, H, Kh, hd, causal, window[, q_offset]
 SHAPES = [
     ("granite_prefill", 8, 2048, 2048, 32, 8, 64, True, None),
     ("ragged_s1000", 2, 1000, 1000, 32, 8, 64, True, None),
@@ -366,12 +401,12 @@ SHAPES = [
     ("hd80_gqa_causal", 2, 2048, 2048, 16, 4, 80, True, None),
     ("hd80_ragged_s1000", 2, 1000, 1000, 16, 16, 80, False, None),
     ("noncausal_hd64", 2, 2048, 2048, 16, 16, 64, False, None),
-]
+] + SP_SHAPES
 # kernel vs plain in the working dtype: f32 differs only by summation
 # order; bf16 adds the output's rounding to bf16 (~4e-3 relative)
 TOL = {"float32": {"o": 2e-5, "lse": 1e-4},
        "bfloat16": {"o": 2e-2, "lse": 1e-4}}
-# name, B, Sq, Sk, H, Kh, hd, causal, window
+# name, B, Sq, Sk, H, Kh, hd, causal, window[, q_offset]
 BWD_SHAPES = [
     ("stablelm_train", 8, 2048, 2048, 32, 32, 64, True, None),
     ("granite_gqa", 8, 2048, 2048, 32, 8, 64, True, None),
@@ -384,7 +419,7 @@ BWD_SHAPES = [
     # / dV summed over a GQA group of 4, and ragged tiles past S 1000
     ("hd80_gqa_causal", 2, 2048, 2048, 16, 4, 80, True, None),
     ("hd80_ragged_s1000", 2, 1000, 1000, 16, 16, 80, False, None),
-]
+] + SP_SHAPES
 # K2/K3 against the plain backward: both compute in f32 from the same
 # inputs and return f32, so only the order of the f32 sums differs
 BWD_TOL = 2e-4
@@ -491,12 +526,41 @@ def cuda_ms_median(torch, fn, reps: int, repeats: int = 5):
     return times[len(times) // 2], [times[0], times[-1]]
 
 
-def valid_pairs(sq: int, sk: int, causal: bool, window) -> int:
-    """Number of (q, k) pairs the mask admits — the work this input needs."""
-    q = np.arange(sq)
+def valid_pairs(sq: int, sk: int, causal: bool, window,
+                q_offset: int = 0) -> int:
+    """Number of (q, k) pairs the mask admits — the work this input needs
+    (query row i at position q_offset + i)."""
+    q = q_offset + np.arange(sq)
     hi = np.minimum(sk - 1, q) if causal else np.full(sq, sk - 1)
     lo = np.maximum(0, q - window + 1) if window else np.zeros(sq, np.int64)
     return int(np.maximum(0, hi - lo + 1).sum())
+
+
+def reached_keys(sq: int, sk: int, causal: bool, window,
+                 q_offset: int = 0) -> int:
+    """Number of keys at least one query's mask admits — the K/V rows the
+    work must read (a block's causal queries reach no key past their
+    last position, a window none before its first query's reach)."""
+    q = q_offset + np.arange(sq)
+    hi = np.minimum(sk - 1, q) if causal else np.full(sq, sk - 1)
+    lo = np.maximum(0, q - window + 1) if window else np.zeros(sq, np.int64)
+    live = hi >= lo
+    seen = np.zeros(sk + 1, np.int64)
+    np.add.at(seen, lo[live], 1)
+    np.add.at(seen, hi[live] + 1, -1)
+    return int((np.cumsum(seen)[:sk] > 0).sum())
+
+
+def sdpa_bool_mask(ref, Sq: int, Sk: int, causal: bool, window,
+                   q_offset: int = 0):
+    """SDPA's boolean mask for K1-K3's (the plain version's
+    ``attention_mask``): None where SDPA's own causal flag (top-left
+    aligned) or no mask says the same, the window binding nowhere and no
+    offset."""
+    if (window is None or window >= Sk) and not q_offset:
+        return None
+    return ref.attention_mask(Sq, Sk, causal=causal, window=window,
+                              device="cuda", q_offset=q_offset)
 
 
 def least_ms(flops: float, nbytes: float, dtype: str):
@@ -507,25 +571,30 @@ def least_ms(flops: float, nbytes: float, dtype: str):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def bound(B, Sq, Sk, H, Kh, hd, causal, window, dtype: str, esize: int):
+def bound(B, Sq, Sk, H, Kh, hd, causal, window, dtype: str, esize: int,
+          q_offset: int = 0):
     """Least time (ms) for the forward: operations (QK^T and PV, 2 flops
-    per multiply-add each) over the dtype's peak, or bytes (q, k, v read
-    once, o and the f32 LSE written once) over HBM bandwidth."""
-    flops = 4 * hd * valid_pairs(Sq, Sk, causal, window) * B * H
-    nbytes = (2 * B * Sq * H * hd + 2 * B * Sk * Kh * hd) * esize \
+    per multiply-add each) over the dtype's peak, or bytes (q read once,
+    k and v once over the keys the mask reaches, o and the f32 LSE
+    written once) over HBM bandwidth."""
+    flops = 4 * hd * valid_pairs(Sq, Sk, causal, window, q_offset) * B * H
+    Sr = reached_keys(Sq, Sk, causal, window, q_offset)
+    nbytes = (2 * B * Sq * H * hd + 2 * B * Sr * Kh * hd) * esize \
         + 4 * B * H * Sq
     return (*least_ms(flops, nbytes, dtype), flops)
 
 
 def bwd_bounds(B, Sq, Sk, H, Kh, hd, causal, window, dtype: str,
-               esize: int) -> dict:
+               esize: int, q_offset: int = 0) -> dict:
     """Least times (ms) of the backward kernels.  Operations per admitted
     (q, k) pair: K2 6*hd (S = QK^T, dP = dO V^T, dS K), K3 8*hd (S, dP,
     P^T dO, dS^T Q), a fused single pass 10*hd (S and dP once).  Bytes:
-    q, k, v, dO read once, the f32 LSE and D read once, the f32 outputs
+    q and dO read once, k and v once over the keys the mask reaches, the
+    f32 LSE and D read once, the f32 outputs (dK and dV over every key)
     written once."""
-    pairs = valid_pairs(Sq, Sk, causal, window) * B * H
-    reads = (2 * B * Sq * H * hd + 2 * B * Sk * Kh * hd) * esize \
+    pairs = valid_pairs(Sq, Sk, causal, window, q_offset) * B * H
+    Sr = reached_keys(Sq, Sk, causal, window, q_offset)
+    reads = (2 * B * Sq * H * hd + 2 * B * Sr * Kh * hd) * esize \
         + 2 * 4 * B * H * Sq
     dq_bytes, dkv_bytes = 4 * B * Sq * H * hd, 2 * 4 * B * Sk * Kh * hd
     out = {}
@@ -671,14 +740,20 @@ FLASH_WGMMA = {"flash_fwd_wgmma": "K1", "flash_bwd_dq_wgmma": "K2",
 def flash_ptxas(report: list, kernels) -> list:
     """The tensor-core entries of ``kernels`` (of ``FLASH_WGMMA``'s names)
     by head dim, from :func:`ptxas_report`: one at each of hd 64, 80 and
-    128, and the hd-80 ones must not spill."""
+    128 (K1: two, the constant and the run-time query offset's, ``Lb0``
+    and ``Lb1`` in the mangled name), and the hd-80 ones must not
+    spill."""
     out = []
     for rec in report:
         entry = next(e for e in FLASH_WGMMA if e + "ILi" in rec["entry"])
         hd = int(rec["entry"].split(entry + "ILi")[1].split("E")[0])
         out.append({"kernel": FLASH_WGMMA[entry], "hd": hd, **rec})
+        if "Lb1E" in rec["entry"]:
+            out[-1]["q_offset"] = "run-time"
+    copies = {"K1": 2, "K2": 1, "K3": 1}
     if sorted((r["kernel"], r["hd"]) for r in out) != [
-            (k, hd) for k in kernels for hd in (64, 80, 128)]:
+            (k, hd) for k in kernels for hd in (64, 80, 128)
+            for _ in range(copies[k])]:
         raise AssertionError(f"the {kernels} tensor-core entries: {out}")
     bad = [r for r in out if r["hd"] == 80 and spills(r)]
     if bad:
@@ -686,7 +761,7 @@ def flash_ptxas(report: list, kernels) -> list:
     return out
 
 
-def kernel_vs_plain(torch, F, fa, attention_ref):
+def kernel_vs_plain(torch, F, fa, ref):
     """Phase 2.  On the tensor cores two launches must be bitwise equal.
     Returns the records by (shape, dtype)."""
     fa_kernel = fa.flash_attention_fwd_kernel
@@ -694,29 +769,30 @@ def kernel_vs_plain(torch, F, fa, attention_ref):
     gen = torch.Generator(device="cuda").manual_seed(1)
     for dtype_name in ("bfloat16", "float32"):
         dtype = getattr(torch, dtype_name)
-        for name, B, Sq, Sk, H, Kh, hd, causal, window in SHAPES:
+        for name, B, Sq, Sk, H, Kh, hd, causal, window, *off in SHAPES:
             def rnd(*shape):
                 return torch.randn(shape, generator=gen, device="cuda",
                                    dtype=torch.float32).to(dtype)
             q, k, v = rnd(B, Sq, H, hd), rnd(B, Sk, Kh, hd), rnd(B, Sk, Kh, hd)
+            off = off[0] if off else 0
+            mask = dict(causal=causal, window=window, q_offset=off)
             route = fa.route(dtype, hd)
             n0 = fa_kernel.launches_by_route[route]
-            out, lse = fa_kernel(q, k, v, causal=causal, window=window)
+            out, lse = fa_kernel(q, k, v, **mask)
             torch.cuda.synchronize()
             if fa_kernel.launches_by_route[route] != n0 + 1:
                 raise AssertionError(f"{name} {dtype_name}: K1 did not take "
                                      f"the {route} route")
             bitwise = None
             if route == "tensor_core":
-                out2, lse2 = fa_kernel(q, k, v, causal=causal, window=window)
+                out2, lse2 = fa_kernel(q, k, v, **mask)
                 bitwise = bool(torch.equal(out, out2)
                                and torch.equal(lse, lse2))
                 del out2, lse2
                 if not bitwise:
                     raise AssertionError(f"{name} {dtype_name}: two K1 "
                                          f"launches differ")
-            ref_out, ref_lse = attention_ref(q, k, v, causal=causal,
-                                             window=window)
+            ref_out, ref_lse = ref.attention_ref(q, k, v, **mask)
             err_o = (out.float() - ref_out.float()).abs().max().item()
             err_l = (lse - ref_lse).abs().max().item()
             tol = TOL[dtype_name]
@@ -727,35 +803,33 @@ def kernel_vs_plain(torch, F, fa, attention_ref):
             del ref_out, ref_lse
 
             kernel_ms, kernel_spread = cuda_ms_median(
-                torch, lambda: fa_kernel(q, k, v, causal=causal,
-                                         window=window), reps=10)
+                torch, lambda: fa_kernel(q, k, v, **mask), reps=10)
             # the wrapper's host time per call (checks, outputs, tensor
             # maps, launch): back-to-back calls cannot beat it
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             for _ in range(10):
-                fa_kernel(q, k, v, causal=causal, window=window)
+                fa_kernel(q, k, v, **mask)
             host_ms = (time.perf_counter() - t0) * 100
             torch.cuda.synchronize()
-            plain_ms = cuda_ms(torch, lambda: attention_ref(
-                q, k, v, causal=causal, window=window), reps=2)
+            plain_ms = cuda_ms(torch, lambda: ref.attention_ref(q, k, v,
+                                                                **mask),
+                               reps=2)
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-            if window is None or window >= Sk:    # the window binds nowhere
-                lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                    qt, kt, vt, is_causal=causal, enable_gqa=True)
-            else:
-                qp = torch.arange(Sq, device="cuda")[:, None]
-                kp = torch.arange(Sk, device="cuda")[None, :]
-                mask = (kp <= qp) & (kp > qp - window)
-                lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                    qt, kt, vt, attn_mask=mask, enable_gqa=True)
+            # the window binding nowhere and no offset: SDPA's causal flag,
+            # else the same boolean mask
+            sdpa_mask = sdpa_bool_mask(ref, Sq, Sk, **mask)
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, attn_mask=sdpa_mask,
+                is_causal=causal and sdpa_mask is None, enable_gqa=True)
             library_ms, library_spread = cuda_ms_median(torch, lib, reps=10)
             bound_ms, bound_by, flops = bound(B, Sq, Sk, H, Kh, hd, causal,
                                               window, dtype_name,
-                                              q.element_size())
+                                              q.element_size(), off)
             rec = dict(phase="kernel_vs_plain", shape=name,
                        dims=[B, Sq, Sk, H, Kh, hd], causal=causal,
-                       window=window, dtype=dtype_name, route=route,
+                       window=window, q_offset=off, dtype=dtype_name,
+                       route=route,
                        bitwise_repeat=bitwise,
                        max_abs_err_o=err_o, max_abs_err_lse=err_l,
                        tol=tol, kernel_ms=kernel_ms,
@@ -782,16 +856,16 @@ def bwd_vs_plain(torch, F, fa, ref):
     gen = torch.Generator(device="cuda").manual_seed(2)
     for dtype_name in ("bfloat16", "float32"):
         dtype = getattr(torch, dtype_name)
-        for name, B, Sq, Sk, H, Kh, hd, causal, window in BWD_SHAPES:
+        for name, B, Sq, Sk, H, Kh, hd, causal, window, *off in BWD_SHAPES:
             def rnd(*shape):
                 return torch.randn(shape, generator=gen, device="cuda",
                                    dtype=torch.float32).to(dtype)
             q, k, v = rnd(B, Sq, H, hd), rnd(B, Sk, Kh, hd), rnd(B, Sk, Kh, hd)
             do = rnd(B, Sq, H, hd)
-            out, lse = fa.flash_attention_fwd_kernel(q, k, v, causal=causal,
-                                                     window=window)
+            off = off[0] if off else 0
+            mask = dict(causal=causal, window=window, q_offset=off)
+            out, lse = fa.flash_attention_fwd_kernel(q, k, v, **mask)
             delta = ref.row_delta(out, do)
-            mask = dict(causal=causal, window=window)
             route = fa.route(dtype, hd)
             want_route = ("tensor_core" if dtype_name == "bfloat16"
                           and hd in (64, 80, 128) else "cuda_core")
@@ -845,25 +919,21 @@ def bwd_vs_plain(torch, F, fa, ref):
             # the library yardstick: the backward of SDPA through autograd
             qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
                           for x in (q, k, v))
-            if window is None:
-                lo = F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=causal, enable_gqa=True)
-            else:
-                qp = torch.arange(Sq, device="cuda")[:, None]
-                kp = torch.arange(Sk, device="cuda")[None, :]
-                lo = F.scaled_dot_product_attention(
-                    qt, kt, vt, attn_mask=(kp <= qp) & (kp > qp - window),
-                    enable_gqa=True)
+            sdpa_mask = sdpa_bool_mask(ref, Sq, Sk, **mask)
+            lo = F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=sdpa_mask,
+                is_causal=causal and sdpa_mask is None, enable_gqa=True)
             dot = do.transpose(1, 2)
             library_ms, library_spread = cuda_ms_median(
                 torch, lambda: torch.autograd.grad(
                     lo, (qt, kt, vt), dot, retain_graph=True), reps=5)
             del lo, qt, kt, vt
             b = bwd_bounds(B, Sq, Sk, H, Kh, hd, causal, window, dtype_name,
-                           q.element_size())
+                           q.element_size(), off)
             rec = dict(phase="bwd_kernel_vs_plain", shape=name,
                        dims=[B, Sq, Sk, H, Kh, hd], causal=causal,
-                       window=window, dtype=dtype_name, route=route,
+                       window=window, q_offset=off, dtype=dtype_name,
+                       route=route,
                        bitwise_repeat=bitwise, max_abs_err=errs, tol=BWD_TOL,
                        dq_kernel_ms=dq_ms, dkv_kernel_ms=dkv_ms,
                        dq_ms_min_max=dq_spread, dkv_ms_min_max=dkv_spread,
@@ -3473,7 +3543,16 @@ SHARDED_PEAK_SAVING_GB = 5.0
 # and a measured step) and serve jobs (a prefill of batch x seq and
 # "decode" steps fed seeded tokens), each held against world 1 of the
 # same cut, weights and batch in rank 0's process, and a serve job
-# against an f32 run too
+# against an f32 run too.  Phase 33's ("layout": "fsdp_sp", "model": 2)
+# run fsdp_sp on {model: 2}, each rank on its half of the sequence: a train
+# job (a warm-up and a measured step), a prefill job ("prefill": a prefill
+# of batch x seq, its whole logits and the decode state assembled from
+# the ranks' blocks), or both ("train" and "prefill"), each held against
+# world 1 of the same cut in rank 0's process, a prefill against an f32
+# run too.  "readings": the train job's gang and world 1 also run seeds 1
+# .. readings-1 (build_train's weights and batch); "fault": the gang runs
+# seed 0 again with the model all-reduce of the leaves replicated over
+# model dropped (``_dropped_model_reduce``), which the gate must fail
 RANK_JOBS = {
     "stablelm_dp": {"arch": "stablelm-1.6b", "layers": None, "batch": 8,
                     "seq": 2048, "layout": "dp"},
@@ -3490,8 +3569,34 @@ RANK_JOBS = {
     "qwen3_moe_tp": {"arch": "qwen3-moe-30b-a3b", "layers": 2, "batch": 4,
                      "seq": 2048, "layout": "fsdp_tp", "model": 2,
                      "decode": 8, "judged_on": ("state",)},
+    "stablelm_sp": {"arch": "stablelm-1.6b", "layers": 4, "batch": 4,
+                    "seq": 2048, "layout": "fsdp_sp", "model": 2,
+                    "readings": 4, "fault": True},
+    "granite_sp": {"arch": "granite-3-2b", "layers": 4, "batch": 4,
+                   "seq": 2048, "layout": "fsdp_sp", "model": 2,
+                   "prefill": True, "judged_on": ("prefill_logits", "state")},
+    "mamba2_sp": {"arch": "mamba2-2.7b", "layers": 4, "batch": 2,
+                  "seq": 2048, "layout": "fsdp_sp", "model": 2,
+                  "train": True, "prefill": True, "slow_decay": True,
+                  "judged_on": ("prefill_logits", "state")},
 }
-TP_JOBS = tuple(k for k, j in RANK_JOBS.items() if j.get("model", 1) > 1)
+MODEL_JOBS = tuple(k for k, j in RANK_JOBS.items() if j.get("model", 1) > 1)
+# a model-axis train job's gate: its first loss, first grad_norm and
+# second loss against world 1's.  fsdp_tp: GANG_LOSS_RTOL for all three.
+# fsdp_sp: a bf16 gradient summed from two blocks' bf16 partials is ~1%
+# off world 1's, elementwise at random, which lifts the norm by ~(1%)^2
+# / 2; stablelm's four seeds on the H100 read at most 1.46e-5 (first
+# loss), 1.15e-4 (grad_norm) and 6.7e-5 (second loss), and the planted
+# fault moved the norm 3.2e-3 and 1.0e-2 on the two ranks
+TRAIN_RTOL = {
+    "fsdp_tp": {"first": GANG_LOSS_RTOL, "grad_norm": GANG_LOSS_RTOL,
+                "second": GANG_LOSS_RTOL},
+    "fsdp_sp": {"first": 1e-4, "grad_norm": 3e-4, "second": 3e-4},
+}
+# "slow_decay": the SSD layers' A = -exp(A_log) of -1e-3 .. -1e-2 (the
+# init's -1 .. -16 forgets a state within a few tokens, so the other
+# rank's segment would add nothing to a block), in the gang and world 1
+SLOW_A = (1e-3, 1e-2)
 RANK_FLAG = "--sharded-rank"
 # B, S, heads, head dim, groups, N, chunk, segments: mamba2-2.7b's widths
 SEQ_PARALLEL = (8, 2048, 80, 64, 1, 128, 256, 4)
@@ -3504,6 +3609,45 @@ def _job_config(get_config, job: dict):
     cfg = get_config(job["arch"])
     return (cfg if job["layers"] is None
             else dataclasses.replace(cfg, n_layers=job["layers"]))
+
+
+def _job_parts(job: dict) -> tuple:
+    """``(trains, serves)`` of a ``RANK_JOBS`` job: one with ``decode``
+    steps or a ``prefill`` serves, and trains where it says ``train`` or
+    does not serve."""
+    serves = "decode" in job or bool(job.get("prefill"))
+    return not serves or bool(job.get("train")), serves
+
+
+def _slow_decay(torch, params) -> None:
+    """Set every SSD layer's ``A_log`` from ``SLOW_A``, in place (the
+    leaf is replicated: each rank holds it whole)."""
+    with torch.no_grad():
+        for layer in params["layers"]:
+            if "ssm" in layer:
+                a = layer["ssm"]["A_log"]
+                a.copy_(torch.log(torch.linspace(*SLOW_A, a.shape[0],
+                                                 device=a.device)))
+
+
+@contextlib.contextmanager
+def _dropped_model_reduce(grid):
+    """A planted fault, for the gate to fail: the step's all-reduce of
+    the leaves replicated over ``model`` (``FSDP.reduce``; under
+    ``fsdp_sp`` each holds one block's partial gradient) skipped."""
+    dist, data = grid.dist, grid.group("data")
+    real = dist.allreduce_
+
+    def allreduce_(tensors, mechanism="grad_reducescatter", group=None):
+        if mechanism == "replicated_allreduce" and group is not data:
+            return tensors
+        return real(tensors, mechanism=mechanism, group=group)
+
+    dist.allreduce_ = allreduce_
+    try:
+        yield
+    finally:
+        del dist.allreduce_
 
 
 def _port_of_rank() -> dict:
@@ -3521,6 +3665,7 @@ def _port_of_rank() -> dict:
     from repro_torch.models.model import decode_step, prefill
     from repro_torch.sharding.fsdp import FSDP
     from repro_torch.sharding.grid import model_grid
+    from repro_torch.sharding.sp import sp_bytes
     from repro_torch.sharding.tp import tp_allreduce_bytes
     return dict(collective_bytes_per_chip=collective_bytes_per_chip,
                 mesh_dims=mesh_dims, get_config=get_config,
@@ -3528,7 +3673,7 @@ def _port_of_rank() -> dict:
                 PROBED=PROBED, build_train=build_train,
                 init_params=init_params, decode_step=decode_step,
                 prefill=prefill, FSDP=FSDP, model_grid=model_grid,
-                tp_allreduce_bytes=tp_allreduce_bytes)
+                tp_allreduce_bytes=tp_allreduce_bytes, sp_bytes=sp_bytes)
 
 
 def _routes(P) -> dict:
@@ -3539,18 +3684,38 @@ def _since(now: dict, then: dict) -> dict:
     return {k: {r: n - then[k][r] for r, n in now[k].items()} for k in now}
 
 
+def _shape_bytes(torch, P, cfg, job: dict, grid, kind: str, batch: int,
+                 seq: int, decode: int = 0) -> dict:
+    """The port's count from the shapes of a model-axis job's bytes by
+    mechanism: ``tp_allreduce`` under fsdp_tp (a step, or a prefill and
+    ``decode`` steps), every sequence-parallel mechanism under fsdp_sp."""
+    M = grid.extent("model")
+    esize = getattr(torch, cfg.param_dtype).itemsize
+    if job["layout"] == "fsdp_sp":
+        return P["sp_bytes"](cfg, batch, seq, kind, M, esize)
+    if kind == "train":
+        return {"tp_allreduce": P["tp_allreduce_bytes"](
+            cfg, batch, seq, "train", M, esize)}
+    return {"tp_allreduce": sum(
+        k * P["tp_allreduce_bytes"](cfg, batch, s, part, M, esize)
+        for k, s, part in ((1, seq, "prefill"), (decode, 1, "decode")))}
+
+
 def _rank_train_job(torch, P, cfg, job: dict, grid) -> dict:
     """A train job on one rank: a warm-up and a measured step through
     ``steps.build_train`` on ``grid``; on a model axis, rank 0 then runs
     world 1 of the same cut, weights and batch (two steps, the peak of
-    the second)."""
+    the second), and the job's ``readings`` and ``fault`` runs follow."""
     ctx, dev = grid.dist, grid.device
     B, S = job["batch"], job["seq"]
     mesh = {"data": grid.extent("data"), "model": grid.extent("model")}
 
-    def two_steps(layout, g):
+    def two_steps(layout, g, seed=0):
         fn, (state, batch) = P["build_train"](cfg, B, S, device=dev,
-                                              layout=layout, grid=g)
+                                              layout=layout, grid=g,
+                                              seed=seed)
+        if job.get("slow_decay"):
+            _slow_decay(torch, state.params)
         state, met = fn(state, batch)
         losses, norms = [float(met["loss"])], [float(met["grad_norm"])]
         if g is not None and g.world_size > 1:
@@ -3572,38 +3737,55 @@ def _rank_train_job(torch, P, cfg, job: dict, grid) -> dict:
         torch.cuda.empty_cache()
         return rec
 
+    def scalars(r):
+        return {k: r[k] for k in ("losses", "grad_norms")}
+
     rec = {"rank": grid.rank, "backend": ctx.backend, "device": str(dev),
            "grid": mesh, **two_steps(job["layout"], grid),
            "analytic_collective_bytes": P["collective_bytes_per_chip"](
                cfg, B, S, "train", P["mesh_dims"](mesh), job["layout"])}
     if mesh["model"] > 1:
-        rec["tp_allreduce_shape_bytes"] = P["tp_allreduce_bytes"](
-            cfg, B // mesh["data"], S, "train", mesh["model"],
-            getattr(torch, cfg.param_dtype).itemsize)
+        rec["shape_bytes"] = _shape_bytes(torch, P, cfg, job, grid, "train",
+                                          B // mesh["data"], S)
         if grid.rank == 0:
             one = two_steps("dp", None)
             rec["world1"] = {k: one[k] for k in ("losses", "grad_norms",
                                                  "step_s", "peak_mem_gb")}
+        rec["readings"] = []
+        for seed in range(1, job.get("readings", 1)):
+            got = {"seed": seed,
+                   **scalars(two_steps(job["layout"], grid, seed))}
+            if grid.rank == 0:
+                got["world1"] = scalars(two_steps("dp", None, seed))
+            rec["readings"].append(got)
+        if job.get("fault"):
+            with _dropped_model_reduce(grid):
+                rec["fault"] = scalars(two_steps(job["layout"], grid))
     return rec
 
 
 def _rank_serve_job(torch, P, cfg, job: dict, grid) -> dict:
-    """A serve job on one rank of the model axis: the full weights from
-    seed 0 kept as the rank's blocks (``FSDP.shard_tree``), a prefill of
-    ``make_batch``'s tokens and ``decode`` steps fed seeded tokens, the
-    whole logits of each and the decode state after the prefill gathered
-    from the ranks.  Rank 0 then runs world 1 of the same cut, weights,
-    batch and tokens in bf16 through the kernels, and in f32 through the
-    plain versions, and returns the relative distances of the gang's and
-    of world 1's logits and state from the f32 run's (``_rel``,
-    ``_state_rel``)."""
+    """A serve job on one rank of the model axis under the job's layout:
+    the full weights from seed 0 (the SSD decays slowed where the job
+    says) kept as the rank's blocks (``FSDP.shard_tree``), a prefill of
+    ``make_batch``'s tokens and ``decode`` steps fed seeded tokens
+    (fsdp_sp: none), the whole logits of each and the decode state after
+    the prefill assembled from the ranks' blocks.  Rank 0 then runs world
+    1 of the same cut, weights, batch and tokens in bf16 through the
+    kernels, and in f32 through the plain versions, and returns the
+    relative distances of the gang's and of world 1's logits and state
+    from the f32 run's, and of the gang's from world 1's (``_rel``,
+    ``_state_rel``; the state also leaf by leaf)."""
     import dataclasses as dc
-    dev = grid.device
-    B, S, n = job["batch"], job["seq"], job["decode"]
+    dev, ctx = grid.device, grid.dist
+    B, S, n = job["batch"], job["seq"], job.get("decode", 0)
 
     def weights():
-        return P["init_params"](
+        params = P["init_params"](
             cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+        if job.get("slow_decay"):
+            _slow_decay(torch, params)
+        return params
 
     batch = P["make_batch"](cfg, B, S, 0, device=dev)
     toks = torch.randint(cfg.vocab, (n, B, 1), device=dev,
@@ -3611,15 +3793,19 @@ def _rank_serve_job(torch, P, cfg, job: dict, grid) -> dict:
 
     def serve(p, c, fsdp):
         """(logits of the prefill and each step, the prefill's decode
-        state whole, prefill s, decode s a step) on the host clock, a
-        gang's from a barrier."""
+        state whole, the rank's block shapes of it, prefill s, decode s
+        a step) on the host clock, a gang's from a barrier."""
         if fsdp is not None:
             torch.distributed.barrier()
         t0 = time.perf_counter()
         logits, state = P["prefill"](p, c, batch, S + n, fsdp=fsdp)
         torch.cuda.synchronize(dev)
         prefill_s = time.perf_counter() - t0
-        st = state if fsdp is None else fsdp.tp.full_decode_state(state, c)
+        shapes = {k: list(v.shape) for k, v in state.items()}
+        st = (state if fsdp is None
+              else fsdp.sp.full_decode_state(state, c, S + n)
+              if fsdp.sp is not None
+              else fsdp.tp.full_decode_state(state, c))
         st = {k: v.clone() for k, v in st.items()}
         outs = [logits.float()]
         torch.cuda.synchronize(dev)
@@ -3630,19 +3816,17 @@ def _rank_serve_job(torch, P, cfg, job: dict, grid) -> dict:
                                              fsdp=fsdp)
             outs.append(logits.float())
         torch.cuda.synchronize(dev)
-        return (torch.stack(outs), st, prefill_s,
-                (time.perf_counter() - t0) / n)
+        return (torch.stack(outs), st, shapes, prefill_s,
+                (time.perf_counter() - t0) / n if n else None)
 
-    ctx = grid.dist
-    esize = getattr(torch, cfg.param_dtype).itemsize
     params = weights()
-    fsdp = P["FSDP"](grid, params, "fsdp_tp", cfg)
+    fsdp = P["FSDP"](grid, params, job["layout"], cfg)
     shards = fsdp.shard_tree(params)
     del params                 # the rank keeps its blocks only
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     launched, sent = _routes(P), dict(ctx.collective_bytes)
-    logits, st, prefill_s, decode_s = serve(shards, cfg, fsdp)
+    logits, st, shapes, prefill_s, decode_s = serve(shards, cfg, fsdp)
     rec = {"rank": grid.rank, "backend": ctx.backend, "device": str(dev),
            "grid": {"data": 1, "model": grid.extent("model")},
            "prefill_s": prefill_s, "decode_s_per_step": decode_s,
@@ -3650,21 +3834,21 @@ def _rank_serve_job(torch, P, cfg, job: dict, grid) -> dict:
            "kernel_launches": _since(_routes(P), launched),
            "collective_bytes": {k: v - sent.get(k, 0.0) for k, v in
                                 ctx.collective_bytes.items()},
-           "tp_allreduce_shape_bytes": sum(
-               k * P["tp_allreduce_bytes"](cfg, B, s, kind,
-                                           grid.extent("model"), esize)
-               for k, s, kind in ((1, S, "prefill"), (n, 1, "decode")))}
+           "state_shapes": shapes,
+           "shape_bytes": _shape_bytes(torch, P, cfg, job, grid, "prefill",
+                                       B, S, n)}
     del shards, fsdp
     torch.cuda.empty_cache()
     if grid.rank == 0:
         torch.cuda.reset_peak_memory_stats(dev)
         params = weights()
-        one, one_st, one_prefill_s, one_decode_s = serve(params, cfg, None)
+        one, one_st, _, one_prefill_s, one_decode_s = serve(params, cfg,
+                                                            None)
         peak = torch.cuda.max_memory_allocated(dev) / 1e9
         c32 = dc.replace(cfg, param_dtype="float32",
                          attention_backend="torch", mixer_backend="torch")
-        ref, ref_st, _, _ = serve(_map(params, lambda t: t.float()), c32,
-                                  None)
+        ref, ref_st, _, _, _ = serve(_map(params, lambda t: t.float()), c32,
+                                     None)
         rec["world1"] = {
             "peak_mem_gb": peak, "prefill_s": one_prefill_s,
             "decode_s_per_step": one_decode_s,
@@ -3672,16 +3856,18 @@ def _rank_serve_job(torch, P, cfg, job: dict, grid) -> dict:
                 "logits": _rel(one, ref), "prefill_logits": _rel(one[0],
                                                                  ref[0]),
                 "state": _state_rel(one_st, ref_st)},
-            "tp_rel_err_vs_f32": {
+            "gang_rel_err_vs_f32": {
                 "logits": _rel(logits, ref),
                 "prefill_logits": _rel(logits[0], ref[0]),
                 "state": _state_rel(st, ref_st)},
-            "tp_rel_err_vs_world1": {"logits": _rel(logits, one),
-                                     "state": _state_rel(st, one_st)},
-            "argmax_agree_tp_world1": int((logits.argmax(-1)
-                                           == one.argmax(-1)).sum().item()),
+            "gang_rel_err_vs_world1": {
+                "logits": _rel(logits, one), "state": _state_rel(st, one_st),
+                **{k: _state_rel({k: st[k]}, {k: one_st[k]})
+                   for k in one_st}},
+            "argmax_agree_gang_world1": int((logits.argmax(-1)
+                                             == one.argmax(-1)).sum().item()),
             "finite": bool(torch.isfinite(logits).all().item())}
-        del params
+        del params, one_st, ref_st
         torch.cuda.empty_cache()
     return rec
 
@@ -3693,8 +3879,9 @@ def sharded_rank(rank: int, coordinator: str) -> int:
     its memory freed before the next.  Prints, as its last line, each
     job's record: the losses (train) or the serve times, the collective
     bytes by mechanism, K1-K4's launches by route, step time and peak
-    memory, and on a model axis the port's ``tp_allreduce`` count from
-    the shapes and, in rank 0's, world 1's numbers."""
+    memory, and on a model axis the port's count from the shapes
+    (``tp_allreduce`` under fsdp_tp, every sequence-parallel mechanism
+    under fsdp_sp) and, in rank 0's, world 1's numbers."""
     import torch
     P = _port_of_rank()
     ctx = P["init_distributed"](2, rank, coordinator)
@@ -3703,8 +3890,13 @@ def sharded_rank(rank: int, coordinator: str) -> int:
         for name, job in RANK_JOBS.items():
             cfg = _job_config(P["get_config"], job)
             grid = P["model_grid"](ctx, job.get("model", 1))
-            run = _rank_serve_job if "decode" in job else _rank_train_job
-            out[name] = run(torch, P, cfg, job, grid)
+            trains, serves = _job_parts(job)
+            rec = (_rank_train_job(torch, P, cfg, job, grid) if trains
+                   else {})
+            if serves:
+                got = _rank_serve_job(torch, P, cfg, job, grid)
+                rec = dict(rec, serve=got) if trains else got
+            out[name] = rec
     finally:
         ctx.close()
     print(json.dumps(out), flush=True)
@@ -3892,84 +4084,158 @@ def sharded_mamba2(torch, m, ranks: list, gang_wall_s: float) -> list:
     return [g["tensor_core"] for g in got]
 
 
-def _tp_launches(cfg, job: dict, ranks: list, what: str) -> dict:
-    """Each rank's K1-K4 launches in a model-axis job: a train job's as
-    ``train_launches`` predicts for one step, a serve job's one prefill's
-    (``prefill_launches``; decode launches none), all on the tensor
-    cores.  Returns the launched kernels' counts per rank."""
-    want = (train_launches(cfg, 1) if "decode" not in job
-            else prefill_launches(cfg))
-    want = {k: v for k, v in want.items() if v}
+def _gang_launches(cfg, job: dict, ranks: list, what: str) -> dict:
+    """Each rank's K1-K4 launches in a model-axis job: its measured train
+    step's as ``train_launches`` predicts for one step, its serving's as
+    ``prefill_launches`` predicts for one prefill (a decode step launches
+    none), all on the tensor cores.  Returns the launched kernels' counts
+    per rank, by part."""
+    trains, serves = _job_parts(job)
+    parts = {}
+    if trains:
+        parts["train"] = (train_launches(cfg, 1),
+                          [d["kernel_launches"] for d in ranks])
+    if serves:
+        parts["serve"] = (prefill_launches(cfg), [
+            (d["serve"] if trains else d)["kernel_launches"] for d in ranks])
     out = {}
-    for name in _Counts.ROUTED:
-        got = [d["kernel_launches"][name] for d in ranks]
-        if any(g != {"tensor_core": want.get(name, 0), "cuda_core": 0}
-               for g in got):
-            raise AssertionError(f"{what}: {name} launches {got}, want "
-                                 f"{want.get(name, 0)} on the tensor cores")
-        if name in want:
-            out[name] = [g["tensor_core"] for g in got]
+    for part, (want, got) in parts.items():
+        want = {k: v for k, v in want.items() if v}
+        for name in _Counts.ROUTED:
+            each = [g[name] for g in got]
+            if any(g != {"tensor_core": want.get(name, 0), "cuda_core": 0}
+                   for g in each):
+                raise AssertionError(
+                    f"{what} {part}: {name} launches {each}, want "
+                    f"{want.get(name, 0)} on the tensor cores")
+            if name in want:
+                out.setdefault(name, {})[part] = [g["tensor_core"]
+                                                  for g in each]
     return out
 
 
-def tp_gangs(torch, m, jobs: dict) -> dict:
-    """Phase 32: ``fsdp_tp`` on the grid ``{model: 2}``, run by the
-    ``RANK_FLAG`` gang (both ranks on ``cuda:0``, gloo), each rank
-    computing its half of the heads, MLP columns, SSM heads, experts and
-    vocabulary (``TP_JOBS``).  Gates: the train job's first loss and
-    ``grad_norm`` and its second loss within ``GANG_LOSS_RTOL`` of world
-    1's, the ranks' losses equal; a serve job's logits or decode state
-    (its ``judged_on``) no more than twice as far from the f32 run's as
-    world 1's bf16 run (the repo's prefill gate rule: a row-parallel
-    partial sum adds a bf16 rounding before its all-reduce); every
-    rank's ``tp_allreduce`` bytes the port's count from the shapes, to
-    the byte; K1-K4 launched as one step or one prefill predicts, on the
-    tensor cores.  Reports each rank's bytes by mechanism beside the
-    analytic model's for ``{data: 1, model: 2}`` and its peak memory
-    beside world 1's.  Returns the launches by job, per rank."""
-    launches, recs = {}, {}
-    for name in TP_JOBS:
+def _shape_bytes_differ(rec: dict) -> list:
+    """The mechanisms whose bytes in a rank's record differ from the
+    port's count from the shapes (``shape_bytes``), to the byte."""
+    got = rec["collective_bytes"]
+    return [k for k, v in rec["shape_bytes"].items()
+            if got.get(k, 0.0) != v]
+
+
+def _train_gate(layout: str, ranks: list) -> dict:
+    """A model-axis train job's first loss, first ``grad_norm`` and
+    second loss against world 1's (``TRAIN_RTOL``) at seed 0 and at each
+    of the job's ``readings``, and the ranks' agreement: on every loss,
+    and under fsdp_sp on every ``grad_norm`` too (each rank counts the
+    leaves replicated over model from its own copy, which the model
+    all-reduce makes one).  Each entry's ``fails`` lists what it fails;
+    the ``fault`` run's must not be empty."""
+    lim = TRAIN_RTOL[layout]
+    keys = ("losses", "grad_norms") if layout == "fsdp_sp" else ("losses",)
+
+    def judge(mine, other, one):
+        rel = {"first": _max_rel([mine["losses"][0]], [one["losses"][0]]),
+               "grad_norm": _max_rel([mine["grad_norms"][0]],
+                                     [one["grad_norms"][0]]),
+               "second": _max_rel([mine["losses"][1]], [one["losses"][1]])}
+        fails = [k for k, v in rel.items() if v > lim[k]]
+        if any(mine[k] != other[k] for k in keys):
+            fails.append("ranks")
+        return {"rel_err_vs_world1": rel, "fails": fails}
+
+    a, b = ranks
+    out = {"seeds": [{"seed": 0, **judge(a, b, a["world1"])}] + [
+        {"seed": r["seed"], "losses": r["losses"],
+         "grad_norms": r["grad_norms"], "world1": r["world1"],
+         **judge(r, s, r["world1"])}
+        for r, s in zip(a["readings"], b["readings"])]}
+    if "fault" in a:
+        out["fault"] = {"grad_norms": [a["fault"]["grad_norms"],
+                                       b["fault"]["grad_norms"]],
+                        **judge(a["fault"], b["fault"], a["world1"])}
+    return out
+
+
+def model_axis_gangs(torch, m, jobs: dict) -> dict:
+    """Phases 32 and 33: ``fsdp_tp`` and ``fsdp_sp`` on the grid
+    ``{model: 2}``, run by the ``RANK_FLAG`` gang (both ranks on
+    ``cuda:0``, gloo; ``MODEL_JOBS``).  Under fsdp_tp each rank computes
+    its half of the heads, MLP columns, SSM heads, experts and
+    vocabulary; under fsdp_sp its half of the sequence: K1-K3 run its
+    1024 queries against the 2048 gathered keys at q_offset 0 and 1024,
+    K4 its segment from a zero state (mamba2's decays slowed,
+    ``SLOW_A``, so that the exchanged state counts).  Gates: a train
+    job's readings within ``TRAIN_RTOL`` of world 1's and its ranks
+    agreeing, and its planted ``fault`` failing that
+    (:func:`_train_gate`); a serve job's logits or decode state (its
+    ``judged_on``) no more than twice as far from the f32 run's as world
+    1's bf16 run (the repo's prefill gate rule: a partial sum adds a bf16
+    rounding before its reduction), under fsdp_sp the assembled K/V
+    cache no farther from world 1's than world 1's state is from f32;
+    every rank's bytes by mechanism the port's count from the shapes
+    (``tp_allreduce_bytes``, ``sp_bytes``), to the byte; K1-K4 launched
+    as one step or one prefill predicts, on the tensor cores.  Reports
+    each rank's bytes by mechanism (a train job's beside the analytic
+    model's for ``{data: 1, model: 2}``), peak memory and host times
+    beside world 1's.  Returns the launches by layout and job, per rank
+    and part."""
+    launches = {"fsdp_tp": {}, "fsdp_sp": {}}
+    for name in MODEL_JOBS:
         job, ranks = RANK_JOBS[name], jobs[name]
+        layout = job["layout"]
         cfg = _job_config(m["get_config"], job)
-        what = f"{name} ({cfg.name}, {job['layers']} layers, fsdp_tp)"
-        launches[name] = _tp_launches(cfg, job, ranks, what)
-        one = ranks[0]["world1"]
-        got = [d["collective_bytes"].get("tp_allreduce") for d in ranks]
-        want = [d["tp_allreduce_shape_bytes"] for d in ranks]
-        rec = {"job": job, "tp_allreduce": got, "tp_allreduce_shapes": want,
-               "collective_bytes": [d["collective_bytes"] for d in ranks],
-               "peak_mem_gb": [d["peak_mem_gb"] for d in ranks],
-               "world1_peak_mem_gb": one["peak_mem_gb"],
-               "launches": launches[name]}
-        if "decode" in job:
-            rec.update(prefill_s=[d["prefill_s"] for d in ranks],
-                       decode_s_per_step=[d["decode_s_per_step"]
-                                          for d in ranks], world1=one)
-            tp, w1 = one["tp_rel_err_vs_f32"], one["rel_err_vs_f32"]
-            bad = [k for k in job["judged_on"] if tp[k] > 2 * w1[k]]
-            bad += [] if one["finite"] else ["finite"]
-        else:
-            a = ranks[0]
+        what = f"{name} ({cfg.name}, {job['layers']} layers, {layout})"
+        got = launches[layout][name] = _gang_launches(cfg, job, ranks, what)
+        rec, bad = {"job": job, "launches": got}, []
+        trains, serves = _job_parts(job)
+        if trains:
+            a, one = ranks[0], ranks[0]["world1"]
+            gate = _train_gate(layout, ranks)
             rec.update(losses=a["losses"], grad_norms=a["grad_norms"],
                        world1_losses=one["losses"],
                        world1_grad_norms=one["grad_norms"],
                        step_s=[d["step_s"] for d in ranks],
                        world1_step_s=one["step_s"],
+                       peak_mem_gb=[d["peak_mem_gb"] for d in ranks],
+                       world1_peak_mem_gb=one["peak_mem_gb"],
+                       collective_bytes=[d["collective_bytes"]
+                                         for d in ranks],
+                       shape_bytes=a["shape_bytes"],
                        analytic_collective_bytes=a[
-                           "analytic_collective_bytes"])
-            rel = _max_rel([a["losses"][0], a["grad_norms"][0],
-                            a["losses"][1]],
-                           [one["losses"][0], one["grad_norms"][0],
-                            one["losses"][1]])
-            rec["max_rel_err_vs_world1"] = rel
-            bad = ["losses"] if (rel > GANG_LOSS_RTOL or ranks[1]["losses"]
-                                 != a["losses"]) else []
-        if got != want:
-            bad.append("tp_allreduce")
-        emit(phase="tp_gang", name=name, card=card_line(), **rec)
+                           "analytic_collective_bytes"], **gate)
+            bad += [f"seed {r['seed']}: {r['fails']}" for r in gate["seeds"]
+                    if r["fails"]]
+            if "fault" in gate and not gate["fault"]["fails"]:
+                bad.append("the planted fault passed the gate")
+            bad += [f"train bytes {k}" for d in ranks
+                    for k in _shape_bytes_differ(d)]
+        if serves:
+            pre = [d["serve"] if trains else d for d in ranks]
+            one = pre[0]["world1"]
+            gang, w1 = one["gang_rel_err_vs_f32"], one["rel_err_vs_f32"]
+            rec["serve"] = {
+                "prefill_s": [d["prefill_s"] for d in pre],
+                "decode_s_per_step": [d["decode_s_per_step"] for d in pre],
+                "peak_mem_gb": [d["peak_mem_gb"] for d in pre],
+                "collective_bytes": [d["collective_bytes"] for d in pre],
+                "shape_bytes": pre[0]["shape_bytes"],
+                "state_shapes": [d["state_shapes"] for d in pre],
+                "world1": one}
+            bad += [k for k in job["judged_on"] if gang[k] > 2 * w1[k]]
+            bad += [] if one["finite"] else ["finite"]
+            if layout == "fsdp_sp":
+                # the K/V cache no farther from world 1's than world 1's
+                # state is from the f32 run's: equal within bf16
+                kv = [one["gang_rel_err_vs_world1"][k] for k in ("k", "v")
+                      if k in one["gang_rel_err_vs_world1"]]
+                if any(e > w1["state"] for e in kv):
+                    bad.append("kv cache vs world 1")
+            bad += [f"serve bytes {k}" for d in pre
+                    for k in _shape_bytes_differ(d)]
+        emit(phase={"fsdp_tp": "tp_gang", "fsdp_sp": "sp_gang"}[layout],
+             name=name, card=card_line(), **rec)
         if bad:
             raise AssertionError(f"{what}: {bad}: {rec}")
-        recs[name] = rec
     return launches
 
 
@@ -4050,7 +4316,8 @@ def seq_parallel_vs_plain(torch, m, counts) -> int:
     return routes["tensor_core"]
 
 def _by_job(launches: dict, kernel: str) -> dict:
-    """A kernel's per-rank launches in each phase-32 job that runs it."""
+    """A kernel's per-rank launches in each phase-32 or phase-33 job
+    that runs it."""
     return {job: got[kernel] for job, got in launches.items()
             if kernel in got}
 
@@ -4209,7 +4476,7 @@ def main() -> int:
     shutil.rmtree(ptxas_dir)
     dryrun_finish(torch, m, *sweep)
 
-    k1_recs = kernel_vs_plain(torch, F, fa, ref.attention_ref)
+    k1_recs = kernel_vs_plain(torch, F, fa, ref)
     kb_recs = bwd_vs_plain(torch, F, fa, ref)
     kb = kb_recs[("stablelm_train", "bfloat16")]
     function_vs_plain(torch, fa, m["flash_attention"], m["naive_attention"])
@@ -4299,8 +4566,10 @@ def main() -> int:
     sharded_k4 = sharded_mamba2(torch, m, rank_jobs["mamba2_fsdp_sp"],
                                 rank_jobs["wall_s"])
     seq_parallel_k4 = seq_parallel_vs_plain(torch, m, counts)
-    # the model axis: fsdp_tp's jobs of the same gang
-    tp_launches = tp_gangs(torch, m, rank_jobs)
+    # the model axis: fsdp_tp's jobs of the same gang, then fsdp_sp's
+    axis_launches = model_axis_gangs(torch, m, rank_jobs)
+    tp_launches, sp_launches = (axis_launches["fsdp_tp"],
+                                axis_launches["fsdp_sp"])
 
     # the vision paths: both studies normalize every scene through K5
     k5 = k5_vs_plain(torch, pn, pn_ref)
@@ -4340,6 +4609,16 @@ def main() -> int:
         rec["launches_train_gang"] = [r[name] for r in gang_launches]
         rec["launches_sharded_gang"] = [r[name] for r in sharded_launches]
         rec["launches_tp_gang"] = _by_job(tp_launches, name)
+        rec["launches_sp_gang"] = _by_job(sp_launches, name)
+        rec["shapes"].update({s[0]: {
+            "ms": kb_recs[(s[0], "bfloat16")][f"{what}_kernel_ms"],
+            "bound_ms": kb_recs[(s[0], "bfloat16")][f"{what}_bound_ms"],
+            "bound_by": kb_recs[(s[0], "bfloat16")][f"{what}_bound_by"],
+            "plain_ms": kb_recs[(s[0], "bfloat16")]["plain_ms"],
+            "library_ms": kb_recs[(s[0], "bfloat16")]["library_ms"],
+            "q_offset": s[9],
+            "core_route": kb_recs[(s[0], "bfloat16")]["route"]}
+            for s in SP_SHAPES})
     k1 = k1_recs[("granite_prefill", "bfloat16")]
     k1 = dict(ms=k1["kernel_ms"], bound_ms=k1["bound_ms"],
               bound_by=k1["bound_by"], max_abs_err=k1["max_abs_err_o"],
@@ -4363,11 +4642,13 @@ def main() -> int:
               launches_sharded_gang=[r["flash_attention_fwd"]
                                      for r in sharded_launches],
               launches_tp_gang=_by_job(tp_launches, "flash_attention_fwd"),
+              launches_sp_gang=_by_job(sp_launches, "flash_attention_fwd"),
               shapes={name: {k: k1_recs[(name, "bfloat16")][k] for k in (
                   "kernel_ms", "bound_ms", "bound_by", "plain_ms",
-                  "library_ms", "max_abs_err_o", "route")}
+                  "library_ms", "max_abs_err_o", "route", "q_offset")}
                   for name in ("glm4_prefill", "codeqwen_prefill",
-                               "qwen3_prefill") + new_shapes})
+                               "qwen3_prefill") + new_shapes
+                  + tuple(s[0] for s in SP_SHAPES)})
     rows = []
     for name, rec in (("flash_attention_fwd", k1),
                       ("flash_attention_bwd_dq", k2),
@@ -4389,6 +4670,7 @@ def main() -> int:
                  "launches_campaign": campaign["ssd_scan"],
                  "launches_sharded_gang": sharded_k4,
                  "launches_tp_gang": _by_job(tp_launches, "ssd_scan"),
+                 "launches_sp_gang": _by_job(sp_launches, "ssd_scan"),
                  "launches_seq_parallel": seq_parallel_k4,
                  "max_abs_err": max(k4["max_abs_err_y"], k4["max_abs_err_h"]),
                  "ms": k4["kernel_ms"], "plain_ms": k4["plain_ms"],

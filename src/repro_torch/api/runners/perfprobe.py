@@ -14,8 +14,9 @@ the ``dp`` step.  The port's own overrides: ``device`` (default
 ``None``: ``cuda``, which must exist), ``reduced``, ``batch`` and
 ``seq`` for a cut of the cell (the CPU tests run the reduced config;
 ``chip_smoke.py`` a gang at phase 25's batch), and ``model``, the
-grid's model extent (``fsdp_tp`` only: ``dp`` and ``fsdp_sp`` on a
-model axis raise).
+grid's model extent (``fsdp_tp``, and ``fsdp_sp``'s train and prefill
+cells of an arch without an MoE FFN slot; ``dp`` on a model axis
+raises).
 """
 from __future__ import annotations
 

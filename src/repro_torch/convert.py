@@ -14,11 +14,13 @@ what ``np.load`` returns for the reference's bf16 (``ml_dtypes``) leaves,
 so both packages' checkpoints restore bitwise without ``ml_dtypes``.
 
 A parameter-sharded state (:class:`repro_torch.sharding.fsdp.FSDP`: each
-rank holds its shards, or its ``(data, model)`` block of a leaf split
-over both axes) goes to the flat keys through ``FSDP.full_tree`` and
-comes back through ``FSDP.shard_tree`` (:func:`sharded_params_to_flat`,
-:func:`sharded_params_from_flat`): the gather concatenates the blocks
-over data, then over model, and the shard slices them, so the round
+rank holds its shards, its ``(data, model)`` block of a leaf split over
+both axes, or its block ``d*M + m`` of a dim split over both at once,
+``fsdp_sp``'s ``fsdp2``) goes to the flat keys through
+``FSDP.full_tree`` and comes back through ``FSDP.shard_tree``
+(:func:`sharded_params_to_flat`, :func:`sharded_params_from_flat`): the
+gather concatenates the blocks over their group (data, the world for
+``fsdp2``), then over model, and the shard slices them, so the round
 trip is bitwise too.
 
 The vision models (``models/segmentation.py``, ``models/changeformer.py``)

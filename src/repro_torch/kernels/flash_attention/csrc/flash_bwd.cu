@@ -10,8 +10,9 @@
 // in f32 or bf16 and the forward's per-row logsumexp L and D = rowsum(dO*O),
 // both (B*H, Sq) f32:
 //   S  = (scale Q) K^T            in f32, masked from absolute positions:
-//                                 kv padding (k < Sk), causal (k <= q,
-//                                 top-left aligned), window (k > q - window)
+//                                 kv padding (k < Sk), causal (k <= q),
+//                                 window (k > q - window), query row i at
+//                                 q = q_offset + i and key j at j
 //   P  = exp(S - L)               in f32 (not rounded to V's dtype)
 //   dP = dO V^T                   in f32
 //   dS = P * (dP - D)
@@ -34,8 +35,8 @@
 // resume of training relies on it).  K2 owns q rows and loops over the kv
 // tiles the causal and window bounds admit; K3 owns kv rows and loops over
 // the query heads of its GQA group and, for each, over the q tiles from
-// the first one that can see the kv rows to the last within k_end +
-// window, so dK/dV are summed per kv head in registers: there is no
+// the first one that can see the kv rows (q_lo = k0 - q_offset under the
+// causal mask) to the last within k_end + window, so dK/dV are summed per kv head in registers: there is no
 // H-sized dk/dv and no group sum as at the reference's ops.py:104-106.
 // Q/K/V/dO are read through their (B,S,H,hd) strides: there is no
 // pad-and-transpose copy as in the reference's ops.py::_layout, and the
@@ -175,7 +176,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, float* __restrict__ dq,
                     int H, int Kh, int Sq, int Sk, Strides st, int causal,
-                    int window, float scale) {
+                    int window, int q_offset, float scale) {
   constexpr int TM = Tile<HD>::M;  // q rows per block = kv rows per tile
   constexpr int R = TM / 16;       // tile rows (and columns) per thread
   constexpr int J = HD / 16;       // dQ columns per thread
@@ -213,10 +214,10 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const T* kb = k + b * st.kb + kh * st.kh;
   const T* vb = v + b * st.vb + kh * st.vh;
-  // kv range reachable by any row of this q tile
-  const int q_last = min(q0 + TM, Sq) - 1;
+  // kv range reachable by any row of this q tile (absolute positions)
+  const int q_last = min(q0 + TM, Sq) - 1 + q_offset;
   const int hi = causal ? min(Sk, q_last + 1) : Sk;
-  const int lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int lo = window > 0 ? max(0, q0 + q_offset - window + 1) : 0;
   const int t_lo = lo / TM;
   const int t_hi = (hi + TM - 1) / TM;
 
@@ -261,7 +262,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // dS = P (dP - D), P = exp(S - L) on admitted pairs, else 0
 #pragma unroll
     for (int i = 0; i < R; ++i) {
-      const int qp = q0 + ty + 16 * i;
+      const int qp = q0 + ty + 16 * i + q_offset;
 #pragma unroll
       for (int j = 0; j < R; ++j) {
         const int kp = k0 + tx + 16 * j;
@@ -305,7 +306,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, float* __restrict__ dk,
                      float* __restrict__ dv, int H, int Kh, int Sq, int Sk,
-                     Strides st, int causal, int window, float scale) {
+                     Strides st, int causal, int window, int q_offset,
+                     float scale) {
   constexpr int TM = Tile<HD>::M;  // kv rows per block = q rows per tile
   constexpr int R = TM / 16;
   constexpr int J = HD / 16;       // dK/dV columns per thread
@@ -333,11 +335,11 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   stage<T, HD, TM>(Vs, LD, v + b * st.vb + kh * st.vh + (int64_t)k0 * st.vs,
                    st.vs, Sk - k0, 1.f);
 
-  // q rows that can see some key of this tile: q >= k0 under the causal
-  // mask, q < k_last + window under the window
+  // q rows that can see some key of this tile: q_offset + q >= k0 under
+  // the causal mask, q_offset + q < k_last + window under the window
   const int k_last = min(k0 + TM, Sk) - 1;
-  const int q_lo = causal ? k0 : 0;
-  const int q_hi = window > 0 ? min(Sq, k_last + window) : Sq;
+  const int q_lo = causal ? max(0, k0 - q_offset) : 0;
+  const int q_hi = window > 0 ? min(Sq, k_last + window - q_offset) : Sq;
   const int t_lo = q_lo / TM;
   const int t_hi = q_hi > q_lo ? (q_hi + TM - 1) / TM : t_lo;
 
@@ -397,7 +399,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int j = 0; j < R; ++j) {
           const int c = tx + 16 * j;
           const int qp = q0 + c;
-          const float p = (qp < Sq && admitted(qp, kp, Sk, causal, window))
+          const float p = (qp < Sq && admitted(qp + q_offset, kp, Sk,
+                                               causal, window))
                               ? expf(s[i][j] - Ls[c]) : 0.f;
           Pt[(ty + 16 * i) * LDS + c] = p;
           dSt[(ty + 16 * i) * LDS + c] = p * (dp[i][j] - Ds[c]);
@@ -462,7 +465,7 @@ struct Args {
   float *dq, *dk, *dv;
   int B, H, Kh, Sq, Sk;
   Strides st;
-  int causal, window;
+  int causal, window, q_offset;
   float scale;
   cudaStream_t stream;
 };
@@ -480,7 +483,7 @@ cudaError_t launch_dq(const Args& a) {
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
       a.delta, a.dq, a.H, a.Kh, a.Sq, a.Sk, a.st, a.causal, a.window,
-      a.scale);
+      a.q_offset, a.scale);
   return cudaGetLastError();
 }
 
@@ -497,7 +500,7 @@ cudaError_t launch_dkv(const Args& a) {
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
       a.delta, a.dk, a.dv, a.H, a.Kh, a.Sq, a.Sk, a.st, a.causal, a.window,
-      a.scale);
+      a.q_offset, a.scale);
   return cudaGetLastError();
 }
 
@@ -634,7 +637,7 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap,
                    const float* __restrict__ lse,
                    const float* __restrict__ delta, float* __restrict__ dq,
                    int H, int Kh, int Sq, int Sk, int causal, int window,
-                   float scale, float scale_log2, int n_bh) {
+                   int q_offset, float scale, float scale_log2, int n_bh) {
   using L = DqLayout<HD>;
   constexpr int NB = Width<HD>::HP / 64;   // boxes a row
   extern __shared__ uint8_t smem_raw[];
@@ -649,11 +652,12 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap,
   auto v_full = [&](int s) { return q_full + 8 * (2 + 2 * STAGES + s); };
   auto v_empty = [&](int s) { return q_full + 8 * (2 + 3 * STAGES + s); };
   const Walk walk{(Sq + ROWS - 1) / ROWS, n_bh, true};
-  // the kv tiles that q rows q0 .. q0 + ROWS - 1 reach
+  // the kv tiles that q rows q0 .. q0 + ROWS - 1 reach (at their absolute
+  // positions, q_offset on)
   auto span = [&](int q0, int& t_lo, int& n) {
-    const int q_last = min(q0 + ROWS, Sq) - 1;
+    const int q_last = min(q0 + ROWS, Sq) - 1 + q_offset;
     const int hi = causal ? min(Sk, q_last + 1) : Sk;
-    const int lo = window > 0 ? max(0, q0 - window + 1) : 0;
+    const int lo = window > 0 ? max(0, q0 + q_offset - window + 1) : 0;
     t_lo = lo / TILE;
     n = (hi + TILE - 1) / TILE - t_lo;
   };
@@ -734,14 +738,15 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap,
         dr[r] = qp < Sq ? delta[(int64_t)bh * Sq + qp] : 0.f;
       }
       // a tile no row of this warpgroup may see, and one that needs the
-      // mask for some row
+      // mask for some row (a0: the warpgroup's first absolute position)
+      const int a0 = r0 + q_offset;
       auto dead = [&](int k0) {
-        return (causal && k0 > r0 + 63) ||
-               (window > 0 && k0 + TILE - 1 <= r0 - window);
+        return (causal && k0 > a0 + 63) ||
+               (window > 0 && k0 + TILE - 1 <= a0 - window);
       };
       auto edge = [&](int k0) {
-        return k0 + TILE > Sk || (causal && k0 + TILE - 1 > r0) ||
-               (window > 0 && k0 <= r0 + 63 - window);
+        return k0 + TILE > Sk || (causal && k0 + TILE - 1 > a0) ||
+               (window > 0 && k0 <= a0 + 63 - window);
       };
 #pragma unroll
       for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
@@ -778,7 +783,7 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap,
         if (edge(k0)) {
 #pragma unroll
           for (int i2 = 0; i2 < TILE / 2; ++i2) {
-            const int qp = r0 + frag_row(i2, warp, lane);
+            const int qp = a0 + frag_row(i2, warp, lane);
             const int kp = k0 + frag_col(i2, lane);
             if (!admitted(qp, kp, Sk, causal, window)) sc[i2] = 0.f;
           }
@@ -867,8 +872,8 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap qmap,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, float* __restrict__ dk,
                     float* __restrict__ dv, int H, int Kh, int Sq, int Sk,
-                    int causal, int window, float scale, float scale_log2,
-                    int n_bh) {
+                    int causal, int window, int q_offset, float scale,
+                    float scale_log2, int n_bh) {
   using L = DkvLayout<HD>;
   constexpr int QT = L::QT;
   constexpr int NB = Width<HD>::HP / 64;   // boxes a row
@@ -887,12 +892,13 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap qmap,
   auto t_empty = [&](int s) { return kv_full + 8 * (2 + STAGES + s); };
   const int rep = H / Kh;
   const Walk walk{(Sk + ROWS - 1) / ROWS, n_bh, false};
-  // the q tiles that can see kv rows k0 .. k0 + ROWS - 1: q >= k0 under
-  // the causal mask, q < k_last + window under the window
+  // the q tiles that can see kv rows k0 .. k0 + ROWS - 1: q_offset + q >=
+  // k0 under the causal mask, q_offset + q < k_last + window under the
+  // window
   auto span = [&](int k0, int& t_lo, int& n) {
     const int k_last = min(k0 + ROWS, Sk) - 1;
-    const int q_lo = causal ? k0 : 0;
-    const int q_hi = window > 0 ? min(Sq, k_last + window) : Sq;
+    const int q_lo = causal ? max(0, k0 - q_offset) : 0;
+    const int q_hi = window > 0 ? min(Sq, k_last + window - q_offset) : Sq;
     t_lo = q_lo / QT;
     n = q_hi > q_lo ? (q_hi + QT - 1) / QT - t_lo : 0;
   };
@@ -975,14 +981,17 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap qmap,
       span(k0, t_lo, nq);
       const int r0 = k0 + 64 * wg;
       // a tile no kv row of this warpgroup is seen by, and one that needs
-      // the mask for some pair
+      // the mask for some pair (tile q0's absolute positions start at
+      // q0 + q_offset)
       auto dead = [&](int q0) {
-        return (causal && q0 + QT - 1 < r0) ||
-               (window > 0 && q0 >= r0 + 63 + window);
+        const int a = q0 + q_offset;
+        return (causal && a + QT - 1 < r0) ||
+               (window > 0 && a >= r0 + 63 + window);
       };
       auto edge = [&](int q0) {
-        return q0 + QT > Sq || (causal && q0 < r0 + 63) ||
-               (window > 0 && q0 + QT - 1 >= r0 + window);
+        const int a = q0 + q_offset;
+        return q0 + QT > Sq || (causal && a < r0 + 63) ||
+               (window > 0 && a + QT - 1 >= r0 + window);
       };
 #pragma unroll
       for (int i = 0; i < HD / 2; ++i) ka[i] = va[i] = 0.f;
@@ -1027,7 +1036,7 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap qmap,
           for (int i2 = 0; i2 < QT / 2; ++i2) {
             const int kp = r0 + frag_row(i2, warp, lane);
             const int qp = q0 + frag_col(i2, lane);
-            if (!(qp < Sq && admitted(qp, kp, Sk, causal, window)))
+            if (!(qp < Sq && admitted(qp + q_offset, kp, Sk, causal, window)))
               st[i2] = 0.f;
           }
         }
@@ -1110,7 +1119,7 @@ int launch_dq(const Args& a) {
   if (code) return code;
   kern<<<grid, NT, DqLayout<HD>::ALLOC, a.stream>>>(
       qm, km, vm, om, a.lse, a.delta, a.dq, a.H, a.Kh, a.Sq, a.Sk, a.causal,
-      a.window, a.scale, a.scale * LOG2E, a.B * a.H);
+      a.window, a.q_offset, a.scale, a.scale * LOG2E, a.B * a.H);
   return cudaGetLastError();
 }
 
@@ -1126,7 +1135,7 @@ int launch_dkv(const Args& a) {
   if (code) return code;
   kern<<<grid, NT, DkvLayout<HD>::ALLOC, a.stream>>>(
       qm, km, vm, om, a.lse, a.delta, a.dk, a.dv, a.H, a.Kh, a.Sq, a.Sk,
-      a.causal, a.window, a.scale, a.scale * LOG2E, a.B * a.Kh);
+      a.causal, a.window, a.q_offset, a.scale, a.scale * LOG2E, a.B * a.Kh);
   return cudaGetLastError();
 }
 
@@ -1148,7 +1157,8 @@ template <bool DQ>
 int run(const void* q, const void* k, const void* v, const void* dout,
         const void* lse, const void* delta, void* o0, void* o1, int dtype,
         int B, int H, int Kh, int Sq, int Sk, int hd, const int64_t* s,
-        int causal, int window, float scale, void* stream) {
+        int causal, int window, int q_offset, float scale, void* stream) {
+  if (q_offset < 0) return cudaErrorInvalidValue;
   Args a{q, k, v, dout,
          static_cast<const float*>(lse), static_cast<const float*>(delta),
          DQ ? static_cast<float*>(o0) : nullptr,
@@ -1157,7 +1167,7 @@ int run(const void* q, const void* k, const void* v, const void* dout,
          B, H, Kh, Sq, Sk,
          Strides{s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8], s[9],
                  s[10], s[11]},
-         causal, window, scale, static_cast<cudaStream_t>(stream)};
+         causal, window, q_offset, scale, static_cast<cudaStream_t>(stream)};
   if (route_of(dtype, hd)) return tc::launch<DQ>(hd, a);
   if (dtype == 0) return dispatch<float, DQ>(hd, a);
   if (dtype == 1) return dispatch<__nv_bfloat16, DQ>(hd, a);
@@ -1171,15 +1181,17 @@ extern "C" {
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and dout share it).  strides:
 // 12 int64 element strides, (batch, seq, head) for q, k, v and dout in that
 // order; the head dim is contiguous.  lse and delta are (B*H, Sq) f32,
-// contiguous.  window <= 0 means no window.  Returns a cudaError_t code, or
+// contiguous.  window <= 0 means no window.  q_offset >= 0 is the absolute
+// position of query row 0.  Returns a cudaError_t code, or
 // hopper::ENCODER_MISSING / ENCODE_FAILED + CUresult.
 int flash_bwd_dq(const void* q, const void* k, const void* v,
                  const void* dout, const void* lse, const void* delta,
                  void* dq, int dtype, int B, int H, int Kh, int Sq, int Sk,
                  int hd, const int64_t* strides, int causal, int window,
-                 float scale, void* stream) {
+                 int q_offset, float scale, void* stream) {
   return run<true>(q, k, v, dout, lse, delta, dq, nullptr, dtype, B, H, Kh,
-                   Sq, Sk, hd, strides, causal, window, scale, stream);
+                   Sq, Sk, hd, strides, causal, window, q_offset, scale,
+                   stream);
 }
 
 // As flash_bwd_dq; writes dk and dv, (B, Sk, Kh, hd) f32 contiguous, each
@@ -1188,9 +1200,9 @@ int flash_bwd_dkv(const void* q, const void* k, const void* v,
                   const void* dout, const void* lse, const void* delta,
                   void* dk, void* dv, int dtype, int B, int H, int Kh,
                   int Sq, int Sk, int hd, const int64_t* strides, int causal,
-                  int window, float scale, void* stream) {
+                  int window, int q_offset, float scale, void* stream) {
   return run<false>(q, k, v, dout, lse, delta, dk, dv, dtype, B, H, Kh, Sq,
-                    Sk, hd, strides, causal, window, scale, stream);
+                    Sk, hd, strides, causal, window, q_offset, scale, stream);
 }
 
 // 1 if flash_bwd_dq and flash_bwd_dkv run (dtype, hd) on the tensor cores,

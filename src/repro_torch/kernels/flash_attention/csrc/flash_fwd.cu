@@ -9,8 +9,11 @@
 // (B,Sq,H,hd) and k/v (B,Sk,Kh,hd) in f32 or bf16.  Q K^T accumulates in
 // f32 and the scale multiplies that f32 sum; P is rounded to V's dtype
 // before the P V product, which accumulates in f32.  The mask is built from
-// absolute positions: kv padding (k < Sk), causal (k <= q, top-left
-// aligned, both counted from 0) and sliding window (k > q - window).  Query
+// absolute positions: kv padding (k < Sk), causal (k <= q) and sliding
+// window (k > q - window), where query row i sits at q = q_offset + i and
+// key j at j (q_offset 0: top-left aligned; a sequence block of a
+// sequence-parallel rank against the gathered keys: its first position).
+// The kv loop covers only the tiles the offset rows reach.  Query
 // head h reads kv head h / (H / Kh); K and V are never repeated in memory,
 // and q/k/v are read through their (B,S,H,hd) strides.  No atomics and no
 // split of kv across blocks: two launches on the same inputs are bitwise
@@ -152,7 +155,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  int64_t ksb, int64_t kss, int64_t ksh,
                  int64_t vsb, int64_t vss, int64_t vsh,
                  int64_t osb, int64_t oss, int64_t osh,
-                 int causal, int window, float scale) {
+                 int causal, int window, int q_offset, float scale) {
   constexpr int J = HD / 16;       // output columns per thread
   constexpr int LDQ = HD + 1;      // odd strides: no bank conflicts
   constexpr int LDV = HD;
@@ -177,10 +180,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   stage<T, HD>(Qs, LDQ, qb, qss, Sq - q0, scale);
 
-  // kv range reachable by any row of this q tile
-  const int q_last = min(q0 + BM, Sq) - 1;
+  // kv range reachable by any row of this q tile (absolute positions)
+  const int q_last = min(q0 + BM, Sq) - 1 + q_offset;
   int hi = causal ? min(Sk, q_last + 1) : Sk;
-  int lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  int lo = window > 0 ? max(0, q0 + q_offset - window + 1) : 0;
   const int t_lo = lo / BN;
   const int t_hi = (hi + BN - 1) / BN;
 
@@ -221,7 +224,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int qp = q0 + ty + 16 * i;
+      const int qp = q0 + ty + 16 * i + q_offset;
       float mx = NEG_INF;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -285,8 +288,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    float* lse, int B, int H, int Kh, int Sq, int Sk,
-                   const int64_t* st, int causal, int window, float scale,
-                   cudaStream_t stream) {
+                   const int64_t* st, int causal, int window, int q_offset,
+                   float scale, cudaStream_t stream) {
   constexpr int smem_floats = BM * (HD + 1) + BN * (HD + 1) + BN * HD +
                               BM * (BN + 1);
   constexpr int smem = smem_floats * (int)sizeof(float);
@@ -299,7 +302,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), lse, H, Kh, Sq, Sk,
       st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
-      st[9], st[10], st[11], causal, window, scale);
+      st[9], st[10], st[11], causal, window, q_offset, scale);
   return cudaGetLastError();
 }
 
@@ -307,11 +310,11 @@ template <typename T>
 cudaError_t dispatch(int hd, const void* q, const void* k, const void* v,
                      void* o, float* lse, int B, int H, int Kh, int Sq,
                      int Sk, const int64_t* st, int causal, int window,
-                     float scale, cudaStream_t stream) {
+                     int q_offset, float scale, cudaStream_t stream) {
 #define CASE(D)                                                            \
   case D:                                                                  \
     return launch<T, D>(q, k, v, o, lse, B, H, Kh, Sq, Sk, st, causal,    \
-                        window, scale, stream);
+                        window, q_offset, scale, stream);
   switch (hd) {
     CASE(16) CASE(32) CASE(48) CASE(64) CASE(80) CASE(96) CASE(112)
     CASE(128) CASE(144) CASE(160) CASE(176) CASE(192) CASE(208) CASE(224)
@@ -387,7 +390,7 @@ struct Consumer {
       wgmma_rs<HD>(o, &p[4 * kk], desc_mn(v_base, BN, kk));
   }
 
-  // Mask if asked, take the row max, and turn s into exp2(scale_log2 s -
+  // Mask if asked (row is the absolute position), take the row max, and turn s into exp2(scale_log2 s -
   // m) with m the running max in log2 units (the scale multiplies the f32
   // accumulator inside one FMA); returns the factors by which the old o and
   // l shrink.  Max and sum run as four partial chains per row: a single
@@ -432,7 +435,8 @@ struct Consumer {
              ((sum[r][0] + sum[r][1]) + (sum[r][2] + sum[r][3]));
   }
 
-  // kv padding, causal and window masks from absolute positions
+  // kv padding, causal and window masks from absolute positions (row:
+  // the query row's, q_offset included)
   __device__ __forceinline__ void mask(int row, int k0, int lane, int Sk,
                                        int causal, int window) {
 #pragma unroll
@@ -459,15 +463,20 @@ struct Consumer {
   }
 };
 
-template <int HD>
+// OFFSET false: q_offset is the constant 0, as on every path but a
+// sequence-parallel rank's block (the offset as a run-time value costs the
+// consumers' schedule ~7-9% at hd 64 and 80 on an H100).
+template <int HD, bool OFFSET>
 __global__ void __launch_bounds__(NT, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
                 const __grid_constant__ CUtensorMap kmap,
                 const __grid_constant__ CUtensorMap vmap,
                 __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int H,
                 int Kh, int Sq, int Sk, int64_t osb, int64_t oss, int64_t osh,
-                int causal, int window, float scale_log2, int n_bh) {
+                int causal, int window, int offset, float scale_log2,
+                int n_bh) {
   using L = Layout<HD>;
+  const int q_offset = OFFSET ? offset : 0;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
   const uint32_t sQ = base, sK = base + L::K_OFF, sV = base + L::V_OFF;
@@ -493,9 +502,10 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
     it.h = it.bh % H;
     it.kh = it.h / (H / Kh);
     it.q0 = qt * BM;
-    const int q_last = min(it.q0 + BM, Sq) - 1;
+    // the kv tiles the item's rows reach, at their absolute positions
+    const int q_last = min(it.q0 + BM, Sq) - 1 + q_offset;
     const int hi = causal ? min(Sk, q_last + 1) : Sk;
-    const int lo = window > 0 ? max(0, it.q0 - window + 1) : 0;
+    const int lo = window > 0 ? max(0, it.q0 + q_offset - window + 1) : 0;
     it.t_lo = lo / BN;
     it.n_tiles = (hi + BN - 1) / BN - it.t_lo;
     return it;
@@ -561,11 +571,12 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
       const Item it = item(j);
       const int r0 = it.q0 + 64 * wg;
       const int row = r0 + 16 * warp + lane / 4;   // and row + 8
+      const int a0 = r0 + q_offset;   // the warpgroup's first position
       // a tile needs the mask only where it crosses Sk, the diagonal or
       // the window's edge for some row of this warpgroup
       auto masked = [&](int k0) {
-        return k0 + BN > Sk || (causal && k0 + BN - 1 > r0) ||
-               (window > 0 && k0 < r0 + 64 - window);
+        return k0 + BN > Sk || (causal && k0 + BN - 1 > a0) ||
+               (window > 0 && k0 < a0 + 64 - window);
       };
 #pragma unroll
       for (int i = 0; i < HD / 2; ++i) c.o[i] = 0.f;
@@ -588,8 +599,8 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
         mbar_arrive(k_empty(s));
         if (nt == 1) mbar_arrive(q_empty);
         int k0 = it.t_lo * BN;
-        c.softmax(scale_log2, masked(k0), row, k0, lane, Sk, causal, window,
-                  alpha);
+        c.softmax(scale_log2, masked(k0), row + q_offset, k0, lane, Sk,
+                  causal, window, alpha);
         c.rescale_and_pack(alpha);
         // tile i: S_i = Q K_i^T and O += P_{i-1} V_{i-1} in flight
         // together; the softmax of S_i runs while the tensor cores finish
@@ -611,8 +622,8 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
           pin(c.s);
           mbar_arrive(k_empty(s));
           if (i == nt - 1) mbar_arrive(q_empty);
-          c.softmax(scale_log2, masked(k0), row, k0, lane, Sk, causal,
-                    window, alpha);
+          c.softmax(scale_log2, masked(k0), row + q_offset, k0, lane, Sk,
+                    causal, window, alpha);
           wgmma_wait<0>();
           pin(c.o);
           pin(c.p);
@@ -667,7 +678,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int B, int H, int Kh, int Sq, int Sk, const int64_t* st, int causal,
-           int window, float scale, cudaStream_t stream) {
+           int window, int q_offset, float scale, cudaStream_t stream) {
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return ENCODER_MISSING;
   CUtensorMap qm, km, vm;
@@ -677,14 +688,15 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   if (r == CUDA_SUCCESS)
     r = make_map(enc, &vm, v, HD, Kh, Sk, B, st[6], st[7], st[8], BN);
   if (r != CUDA_SUCCESS) return ENCODE_FAILED + static_cast<int>(r);
-  auto kern = flash_fwd_wgmma<HD>;
+  auto kern = q_offset ? flash_fwd_wgmma<HD, true>
+                       : flash_fwd_wgmma<HD, false>;
   int grid = 0;
   const cudaError_t err = persistent_grid(kern, Layout<HD>::ALLOC,
                                           B * H * ((Sq + BM - 1) / BM), &grid);
   if (err != cudaSuccess) return err;
   kern<<<grid, NT, Layout<HD>::ALLOC, stream>>>(
       qm, km, vm, static_cast<__nv_bfloat16*>(o), lse, H, Kh, Sq, Sk, st[9],
-      st[10], st[11], causal, window, scale * LOG2E, B * H);
+      st[10], st[11], causal, window, q_offset, scale * LOG2E, B * H);
   return cudaGetLastError();
 }
 
@@ -708,23 +720,26 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16.  strides: 12 int64 element strides,
 // (batch, seq, head) for q, k, v and o in that order; the head dim is
-// contiguous.  window <= 0 means no window.  Returns a cudaError_t code, or
-// hopper::ENCODER_MISSING / ENCODE_FAILED + CUresult.
+// contiguous.  window <= 0 means no window.  q_offset >= 0 is the absolute
+// position of query row 0 (keys sit at 0 .. Sk - 1).  Returns a cudaError_t
+// code, or hopper::ENCODER_MISSING / ENCODE_FAILED + CUresult.
 int flash_fwd(const void* q, const void* k, const void* v, void* o,
               void* lse, int dtype, int B, int H, int Kh, int Sq, int Sk,
               int hd, const int64_t* strides, int causal, int window,
-              float scale, void* stream) {
+              int q_offset, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
+  if (q_offset < 0) return cudaErrorInvalidValue;
   if (route_of(dtype, hd))
     return tc::launch(hd, q, k, v, o, l, B, H, Kh, Sq, Sk, strides, causal,
-                      window, scale, s);
+                      window, q_offset, scale, s);
   if (dtype == 0)
     return dispatch<float>(hd, q, k, v, o, l, B, H, Kh, Sq, Sk, strides,
-                           causal, window, scale, s);
+                           causal, window, q_offset, scale, s);
   if (dtype == 1)
     return dispatch<__nv_bfloat16>(hd, q, k, v, o, l, B, H, Kh, Sq, Sk,
-                                   strides, causal, window, scale, s);
+                                   strides, causal, window, q_offset, scale,
+                                   s);
   return cudaErrorInvalidValue;
 }
 

@@ -58,7 +58,7 @@ def library() -> ctypes.CDLL:
         lib = load_library(SOURCE)
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.flash_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p, i,
-                                  i, ctypes.c_float, p]
+                                  i, i, ctypes.c_float, p]
         lib.flash_fwd.restype = i
         lib.flash_fwd_route.argtypes = [i, i]
         lib.flash_fwd_route.restype = i
@@ -74,9 +74,9 @@ def bwd_library() -> ctypes.CDLL:
     if _bwd_lib is None:
         lib = load_library(BWD_SOURCE)
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.flash_bwd_dq.argtypes = [p] * 7 + [i] * 7 + [p, i, i, f, p]
+        lib.flash_bwd_dq.argtypes = [p] * 7 + [i] * 7 + [p, i, i, i, f, p]
         lib.flash_bwd_dq.restype = i
-        lib.flash_bwd_dkv.argtypes = [p] * 8 + [i] * 7 + [p, i, i, f, p]
+        lib.flash_bwd_dkv.argtypes = [p] * 8 + [i] * 7 + [p, i, i, i, f, p]
         lib.flash_bwd_dkv.restype = i
         lib.flash_bwd_route.argtypes = [i, i]
         lib.flash_bwd_route.restype = i
@@ -98,7 +98,9 @@ def _check_rows(name, t, device):
                          f"{t.stride()}")
 
 
-def _check(q, k, v):
+def _check(q, k, v, q_offset=0):
+    if q_offset < 0:
+        raise ValueError(f"q_offset must be >= 0; got {q_offset}")
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"want q (B,Sq,H,hd) and k/v (B,Sk,Kh,hd); got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
@@ -124,15 +126,17 @@ def _check(q, k, v):
 
 def flash_attention_fwd_kernel(q: torch.Tensor, k: torch.Tensor,
                                v: torch.Tensor, *, causal: bool,
-                               window: Optional[int]):
+                               window: Optional[int], q_offset: int = 0):
     """q: (B, Sq, H, hd); k/v: (B, Sk, Kh, hd), CUDA, f32 or bf16.
 
     Returns ``(out (B, Sq, H, hd) in q's dtype, lse (B*H, Sq) f32)``.
-    ``window`` is the sliding window in tokens, or None.  Each call that
-    launches the kernel adds one to ``flash_attention_fwd_kernel.launches``
-    and to its route's entry in ``.launches_by_route``.
+    ``window`` is the sliding window in tokens, or None; ``q_offset`` the
+    absolute position of query row 0 (the keys sit at 0 .. Sk - 1).  Each
+    call that launches the kernel adds one to
+    ``flash_attention_fwd_kernel.launches`` and to its route's entry in
+    ``.launches_by_route``.
     """
-    _check(q, k, v)
+    _check(q, k, v, q_offset)
     B, Sq, H, hd = q.shape
     Sk, Kh = k.shape[1], k.shape[2]
     lib = library()
@@ -146,8 +150,8 @@ def flash_attention_fwd_kernel(q: torch.Tensor, k: torch.Tensor,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), _DTYPES[q.dtype], B, H, Kh, Sq, Sk, hd,
             ctypes.cast(strides, ctypes.c_void_p), int(causal),
-            int(window) if window is not None else 0, 1.0 / (hd ** 0.5),
-            stream)
+            int(window) if window is not None else 0, int(q_offset),
+            1.0 / (hd ** 0.5), stream)
     if code != 0:
         raise RuntimeError(f"flash_fwd launch failed: CUDA error {code} "
                            f"({lib.flash_fwd_error_string(code).decode()})")
@@ -160,8 +164,8 @@ flash_attention_fwd_kernel.launches = 0
 flash_attention_fwd_kernel.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
-def _check_bwd(q, k, v, do, lse, delta):
-    _check(q, k, v)
+def _check_bwd(q, k, v, do, lse, delta, q_offset):
+    _check(q, k, v, q_offset)
     if do.shape != q.shape or do.dtype != q.dtype:
         raise ValueError(f"do must match q: got {tuple(do.shape)} "
                          f"{do.dtype}, q {tuple(q.shape)} {q.dtype}")
@@ -177,7 +181,7 @@ def _check_bwd(q, k, v, do, lse, delta):
                              f"got {tuple(t.shape)} {t.dtype} {t.device}")
 
 
-def _bwd_args(q, k, v, do, lse, delta, causal, window):
+def _bwd_args(q, k, v, do, lse, delta, causal, window, q_offset):
     B, Sq, H, hd = q.shape
     Sk, Kh = k.shape[1], k.shape[2]
     strides = (ctypes.c_int64 * 12)(*q.stride()[:3], *k.stride()[:3],
@@ -186,8 +190,8 @@ def _bwd_args(q, k, v, do, lse, delta, causal, window):
             lse.data_ptr(), delta.data_ptr())
     tail = (_DTYPES[q.dtype], B, H, Kh, Sq, Sk, hd,
             ctypes.cast(strides, ctypes.c_void_p), int(causal),
-            int(window) if window is not None else 0, 1.0 / (hd ** 0.5),
-            torch.cuda.current_stream(q.device).cuda_stream)
+            int(window) if window is not None else 0, int(q_offset),
+            1.0 / (hd ** 0.5), torch.cuda.current_stream(q.device).cuda_stream)
     return head, tail, strides
 
 
@@ -199,18 +203,21 @@ def _raise_on(code, what):
 
 
 def flash_attention_bwd_dq_kernel(q, k, v, do, lse, delta, *, causal: bool,
-                                  window: Optional[int]) -> torch.Tensor:
+                                  window: Optional[int],
+                                  q_offset: int = 0) -> torch.Tensor:
     """K2.  q/do: (B, Sq, H, hd); k/v: (B, Sk, Kh, hd), CUDA, f32 or bf16;
-    lse/delta: (B*H, Sq) f32 (delta = rowsum(dO * O)).
+    lse/delta: (B*H, Sq) f32 (delta = rowsum(dO * O)); ``q_offset`` as the
+    forward's.
 
     Returns dq (B, Sq, H, hd) f32.  Each call that launches the kernel adds
     one to ``flash_attention_bwd_dq_kernel.launches`` and to its route's
     entry in ``.launches_by_route``.
     """
-    _check_bwd(q, k, v, do, lse, delta)
+    _check_bwd(q, k, v, do, lse, delta, q_offset)
     lib = bwd_library()
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    head, tail, _keep = _bwd_args(q, k, v, do, lse, delta, causal, window)
+    head, tail, _keep = _bwd_args(q, k, v, do, lse, delta, causal, window,
+                                  q_offset)
     with torch.cuda.device(q.device):
         code = lib.flash_bwd_dq(*head, dq.data_ptr(), *tail)
     _raise_on(code, "flash_bwd_dq")
@@ -221,7 +228,7 @@ def flash_attention_bwd_dq_kernel(q, k, v, do, lse, delta, *, causal: bool,
 
 
 def flash_attention_bwd_dkv_kernel(q, k, v, do, lse, delta, *, causal: bool,
-                                   window: Optional[int]):
+                                   window: Optional[int], q_offset: int = 0):
     """K3.  Inputs as :func:`flash_attention_bwd_dq_kernel`.
 
     Returns ``(dk, dv)``, each (B, Sk, Kh, hd) f32 and already summed over
@@ -229,11 +236,12 @@ def flash_attention_bwd_dkv_kernel(q, k, v, do, lse, delta, *, causal: bool,
     adds one to ``flash_attention_bwd_dkv_kernel.launches`` and to its
     route's entry in ``.launches_by_route``.
     """
-    _check_bwd(q, k, v, do, lse, delta)
+    _check_bwd(q, k, v, do, lse, delta, q_offset)
     lib = bwd_library()
     dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
     dv = torch.empty(k.shape, dtype=torch.float32, device=q.device)
-    head, tail, _keep = _bwd_args(q, k, v, do, lse, delta, causal, window)
+    head, tail, _keep = _bwd_args(q, k, v, do, lse, delta, causal, window,
+                                  q_offset)
     with torch.cuda.device(q.device):
         code = lib.flash_bwd_dkv(*head, dk.data_ptr(), dv.data_ptr(), *tail)
     _raise_on(code, "flash_bwd_dkv")
@@ -244,13 +252,15 @@ def flash_attention_bwd_dkv_kernel(q, k, v, do, lse, delta, *, causal: bool,
 
 
 def flash_attention_bwd_kernel(q, k, v, do, lse, delta, *, causal: bool,
-                               window: Optional[int]):
+                               window: Optional[int], q_offset: int = 0):
     """Backward pass: K2 then K3.  Returns ``(dq (B,Sq,H,hd), dk, dv
     (B,Sk,Kh,hd))``, all f32, dk/dv summed over the GQA group."""
     dq = flash_attention_bwd_dq_kernel(q, k, v, do, lse, delta,
-                                       causal=causal, window=window)
+                                       causal=causal, window=window,
+                                       q_offset=q_offset)
     dk, dv = flash_attention_bwd_dkv_kernel(q, k, v, do, lse, delta,
-                                            causal=causal, window=window)
+                                            causal=causal, window=window,
+                                            q_offset=q_offset)
     return dq, dk, dv
 
 

@@ -32,12 +32,12 @@ from torch.utils.flop_counter import register_flop_formula
 FWD_PER_PAIR, DQ_PER_PAIR, DKV_PER_PAIR = 4, 6, 8
 
 
-def valid_pairs(sq: int, sk: int, causal: bool,
-                window: Optional[int]) -> int:
+def valid_pairs(sq: int, sk: int, causal: bool, window: Optional[int],
+                q_offset: int = 0) -> int:
     """Number of (q, k) pairs the kernels' mask admits: ``k < Sk``, ``k <=
-    q`` when causal, ``k > q - window`` with a window (positions from 0,
-    top-left aligned)."""
-    q = np.arange(sq, dtype=np.int64)
+    q`` when causal, ``k > q - window`` with a window, query row i at ``q =
+    q_offset + i`` and key j at ``j``."""
+    q = q_offset + np.arange(sq, dtype=np.int64)
     hi = np.minimum(sk - 1, q) if causal else np.full(sq, sk - 1)
     lo = (np.maximum(0, q - window + 1) if window
           else np.zeros(sq, np.int64))
@@ -45,35 +45,35 @@ def valid_pairs(sq: int, sk: int, causal: bool,
 
 
 def pair_flops(per_pair: int, q_shape, k_shape, causal: bool,
-               window: Optional[int]) -> int:
+               window: Optional[int], q_offset: int = 0) -> int:
     """``per_pair * hd`` operations per admitted pair, head and row."""
     B, Sq, H, hd = q_shape
     return per_pair * hd * B * H * valid_pairs(Sq, k_shape[1], causal,
-                                               window)
+                                               window, q_offset)
 
 
 _LIB = torch.library.Library("repro_torch", "FRAGMENT")
 _LIB.define("flash_fwd(Tensor q, Tensor k, Tensor v, bool causal, "
-            "SymInt? window) -> (Tensor, Tensor)")
+            "SymInt? window, int q_offset=0) -> (Tensor, Tensor)")
 _LIB.define("flash_bwd_dq(Tensor q, Tensor k, Tensor v, Tensor do, "
-            "Tensor lse, Tensor delta, bool causal, SymInt? window) "
-            "-> Tensor")
+            "Tensor lse, Tensor delta, bool causal, SymInt? window, "
+            "int q_offset=0) -> Tensor")
 _LIB.define("flash_bwd_dkv(Tensor q, Tensor k, Tensor v, Tensor do, "
-            "Tensor lse, Tensor delta, bool causal, SymInt? window) "
-            "-> (Tensor, Tensor)")
+            "Tensor lse, Tensor delta, bool causal, SymInt? window, "
+            "int q_offset=0) -> (Tensor, Tensor)")
 
 
-def _fwd(q, k, v, causal, window):
+def _fwd(q, k, v, causal, window, q_offset=0):
     B, Sq, H, hd = q.shape
     return (q.new_empty((B, Sq, H, hd)),
             q.new_empty((B * H, Sq), dtype=torch.float32))
 
 
-def _dq(q, k, v, do, lse, delta, causal, window):
+def _dq(q, k, v, do, lse, delta, causal, window, q_offset=0):
     return q.new_empty(q.shape, dtype=torch.float32)
 
 
-def _dkv(q, k, v, do, lse, delta, causal, window):
+def _dkv(q, k, v, do, lse, delta, causal, window, q_offset=0):
     return (k.new_empty(k.shape, dtype=torch.float32),
             v.new_empty(v.shape, dtype=torch.float32))
 
@@ -84,34 +84,41 @@ _LIB.impl("flash_bwd_dkv", _dkv, "Meta")
 
 
 @register_flop_formula(torch.ops.repro_torch.flash_fwd)
-def _fwd_flops(q_shape, k_shape, v_shape, causal, window, *args,
+def _fwd_flops(q_shape, k_shape, v_shape, causal, window, q_offset=0, *,
                out_shape=None, **kwargs) -> int:
-    return pair_flops(FWD_PER_PAIR, q_shape, k_shape, causal, window)
+    return pair_flops(FWD_PER_PAIR, q_shape, k_shape, causal, window,
+                      q_offset)
 
 
 @register_flop_formula(torch.ops.repro_torch.flash_bwd_dq)
-def _dq_flops(q_shape, k_shape, *args, out_shape=None, **kwargs) -> int:
-    causal, window = args[-2:]
-    return pair_flops(DQ_PER_PAIR, q_shape, k_shape, causal, window)
+def _dq_flops(q_shape, k_shape, v_shape, do_shape, lse_shape, delta_shape,
+              causal, window, q_offset=0, *, out_shape=None,
+              **kwargs) -> int:
+    return pair_flops(DQ_PER_PAIR, q_shape, k_shape, causal, window,
+                      q_offset)
 
 
 @register_flop_formula(torch.ops.repro_torch.flash_bwd_dkv)
-def _dkv_flops(q_shape, k_shape, *args, out_shape=None, **kwargs) -> int:
-    causal, window = args[-2:]
-    return pair_flops(DKV_PER_PAIR, q_shape, k_shape, causal, window)
+def _dkv_flops(q_shape, k_shape, v_shape, do_shape, lse_shape, delta_shape,
+               causal, window, q_offset=0, *, out_shape=None,
+               **kwargs) -> int:
+    return pair_flops(DKV_PER_PAIR, q_shape, k_shape, causal, window,
+                      q_offset)
 
 
-def flash_fwd_meta(q, k, v, *, causal: bool, window: Optional[int]):
+def flash_fwd_meta(q, k, v, *, causal: bool, window: Optional[int],
+                   q_offset: int = 0):
     """K1's outputs on meta tensors: ``(out (B,Sq,H,hd) in q's dtype, lse
     (B*H, Sq) f32)``."""
-    return torch.ops.repro_torch.flash_fwd(q, k, v, causal, window)
+    return torch.ops.repro_torch.flash_fwd(q, k, v, causal, window,
+                                           q_offset)
 
 
 def flash_bwd_meta(q, k, v, do, lse, delta, *, causal: bool,
-                   window: Optional[int]):
+                   window: Optional[int], q_offset: int = 0):
     """K2's and K3's outputs on meta tensors: ``(dq, dk, dv)``, f32."""
     dq = torch.ops.repro_torch.flash_bwd_dq(q, k, v, do, lse, delta, causal,
-                                           window)
+                                           window, q_offset)
     dk, dv = torch.ops.repro_torch.flash_bwd_dkv(q, k, v, do, lse, delta,
-                                                causal, window)
+                                                causal, window, q_offset)
     return dq, dk, dv

@@ -19,10 +19,11 @@ NEG_INF = -1e30
 
 
 def attention_mask(sq: int, sk: int, *, causal: bool, window: Optional[int],
-                   device=None) -> torch.Tensor:
-    """(Sq, Sk) bool: kv padding is implicit (k < Sk); causal ``k <= q``
-    (top-left aligned, both counted from 0); window ``k > q - window``."""
-    qp = torch.arange(sq, device=device)[:, None]
+                   device=None, q_offset: int = 0) -> torch.Tensor:
+    """(Sq, Sk) bool: kv padding is implicit (k < Sk); causal ``k <= q``;
+    window ``k > q - window``; query row i sits at ``q = q_offset + i`` and
+    key j at ``j`` (q_offset 0: top-left aligned)."""
+    qp = q_offset + torch.arange(sq, device=device)[:, None]
     kp = torch.arange(sk, device=device)[None, :]
     mask = torch.ones((sq, sk), dtype=torch.bool, device=device)
     if causal:
@@ -33,8 +34,10 @@ def attention_mask(sq: int, sk: int, *, causal: bool, window: Optional[int],
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  causal: bool = True, window: Optional[int] = None):
-    """q: (B, Sq, H, hd); k/v: (B, Sk, Kh, hd).
+                  causal: bool = True, window: Optional[int] = None,
+                  q_offset: int = 0):
+    """q: (B, Sq, H, hd); k/v: (B, Sk, Kh, hd); the queries at absolute
+    positions ``q_offset + i``.
 
     Returns ``(out (B, Sq, H, hd) in q's dtype, lse (B*H, Sq) f32)``.
     GQA reads kv head ``h // (H // Kh)`` through a broadcast view, so K and
@@ -50,7 +53,7 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     vg = v.float().permute(0, 2, 1, 3)[:, :, None]
     s = qg @ kg.transpose(-1, -2)                          # (B,Kh,rep,Sq,Sk)
     mask = attention_mask(Sq, Sk, causal=causal, window=window,
-                          device=q.device)
+                          device=q.device, q_offset=q_offset)
     s = torch.where(mask, s, torch.full((), NEG_INF, device=q.device))
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
@@ -70,9 +73,9 @@ def row_delta(out: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
 
 
 def attention_bwd_ref(q, k, v, out, lse, do, *, causal: bool = True,
-                      window: Optional[int] = None):
+                      window: Optional[int] = None, q_offset: int = 0):
     """q/out/do: (B, Sq, H, hd); k/v: (B, Sk, Kh, hd); lse: (B*H, Sq) f32
-    from the forward.
+    from the forward (of the same ``q_offset``).
 
     Returns ``(dq (B,Sq,H,hd), dk, dv (B,Sk,Kh,hd))``, all f32, dk/dv
     summed over the query heads of each kv head's group.
@@ -90,7 +93,7 @@ def attention_bwd_ref(q, k, v, out, lse, do, *, causal: bool = True,
     vg = v.float().permute(0, 2, 1, 3)[:, :, None]
     s = (qg * scale) @ kg.transpose(-1, -2)                 # (B,Kh,rep,Sq,Sk)
     mask = attention_mask(Sq, Sk, causal=causal, window=window,
-                          device=q.device)
+                          device=q.device, q_offset=q_offset)
     lse_g = lse.reshape(B, Kh, rep, Sq)[..., None]
     p = torch.where(mask, torch.exp(s - lse_g), 0.0)
     dp = dog @ vg.transpose(-1, -2)

@@ -27,15 +27,23 @@ on ``{data: D, model: M}``: the runner's ``world_size`` self-gangs as
 and moments and gather each layer where it runs (on the data axis the
 reference's rules make both ZeRO-3), ``fsdp_tp`` on a model axis
 computes each rank's heads, experts and vocabulary rows
-(:mod:`repro_torch.sharding.tp`), and ``dp`` is the data-parallel gang.
+(:mod:`repro_torch.sharding.tp`), ``fsdp_sp`` on a model axis each
+rank's block of the sequence (:mod:`repro_torch.sharding.sp`; training
+and prefill), and ``dp`` is the data-parallel gang.
 Each rank adds a ``dist`` section: its collective bytes in the measured
 step by the analytic model's mechanism (``fsdp_allgather``,
 ``grad_reducescatter``, ``tp_allreduce``, and the port's
 ``replicated_allreduce``, ``norm_allreduce``, ``tp_weights``,
-``vocab_allgather``), the port's own ``tp_allreduce`` count from the
-shapes, its peak memory, launches and losses; the record holds
-:func:`collective_bytes_per_chip` for ``{data: D, model: M}`` beside
-them.  On a grid of one rank every layout is the ``dp`` step.
+``vocab_allgather``, and under ``fsdp_sp`` ``kv_allgather``,
+``ssd_state_allgather``, ``conv_halo``, ``sp_allgather``,
+``sp_reducescatter``), the port's own count from the shapes
+(``tp_allreduce_shape_bytes``; under ``fsdp_sp`` ``sp_shape_bytes``, by
+mechanism, and ``sp_vs_analytic``: the analytic model's ``fsdp_sp``
+``tp_allreduce``, one K/V gather an attention layer and one state
+exchange an SSM layer, beside the measured ``kv_allgather +
+ssd_state_allgather``), its peak memory, launches and losses; the record
+holds :func:`collective_bytes_per_chip` for ``{data: D, model: M}``
+beside them.  On a grid of one rank every layout is the ``dp`` step.
 The reference's two-pod mesh (``multi_pod``) is 512 cards, not one host:
 it raises.
 """
@@ -63,6 +71,7 @@ from repro_torch.launch.dryrun import (one_card_budget, one_card_fit,
                                        peak_at, trace_step)
 from repro_torch.launch.mesh import INPUT_SHAPES
 from repro_torch.launch.steps import build, effective_config
+from repro_torch.sharding.sp import sp_bytes
 from repro_torch.sharding.tp import tp_allreduce_bytes
 
 LAYOUTS = ("dp", "fsdp_tp", "fsdp_sp")
@@ -203,10 +212,21 @@ def probe(arch: str, shape: str, layout: str = "dp", *,
                                         "model": grid.extent("model")}
     if world > 1:
         dist = _dist_record(grid, bytes_before, launches, step_s, losses)
+        esize = getattr(torch, cfg.param_dtype).itemsize
         dist["tp_allreduce_shape_bytes"] = (tp_allreduce_bytes(
-            cfg, batch // rows_of, seq, kind, mesh["model"],
-            getattr(torch, cfg.param_dtype).itemsize)
+            cfg, batch // rows_of, seq, kind, mesh["model"], esize)
             if step_layout == "fsdp_tp" else 0.0)
+        if step_layout == "fsdp_sp" and mesh["model"] > 1:
+            dist["sp_shape_bytes"] = sp_bytes(cfg, batch // rows_of, seq,
+                                              kind, mesh["model"], esize)
+            got = dist["collective_bytes"]
+            dist["sp_vs_analytic"] = {
+                "analytic_tp_allreduce": collective_bytes_per_chip(
+                    cfg, batch, seq, kind, mesh_dims(mesh),
+                    "fsdp_sp")["tp_allreduce"],
+                "kv_allgather + ssd_state_allgather": (
+                    got.get("kv_allgather", 0.0)
+                    + got.get("ssd_state_allgather", 0.0))}
     profile = None
     peak_gb = None
     if device.type == "cuda":

@@ -19,18 +19,24 @@ ctx.  The port returns a plain callable over one rank's tensors:
 * ``fsdp_tp`` on a ``{data: D, model: M}`` grid: the rank keeps its
   ``(data, model)`` block of each leaf and computes on its heads,
   experts, MLP columns and vocabulary rows (:mod:`repro_torch.sharding.
-  tp`); a model group's ranks hold the same rows.
+  tp`); a model group's ranks hold the same rows;
+* ``fsdp_sp`` on a ``{data: D, model: M}`` grid: the rank keeps its
+  blocks (the attention and SSM projections split over both axes) and
+  computes on its model coordinate's block of the sequence
+  (:mod:`repro_torch.sharding.sp`), for training and prefill.
 
 Every rank draws the full parameters and the global batch from the seed
 and keeps its blocks and its data row's rows (:func:`_rows` splits over
-data only), so a gang computes the world-1 step's numbers.  A rank's
-rows are its MoE dispatch group and its sequence one segment, as with no
-:class:`repro_torch.sharding.ShardCtx`, so a step runs under none
-(:func:`shard_ctx_for` is the reference's ctx of the whole mesh).  A
-``model`` extent above 1 under ``dp`` or ``fsdp_sp`` raises: ``dp``
-would run duplicated ranks, and ``fsdp_sp`` needs its sequence shards
-across ranks (ROADMAP.md Queue 1 item 1 step 5).  ``lower_step`` has no
-counterpart: nothing is lowered.
+data only: under ``fsdp_sp`` the model splits the sequence), so a gang
+computes the world-1 step's numbers.  A rank's rows are its MoE dispatch
+group and, but under ``fsdp_sp``'s model axis, its sequence one segment,
+as with no :class:`repro_torch.sharding.ShardCtx`, so a step runs under
+none (:func:`shard_ctx_for` is the reference's ctx of the whole mesh).
+On a ``model`` extent above 1 ``dp`` raises (it would run duplicated
+ranks), and so does what ``fsdp_sp`` does not run yet, naming its
+ROADMAP step (:func:`repro_torch.sharding.sp.check_config`: an MoE FFN
+slot, step 5.2; a sequence block under the SSM chunk; and decode, step
+5.1b).  ``lower_step`` has no counterpart: nothing is lowered.
 """
 from __future__ import annotations
 
@@ -49,6 +55,7 @@ from repro_torch.models.model import (decode_step, forward,
 from repro_torch.optim import get_optimizer
 from repro_torch.sharding import ShardCtx, rules
 from repro_torch.sharding.fsdp import FSDP
+from repro_torch.sharding.sp import DECODE_NEXT, check_config
 from repro_torch.train.step import TrainState, make_train_step
 
 BIG_PARAM_THRESHOLD = 20e9   # above this, optimizer moments go bf16
@@ -87,20 +94,17 @@ def state_shardings(cfg: ArchConfig, mesh, layout: str,
                                             layout), ())
 
 
-SP_NEXT = ("fsdp_sp on a model axis needs its sequence shards across "
-           "ranks (K1's query offset over gathered K/V, the SSD "
-           "segment-state exchange and the conv halo): ROADMAP.md Queue 1 "
-           "item 1 step 5, its next part")
-
-
-def _sharding(cfg: ArchConfig, layout: str, grid, params):
+def _sharding(cfg: ArchConfig, layout: str, grid, params, seq: int,
+              kind: str = "train"):
     """``(dist, fsdp)`` of a step on ``grid``: none at world 1; the
     rank's context, and FSDP storage unless the layout is ``dp``."""
     if grid is None or grid.world_size == 1:
         return None, None
     if grid.extent("model") > 1:
         if layout == "fsdp_sp":
-            raise NotImplementedError(f"grid {grid.mesh}: {SP_NEXT}")
+            if kind == "decode":
+                raise NotImplementedError(f"grid {grid.mesh}: {DECODE_NEXT}")
+            check_config(cfg, seq, grid.extent("model"))
         if layout == "dp":
             raise ValueError(f"grid {grid.mesh}: dp replicates every "
                              f"parameter, so a model axis would run "
@@ -144,7 +148,7 @@ def build_train(cfg: ArchConfig, batch: int, seq: int, *, device,
     global ``batch``."""
     optimizer = pick_optimizer(cfg)
     params = _params(cfg, device, seed)
-    dist, fsdp = _sharding(cfg, layout, grid, params)
+    dist, fsdp = _sharding(cfg, layout, grid, params, seq)
     step_fn = make_train_step(cfg, optimizer, remat=remat,
                               microbatches=microbatches, dist=dist,
                               fsdp=fsdp)
@@ -163,7 +167,7 @@ def build_prefill(cfg: ArchConfig, batch: int, seq: int, *, device,
     batch)``: on a grid of N the rank's params (shards under
     ``fsdp_*``) and rows."""
     params = _params(cfg, device, seed)
-    _, fsdp = _sharding(cfg, layout, grid, params)
+    _, fsdp = _sharding(cfg, layout, grid, params, seq, "prefill")
     if cfg.is_encoder_only:
         @torch.no_grad()
         def fn(params, batch_in):
@@ -188,7 +192,7 @@ def build_decode(cfg: ArchConfig, batch: int, seq: int, *, device,
     axis)."""
     require_decoder(cfg)
     params = _params(cfg, device, seed)
-    _, fsdp = _sharding(cfg, layout, grid, params)
+    _, fsdp = _sharding(cfg, layout, grid, params, seq, "decode")
 
     def fn(params, state, tokens, position):
         return decode_step(params, cfg, state, tokens, position, fsdp=fsdp)

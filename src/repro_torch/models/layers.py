@@ -19,6 +19,16 @@ row-parallel; the MLP's ``up``/``gate`` are column-parallel and its
 reference asks XLA for the cache's sequence split over ``model``
 instead (``decode_state_shardings``); where both divide, a rank holds
 the same bytes either way.
+
+Under the sequence split of ``fsdp_sp`` (``sp``, a
+:class:`repro_torch.sharding.sp.SP`) the attention computes q, k and v
+on the rank's block of the sequence with the whole weights, applies
+RoPE at the block's absolute positions, all-gathers K and V and runs
+the block's queries against every key at ``q_offset``, the block's
+first position (K1-K3 on CUDA tensors, the plain version on the CPU);
+``wo`` runs on the rank's rows with no reduction, the heads being
+whole.  The MLP gathers the sequence before its column blocks and
+reduce-scatters its row block's partial sums after them.
 """
 from __future__ import annotations
 
@@ -106,10 +116,14 @@ def mlp_init(generator, d: int, d_ff: int, act: str, dtype, device) -> dict:
     return p
 
 
-def mlp_apply(params: dict, x: torch.Tensor, act: str,
-              tp=None) -> torch.Tensor:
+def mlp_apply(params: dict, x: torch.Tensor, act: str, tp=None,
+              sp=None) -> torch.Tensor:
     """The MLP of ``x``; under ``tp`` on the rank's ``d_ff / M``
-    columns, the partial sums all-reduced."""
+    columns, the partial sums all-reduced; under ``sp`` on those columns
+    over the whole sequence, the partial sums reduce-scattered to the
+    ranks' blocks."""
+    if sp is not None:
+        return sp.scatter_seq(_mlp(params, sp.gather_seq(x), act))
     if tp is None:
         return _mlp(params, x, act)
     return tp.exit(_mlp(params, tp.enter(x), act))
@@ -174,8 +188,10 @@ def _mask_bias(q_pos, k_pos, causal, window):
     return m
 
 
-def naive_attention(q, k, v, *, causal, window):
-    """q: (B,Sq,H,hd), k/v: (B,Sk,Kh,hd).  Plain whole-row attention.
+def naive_attention(q, k, v, *, causal, window, q_offset=0):
+    """q: (B,Sq,H,hd), k/v: (B,Sk,Kh,hd).  Plain whole-row attention;
+    the queries sit at absolute positions ``q_offset + i``, the keys at
+    ``j``.
 
     GQA is computed against the un-repeated K/V (grouped product), so no
     H-sized key/value tensor is materialised.
@@ -189,7 +205,7 @@ def naive_attention(q, k, v, *, causal, window):
     if causal or window is not None:
         # unmasked, the reference adds zeros: skipped, which saves an
         # (Sq, Sk) bias and a scores-sized sum (ChangeFormer's 16k tokens)
-        pos_q = torch.arange(Sq, device=q.device)
+        pos_q = q_offset + torch.arange(Sq, device=q.device)
         pos_k = torch.arange(Sk, device=q.device)
         scores = scores + _mask_bias(pos_q, pos_k, causal, window)
     probs = torch.softmax(scores, dim=-1)
@@ -198,11 +214,14 @@ def naive_attention(q, k, v, *, causal, window):
 
 
 def attn_apply(params: dict, x: torch.Tensor, spec: AttnSpec,
-               positions: torch.Tensor, return_kv: bool = False, tp=None):
+               positions: torch.Tensor, return_kv: bool = False, tp=None,
+               sp=None):
     """Prefill self-attention.  x: (B,S,d); positions: (B,S).  Under
     ``tp`` the rank's heads (and its kv heads' K/V), ``wo``'s partial
-    sums all-reduced."""
+    sums all-reduced.  Under ``sp`` x and positions are the rank's block
+    of the sequence, and the K/V returned are the whole sequence's."""
     B, S, _ = x.shape
+    q_offset, whole = (0, S) if sp is None else sp.block(S)
     if tp is not None:
         params, spec = tp.attn(params, spec)
         x = tp.enter(x)
@@ -211,11 +230,14 @@ def attn_apply(params: dict, x: torch.Tensor, spec: AttnSpec,
     v = _split_heads(dense(params["wv"], x), spec.n_kv_heads, spec.head_dim)
     q = apply_rope(q, positions, spec.rope_theta)
     k = apply_rope(k, positions, spec.rope_theta)
-    window = spec.window if (spec.window and spec.window < S) else None
+    if sp is not None:
+        k, v = sp.gather_kv(k, v)
+    window = spec.window if (spec.window and spec.window < whole) else None
+    mask = dict(causal=spec.causal, window=window, q_offset=q_offset)
     if resolve_backend(spec.backend, q) == "cuda":
-        out = flash_attention(q, k, v, causal=spec.causal, window=window)
+        out = flash_attention(q, k, v, **mask)
     else:
-        out = naive_attention(q, k, v, causal=spec.causal, window=window)
+        out = naive_attention(q, k, v, **mask)
     out = out.reshape(B, S, spec.n_heads * spec.head_dim)
     out = dense(params["wo"], out)
     if tp is not None:

@@ -46,6 +46,20 @@ where they drop ``tp``), the loss a vocab-parallel cross entropy, and
 rank.  The backbone hands each checkpointed layer the TP context as it
 hands it the ctx, so the recompute takes the same groups.
 
+Under ``fsdp_sp`` on a model axis the storage carries a
+:class:`repro_torch.sharding.sp.SP` (``fsdp.sp``) instead, and the
+sequence is split over the model ranks at the layer boundaries
+(:mod:`repro_torch.sharding.sp`): :func:`embed_inputs` narrows x to the
+rank's block after the embedding (a vlm's patches and tokens after
+their concatenation; a sharded vocabulary's lookups reduce-scattered to
+the blocks), the positions are the block's own, every layer computes on
+the block, and the loss, :func:`forward` and :func:`prefill` gather the
+final hidden state's sequence before the head.  The prefill returns the
+rank's block of the decode state as the reference's
+``decode_state_shardings`` splits it: the cache slots
+``[m L/M, (m+1) L/M)``, the SSM heads and the conv channels of block
+``m``.  There is no decode step under it yet.
+
 An SSD layer with no FFN keeps ``norm2``, as the reference's slot does,
 although nothing reads it, and the audio family keeps an untied embedding
 table that its frame inputs bypass; :func:`unused_leaves` marks those
@@ -66,6 +80,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.sharding.ctx import current_ctx, use_ctx
+from repro_torch.sharding.sp import DECODE_NEXT, RAGGED_NEXT
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -196,34 +211,50 @@ def _tp_of(fsdp):
     return None if fsdp is None else fsdp.tp
 
 
+def _sp_of(fsdp):
+    return None if fsdp is None else fsdp.sp
+
+
 def _lookup(params, tokens, tp=None):
     """The token embeddings: vocab-parallel under ``tp`` where the
     embedding's vocabulary is split."""
-    if tp is not None and tp.vocab_sharded():
+    if tp is not None and tp.vocab.sharded:
         return tp.embed(params["embed"]["w"], tokens)
     return params["embed"]["w"][tokens.long()]
 
 
 def embed_inputs(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
-                 tp=None):
+                 tp=None, sp=None):
     """Returns (x (B,S,d), positions (B,S), loss_mask (B,S) bool).
 
     audio: the frame embeddings in the config's dtype, and the batch's
     mask.  vlm: the patch embeddings (in the config's dtype) ahead of the
     token embeddings, the loss masked off over the patches.  Text: the
-    token embeddings."""
+    token embeddings.  Under ``sp`` x and the positions are the rank's
+    block of the sequence, the loss mask the whole sequence's."""
     dtype = param_dtype(cfg)
+    partial = (sp is not None and sp.vocab.sharded
+               and cfg.family != "audio")
     if cfg.family == "audio":
         x = batch["features"].to(dtype)
+    elif partial:
+        # the rank's vocabulary rows' part of the whole sequence's lookup
+        x = sp.vocab.lookup(params["embed"]["w"], batch["tokens"])
     else:
         x = _lookup(params, batch["tokens"], tp)
-        if cfg.family == "vlm":
-            patches = batch["patches"].to(dtype)
-            # jnp.concatenate's promotion: bf16 patches, f32 tokens -> f32
-            cat = torch.promote_types(patches.dtype, x.dtype)
-            x = torch.cat([patches.to(cat), x.to(cat)], dim=1)
+    if cfg.family == "vlm":
+        patches = batch["patches"].to(dtype)
+        if partial and sp.m:
+            # the patches enter the reduce-scatter's sum once
+            patches = torch.zeros_like(patches)
+        # jnp.concatenate's promotion: bf16 patches, f32 tokens -> f32
+        cat = torch.promote_types(patches.dtype, x.dtype)
+        x = torch.cat([patches.to(cat), x.to(cat)], dim=1)
+    if sp is not None:
+        x = sp.scatter_seq(x) if partial else sp.narrow(x)
     B, S, _ = x.shape
-    positions = torch.arange(S, device=x.device).expand(B, S)
+    lo = 0 if sp is None else sp.block(S)[0]
+    positions = torch.arange(lo, lo + S, device=x.device).expand(B, S)
     return x, positions, _loss_mask(cfg, batch)
 
 
@@ -266,16 +297,31 @@ def _promote_matmul(x, w):
     return x.to(dt) @ w.to(dt)
 
 
-def logits_fn(params, cfg: ArchConfig, x, tp=None):
-    """Whole logits; under ``tp`` with a split vocabulary each rank's
-    columns, gathered."""
-    if tp is not None and tp.vocab_sharded():
-        return tp.gather_vocab(_promote_matmul(tp.enter(x),
-                                               _head_weight(params, cfg)))
+def _vocab_of(tp, sp):
+    """The model axis's :class:`repro_torch.sharding.tp.Vocab` where it
+    splits the vocabulary, else None."""
+    par = tp or sp
+    return None if par is None or not par.vocab.sharded else par.vocab
+
+
+def _enter(x, tp):
+    """``x`` entering a tensor-parallel region (under ``sp`` it is the
+    whole sequence's, whose ``gather_seq`` backward sums the shards'
+    partial gradients already)."""
+    return x if tp is None else tp.enter(x)
+
+
+def logits_fn(params, cfg: ArchConfig, x, tp=None, sp=None):
+    """Whole logits; under ``tp`` or ``sp`` (whose x is the whole
+    sequence) with a split vocabulary each rank's columns, gathered."""
+    vocab = _vocab_of(tp, sp)
+    if vocab is not None:
+        return vocab.gather(_promote_matmul(_enter(x, tp),
+                                            _head_weight(params, cfg)))
     return _promote_matmul(x, _head_weight(params, cfg))
 
 
-def _ffn(layer, cfg: ArchConfig, x, token_mask=None, tp=None):
+def _ffn(layer, cfg: ArchConfig, x, token_mask=None, tp=None, sp=None):
     """The FFN after the mixer: a dense MLP, or the MoE (plus its shared
     expert), or nothing (an SSD layer's norm2 is then unread).  Returns
     (x, the MoE's aux loss or None)."""
@@ -283,7 +329,7 @@ def _ffn(layer, cfg: ArchConfig, x, token_mask=None, tp=None):
         return x, None
     h = L.norm_apply(cfg.norm, layer["norm2"], x)
     if "mlp" in layer:
-        return x + L.mlp_apply(layer["mlp"], h, cfg.act, tp), None
+        return x + L.mlp_apply(layer["mlp"], h, cfg.act, tp, sp), None
     y, aux = MOE.moe_apply(layer["moe"], h, cfg.moe, cfg.act,
                            token_mask=token_mask, tp=tp)
     if "shared_mlp" in layer:
@@ -292,20 +338,23 @@ def _ffn(layer, cfg: ArchConfig, x, token_mask=None, tp=None):
 
 
 def _layer_forward(layer, x, positions, cfg: ArchConfig, spec: L.AttnSpec,
-                   ctx=None, gather=None, tp=None):
+                   ctx=None, gather=None, tp=None, sp=None):
     """One layer; ``ctx`` is installed around it, ``gather`` (an FSDP
     layer gather) turns its shards into its model blocks first, and
-    ``tp`` (a :class:`repro_torch.sharding.tp.TP`) computes on them."""
+    ``tp`` (a :class:`repro_torch.sharding.tp.TP`) computes on them, or
+    ``sp`` (a :class:`repro_torch.sharding.sp.SP`) on the rank's block
+    of the sequence."""
     with use_ctx(ctx):
         if gather is not None:
             layer = gather(layer)
         h = L.norm_apply(cfg.norm, layer["norm1"], x)
         if "ssm" in layer:
             mix = SSM.ssm_apply(layer["ssm"], h, cfg.ssm,
-                                backend=cfg.mixer_backend, tp=tp)
+                                backend=cfg.mixer_backend, tp=tp, sp=sp)
         else:
-            mix = L.attn_apply(layer["attn"], h, spec, positions, tp=tp)
-        return _ffn(layer, cfg, x + mix, tp=tp)
+            mix = L.attn_apply(layer["attn"], h, spec, positions, tp=tp,
+                               sp=sp)
+        return _ffn(layer, cfg, x + mix, tp=tp, sp=sp)
 
 
 def _unused_outer(cfg: ArchConfig) -> tuple:
@@ -345,18 +394,18 @@ def backbone(params, cfg: ArchConfig, x, positions, remat: bool = True,
     ``params["final_norm"]`` must be whole (see :func:`_gather_outer`)."""
     spec = attn_spec(cfg)
     ctx = current_ctx()
-    tp = _tp_of(fsdp)
+    tp, sp = _tp_of(fsdp), _sp_of(fsdp)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, layer in enumerate(params["layers"]):
         gather = None if fsdp is None else fsdp.layer_gather(i)
         if remat:
             # the layer draws no random numbers: no RNG state to keep
             x, a = checkpoint(_layer_forward, layer, x, positions, cfg, spec,
-                              ctx, gather, tp, use_reentrant=False,
+                              ctx, gather, tp, sp, use_reentrant=False,
                               preserve_rng_state=False)
         else:
             x, a = _layer_forward(layer, x, positions, cfg, spec, ctx,
-                                  gather, tp)
+                                  gather, tp, sp)
         if a is not None:
             aux = aux + a
     return L.norm_apply(cfg.norm, params["final_norm"], x), aux
@@ -364,12 +413,16 @@ def backbone(params, cfg: ArchConfig, x, positions, remat: bool = True,
 
 def forward(params, cfg: ArchConfig, batch, remat: bool = True, fsdp=None):
     """Full forward -> logits (B,S,V) (the MoE aux loss is
-    :func:`backbone`'s second output)."""
+    :func:`backbone`'s second output).  Under ``fsdp.sp`` the whole
+    sequence's logits on every rank (for inference: a replicated head's
+    gradient would be counted once a rank)."""
     params = _gather_outer(params, cfg, fsdp)
-    tp = _tp_of(fsdp)
-    x, positions, _ = embed_inputs(params, cfg, batch, tp)
+    tp, sp = _tp_of(fsdp), _sp_of(fsdp)
+    x, positions, _ = embed_inputs(params, cfg, batch, tp, sp)
     x, _ = backbone(params, cfg, x, positions, remat=remat, fsdp=fsdp)
-    return logits_fn(params, cfg, x, tp)
+    if sp is not None:
+        x = sp.gather_seq(x)
+    return logits_fn(params, cfg, x, tp, sp)
 
 
 # --------------------------------------------------------------------------
@@ -437,25 +490,34 @@ def loss_terms(params, cfg: ArchConfig, batch, remat: bool = True,
     """:func:`train_loss`'s parts ``(tot, cnt, aux)``: the f32 sum of the
     scored positions' cross entropy, their count and the MoE aux loss.
     The loss is ``tot / max(cnt, 1) + aux``; a data-parallel rank divides
-    its ``tot`` by the count summed over every rank instead."""
+    its ``tot`` by the count summed over every rank instead.  Under
+    ``fsdp.sp`` both are the whole sequence's on every model rank: the
+    final hidden state's sequence is gathered for a sharded vocabulary's
+    head, and a replicated head scores the rank's block and all-reduces
+    its sums."""
     if compute_dtype is not None:
         params = cast_compute_params(params, compute_dtype)
     params = _gather_outer(params, cfg, fsdp)
-    tp = _tp_of(fsdp)
-    x, positions, loss_mask = embed_inputs(params, cfg, batch, tp)
+    tp, sp = _tp_of(fsdp), _sp_of(fsdp)
+    x, positions, loss_mask = embed_inputs(params, cfg, batch, tp, sp)
     if compute_dtype is not None:
         x = x.to(_as_dtype(compute_dtype))
     x, aux = backbone(params, cfg, x, positions, remat=remat, fsdp=fsdp)
     w = _head_weight(params, cfg)
-    if tp is None or not tp.vocab_sharded():
+    vocab = _vocab_of(tp, sp)
+    # under sp a replicated head scores the rank's block, from lo on
+    lo = None if sp is None or sp.vocab.sharded else sp.block(x.shape[1])[0]
+    if sp is not None and lo is None:
+        x = sp.gather_seq(x)
+    if vocab is None:
         xent = _xent_chunk
     else:
         # the head is the rank's vocabulary columns
-        x = tp.enter(x)
+        x = _enter(x, tp)
 
         def xent(xc, wc, labels, mask):
-            return tp.xent_chunk(_promote_matmul(xc, wc).float(), labels,
-                                 mask)
+            return vocab.xent_chunk(_promote_matmul(xc, wc).float(), labels,
+                                    mask)
 
     if cfg.family == "audio":
         # no shift: each frame is scored against its own label where the
@@ -477,6 +539,10 @@ def loss_terms(params, cfg: ArchConfig, batch, remat: bool = True,
                                  dim=1)
         ls = full[:, 1:]
     ms = _scored(cfg, loss_mask)
+    if lo is not None:
+        # the block's scored positions: the last one has no next token
+        hi = min(lo + x.shape[1], ls.shape[1])
+        xs, ls, ms = x[:, :hi - lo], ls[:, lo:hi], ms[:, lo:hi]
 
     S = xs.shape[1]
     c = min(loss_chunk, S)
@@ -489,6 +555,10 @@ def loss_terms(params, cfg: ArchConfig, batch, remat: bool = True,
     for a, b in bounds:
         s, m = xent(xs[:, a:b], w, ls[:, a:b], ms[:, a:b])
         tot, cnt = tot + s, cnt + m
+    if lo is not None:
+        # the blocks' sums, whole on every rank; each rank's gradient
+        # flows back to its own block
+        tot, cnt = sp.vocab.exit(tot), sp.vocab.exit(cnt)
     return tot, cnt, aux
 
 
@@ -508,14 +578,17 @@ def prefill(params, cfg: ArchConfig, batch, cache_len: int,
     MoE capacity (the router's token mask).  Real tokens of co-batched
     rows still share one capacity pool, sized from the padded token
     count, as in the reference.  A vlm batch's ``lengths`` count its
-    patches too.
+    patches too.  Under ``fsdp.sp`` the logits are whole on every rank
+    and the decode state is the rank's block of it (no ``lengths``).
     """
     spec = attn_spec(cfg)
     dtype = param_dtype(cfg)
     attn_len = _attn_len(cfg, cache_len)
     params = _gather_outer(params, cfg, fsdp)
-    tp = _tp_of(fsdp)
-    x, positions, _ = embed_inputs(params, cfg, batch, tp)
+    tp, sp = _tp_of(fsdp), _sp_of(fsdp)
+    if sp is not None and lengths is not None:
+        raise NotImplementedError(RAGGED_NEXT)
+    x, positions, _ = embed_inputs(params, cfg, batch, tp, sp)
     token_mask = None
     if lengths is not None:
         lengths = lengths.to(x.device)
@@ -529,21 +602,24 @@ def prefill(params, cfg: ArchConfig, batch, cache_len: int,
         if "ssm" in layer:
             mix, st = SSM.ssm_apply(layer["ssm"], h, cfg.ssm,
                                     return_state=True, seq_len=lengths,
-                                    backend=cfg.mixer_backend, tp=tp)
-            states["ssm"].append(st)
+                                    backend=cfg.mixer_backend, tp=tp, sp=sp)
         else:
             mix, (k, v) = L.attn_apply(layer["attn"], h, spec, positions,
-                                       return_kv=True, tp=tp)
-            states["attn"].append(L.kv_to_cache(k, v, attn_len, dtype,
-                                                lengths=lengths))
-        x, _ = _ffn(layer, cfg, x + mix, token_mask, tp)
+                                       return_kv=True, tp=tp, sp=sp)
+            st = L.kv_to_cache(k, v, attn_len, dtype, lengths=lengths)
+        if sp is not None:
+            st = {name: sp.state_block(name, t) for name, t in st.items()}
+        states["ssm" if "ssm" in layer else "attn"].append(st)
+        x, _ = _ffn(layer, cfg, x + mix, token_mask, tp, sp)
     x = L.norm_apply(cfg.norm, params["final_norm"], x)
+    if sp is not None:
+        x = sp.gather_seq(x)
     if lengths is None:
         x_last = x[:, -1]
     else:
         last = (lengths.long() - 1).clamp(0, x.shape[1] - 1)
         x_last = x[torch.arange(x.shape[0], device=x.device), last]
-    logits = logits_fn(params, cfg, x_last, tp)
+    logits = logits_fn(params, cfg, x_last, tp, sp)
     return logits, {name: torch.stack([st[name] for st in sts])
                     for kind, sts in states.items() if sts
                     for name in STATE_KEYS[kind]}
@@ -599,8 +675,11 @@ def decode_step(params, cfg: ArchConfig, state, tokens, position,
     Returns (logits (B,V), state); ``state`` is updated in place.  The MoE
     routes with no token mask: every row, idle slots included, claims
     capacity, as in the reference.  An encoder-only config raises
-    ``ValueError``."""
+    ``ValueError``, and ``fsdp_sp`` on a model axis
+    ``NotImplementedError``."""
     require_decoder(cfg)
+    if _sp_of(fsdp) is not None:
+        raise NotImplementedError(f"{cfg.name}: {DECODE_NEXT}")
     spec = attn_spec(cfg)
     params = _gather_outer(params, cfg, fsdp)
     tp = _tp_of(fsdp)

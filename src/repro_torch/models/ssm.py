@@ -22,6 +22,15 @@ reference, which leaves its Pallas kernel under a multi-device ctx
 so K4 stays on the sharded path.  A rank of a data grid holds its rows
 whole: its ctx has one segment, and the scan is the one above.
 
+Across ranks (``sp``, a :class:`repro_torch.sharding.sp.SP`: ``fsdp_sp``
+on a model axis) each rank holds one segment, its block of the
+sequence: the causal conv takes the previous rank's last ``W - 1``
+inputs (the halo), K4 runs the segment from a zero state in one launch,
+the segments' final states and decays are all-gathered and combined in
+f32 (:func:`ssd_seq_ranks`), and the rank adds its incoming state's
+correction.  Every rank computes the final state from the gathered
+ones, and the last rank's halo rows are the prefill's conv state.
+
 Under a model axis (``tp``, a :class:`repro_torch.sharding.tp.TP`) the
 mixer runs on the rank's ``nh / M`` heads through K4 (or the plain scan
 on CPU tensors), with the B/C groups those heads read; ``in_z``,
@@ -45,6 +54,7 @@ from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked_ref
 from repro_torch.models.layers import dense, dense_init, norm_apply
 from repro_torch.sharding.ctx import axis_extent_of
+from repro_torch.sharding.sp import RAGGED_NEXT, SHORT_NEXT
 
 
 def ssm_init(generator: torch.Generator, d_model: int, cfg: SSMConfig,
@@ -72,10 +82,12 @@ def ssm_init(generator: torch.Generator, d_model: int, cfg: SSMConfig,
     }
 
 
-def _causal_conv(x, w, b):
-    """Depthwise causal conv.  x: (B,S,C), w: (W,C)."""
+def _causal_conv(x, w, b, halo=None):
+    """Depthwise causal conv.  x: (B,S,C), w: (W,C); ``halo`` (B,W-1,C)
+    are the inputs before x's first row (zeros by default)."""
     W, S = w.shape[0], x.shape[1]
-    xp = F.pad(x, (0, 0, W - 1, 0))
+    xp = (F.pad(x, (0, 0, W - 1, 0)) if halo is None
+          else torch.cat([halo.to(x.dtype), x], dim=1))
     return sum(xp[:, i:i + S, :] * w[i] for i in range(W)) + b
 
 
@@ -164,6 +176,24 @@ def ssd_seq_parallel(x, dt, A, B_, C_, cfg: SSMConfig, n_seg: int,
     return y.reshape(Bsz, S, nh, hp), h
 
 
+def ssd_seq_ranks(x, dt, A, B_, C_, cfg: SSMConfig, sp,
+                  backend: str = "auto"):
+    """:func:`ssd_seq_parallel` with one segment a rank: the rank's
+    block ``x`` (B,Sl,nh,hp) etc. runs from a zero state (K4 on CUDA
+    tensors), the ranks' final states and decays are exchanged
+    (``sp.exchange_states``), and the block adds the correction of its
+    incoming state.  Returns ``(y (B,Sl,nh,hp), h_final (B,nh,hp,N))``,
+    the final state the whole sequence's."""
+    rep = x.shape[2] // B_.shape[2]
+    y_loc, h_seg = _scan(x, dt, A, B_, C_, cfg, backend)
+    la = torch.cumsum(dt * A, dim=1)                         # (B,Sl,nh)
+    h_in, h_final = sp.exchange_states(h_seg, torch.exp(la[:, -1]))
+    Ch = C_.float().repeat_interleave(rep, dim=2)            # (B,Sl,nh,N)
+    y_corr = torch.einsum("bthn,bhpn->bthp",
+                          Ch * torch.exp(la)[..., None], h_in)
+    return y_loc + y_corr.to(y_loc.dtype), h_final
+
+
 def _gated_norm(params, y, z, tp):
     """The gated RMSNorm of ``y * silu(z)`` over the whole d_inner
     (eps 1e-6, in f32): under ``tp`` the rank's columns, the sum of
@@ -189,7 +219,7 @@ def _local(params, cfg: SSMConfig, d: int, tp):
 
 def ssm_apply(params: dict, x: torch.Tensor, cfg: SSMConfig,
               return_state: bool = False, seq_len=None,
-              backend: str = "auto", tp=None):
+              backend: str = "auto", tp=None, sp=None):
     """Training/prefill Mamba2 block.  x: (B,S,d) -> (B,S,d).
 
     ``seq_len`` ((B,) int, optional) marks the true per-row sequence length
@@ -199,9 +229,17 @@ def ssm_apply(params: dict, x: torch.Tensor, cfg: SSMConfig,
     the last real token.  Outputs at padded positions are garbage and must
     be ignored by the caller.  With ``return_state`` it also returns the
     decode state ``{"h": (B,nh,hp,N) f32, "conv": (B,W-1,C) in x's dtype}``
-    (under ``tp``: the rank's heads and channels).
+    (under ``tp``: the rank's heads and channels).  Under ``sp`` x is the
+    rank's block of the sequence and the state the whole sequence's.
     """
     B, S, d = x.shape
+    W = cfg.conv_width
+    if sp is not None and (seq_len is not None or S < cfg.chunk
+                           or S < W - 1):
+        raise NotImplementedError(
+            RAGGED_NEXT if seq_len is not None else
+            f"a sequence block of {S} under the SSM chunk {cfg.chunk}; "
+            f"{SHORT_NEXT}")
     params, nh, groups = _local(params, cfg, d, tp)
     if tp is not None:
         x = tp.enter(x)
@@ -215,8 +253,11 @@ def ssm_apply(params: dict, x: torch.Tensor, cfg: SSMConfig,
     dt = dense(params["in_dt"], x).float()
 
     conv_in = torch.cat([xc, Bc, Cc], dim=-1)
+    halo = last = None
+    if sp is not None:
+        halo, last = sp.halo(conv_in[:, S - (W - 1):])
     conv_out = F.silu(_causal_conv(conv_in, params["conv_w"],
-                                   params["conv_b"]))
+                                   params["conv_b"], halo))
     xc, Bc, Cc = torch.split(conv_out, [di, gN, gN], dim=-1)
 
     dt = F.softplus(dt + params["dt_bias"])
@@ -231,7 +272,9 @@ def ssm_apply(params: dict, x: torch.Tensor, cfg: SSMConfig,
     Cg = Cc.reshape(B, S, groups, cfg.d_state)
 
     n_seg = _seq_shards(S)
-    if n_seg > 1 and (S // n_seg) >= cfg.chunk:
+    if sp is not None:
+        y, h_final = ssd_seq_ranks(xh, dt, A, Bg, Cg, cfg, sp, backend)
+    elif n_seg > 1 and (S // n_seg) >= cfg.chunk:
         y, h_final = ssd_seq_parallel(xh, dt, A, Bg, Cg, cfg, n_seg,
                                       backend)
     else:
@@ -243,8 +286,9 @@ def ssm_apply(params: dict, x: torch.Tensor, cfg: SSMConfig,
         out = tp.exit(out)
     if not return_state:
         return out
-    W = cfg.conv_width
-    if seq_len is None:
+    if sp is not None:
+        conv_state = last
+    elif seq_len is None:
         # a copy, not a view: a view of the last W-1 rows would keep the
         # whole (B, S, C) conv input alive in every layer's decode state
         conv_state = (conv_in[:, -(W - 1):, :].clone() if S >= W - 1

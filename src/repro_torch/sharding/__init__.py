@@ -1,7 +1,8 @@
 """The parameter-sharded layouts: the reference's rule tables
 (:mod:`.rules`), the activation ctx (:mod:`.ctx`), the gang's ranks as a
 named grid (:mod:`.grid`), FSDP storage with per-layer gathers
-(:mod:`.fsdp`) and tensor parallelism over the model axis (:mod:`.tp`)."""
+(:mod:`.fsdp`), tensor parallelism over the model axis (:mod:`.tp`) and
+sequence parallelism over it (:mod:`.sp`)."""
 from repro_torch.sharding import rules
 from repro_torch.sharding.ctx import (ShardCtx, current_ctx, set_ctx,
                                       use_ctx)

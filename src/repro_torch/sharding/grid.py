@@ -11,7 +11,10 @@ Each axis gives every rank a :class:`repro_torch.distributed.context.
 Group`: its **data** group is the D ranks of its model column (the ranks
 that hold the same model block and split the batch), its **model** group
 the M ranks of its data row (the ranks that hold the same rows and split
-the heads, experts and vocabulary).  An axis that spans the world takes
+the heads, experts and vocabulary, or under ``fsdp_sp`` the sequence).
+The **world** group is every rank, the default group: a leaf split over
+both axes (``fsdp_sp``'s ``fsdp2``) is gathered over it, its block index
+``d*M + m`` being the rank.  An axis that spans the world takes
 the default group, which every collective of :class:`repro_torch.
 distributed.DistContext` takes by default (so a data grid's are);
 between 1 and the world, the grid makes one ``torch.distributed``
@@ -79,7 +82,7 @@ class RankGrid:
                              for d in range(D)]}
         live = (self.dist.backend is not None
                 and torch.distributed.is_initialized())
-        groups = {}
+        groups = {"world": self.dist.world}
         for axis in ("data", "model"):
             for ranks in members[axis]:
                 pg = None
@@ -110,7 +113,7 @@ class RankGrid:
         return self.coords.get(axis, 0)
 
     def group(self, axis: str) -> Group:
-        """The rank's ``"data"`` or ``"model"`` group."""
+        """The rank's ``"data"``, ``"model"`` or ``"world"`` group."""
         return self._groups[axis]
 
     def shard_of(self, entry: AxisVal) -> tuple:

@@ -39,8 +39,8 @@ The vocabulary: a sharded embedding masks the ids outside the rank's
 rows and all-reduces the lookups; a sharded head (tied embeddings take
 the embedding's shard) gives each rank its logits' columns, and the
 cross entropy all-reduces the max, the sum of exponentials and the gold
-logit over ``model`` in f32 (:meth:`TP.xent_chunk`); serving gathers the
-whole logits on every rank (``vocab_allgather``), and
+logit over ``model`` in f32 (:meth:`Vocab.xent_chunk`); serving gathers
+the whole logits on every rank (``vocab_allgather``), and
 :meth:`TP.full_decode_state` the whole decode state
 (``tp_state_gather``).  Where the rule drops
 ``tp`` (a vocabulary the extent does not divide, e.g. granite's 49 155)
@@ -151,11 +151,12 @@ class _Enter(torch.autograd.Function):
 
 class _Exit(torch.autograd.Function):
     """All-reduce forward, identity backward (Megatron's g): partial sums
-    leaving a tensor-parallel region, replicated after it."""
+    leaving a tensor-parallel region, replicated after it (``axis``: a
+    :class:`TP` or a :class:`Vocab`)."""
 
     @staticmethod
-    def forward(ctx, x, tp):
-        return tp.allreduce(x, "tp_allreduce")
+    def forward(ctx, x, axis):
+        return axis.allreduce(x, "tp_allreduce")
 
     @staticmethod
     def backward(ctx, grad):
@@ -199,20 +200,74 @@ class _GatherVocab(torch.autograd.Function):
     backward."""
 
     @staticmethod
-    def forward(ctx, x, tp):
-        ctx.tp, ctx.n = tp, x.shape[-1]
-        return tp.dist.all_gather(x, x.dim() - 1, "vocab_allgather",
-                                  tp.group).contiguous()
+    def forward(ctx, x, vocab):
+        ctx.m, ctx.n = vocab.m, x.shape[-1]
+        return vocab.dist.all_gather(x, x.dim() - 1, "vocab_allgather",
+                                     vocab.group).contiguous()
 
     @staticmethod
     def backward(ctx, grad):
-        return grad.narrow(-1, ctx.tp.m * ctx.n, ctx.n), None
+        return grad.narrow(-1, ctx.m * ctx.n, ctx.n), None
+
+
+class Vocab:
+    """The vocabulary on a model axis, shared by :class:`TP` and the
+    sequence-parallel :class:`repro_torch.sharding.sp.SP`: rank ``m`` of
+    ``M`` holds the rows ``rows`` of the embedding and the head (None
+    where the rules replicate them, :attr:`sharded` False), and these
+    are its collectives over the model ``group``."""
+
+    def __init__(self, dist, group, M: int, m: int, rows: Optional[Range]):
+        self.dist, self.group, self.M, self.m = dist, group, M, m
+        self.rows = rows
+        self.sharded = rows is not None
+
+    def allreduce(self, t: torch.Tensor, mechanism: str) -> torch.Tensor:
+        return self.dist.all_reduce(t, mechanism, self.group)
+
+    def exit(self, x: torch.Tensor) -> torch.Tensor:
+        """Partial sums all-reduced forward, the identity backward."""
+        return _Exit.apply(x, self)
+
+    def lookup(self, w: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+        """The rank's part of the lookup of ``tokens`` in a sharded
+        embedding whose rows ``w`` it holds: ids outside them give
+        zeros."""
+        lo, hi = self.rows
+        ids = tokens.long() - lo
+        mine = (ids >= 0) & (ids < hi - lo)
+        x = w[ids.clamp(0, hi - lo - 1)]
+        return torch.where(mine[..., None], x, 0)
+
+    def gather(self, logits: torch.Tensor) -> torch.Tensor:
+        """The whole (..., V) logits from each rank's columns."""
+        return _GatherVocab.apply(logits, self)
+
+    def xent_chunk(self, logits: torch.Tensor, labels: torch.Tensor,
+                   mask: torch.Tensor):
+        """The vocab-parallel cross entropy of one chunk: ``logits``
+        (B, c, V/M) f32 are the rank's columns; the max, the sum of
+        exponentials and the gold logit are all-reduced over ``model``
+        in f32.  Returns ``(sum of nll * mask, sum of mask)``, whole on
+        every rank."""
+        lo, hi = self.rows
+        with torch.no_grad():
+            mx = self.dist.all_reduce(logits.max(dim=-1).values,
+                                      "tp_allreduce", self.group, op="max")
+        s = torch.exp(logits - mx[..., None]).sum(dim=-1)
+        lse = torch.log(self.exit(s)) + mx
+        ids = labels.long() - lo
+        mine = (ids >= 0) & (ids < hi - lo)
+        g = logits.gather(-1, ids.clamp(0, hi - lo - 1)[..., None])[..., 0]
+        gold = self.exit(torch.where(mine, g, 0.0))
+        nll = (lse - gold) * mask
+        return nll.sum(), mask.sum()
 
 
 class TP:
     """A rank's tensor-parallel context on ``grid``'s model axis for the
     arch ``cfg``: its model group, its coordinate ``m`` of ``M`` and its
-    :class:`Plan`."""
+    :class:`Plan`, and its :class:`Vocab`."""
 
     def __init__(self, grid, cfg):
         self.grid = grid
@@ -221,6 +276,8 @@ class TP:
         self.M = grid.extent("model")
         self.m = grid.coord("model")
         self.plan = Plan.of(cfg, self.M, self.m)
+        self.vocab = Vocab(self.dist, self.group, self.M, self.m,
+                           self.plan.vocab)
 
     # ------------------------------------------------------- collectives
     def allreduce(self, t: torch.Tensor, mechanism: str) -> torch.Tensor:
@@ -301,42 +358,10 @@ class TP:
         return local, h1 - h0, g1 - g0
 
     # -------------------------------------------------------- vocabulary
-    def vocab_sharded(self) -> bool:
-        return self.plan.vocab is not None
-
     def embed(self, w: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-        """The lookup of ``tokens`` in the rank's rows ``w`` of a sharded
-        embedding: ids outside them give zeros, and the ranks' lookups
-        are summed (exact: one rank's row and zeros)."""
-        lo, hi = self.plan.vocab
-        ids = tokens.long() - lo
-        mine = (ids >= 0) & (ids < hi - lo)
-        x = w[ids.clamp(0, hi - lo - 1)]
-        return self.exit(torch.where(mine[..., None], x, 0))
-
-    def gather_vocab(self, logits: torch.Tensor) -> torch.Tensor:
-        """The whole (..., V) logits from each rank's columns."""
-        return _GatherVocab.apply(logits, self)
-
-    def xent_chunk(self, logits: torch.Tensor, labels: torch.Tensor,
-                   mask: torch.Tensor):
-        """The vocab-parallel cross entropy of one chunk: ``logits``
-        (B, c, V/M) f32 are the rank's columns; the max, the sum of
-        exponentials and the gold logit are all-reduced over ``model``
-        in f32.  Returns ``(sum of nll * mask, sum of mask)``, whole on
-        every rank."""
-        lo, hi = self.plan.vocab
-        with torch.no_grad():
-            mx = self.dist.all_reduce(logits.max(dim=-1).values,
-                                      "tp_allreduce", self.group, op="max")
-        s = torch.exp(logits - mx[..., None]).sum(dim=-1)
-        lse = torch.log(self.exit(s)) + mx
-        ids = labels.long() - lo
-        mine = (ids >= 0) & (ids < hi - lo)
-        g = logits.gather(-1, ids.clamp(0, hi - lo - 1)[..., None])[..., 0]
-        gold = self.exit(torch.where(mine, g, 0.0))
-        nll = (lse - gold) * mask
-        return nll.sum(), mask.sum()
+        """The ranks' lookups in a sharded embedding summed (exact: one
+        rank's row and zeros)."""
+        return self.exit(self.vocab.lookup(w, tokens))
 
     # ----------------------------------------------------- decode state
     @torch.no_grad()

@@ -22,9 +22,13 @@ with optional microbatch gradient accumulation (port of
   is used, the gradients come back as shards already reduce-scattered
   over the ranks, only the replicated leaves' gradients and the loss are
   all-reduced, and the norm adds the shards' squares over the ranks.  On
-  a grid with a ``model`` axis those reductions run over the rank's
-  **data** group: the ranks of a model group hold the same rows and the
-  same loss, and each leaf's square counts once across both axes.
+  a grid with a ``model`` axis the loss and the count are the rank's
+  **data** group's: the ranks of a model group hold the same rows and
+  the same loss, and each leaf's square counts once across both axes.
+  A leaf's gradient is all-reduced over the axes of ``fsdp.reduce``:
+  data for a leaf replicated over data, and under ``fsdp_sp`` model too
+  for one replicated over model (each model rank saw another block of
+  the sequence), the world for both.
 """
 from __future__ import annotations
 
@@ -190,11 +194,21 @@ def make_loss_and_grads(cfg: ArchConfig, *, remat: bool = True,
             if fsdp is None:
                 dist.allreduce_(grads + [loss])
             else:
-                dist.allreduce_([g for g, rep in zip(grads, fsdp.replicated)
-                                 if rep] + [loss],
+                dist.allreduce_([g for g, r in zip(grads, fsdp.reduce)
+                                 if r == {"data"}] + [loss],
                                 mechanism="replicated_allreduce",
                                 group=group)
             loss = loss[0]
+        if fsdp is not None:
+            # fsdp_sp on a model axis: the partial sums over the sequence
+            # blocks of the leaves replicated over model
+            for axis, key in (("model", {"model"}),
+                              ("world", {"data", "model"})):
+                part = [g for g, r in zip(grads, fsdp.reduce) if r == key]
+                if part:
+                    fsdp.grid.dist.allreduce_(
+                        part, mechanism="replicated_allreduce",
+                        group=fsdp.grid.group(axis))
         return loss, grads
 
     return loss_and_grads

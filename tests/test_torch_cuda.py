@@ -196,6 +196,41 @@ def test_tensor_core_bwd_matches_plain_and_repeats_bitwise(case, dev):
         torch.testing.assert_close(g, w, atol=BWD_TOL, rtol=BWD_TOL)
 
 
+# a sequence-parallel rank's block: B, Sq, Sk, H, Kh, hd, causal,
+# window, q_offset (the queries at absolute positions q_offset + i)
+OFFSET_CASES = [
+    (2, 128, 256, 4, 2, 64, True, None, 128),
+    (1, 200, 640, 4, 1, 64, True, 96, 333),
+    (2, 128, 256, 4, 4, 80, False, 100, 128),
+    (1, 160, 400, 2, 2, 128, True, None, 240),
+    (1, 100, 300, 2, 1, 32, True, 50, 150),     # the CUDA cores
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", OFFSET_CASES)
+def test_query_offset_matches_plain(case, dtype, dev):
+    """K1, K2 and K3 with a query offset on both routes against the plain
+    versions of the same offset."""
+    B, Sq, Sk, H, Kh, hd, causal, window, off = case
+    mask = dict(causal=causal, window=window, q_offset=off)
+    g = torch.Generator(device=dev).manual_seed(3)
+    q, k, v, do = (torch.randn(s, generator=g, device=dev).to(dtype)
+                   for s in ((B, Sq, H, hd), (B, Sk, Kh, hd),
+                             (B, Sk, Kh, hd), (B, Sq, H, hd)))
+    out, lse = flash_attention_fwd_kernel(q, k, v, **mask)
+    ref_out, ref_lse = attention_ref(q, k, v, **mask)
+    atol, lse_tol = TOL[dtype]
+    torch.testing.assert_close(out.float(), ref_out.float(), atol=atol,
+                               rtol=atol)
+    torch.testing.assert_close(lse, ref_lse, atol=lse_tol, rtol=lse_tol)
+    got = flash_attention_bwd_kernel(q, k, v, do, ref_lse,
+                                     row_delta(ref_out, do), **mask)
+    want = attention_bwd_ref(q, k, v, ref_out, ref_lse, do, **mask)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, atol=BWD_TOL, rtol=BWD_TOL)
+
+
 def test_routes_follow_the_table(dev):
     lib, bwd = library(), bwd_library()
     for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):

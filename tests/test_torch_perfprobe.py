@@ -140,6 +140,27 @@ def test_the_model_axis_probe(tmp_path):
     assert bad.status == "failed" and "does not divide" in bad.error
 
 
+def test_the_sequence_parallel_probe(tmp_path):
+    """``--layout fsdp_sp --model 2``: each rank trains half of the
+    sequence, its losses world 1's, its bytes by sequence-parallel
+    mechanism ``sp_bytes`` (``sp_shape_bytes``), beside the analytic
+    model's ``fsdp_sp`` ``tp_allreduce`` (one K/V gather an attention
+    layer, four passes)."""
+    met = _gang_probe("fsdp_sp", tmp_path, "--model=2")
+    one = probe("stablelm-1.6b", "train_4k", "fsdp_sp", device="cpu",
+                reduced=True, batch=4, seq=32)
+    np.testing.assert_allclose(met["losses"], one["losses"], rtol=1e-5)
+    assert met["mesh"] == "data 1 x model 2 (one host)"
+    for d in met["gang"]["ranks"]:
+        want = d["sp_shape_bytes"]
+        assert {k: d["collective_bytes"].get(k, 0.0) for k in want} == want
+        assert want["kv_allgather"] > 0
+        assert d["sp_vs_analytic"] == {
+            "analytic_tp_allreduce": met["analytic_collective_bytes"][
+                "tp_allreduce"],
+            "kv_allgather + ssd_state_allgather": want["kv_allgather"]}
+
+
 def test_the_dry_run_picks_the_batch():
     """Without an explicit batch the probe takes the dry run's
     ``max_batch_one_card`` (here of the reduced config, which fits at the

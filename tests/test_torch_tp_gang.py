@@ -171,13 +171,15 @@ def _dist(world, rank):
 @pytest.mark.parametrize("layout,error", [("fsdp_sp", NotImplementedError),
                                           ("dp", ValueError)])
 def test_a_model_axis_runs_only_fsdp_tp(layout, error):
-    """``fsdp_sp`` on a model axis raises, naming the next step; ``dp``
-    would run duplicated ranks and raises too; a grid of one rank is
-    still the ``dp`` step."""
+    """``fsdp_sp`` on a model axis raises for an MoE arch, naming the next
+    step (its experts' all-to-all; a dense arch runs it, see
+    ``test_torch_sp_gang.py``); ``dp`` would run duplicated ranks and
+    raises too; a grid of one rank is still the ``dp`` step."""
     grid = RankGrid({"data": 1, "model": 2}, _dist(2, 1))
+    arch = "qwen3-moe-30b-a3b" if layout == "fsdp_sp" else "stablelm-1.6b"
     with pytest.raises(error, match="step 5" if layout == "fsdp_sp"
                        else "duplicated"):
-        build_train(get_reduced("stablelm-1.6b"), 2, 16, device="cpu",
+        build_train(get_reduced(arch), 2, 16, device="cpu",
                     layout=layout, grid=grid)
     one = RankGrid({"data": 1}, init_distributed(1, device="cpu"))
     step, (state, batch) = build_train(get_reduced("stablelm-1.6b"), 2, 16,

@@ -281,7 +281,7 @@ Phases, each of which fails the run if it fails:
     prefill's decode state) no more than twice as far from an f32 run as
     world 1's bf16 run; every rank's ``tp_allreduce`` bytes the port's
     count from the shapes, beside the analytic model's;
-33. ``fsdp_sp`` on the grid ``{model: 2}``: three more ``RANK_JOBS`` of
+33. ``fsdp_sp`` on the grid ``{model: 2}``: four more ``RANK_JOBS`` of
     the same gang at full width, depth cut, each rank on its half of the
     sequence (K1-K3 its 1024 queries against the 2048 gathered keys at
     q_offset 0 and 1024, K4 its segment, the segment states exchanged
@@ -290,15 +290,23 @@ Phases, each of which fails the run if it fails:
     loss, first ``grad_norm`` and second loss within ``TRAIN_RTOL``, the
     ranks' losses and norms equal), and once with the model all-reduce
     of the leaves replicated over model dropped, which must fail that
-    gate; granite-3-2b's prefill (4 layers, 4 x 2048: its
-    logits and assembled K/V cache no more than twice as far from an f32
-    run as world 1's, the cache no farther from world 1's than world 1's
-    is from f32); mamba2 (4 layers, 2 x 2048, its decays slowed so that
-    a block's incoming state counts: training as stablelm's, K4 one
-    launch a layer a pass, then a prefill judged as granite's); every
-    rank's bytes by sequence-parallel mechanism the port's count from the
-    shapes (``sp_bytes``), to the byte, its peak memory and host step
-    time beside world 1's.
+    gate; granite-3-2b's prefill and 8 decode steps on the ranks' halves
+    of the cache, a softmax distributed over them (4 layers, 4 x 2048:
+    its prefill's logits, the decode steps' logits and the assembled K/V
+    cache no more than twice as far from an f32 run as world 1's, the
+    cache no farther from world 1's than world 1's is from f32); mamba2
+    (4 layers, 2 x 2048, its decays slowed so that a block's incoming
+    state counts: training as stablelm's, K4 one launch a layer a pass,
+    then a prefill and 8 decode steps on the rank's SSM heads and conv
+    channels, judged as granite's); qwen3-moe (2 layers, 4 x 2048, 64
+    experts a rank, each rank's block one dispatch group and the buffer
+    exchanged by all-to-all: training as stablelm's against world 1
+    under the mesh's ctx, whose groups are the same, then a prefill and
+    8 decode steps judged on the state); every rank's bytes by
+    sequence-parallel mechanism the port's count from the shapes
+    (``sp_bytes``, the decode steps' and the all-to-all's included), to
+    the byte, its peak memory under world 1's and its host step time
+    beside world 1's.
 
 The subprocesses of phases 29-33 (the ``--sharded-rank`` gang, then
 phase 29's probe gang) and phase 21 run beside phase 20, whose reduced
@@ -3545,11 +3553,14 @@ SHARDED_PEAK_SAVING_GB = 5.0
 # same cut, weights and batch in rank 0's process, and a serve job
 # against an f32 run too.  Phase 33's ("layout": "fsdp_sp", "model": 2)
 # run fsdp_sp on {model: 2}, each rank on its half of the sequence: a train
-# job (a warm-up and a measured step), a prefill job ("prefill": a prefill
+# job (a warm-up and a measured step), a serve job ("prefill": a prefill
 # of batch x seq, its whole logits and the decode state assembled from
-# the ranks' blocks), or both ("train" and "prefill"), each held against
-# world 1 of the same cut in rank 0's process, a prefill against an f32
-# run too.  "readings": the train job's gang and world 1 also run seeds 1
+# the ranks' blocks, then "decode" steps on the ranks' blocks of the
+# state), or both ("train" and "prefill"), each held against world 1 of
+# the same cut in rank 0's process, a serve job against an f32 run too.
+# "seq_groups": world 1 runs under the mesh's fsdp_sp ctx, whose seq
+# groups are the gang's MoE dispatch groups (the capacity counted over
+# each block's tokens).  "readings": the train job's gang and world 1 also run seeds 1
 # .. readings-1 (build_train's weights and batch); "fault": the gang runs
 # seed 0 again with the model all-reduce of the leaves replicated over
 # model dropped (``_dropped_model_reduce``), which the gate must fail
@@ -3574,11 +3585,18 @@ RANK_JOBS = {
                     "readings": 4, "fault": True},
     "granite_sp": {"arch": "granite-3-2b", "layers": 4, "batch": 4,
                    "seq": 2048, "layout": "fsdp_sp", "model": 2,
-                   "prefill": True, "judged_on": ("prefill_logits", "state")},
+                   "prefill": True, "decode": 8,
+                   "judged_on": ("prefill_logits", "state",
+                                 "decode_logits")},
     "mamba2_sp": {"arch": "mamba2-2.7b", "layers": 4, "batch": 2,
                   "seq": 2048, "layout": "fsdp_sp", "model": 2,
-                  "train": True, "prefill": True, "slow_decay": True,
-                  "judged_on": ("prefill_logits", "state")},
+                  "train": True, "prefill": True, "decode": 8,
+                  "slow_decay": True,
+                  "judged_on": ("prefill_logits", "state", "decode_logits")},
+    "qwen3_moe_sp": {"arch": "qwen3-moe-30b-a3b", "layers": 2, "batch": 4,
+                     "seq": 2048, "layout": "fsdp_sp", "model": 2,
+                     "train": True, "prefill": True, "decode": 8,
+                     "seq_groups": True, "judged_on": ("state",)},
 }
 MODEL_JOBS = tuple(k for k, j in RANK_JOBS.items() if j.get("model", 1) > 1)
 # a model-axis train job's gate: its first loss, first grad_norm and
@@ -3660,9 +3678,10 @@ def _port_of_rank() -> dict:
     from repro_torch.data import make_batch
     from repro_torch.distributed import init_distributed
     from repro_torch.launch.perfprobe import KERNELS as PROBED
-    from repro_torch.launch.steps import build_train
+    from repro_torch.launch.steps import build_train, shard_ctx_for
     from repro_torch.models import init_params
     from repro_torch.models.model import decode_step, prefill
+    from repro_torch.sharding import use_ctx
     from repro_torch.sharding.fsdp import FSDP
     from repro_torch.sharding.grid import model_grid
     from repro_torch.sharding.sp import sp_bytes
@@ -3671,9 +3690,20 @@ def _port_of_rank() -> dict:
                 mesh_dims=mesh_dims, get_config=get_config,
                 make_batch=make_batch, init_distributed=init_distributed,
                 PROBED=PROBED, build_train=build_train,
+                shard_ctx_for=shard_ctx_for, use_ctx=use_ctx,
                 init_params=init_params, decode_step=decode_step,
                 prefill=prefill, FSDP=FSDP, model_grid=model_grid,
                 tp_allreduce_bytes=tp_allreduce_bytes, sp_bytes=sp_bytes)
+
+
+def _world1_ctx(P, job: dict, grid):
+    """The ctx world 1 of a model-axis job runs under: the mesh's
+    ``fsdp_sp`` ctx where the job says ``seq_groups``, else none."""
+    if not job.get("seq_groups"):
+        return contextlib.nullcontext()
+    return P["use_ctx"](P["shard_ctx_for"](
+        {"data": grid.extent("data"), "model": grid.extent("model")},
+        job["layout"]))
 
 
 def _routes(P) -> dict:
@@ -3687,12 +3717,18 @@ def _since(now: dict, then: dict) -> dict:
 def _shape_bytes(torch, P, cfg, job: dict, grid, kind: str, batch: int,
                  seq: int, decode: int = 0) -> dict:
     """The port's count from the shapes of a model-axis job's bytes by
-    mechanism: ``tp_allreduce`` under fsdp_tp (a step, or a prefill and
-    ``decode`` steps), every sequence-parallel mechanism under fsdp_sp."""
+    mechanism: ``tp_allreduce`` under fsdp_tp, every sequence-parallel
+    mechanism under fsdp_sp, of a step, or of a prefill and ``decode``
+    steps on a cache of ``seq + decode`` slots."""
     M = grid.extent("model")
     esize = getattr(torch, cfg.param_dtype).itemsize
     if job["layout"] == "fsdp_sp":
-        return P["sp_bytes"](cfg, batch, seq, kind, M, esize)
+        got = P["sp_bytes"](cfg, batch, seq, kind, M, esize)
+        if kind != "train":
+            step = P["sp_bytes"](cfg, batch, seq + decode, "decode", M,
+                                 esize)
+            got = {k: v + decode * step[k] for k, v in got.items()}
+        return got
     if kind == "train":
         return {"tp_allreduce": P["tp_allreduce_bytes"](
             cfg, batch, seq, "train", M, esize)}
@@ -3748,7 +3784,8 @@ def _rank_train_job(torch, P, cfg, job: dict, grid) -> dict:
         rec["shape_bytes"] = _shape_bytes(torch, P, cfg, job, grid, "train",
                                           B // mesh["data"], S)
         if grid.rank == 0:
-            one = two_steps("dp", None)
+            with _world1_ctx(P, job, grid):
+                one = two_steps("dp", None)
             rec["world1"] = {k: one[k] for k in ("losses", "grad_norms",
                                                  "step_s", "peak_mem_gb")}
         rec["readings"] = []
@@ -3756,7 +3793,8 @@ def _rank_train_job(torch, P, cfg, job: dict, grid) -> dict:
             got = {"seed": seed,
                    **scalars(two_steps(job["layout"], grid, seed))}
             if grid.rank == 0:
-                got["world1"] = scalars(two_steps("dp", None, seed))
+                with _world1_ctx(P, job, grid):
+                    got["world1"] = scalars(two_steps("dp", None, seed))
             rec["readings"].append(got)
         if job.get("fault"):
             with _dropped_model_reduce(grid):
@@ -3768,14 +3806,16 @@ def _rank_serve_job(torch, P, cfg, job: dict, grid) -> dict:
     """A serve job on one rank of the model axis under the job's layout:
     the full weights from seed 0 (the SSD decays slowed where the job
     says) kept as the rank's blocks (``FSDP.shard_tree``), a prefill of
-    ``make_batch``'s tokens and ``decode`` steps fed seeded tokens
-    (fsdp_sp: none), the whole logits of each and the decode state after
-    the prefill assembled from the ranks' blocks.  Rank 0 then runs world
-    1 of the same cut, weights, batch and tokens in bf16 through the
-    kernels, and in f32 through the plain versions, and returns the
-    relative distances of the gang's and of world 1's logits and state
-    from the f32 run's, and of the gang's from world 1's (``_rel``,
-    ``_state_rel``; the state also leaf by leaf)."""
+    ``make_batch``'s tokens and ``decode`` steps fed seeded tokens (on
+    the ranks' blocks of the state, the cache ``seq + decode`` slots),
+    the whole logits of each and the decode state after the prefill
+    assembled from the ranks' blocks.  Rank 0 then runs world 1 of the
+    same cut, weights, batch and tokens in bf16 through the kernels, and
+    in f32 through the plain versions (both under the mesh's ctx where
+    the job says ``seq_groups``), and returns the relative distances of
+    the gang's and of world 1's logits (all, the prefill's, the decode
+    steps') and state from the f32 run's, and of the gang's from world
+    1's (``_rel``, ``_state_rel``; the state also leaf by leaf)."""
     import dataclasses as dc
     dev, ctx = grid.device, grid.dist
     B, S, n = job["batch"], job["seq"], job.get("decode", 0)
@@ -3813,7 +3853,7 @@ def _rank_serve_job(torch, P, cfg, job: dict, grid) -> dict:
         for i in range(n):
             pos = torch.full((B,), S + i, dtype=torch.int32, device=dev)
             logits, state = P["decode_step"](p, c, state, toks[i], pos,
-                                             fsdp=fsdp)
+                                             fsdp=fsdp, cache_len=S + n)
             outs.append(logits.float())
         torch.cuda.synchronize(dev)
         return (torch.stack(outs), st, shapes, prefill_s,
@@ -3842,26 +3882,32 @@ def _rank_serve_job(torch, P, cfg, job: dict, grid) -> dict:
     if grid.rank == 0:
         torch.cuda.reset_peak_memory_stats(dev)
         params = weights()
-        one, one_st, _, one_prefill_s, one_decode_s = serve(params, cfg,
-                                                            None)
-        peak = torch.cuda.max_memory_allocated(dev) / 1e9
         c32 = dc.replace(cfg, param_dtype="float32",
                          attention_backend="torch", mixer_backend="torch")
-        ref, ref_st, _, _, _ = serve(_map(params, lambda t: t.float()), c32,
-                                     None)
+        with _world1_ctx(P, job, grid):
+            one, one_st, _, one_prefill_s, one_decode_s = serve(params, cfg,
+                                                                None)
+            peak = torch.cuda.max_memory_allocated(dev) / 1e9
+            ref, ref_st, _, _, _ = serve(_map(params, lambda t: t.float()),
+                                         c32, None)
+
+        def rels(x, st):
+            out = {"logits": _rel(x, ref), "prefill_logits": _rel(x[0],
+                                                                  ref[0]),
+                   "state": _state_rel(st, ref_st)}
+            if n:
+                out["decode_logits"] = _rel(x[1:], ref[1:])
+            return out
+
         rec["world1"] = {
             "peak_mem_gb": peak, "prefill_s": one_prefill_s,
             "decode_s_per_step": one_decode_s,
-            "rel_err_vs_f32": {
-                "logits": _rel(one, ref), "prefill_logits": _rel(one[0],
-                                                                 ref[0]),
-                "state": _state_rel(one_st, ref_st)},
-            "gang_rel_err_vs_f32": {
-                "logits": _rel(logits, ref),
-                "prefill_logits": _rel(logits[0], ref[0]),
-                "state": _state_rel(st, ref_st)},
+            "rel_err_vs_f32": rels(one, one_st),
+            "gang_rel_err_vs_f32": rels(logits, st),
             "gang_rel_err_vs_world1": {
                 "logits": _rel(logits, one), "state": _state_rel(st, one_st),
+                **({"decode_logits": _rel(logits[1:], one[1:])} if n
+                   else {}),
                 **{k: _state_rel({k: st[k]}, {k: one_st[k]})
                    for k in one_st}},
             "argmax_agree_gang_world1": int((logits.argmax(-1)
@@ -4173,7 +4219,8 @@ def model_axis_gangs(torch, m, jobs: dict) -> dict:
     rounding before its reduction), under fsdp_sp the assembled K/V
     cache no farther from world 1's than world 1's state is from f32;
     every rank's bytes by mechanism the port's count from the shapes
-    (``tp_allreduce_bytes``, ``sp_bytes``), to the byte; K1-K4 launched
+    (``tp_allreduce_bytes``, ``sp_bytes``), to the byte; under fsdp_sp
+    each rank's peak memory under world 1's; K1-K4 launched
     as one step or one prefill predicts, on the tensor cores.  Reports
     each rank's bytes by mechanism (a train job's beside the analytic
     model's for ``{data: 1, model: 2}``), peak memory and host times
@@ -4209,6 +4256,9 @@ def model_axis_gangs(torch, m, jobs: dict) -> dict:
                 bad.append("the planted fault passed the gate")
             bad += [f"train bytes {k}" for d in ranks
                     for k in _shape_bytes_differ(d)]
+            if layout == "fsdp_sp" and any(
+                    d["peak_mem_gb"] >= one["peak_mem_gb"] for d in ranks):
+                bad.append("a rank's train peak not under world 1's")
         if serves:
             pre = [d["serve"] if trains else d for d in ranks]
             one = pre[0]["world1"]
@@ -4232,6 +4282,9 @@ def model_axis_gangs(torch, m, jobs: dict) -> dict:
                     bad.append("kv cache vs world 1")
             bad += [f"serve bytes {k}" for d in pre
                     for k in _shape_bytes_differ(d)]
+            if layout == "fsdp_sp" and any(
+                    d["peak_mem_gb"] >= one["peak_mem_gb"] for d in pre):
+                bad.append("a rank's serve peak not under world 1's")
         emit(phase={"fsdp_tp": "tp_gang", "fsdp_sp": "sp_gang"}[layout],
              name=name, card=card_line(), **rec)
         if bad:

@@ -238,6 +238,20 @@ class DistContext:
                     group.size)
         return out.movedim(0, dim)
 
+    def all_to_all(self, t: torch.Tensor, mechanism: str,
+                   group: Group) -> torch.Tensor:
+        """``t``'s dim 0 split into ``group.size`` equal blocks, block
+        ``j`` sent to the group's rank ``j``; returns the blocks received,
+        in group order, in ``t``'s shape (one ``all_to_all_single``).
+        Counts the ``(N-1)/N`` of ``t``'s bytes that leave the rank."""
+        if group.size == 1:
+            return t
+        x = t.contiguous()
+        out = torch.empty_like(x)
+        torch.distributed.all_to_all_single(out, x, group=group.pg)
+        self._count(mechanism, x.numel() * x.element_size(), 1, group.size)
+        return out
+
     def all_reduce(self, t: torch.Tensor, mechanism: str,
                    group: Group, op: str = "sum") -> torch.Tensor:
         """``t`` reduced (``op``: ``"sum"`` or ``"max"``) over the

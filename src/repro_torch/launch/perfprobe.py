@@ -28,20 +28,24 @@ and moments and gather each layer where it runs (on the data axis the
 reference's rules make both ZeRO-3), ``fsdp_tp`` on a model axis
 computes each rank's heads, experts and vocabulary rows
 (:mod:`repro_torch.sharding.tp`), ``fsdp_sp`` on a model axis each
-rank's block of the sequence (:mod:`repro_torch.sharding.sp`; training
-and prefill), and ``dp`` is the data-parallel gang.
+rank's block of the sequence in training and prefill (an MoE slot's
+experts exchanged by all-to-all) and its blocks of the decode state in
+decode (:mod:`repro_torch.sharding.sp`), and ``dp`` is the
+data-parallel gang.
 Each rank adds a ``dist`` section: its collective bytes in the measured
 step by the analytic model's mechanism (``fsdp_allgather``,
-``grad_reducescatter``, ``tp_allreduce``, and the port's
-``replicated_allreduce``, ``norm_allreduce``, ``tp_weights``,
+``grad_reducescatter``, ``tp_allreduce``, ``moe_alltoall``, and the
+port's ``replicated_allreduce``, ``norm_allreduce``, ``tp_weights``,
 ``vocab_allgather``, and under ``fsdp_sp`` ``kv_allgather``,
 ``ssd_state_allgather``, ``conv_halo``, ``sp_allgather``,
-``sp_reducescatter``), the port's own count from the shapes
+``sp_reducescatter``, and in decode ``softmax_combine`` and
+``conv_allgather``), the port's own count from the shapes
 (``tp_allreduce_shape_bytes``; under ``fsdp_sp`` ``sp_shape_bytes``, by
 mechanism, and ``sp_vs_analytic``: the analytic model's ``fsdp_sp``
 ``tp_allreduce``, one K/V gather an attention layer and one state
 exchange an SSM layer, beside the measured ``kv_allgather +
-ssd_state_allgather``), its peak memory, launches and losses; the record
+ssd_state_allgather``, and its ``moe_alltoall`` beside the measured),
+its peak memory, launches and losses; the record
 holds :func:`collective_bytes_per_chip` for ``{data: D, model: M}``
 beside them.  On a grid of one rank every layout is the ``dp`` step.
 The reference's two-pod mesh (``multi_pod``) is 512 cards, not one host:
@@ -220,13 +224,15 @@ def probe(arch: str, shape: str, layout: str = "dp", *,
             dist["sp_shape_bytes"] = sp_bytes(cfg, batch // rows_of, seq,
                                               kind, mesh["model"], esize)
             got = dist["collective_bytes"]
+            analytic = collective_bytes_per_chip(
+                cfg, batch, seq, kind, mesh_dims(mesh), "fsdp_sp")
             dist["sp_vs_analytic"] = {
-                "analytic_tp_allreduce": collective_bytes_per_chip(
-                    cfg, batch, seq, kind, mesh_dims(mesh),
-                    "fsdp_sp")["tp_allreduce"],
+                "analytic_tp_allreduce": analytic["tp_allreduce"],
                 "kv_allgather + ssd_state_allgather": (
                     got.get("kv_allgather", 0.0)
-                    + got.get("ssd_state_allgather", 0.0))}
+                    + got.get("ssd_state_allgather", 0.0)),
+                "analytic_moe_alltoall": analytic["moe_alltoall"],
+                "moe_alltoall": got.get("moe_alltoall", 0.0)}
     profile = None
     peak_gb = None
     if device.type == "cuda":

@@ -23,7 +23,11 @@ ctx.  The port returns a plain callable over one rank's tensors:
 * ``fsdp_sp`` on a ``{data: D, model: M}`` grid: the rank keeps its
   blocks (the attention and SSM projections split over both axes) and
   computes on its model coordinate's block of the sequence
-  (:mod:`repro_torch.sharding.sp`), for training and prefill.
+  (:mod:`repro_torch.sharding.sp`), for training and prefill (an MoE
+  slot's experts exchanged by all-to-all); a decode step runs on its
+  blocks of the decode state (cache slots, SSM heads and conv channels:
+  the rules' ``decode_state_shardings``), with a softmax distributed
+  over the cache.
 
 Every rank draws the full parameters and the global batch from the seed
 and keeps its blocks and its data row's rows (:func:`_rows` splits over
@@ -33,10 +37,9 @@ group and, but under ``fsdp_sp``'s model axis, its sequence one segment,
 as with no :class:`repro_torch.sharding.ShardCtx`, so a step runs under
 none (:func:`shard_ctx_for` is the reference's ctx of the whole mesh).
 On a ``model`` extent above 1 ``dp`` raises (it would run duplicated
-ranks), and so does what ``fsdp_sp`` does not run yet, naming its
-ROADMAP step (:func:`repro_torch.sharding.sp.check_config`: an MoE FFN
-slot, step 5.2; a sequence block under the SSM chunk; and decode, step
-5.1b).  ``lower_step`` has no counterpart: nothing is lowered.
+ranks), and so does ``fsdp_sp`` at a sequence the axis does not split
+into equal blocks (:func:`repro_torch.sharding.sp.check_config`).
+``lower_step`` has no counterpart: nothing is lowered.
 """
 from __future__ import annotations
 
@@ -55,7 +58,7 @@ from repro_torch.models.model import (decode_step, forward,
 from repro_torch.optim import get_optimizer
 from repro_torch.sharding import ShardCtx, rules
 from repro_torch.sharding.fsdp import FSDP
-from repro_torch.sharding.sp import DECODE_NEXT, check_config
+from repro_torch.sharding.sp import check_config
 from repro_torch.train.step import TrainState, make_train_step
 
 BIG_PARAM_THRESHOLD = 20e9   # above this, optimizer moments go bf16
@@ -101,9 +104,7 @@ def _sharding(cfg: ArchConfig, layout: str, grid, params, seq: int,
     if grid is None or grid.world_size == 1:
         return None, None
     if grid.extent("model") > 1:
-        if layout == "fsdp_sp":
-            if kind == "decode":
-                raise NotImplementedError(f"grid {grid.mesh}: {DECODE_NEXT}")
+        if layout == "fsdp_sp" and kind != "decode":
             check_config(cfg, seq, grid.extent("model"))
         if layout == "dp":
             raise ValueError(f"grid {grid.mesh}: dp replicates every "
@@ -189,13 +190,15 @@ def build_decode(cfg: ArchConfig, batch: int, seq: int, *, device,
     arguments; the token sits at position ``seq - 1``.  On a grid of N
     the rank's params (shards under ``fsdp_*``), its rows of the tokens
     and positions, and a decode state of its rows (the rules' batch
-    axis)."""
+    axis) and, on a model axis, of its blocks (``fsdp_sp``: the cache's
+    slots, the SSM heads and conv channels)."""
     require_decoder(cfg)
     params = _params(cfg, device, seed)
     _, fsdp = _sharding(cfg, layout, grid, params, seq, "decode")
 
     def fn(params, state, tokens, position):
-        return decode_step(params, cfg, state, tokens, position, fsdp=fsdp)
+        return decode_step(params, cfg, state, tokens, position, fsdp=fsdp,
+                           cache_len=seq)
 
     if fsdp is not None:
         params = fsdp.shard_tree(params)
@@ -203,7 +206,7 @@ def build_decode(cfg: ArchConfig, batch: int, seq: int, *, device,
               else make_decode_batch(cfg, batch, seq - 1, seed,
                                      device=device), grid)
     state = init_decode_state(cfg, d["tokens"].shape[0], seq, device=device,
-                              grid=grid)
+                              grid=grid, layout=layout)
     return fn, (params, state, d["tokens"], d["position"])
 
 

@@ -28,7 +28,10 @@ the block's queries against every key at ``q_offset``, the block's
 first position (K1-K3 on CUDA tensors, the plain version on the CPU);
 ``wo`` runs on the rank's rows with no reduction, the heads being
 whole.  The MLP gathers the sequence before its column blocks and
-reduce-scatters its row block's partial sums after them.
+reduce-scatters its row block's partial sums after them.  In decode the
+cache holds the rank's block of the slots (``decode_state_shardings``'s
+sequence split), and the softmax over them is distributed
+(:func:`attn_decode`).
 """
 from __future__ import annotations
 
@@ -289,7 +292,8 @@ def kv_cache_init(batch: int, cache_len: int, spec: AttnSpec, dtype,
 
 
 def attn_decode(params: dict, cache: dict, x: torch.Tensor, spec: AttnSpec,
-                position: torch.Tensor, tp=None):
+                position: torch.Tensor, tp=None, sp=None,
+                cache_len: Optional[int] = None):
     """One-token decode.  x: (B,1,d); position: (B,) absolute position.
 
     The cache holds RoPE'd keys at absolute positions; the slot for
@@ -297,18 +301,20 @@ def attn_decode(params: dict, cache: dict, x: torch.Tensor, spec: AttnSpec,
     (or not yet written) are masked out.  The new key and value are written
     into ``cache`` **in place** (the reference donates the cache to get the
     same effect); the updated cache is also returned.  Under ``tp`` the
-    cache holds the rank's kv heads.
+    cache holds the rank's kv heads.  Under ``sp`` it holds the rank's
+    block of the ``cache_len`` slots (all of them where the model axis
+    does not divide ``cache_len``), the token is replicated and the
+    heads whole: the slot's owner writes it, and the softmax over the
+    slots is distributed (:func:`_decode_sp`).
     """
     B = x.shape[0]
+    if sp is not None:
+        return _decode_sp(params, cache, x, spec, position, sp, cache_len)
     if tp is not None:
         params, spec = tp.attn(params, spec)
         x = tp.enter(x)
     cache_len = cache["k"].shape[1]
-    q = _split_heads(dense(params["wq"], x), spec.n_heads, spec.head_dim)
-    k = _split_heads(dense(params["wk"], x), spec.n_kv_heads, spec.head_dim)
-    v = _split_heads(dense(params["wv"], x), spec.n_kv_heads, spec.head_dim)
-    q = apply_rope(q, position[:, None], spec.rope_theta)
-    k = apply_rope(k, position[:, None], spec.rope_theta)
+    q, k, v = _qkv_decode(params, x, spec, position)
 
     position = position.long()
     slot = torch.remainder(position, cache_len)               # (B,)
@@ -316,22 +322,92 @@ def attn_decode(params: dict, cache: dict, x: torch.Tensor, spec: AttnSpec,
     cache["k"][bidx, slot] = k[:, 0].to(cache["k"].dtype)
     cache["v"][bidx, slot] = v[:, 0].to(cache["v"].dtype)
 
-    Kh, hd = spec.n_kv_heads, spec.head_dim
-    rep = spec.n_heads // Kh
-    qg = q.reshape(B, 1, Kh, rep, hd).float()
-    scores = torch.einsum("bqgrd,bkgd->bgrqk", qg, cache["k"].float())
-    scores = scores / math.sqrt(hd)
-    # slot j's latest write is pos - ((pos - j) % cache_len); it is valid
-    # iff it has been written and lies within the window
-    j = torch.arange(cache_len, device=x.device)[None, :]     # (1, L)
-    abs_pos = position[:, None] - torch.remainder(position[:, None] - j,
-                                                  cache_len)
-    valid = abs_pos >= 0
-    if spec.window is not None:
-        valid &= abs_pos > position[:, None] - spec.window
+    scores = _decode_scores(q, cache, spec)
+    valid = _valid_slots(position, 0, cache_len, cache_len, spec.window)
     scores = scores.masked_fill(~valid[:, None, None, None, :], NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bgrqk,bkgd->bqgrd", probs, cache["v"].float())
-    out = out.reshape(B, 1, spec.n_heads * hd).to(x.dtype)
+    out = out.reshape(B, 1, spec.n_heads * spec.head_dim).to(x.dtype)
     out = dense(params["wo"], out)
     return (out if tp is None else tp.exit(out)), cache
+
+
+def _qkv_decode(params, x, spec: AttnSpec, position):
+    """q (B,1,H,hd), k and v (B,1,Kh,hd) of the token, RoPE'd at
+    ``position``."""
+    q = _split_heads(dense(params["wq"], x), spec.n_heads, spec.head_dim)
+    k = _split_heads(dense(params["wk"], x), spec.n_kv_heads, spec.head_dim)
+    v = _split_heads(dense(params["wv"], x), spec.n_kv_heads, spec.head_dim)
+    q = apply_rope(q, position[:, None], spec.rope_theta)
+    k = apply_rope(k, position[:, None], spec.rope_theta)
+    return q, k, v
+
+
+def _decode_scores(q, cache, spec: AttnSpec):
+    """(B, Kh, rep, 1, L) f32 scores of q against the cache's keys."""
+    B, Kh, hd = q.shape[0], spec.n_kv_heads, spec.head_dim
+    qg = q.reshape(B, 1, Kh, spec.n_heads // Kh, hd).float()
+    scores = torch.einsum("bqgrd,bkgd->bgrqk", qg, cache["k"].float())
+    return scores / math.sqrt(hd)
+
+
+def _valid_slots(position, lo: int, n: int, cache_len: int, window):
+    """(B, n) bool: whether slots ``[lo, lo + n)`` of a ring of
+    ``cache_len`` hold a position the token at ``position`` attends:
+    slot j's latest write is ``pos - ((pos - j) % cache_len)``, valid iff
+    it has been written and lies within the window."""
+    j = lo + torch.arange(n, device=position.device)[None, :]
+    abs_pos = position[:, None] - torch.remainder(position[:, None] - j,
+                                                  cache_len)
+    valid = abs_pos >= 0
+    if window is not None:
+        valid &= abs_pos > position[:, None] - window
+    return valid
+
+
+def _decode_sp(params, cache, x, spec: AttnSpec, position, sp,
+               cache_len: Optional[int]):
+    """:func:`attn_decode` on the rank's slots ``[lo, hi)`` of the
+    ``cache_len``-slot ring (``sp.span``).  Every rank computes the
+    token's q, k and v with the whole weights; the owner of slot ``p %
+    cache_len`` writes it (the others write their slot back unchanged:
+    no branch on the data).  Each rank scores q against its slots under
+    the world-1 mask, in f32, and keeps its row max, its sum of
+    ``exp(s - max)`` over the valid slots and their P·V; a split cache's
+    partials are combined over the model group (``sp.combine_softmax``),
+    a whole one's are the softmax itself."""
+    if cache_len is None:
+        raise ValueError("a decode step under fsdp_sp needs the cache's "
+                         "whole length: a rank holds a block of it")
+    B = x.shape[0]
+    q, k, v = _qkv_decode(params, x, spec, position)
+    lo, hi = sp.span(cache_len)
+    n = hi - lo
+    if cache["k"].shape[1] != n:
+        raise ValueError(f"a cache block of {cache['k'].shape[1]} slots; "
+                         f"the rank's block of {cache_len} is {n}")
+    position = position.long()
+    local = torch.remainder(position, cache_len) - lo
+    own = ((local >= 0) & (local < n))[:, None, None]
+    idx = local.clamp(0, n - 1)
+    bidx = torch.arange(B, device=x.device)
+    for name, new in (("k", k), ("v", v)):
+        buf = cache[name]
+        buf[bidx, idx] = torch.where(own, new[:, 0].to(buf.dtype),
+                                     buf[bidx, idx])
+
+    scores = _decode_scores(q, cache, spec)
+    valid = _valid_slots(position, lo, n, cache_len, spec.window)
+    valid = valid[:, None, None, None, :]
+    scores = scores.masked_fill(~valid, NEG_INF)
+    mx = scores.amax(dim=-1, keepdim=True)                # (B,Kh,rep,1,1)
+    p = torch.exp(scores - mx) * valid
+    denom = p.sum(dim=-1, keepdim=True)
+    pv = torch.einsum("bgrqk,bkgd->bgrqd", p, cache["v"].float())
+    if n == cache_len:
+        out = pv / denom
+    else:
+        out = sp.combine_softmax(mx, denom, pv)
+    out = out.permute(0, 3, 1, 2, 4).reshape(B, 1, spec.n_heads
+                                             * spec.head_dim)
+    return dense(params["wo"], out.to(x.dtype)), cache

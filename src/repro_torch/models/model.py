@@ -58,7 +58,15 @@ final hidden state's sequence before the head.  The prefill returns the
 rank's block of the decode state as the reference's
 ``decode_state_shardings`` splits it: the cache slots
 ``[m L/M, (m+1) L/M)``, the SSM heads and the conv channels of block
-``m``.  There is no decode step under it yet.
+``m``.  An MoE FFN dispatches the block as one group and exchanges its
+buffer with the experts' owners (:mod:`repro_torch.models.moe`), and the
+loss averages the blocks' aux losses.  :func:`decode_step` runs on those
+state blocks: its one token is replicated over the model axis, so the
+lookup, the MLP, the experts and the head take ``fsdp_tp``'s forms on
+their ``(fsdp, tp)`` blocks through the SP context (the vocabulary's
+rows looked up and all-reduced, the partial sums all-reduced, the
+logits' columns gathered), while attention and the SSD step run on the
+rank's cache slots, heads and channels.
 
 An SSD layer with no FFN keeps ``norm2``, as the reference's slot does,
 although nothing reads it, and the audio family keeps an untied embedding
@@ -80,7 +88,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.sharding.ctx import current_ctx, use_ctx
-from repro_torch.sharding.sp import DECODE_NEXT, RAGGED_NEXT
+from repro_torch.sharding.sp import RAGGED_NEXT, state_shape
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -331,9 +339,9 @@ def _ffn(layer, cfg: ArchConfig, x, token_mask=None, tp=None, sp=None):
     if "mlp" in layer:
         return x + L.mlp_apply(layer["mlp"], h, cfg.act, tp, sp), None
     y, aux = MOE.moe_apply(layer["moe"], h, cfg.moe, cfg.act,
-                           token_mask=token_mask, tp=tp)
+                           token_mask=token_mask, tp=tp, sp=sp)
     if "shared_mlp" in layer:
-        y = y + L.mlp_apply(layer["shared_mlp"], h, cfg.act, tp)
+        y = y + L.mlp_apply(layer["shared_mlp"], h, cfg.act, tp, sp)
     return x + y, aux
 
 
@@ -544,6 +552,11 @@ def loss_terms(params, cfg: ArchConfig, batch, remat: bool = True,
         hi = min(lo + x.shape[1], ls.shape[1])
         xs, ls, ms = x[:, :hi - lo], ls[:, lo:hi], ms[:, lo:hi]
 
+    if sp is not None and cfg.moe is not None:
+        # the mean of the blocks' aux losses (each block one dispatch
+        # group), whole on every rank; each rank's gradient flows to its
+        # own block's
+        aux = sp.vocab.exit(aux) / sp.M
     S = xs.shape[1]
     c = min(loss_chunk, S)
     n = S // c
@@ -629,20 +642,24 @@ def prefill(params, cfg: ArchConfig, batch, cache_len: int,
 # decode (serve_step)
 # --------------------------------------------------------------------------
 def init_decode_state(cfg: ArchConfig, batch: int, cache_len: int, *,
-                      device=None, grid=None) -> Dict[str, Any]:
+                      device=None, grid=None,
+                      layout: str = "fsdp_tp") -> Dict[str, Any]:
     """Zeroed decode state: KV caches ``{"k", "v"}`` (n_attn, B, L, Kh, hd)
     over the attention layers and SSM states ``{"h", "conv"}`` (n_ssm,
     ...) over the SSD layers; a stack without one kind has no keys for
-    it.  On a ``grid`` with a ``model`` axis, the rank's kv heads, SSM
-    heads and ``[x, B, C]`` channels (:class:`repro_torch.sharding.tp.
-    Plan`).  An encoder-only config has none and raises
-    ``ValueError``."""
+    it.  On a ``grid`` with a ``model`` axis, the rank's blocks: under
+    ``fsdp_tp`` its kv heads, SSM heads and ``[x, B, C]`` channels
+    (:class:`repro_torch.sharding.tp.Plan`); under ``fsdp_sp`` the
+    rules' blocks, its ``L/M`` cache slots, ``nh/M`` SSM heads and
+    ``C/M`` conv channels (whole where ``M`` does not divide).  An
+    encoder-only config has none and raises ``ValueError``."""
     require_decoder(cfg)
     device = resolve_device(device)
     spec, heads, groups = attn_spec(cfg), None, None
-    if grid is not None and grid.extent("model") > 1:
+    M = 1 if grid is None else grid.extent("model")
+    if M > 1 and layout != "fsdp_sp":
         from repro_torch.sharding.tp import Plan
-        plan = Plan.of(cfg, grid.extent("model"), grid.coord("model"))
+        plan = Plan.of(cfg, M, grid.coord("model"))
         if plan.kv_heads is not None:
             spec = dataclasses.replace(
                 spec, n_heads=plan.q_heads[1] - plan.q_heads[0],
@@ -658,32 +675,38 @@ def init_decode_state(cfg: ArchConfig, batch: int, cache_len: int, *,
             continue
         if kind == "ssm":
             one = SSM.ssm_state_init(batch, cfg.d_model, cfg.ssm,
-                                     param_dtype(cfg), device, heads,
+                                     param_dtype(cfg), "meta", heads,
                                      groups)
         else:
             one = L.kv_cache_init(batch, _attn_len(cfg, cache_len), spec,
-                                  param_dtype(cfg), device)
-        state.update({name: t[None].repeat((n,) + (1,) * t.dim())
-                      for name, t in one.items()})
+                                  param_dtype(cfg), "meta")
+        for name, t in one.items():
+            shape = (t.shape if M == 1 or layout != "fsdp_sp"
+                     else state_shape(name, t.shape, M))
+            state[name] = torch.zeros((n,) + tuple(shape), dtype=t.dtype,
+                                      device=device)
     return state
 
 
 @torch.no_grad()
 def decode_step(params, cfg: ArchConfig, state, tokens, position,
-                fsdp=None):
+                fsdp=None, cache_len: Optional[int] = None):
     """One decode step.  tokens: (B,1) int; position: (B,) absolute.
     Returns (logits (B,V), state); ``state`` is updated in place.  The MoE
     routes with no token mask: every row, idle slots included, claims
     capacity, as in the reference.  An encoder-only config raises
-    ``ValueError``, and ``fsdp_sp`` on a model axis
-    ``NotImplementedError``."""
+    ``ValueError``.  Under ``fsdp.sp`` the state is the rank's blocks
+    and ``cache_len`` (the cache's whole length, which a block does not
+    show) is required."""
     require_decoder(cfg)
-    if _sp_of(fsdp) is not None:
-        raise NotImplementedError(f"{cfg.name}: {DECODE_NEXT}")
     spec = attn_spec(cfg)
     params = _gather_outer(params, cfg, fsdp)
-    tp = _tp_of(fsdp)
-    x = _lookup(params, tokens, tp)                          # (B,1,d)
+    tp, sp = _tp_of(fsdp), _sp_of(fsdp)
+    # the token is replicated over the model axis: under sp the lookup,
+    # the FFN and the head take the tensor-parallel forms too
+    axis = tp if sp is None else sp
+    attn_len = None if cache_len is None else _attn_len(cfg, cache_len)
+    x = _lookup(params, tokens, axis)                        # (B,1,d)
     seen = {"attn": 0, "ssm": 0}           # each layer's index in its kind
     for i, (layer, kind) in enumerate(zip(params["layers"],
                                           cfg.layer_kinds())):
@@ -694,15 +717,15 @@ def decode_step(params, cfg: ArchConfig, state, tokens, position,
         seen[kind] += 1
         if kind == "ssm":
             mix, new = SSM.ssm_decode_step(layer["ssm"], own, h, cfg.ssm,
-                                           tp)
+                                           tp, sp)
             for name, t in new.items():
                 own[name].copy_(t)
         else:
             mix, _ = L.attn_decode(layer["attn"], own, h, spec, position,
-                                   tp)
-        x, _ = _ffn(layer, cfg, x + mix, tp=tp)
+                                   tp, sp, attn_len)
+        x, _ = _ffn(layer, cfg, x + mix, tp=axis)
     x = L.norm_apply(cfg.norm, params["final_norm"], x)
-    logits = logits_fn(params, cfg, x, tp)
+    logits = logits_fn(params, cfg, x, axis)
     return logits[:, 0, :], state
 
 

@@ -16,21 +16,35 @@ group without a ctx).  Routing, ranking, the capacity scatter and the
 gather are group-local; the expert FFN runs every group's slots in one
 batched product.  On a rank of a data grid the ctx has every extent at
 1, so each rank's rows are its group: what the reference's data-parallel
-layout dispatches.  Under ``fsdp_tp`` on a ``model`` axis (``tp``, a
+layout dispatches.
+
+Under ``fsdp_tp`` on a ``model`` axis (``tp``, a
 :class:`repro_torch.sharding.tp.TP`) the tokens are replicated over the
 axis, so the dispatch stays rank-local: the router is replicated and
 routes identically on every model rank, each rank runs its ``E / M``
 experts on the slots routed to them, and the partial combines are
 all-reduced (the tokens and the gates enter the experts' region through
 an all-reduce of their gradients; the aux loss, computed alike on every
-rank, counts once).  The experts' all-to-all, which exists only under
-``fsdp_sp``'s sequence groups, is not ported (ROADMAP.md Queue 1 item 1
-step 5).  Every detail
-that decides which tokens an
-expert takes follows the reference: the router in f32, top-k by k
-iterated argmaxes (a tie goes to the first index), ranks by a stable sort
-with masked tokens under a sentinel expert id E, the capacity counted over
-the padded tokens, and the gather clamping the sentinel to E - 1.
+rank, counts once).  A decode step under ``fsdp_sp`` takes the same
+path: its one token is replicated over the axis, and the reference's
+grouping falls back to one group there.
+
+Under ``fsdp_sp``'s sequence split (``sp``, a
+:class:`repro_torch.sharding.sp.SP`) the rank's block of the sequence is
+its dispatch group, as the reference's ``_dispatch_groups`` gives ``gs =
+M``: capacity is counted over its ``B x S/M`` tokens, and the router,
+the top-k, the ranks and the scatter stay local.  The ``(E, C, d)``
+buffer crosses to the experts' owners in one all-to-all
+(``SP.exchange_experts``), each rank runs its ``E / M`` experts on
+every group's slots in one batched product, and the outputs cross back
+for a local combine.  The aux loss returned is the block's; the loss
+averages it over the blocks.
+
+Every detail that decides which tokens an expert takes follows the
+reference: the router in f32, top-k by k iterated argmaxes (a tie goes
+to the first index), ranks by a stable sort with masked tokens under a
+sentinel expert id E, the capacity counted over the padded tokens, and
+the gather clamping the sentinel to E - 1.
 """
 from __future__ import annotations
 
@@ -251,7 +265,8 @@ def aux_loss(r: dict, E: int, groups: int = 1):
 
 
 def moe_apply(params: dict, x: torch.Tensor, cfg: MoEConfig, act: str,
-              capacity_factor: float = None, token_mask=None, tp=None):
+              capacity_factor: float = None, token_mask=None, tp=None,
+              sp=None):
     """x: (B, S, d) -> (y (B, S, d), aux_loss f32 scalar).
 
     ``token_mask`` ((B, S) bool, optional): False marks pad/dummy tokens
@@ -260,7 +275,11 @@ def moe_apply(params: dict, x: torch.Tensor, cfg: MoEConfig, act: str,
     buffer; their outputs are garbage (the gather reads expert E - 1, as
     the reference's clamping gather does), and callers only read unmasked
     positions.  Under ``tp`` the rank's experts, their partial sums
-    all-reduced."""
+    all-reduced; under ``sp`` x is the rank's block of the sequence, its
+    dispatch group (:func:`_moe_seq`)."""
+    if sp is not None:
+        return _moe_seq(params, x, cfg, act, capacity_factor, token_mask,
+                        sp)
     B, S, d = x.shape
     E, K = cfg.n_experts, cfg.top_k
     GB, GS = _dispatch_groups(B, S)
@@ -296,3 +315,28 @@ def moe_apply(params: dict, x: torch.Tensor, cfg: MoEConfig, act: str,
     if tp is not None:
         y = tp.exit(y)
     return y, aux
+
+
+def _moe_seq(params, x, cfg: MoEConfig, act: str, capacity_factor,
+             token_mask, sp):
+    """:func:`moe_apply` on the rank's block ``x`` (B, S/M, d), one
+    dispatch group: the local route and scatter into the (E, C, d)
+    buffer, ``sp.exchange_experts`` to the owners of its ``M`` blocks of
+    experts, the rank's experts over the (M, E/M, C, d) slots it
+    receives (every group's, group-major as world 1's product), the
+    outputs exchanged back and combined locally."""
+    B, S, d = x.shape
+    E, K, M = cfg.n_experts, cfg.top_k, sp.M
+    n = E // M
+    capacity = capacity_of(B * S, cfg, capacity_factor)
+    xt = x.reshape(B * S, d)
+    mask = None if token_mask is None else token_mask.reshape(B * S)
+    r = route(params, xt, cfg, capacity, mask)
+    aux = cfg.router_aux_weight * aux_loss(r, E)
+    buf = sp.exchange_experts(dispatch(xt, r, E, K, capacity))
+    out = expert_ffn(params, buf.view(M, n, capacity, d).transpose(0, 1)
+                     .reshape(n, M * capacity, d), act)
+    out = sp.exchange_experts(out.view(n, M, capacity, d).transpose(0, 1)
+                              .reshape(E, capacity, d))
+    y = combine(out, r, token_mask is not None)
+    return y.reshape(B, S, d), aux

@@ -29,7 +29,19 @@ inputs (the halo), K4 runs the segment from a zero state in one launch,
 the segments' final states and decays are all-gathered and combined in
 f32 (:func:`ssd_seq_ranks`), and the rank adds its incoming state's
 correction.  Every rank computes the final state from the gathered
-ones, and the last rank's halo rows are the prefill's conv state.
+ones, and the last rank's halo rows are the prefill's conv state.  A
+block shorter than the chunk (or than ``W - 1``) takes the reference's
+fallback, the whole-sequence scan that GSPMD gathers for: the mixer's
+input is gathered over the model group (``SP.gather_seq``, whose
+backward reduce-scatters), the whole sequence runs (K4 on CUDA tensors)
+and the rank keeps its block of the output; the state is the whole
+sequence's.  The decode step (:func:`ssm_decode_step`) runs on the
+rules' blocks of the state: the rank convolves its ``C / M`` channels of
+``[x, B, C]`` from its columns of the projections, the post-conv row is
+all-gathered (``SP.gather_channels``), and the rank steps its ``nh /
+M`` heads, the gated norm's sum of squares and ``out``'s partial sums
+all-reduced (a dim ``M`` does not divide is whole on every rank, and
+needs neither).
 
 Under a model axis (``tp``, a :class:`repro_torch.sharding.tp.TP`) the
 mixer runs on the rank's ``nh / M`` heads through K4 (or the plain scan
@@ -41,7 +53,8 @@ split over the concatenated ``[x, B, C]`` channels, so a rank gathers
 them and keeps its own channels.  The decode state holds the rank's
 heads (``h``) and its ``[x, B, C]`` channels (``conv``: its x channels
 and the B/C groups it reads, which ranks sharing a group both hold);
-the reference splits ``conv``'s channel dim evenly instead.
+the reference splits ``conv``'s channel dim evenly instead (as
+``fsdp_sp`` does).
 """
 from __future__ import annotations
 
@@ -54,7 +67,7 @@ from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked_ref
 from repro_torch.models.layers import dense, dense_init, norm_apply
 from repro_torch.sharding.ctx import axis_extent_of
-from repro_torch.sharding.sp import RAGGED_NEXT, SHORT_NEXT
+from repro_torch.sharding.sp import RAGGED_NEXT, short_block
 
 
 def ssm_init(generator: torch.Generator, d_model: int, cfg: SSMConfig,
@@ -234,12 +247,15 @@ def ssm_apply(params: dict, x: torch.Tensor, cfg: SSMConfig,
     """
     B, S, d = x.shape
     W = cfg.conv_width
-    if sp is not None and (seq_len is not None or S < cfg.chunk
-                           or S < W - 1):
-        raise NotImplementedError(
-            RAGGED_NEXT if seq_len is not None else
-            f"a sequence block of {S} under the SSM chunk {cfg.chunk}; "
-            f"{SHORT_NEXT}")
+    if sp is not None and seq_len is not None:
+        raise NotImplementedError(RAGGED_NEXT)
+    if sp is not None and short_block(cfg, S):
+        # the reference's fallback below the chunk: the whole sequence
+        got = ssm_apply(params, sp.gather_seq(x), cfg, return_state,
+                        backend=backend)
+        if not return_state:
+            return sp.narrow(got)
+        return sp.narrow(got[0]), got[1]
     params, nh, groups = _local(params, cfg, d, tp)
     if tp is not None:
         x = tp.enter(x)
@@ -320,9 +336,11 @@ def ssm_state_init(batch: int, d_model: int, cfg: SSMConfig, dtype,
 
 
 def ssm_decode_step(params: dict, state: dict, x: torch.Tensor,
-                    cfg: SSMConfig, tp=None):
+                    cfg: SSMConfig, tp=None, sp=None):
     """One-token decode.  x: (B,1,d) -> (y (B,1,d), new_state); under
-    ``tp`` the state is the rank's."""
+    ``tp`` or ``sp`` the state is the rank's (:func:`_decode_sp`)."""
+    if sp is not None:
+        return _decode_sp(params, state, x, cfg, sp)
     B, _, d = x.shape
     params, nh, groups = _local(params, cfg, d, tp)
     if tp is not None:
@@ -355,4 +373,61 @@ def ssm_decode_step(params: dict, state: dict, x: torch.Tensor,
     out = dense(params["out"], y)
     if tp is not None:
         out = tp.exit(out)
+    return out[:, None, :], {"h": h_new, "conv": new_conv}
+
+
+def _columns(params, xt, keys, lo: int, hi: int):
+    """Columns ``[lo, hi)`` of ``xt`` times the concatenation of the
+    projections ``keys`` ((name, width) in order), without forming it."""
+    parts, start = [], 0
+    for key, width in keys:
+        a, b = max(lo, start), min(hi, start + width)
+        if a < b:
+            parts.append(xt @ params[key]["w"][:, a - start:b - start])
+        start += width
+    return torch.cat(parts, dim=-1)
+
+
+def _decode_sp(params, state, x, cfg: SSMConfig, sp):
+    """:func:`ssm_decode_step` on the rank's blocks of the state, the
+    weights whole: ``conv`` holds channels ``[c0, c1)`` of ``[x, B, C]``
+    and ``h`` heads ``[h0, h1)`` (``sp.span``; whole where ``M`` does not
+    divide).  The rank convolves its channels, the post-conv row is
+    gathered where the channels are split, and the rank steps its heads;
+    where they are split the gated norm's sum of squares and ``out``'s
+    partial sums are all-reduced."""
+    B, _, d = x.shape
+    nh, hp, N, g = cfg.n_heads(d), cfg.head_dim, cfg.d_state, cfg.n_groups
+    di, gN = nh * hp, g * N
+    c0, c1 = sp.span(di + 2 * gN)
+    h0, h1 = sp.span(nh)
+    xt = x[:, 0, :]
+
+    conv_in = _columns(params, xt, (("in_x", di), ("in_B", gN),
+                                    ("in_C", gN)), c0, c1)
+    conv_out, new_conv = _conv_decode(state["conv"], conv_in,
+                                      params["conv_w"][:, c0:c1],
+                                      params["conv_b"][c0:c1])
+    conv_out = F.silu(conv_out)
+    if c1 - c0 < di + 2 * gN:
+        conv_out = sp.gather_channels(conv_out)
+    xc, Bc, Cc = torch.split(conv_out, [di, gN, gN], dim=-1)
+
+    z = xt @ params["in_z"]["w"][:, h0 * hp:h1 * hp]
+    dt = (xt @ params["in_dt"]["w"][:, h0:h1]).float()
+    dt = F.softplus(dt + params["dt_bias"][h0:h1])
+    A = -torch.exp(params["A_log"][h0:h1])
+    xh = xc.reshape(B, nh, hp)[:, h0:h1].float()
+    # each head's group, per head: B and C of the rank's heads
+    Bh = Bc.reshape(B, g, N).repeat_interleave(nh // g, dim=1)[:, h0:h1]
+    Ch = Cc.reshape(B, g, N).repeat_interleave(nh // g, dim=1)[:, h0:h1]
+
+    y, h_new = ssd_decode(state["h"], xh, dt, A, Bh.float(), Ch.float())
+    y = y + params["D"][h0:h1][None, :, None] * xh
+    split = h1 - h0 < nh
+    y = _gated_norm({"norm_scale": params["norm_scale"][h0 * hp:h1 * hp]},
+                    y.reshape(B, -1).to(x.dtype), z, sp if split else None)
+    out = y @ params["out"]["w"][h0 * hp:h1 * hp]
+    if split:
+        out = sp.allreduce(out, "tp_allreduce")
     return out[:, None, :], {"h": h_new, "conv": new_conv}

@@ -4,10 +4,11 @@ Storage follows the reference's rules (:mod:`repro_torch.sharding.fsdp`):
 the attention and SSM projections, ``conv_w``, ``conv_b`` and
 ``norm_scale`` are split over both axes (``fsdp2``) and gathered whole
 where a layer runs; the MLP and the vocabulary keep ``fsdp_tp``'s
-``(fsdp, tp)`` blocks.  Compute follows the reference's activations
-(``logical_axes``): the **sequence** is split over ``model`` at the layer
-boundaries, so rank ``m`` of ``M`` holds positions ``[m S/M, (m+1) S/M)``
-of its data row's rows, and
+``(fsdp, tp)`` blocks, and the experts their ``tp`` blocks (rank ``m``
+holds experts ``[m E/M, (m+1) E/M)``).  Compute follows the reference's
+activations (``logical_axes``): the **sequence** is split over ``model``
+at the layer boundaries, so rank ``m`` of ``M`` holds positions
+``[m S/M, (m+1) S/M)`` of its data row's rows, and
 
 * attention computes q, k and v on the rank's rows with the whole
   weights, applies RoPE at their absolute positions and all-gathers K
@@ -19,12 +20,23 @@ of its data row's rows, and
   (:meth:`SP.exchange_states`, ``ssd_state_allgather``) and each rank
   adds the correction of its incoming state; the causal conv takes the
   previous rank's last ``W - 1`` inputs (:meth:`SP.halo`,
-  ``conv_halo``);
+  ``conv_halo``).  A block shorter than the chunk (or the conv's
+  ``W - 1`` rows) takes the reference's fallback instead: the mixer's
+  input gathered (``gather_seq``), the whole sequence's scan, the
+  rank's block of its output;
 * the MLP is Megatron's sequence-parallel trade on its column and row
   blocks: :meth:`SP.gather_seq` before ``up``/``gate`` (an all-gather
   forward, a reduce-scatter backward: ``sp_allgather``) and
   :meth:`SP.scatter_seq` after ``down`` (a reduce-scatter of the partial
   sums forward, an all-gather backward: ``sp_reducescatter``);
+* an MoE FFN dispatches the rank's block as one group (the reference's
+  ``_dispatch_groups`` at ``gs = M``): routing, ranks and the capacity
+  scatter stay local, the ``(E, C, d)`` buffer crosses to the experts'
+  owners in one all-to-all (:meth:`SP.exchange_experts`,
+  ``moe_alltoall``; its backward the reverse all-to-all), each rank runs
+  its experts on every group's slots, and the outputs cross back for a
+  local combine.  The aux loss is the mean of the blocks' (an
+  all-reduce of the step's sum, in the loss);
 * a sharded vocabulary looks up the whole sequence in the rank's rows
   (:meth:`Vocab.lookup`'s masking) and ``scatter_seq`` leaves each rank
   its block summed over the vocabulary shards; the step's inputs arrive
@@ -37,16 +49,26 @@ of its data row's rows, and
   vocabulary ``M`` does not divide) the lookup and the loss run on the
   rank's block and the loss's sums are all-reduced (:meth:`Vocab.exit`).
 
+Decode's one token is replicated over the axis, and the decode state is
+split as ``rules.decode_state_shardings`` splits it (kept whole where
+``M`` does not divide the dim): the cache slots, the SSM heads, the
+conv's ``[x, B, C]`` channels.  So attention writes the new key and
+value only on the rank that owns its slot, scores q against the rank's
+slots and combines the ranks' row max, sum and P·V (one all-gather,
+:meth:`SP.combine_softmax`, ``softmax_combine``: a distributed softmax);
+the SSD step convolves the rank's channels and all-gathers the post-conv
+row (:meth:`SP.gather_channels`, ``conv_allgather``), then runs the
+rank's heads; and the MLP, the experts and the vocabulary take
+``fsdp_tp``'s forms on their blocks, through :class:`SP`'s
+:class:`repro_torch.sharding.tp.ModelAxis` operators (partial sums
+all-reduced, ``tp_allreduce``; the logits' columns gathered).
+
 :class:`SP` holds the vocabulary's rows and collectives as a
 :class:`repro_torch.sharding.tp.Vocab`, which :class:`repro_torch.
-sharding.tp.TP` holds too.
-
-What is not run raises, naming its ROADMAP step: an MoE FFN slot (the
-experts' all-to-all, step 5.2), decode (a softmax over the
-sequence-sharded cache, step 5.1b), a block shorter than the SSM chunk
-(the reference gathers the sequence there; step 5.1's open item) and a
-prefill with ragged ``lengths``.  :func:`sp_bytes` counts a step's bytes
-by mechanism from the shapes.
+sharding.tp.TP` holds too.  A prefill with ragged ``lengths`` raises
+(:data:`RAGGED_NEXT`): the reference's sharded ``build_prefill`` passes
+none.  :func:`sp_bytes` counts a step's bytes by mechanism from the
+shapes.
 """
 from __future__ import annotations
 
@@ -54,38 +76,45 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.sharding.tp import Vocab, _evenly, _split
+from repro_torch.sharding.tp import ModelAxis, Plan, Vocab, _evenly, _split
 
-STEP = "ROADMAP.md Queue 1 item 1 step"
-MOE_NEXT = (f"fsdp_sp on a model axis does not run an MoE FFN slot: its "
-            f"experts' all-to-all over sequence-split tokens is {STEP} 5.2")
-DECODE_NEXT = (f"fsdp_sp on a model axis has no decode step: a softmax "
-               f"distributed over the sequence-sharded cache is {STEP} 5.1b")
-SHORT_NEXT = (f"the reference gathers the whole sequence below the chunk "
-              f"and the port does not ({STEP} 5.1, its open item)")
-RAGGED_NEXT = (f"fsdp_sp's prefill takes no ragged lengths (the "
-               f"reference's sharded build_prefill passes none; {STEP} 5.1)")
+RAGGED_NEXT = ("fsdp_sp's prefill takes no ragged lengths (the reference's "
+               "sharded build_prefill passes none)")
 # the per-layer decode state's sequence-split dim (the reference's
 # decode_state_shardings, less the stacked layer dim): the cache slots of
 # K/V, the SSM heads of h, the [x, B, C] channels of conv
 STATE_DIM = {"k": 1, "v": 1, "h": 1, "conv": 2}
+# every mechanism sp_bytes counts
+MECHANISMS = ("kv_allgather", "sp_allgather", "sp_reducescatter",
+              "conv_halo", "ssd_state_allgather", "moe_alltoall",
+              "softmax_combine", "conv_allgather", "tp_allreduce",
+              "vocab_allgather")
 
 
 def check_config(cfg, seq: int, M: int) -> None:
-    """Raise unless ``cfg`` runs ``fsdp_sp`` at ``seq`` tokens on a model
-    axis of ``M``: no MoE FFN slot, ``M`` dividing ``seq``, and a block
-    at least an SSM's chunk (and its conv's ``W - 1`` rows)."""
-    if cfg.moe is not None and any(cfg.moe_layer_mask()):
-        raise NotImplementedError(f"{cfg.name}: {MOE_NEXT}")
+    """Raise unless ``M`` splits a sequence of ``seq`` into equal
+    blocks."""
     if seq % M:
         raise ValueError(f"{cfg.name}: a sequence of {seq} does not split "
                          f"into {M} blocks")
-    if cfg.ssm is not None and "ssm" in cfg.layer_kinds():
-        block = seq // M
-        if block < cfg.ssm.chunk or block < cfg.ssm.conv_width - 1:
-            raise NotImplementedError(
-                f"{cfg.name}: a sequence block of {block} is shorter than "
-                f"the SSM chunk {cfg.ssm.chunk}; {SHORT_NEXT}")
+
+
+def short_block(cfg, block: int) -> bool:
+    """Whether an SSD layer takes the whole-sequence fallback at a
+    sequence block of ``block``: shorter than the chunk, or than the
+    conv's ``W - 1`` halo rows."""
+    return block < cfg.chunk or block < cfg.conv_width - 1
+
+
+def state_shape(name: str, shape, M: int) -> tuple:
+    """One layer's decode-state leaf ``name`` of whole ``shape`` as a
+    rank holds it: its split dim divided by ``M`` where ``M`` divides
+    it."""
+    shape = list(shape)
+    d = STATE_DIM[name]
+    if shape[d] % M == 0:
+        shape[d] //= M
+    return tuple(shape)
 
 
 # --------------------------------------------------------------------------
@@ -198,24 +227,44 @@ class _Exchange(torch.autograd.Function):
         return mine[:, :n].reshape(ctx.shape), mine[:, n:], None
 
 
+class _AllToAll(torch.autograd.Function):
+    """The experts' exchange: dim 0's ``M`` blocks sent to their ranks
+    forward, the gradient's sent back the same way (an all-to-all of
+    equal blocks is its own transpose), both ``moe_alltoall``."""
+
+    @staticmethod
+    def forward(ctx, x, sp):
+        ctx.sp = sp
+        return sp.dist.all_to_all(x, "moe_alltoall", sp.group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.sp.dist.all_to_all(grad, "moe_alltoall",
+                                      ctx.sp.group), None
+
+
 # --------------------------------------------------------------------------
-class SP:
+class SP(ModelAxis):
     """A rank's sequence-parallel context on ``grid``'s model axis for
-    the arch ``cfg``: its model group, its coordinate ``m`` of ``M`` and
-    its :class:`repro_torch.sharding.tp.Vocab`."""
+    the arch ``cfg``: its model group, its coordinate ``m`` of ``M``, its
+    experts (``plan.experts``) and its :class:`repro_torch.sharding.tp.
+    Vocab`; as a :class:`repro_torch.sharding.tp.ModelAxis`, the
+    operators a decode step's replicated token takes."""
 
     def __init__(self, grid, cfg):
-        self.grid = grid
-        self.dist = grid.dist
-        self.group = grid.group("model")
-        self.M = grid.extent("model")
-        self.m = grid.coord("model")
-        if cfg.moe is not None and any(cfg.moe_layer_mask()):
-            raise NotImplementedError(f"{cfg.name}: {MOE_NEXT}")
+        super().__init__(grid)
         if cfg.d_ff:
             _evenly(cfg.name, cfg.d_ff, self.M, "d_ff")
+        experts = None
+        if cfg.moe is not None:
+            _evenly(cfg.name, cfg.moe.n_experts, self.M, "n_experts")
+            experts = _split(cfg.moe.n_experts, self.M, self.m)
+            if cfg.moe.shared_expert:
+                _evenly(cfg.name, cfg.d_ff or cfg.moe.expert_d_ff, self.M,
+                        "the shared expert's d_ff")
         rows = (_split(cfg.vocab, self.M, self.m) if cfg.vocab % self.M == 0
                 else None)
+        self.plan = Plan(self.M, self.m, experts=experts, vocab=rows)
         self.vocab = Vocab(self.dist, self.group, self.M, self.m, rows)
 
     # --------------------------------------------------------- sequence
@@ -259,7 +308,42 @@ class SP:
         (B, nh) f32 (``ssd_state_allgather``)."""
         return _Exchange.apply(h.float(), decay.float(), self)
 
-    # ----------------------------------------------------- decode state
+    def exchange_experts(self, buf: torch.Tensor) -> torch.Tensor:
+        """The experts' all-to-all (``moe_alltoall``): ``buf``'s dim 0 in
+        ``M`` blocks, block ``j`` for rank ``j``'s experts; returns the
+        blocks the ranks sent this one, in rank order."""
+        return _AllToAll.apply(buf, self)
+
+    # ----------------------------------------------------------- decode
+    def span(self, n: int) -> Tuple[int, int]:
+        """``[lo, hi)`` of the rank's block of a decode-state dim of
+        ``n``: its ``M``-th, or the whole where ``M`` does not divide
+        ``n``."""
+        return _split(n, self.M, self.m) if n % self.M == 0 else (0, n)
+
+    @torch.no_grad()
+    def combine_softmax(self, mx: torch.Tensor, denom: torch.Tensor,
+                        pv: torch.Tensor) -> torch.Tensor:
+        """The softmax-weighted values over the ranks' slots from each
+        rank's row max ``mx`` (..., 1), sum of ``exp(s - mx)`` ``denom``
+        (..., 1) and P·V ``pv`` (..., hd), all f32: one all-gather
+        (``softmax_combine``), then each rank's partials rescaled to the
+        global max and summed in rank order.  A rank whose slots are all
+        masked (its max the mask's -1e30) weighs zero."""
+        got = self.dist.all_gather(torch.cat([mx, denom, pv], -1)[None], 0,
+                                   "softmax_combine", self.group)
+        mxs, denoms, pvs = got[..., :1], got[..., 1:2], got[..., 2:]
+        top = mxs.amax(dim=0)
+        w = torch.where(mxs > -1e29, torch.exp(mxs - top), 0.0)
+        return (w * pvs).sum(dim=0) / (w * denoms).sum(dim=0)
+
+    @torch.no_grad()
+    def gather_channels(self, x: torch.Tensor) -> torch.Tensor:
+        """The ranks' channel blocks of (B, C/M) concatenated
+        (``conv_allgather``)."""
+        return self.dist.all_gather(x, x.dim() - 1, "conv_allgather",
+                                    self.group).contiguous()
+
     def state_block(self, name: str, t: torch.Tensor) -> torch.Tensor:
         """The rank's block of one layer's whole decode-state leaf, as
         ``rules.decode_state_shardings`` splits it over ``model`` (kept
@@ -293,49 +377,63 @@ class SP:
 # --------------------------------------------------------------------------
 def sp_bytes(cfg, batch: int, seq: int, kind: str, M: int, act_bytes: int,
              embed_bytes: Optional[int] = None) -> Dict[str, float]:
-    """A rank's bytes by mechanism in one ``fsdp_sp`` step of ``kind``
-    (train or prefill) over ``batch`` rows of ``seq`` tokens (the whole
-    sequence of its data row; a vlm's patches included) on a model axis
-    of ``M``, in the ring convention (a gather or reduce-scatter of F
-    whole bytes moves ``(M-1)/M F`` a rank).  Activations are
+    """A rank's bytes by mechanism (:data:`MECHANISMS`) in one ``fsdp_sp``
+    step of ``kind`` on a model axis of ``M``, in the ring convention (a
+    gather, reduce-scatter or all-to-all of F whole bytes moves ``(M-1)/M
+    F`` a rank, an all-reduce twice that): train or prefill over
+    ``batch`` rows of ``seq`` tokens (the whole sequence of its data row;
+    a vlm's patches included), or one decode step of ``batch`` rows over
+    a cache of ``seq`` slots (:func:`_decode_bytes`).  Activations are
     ``act_bytes`` an element, the embedding's lookups ``embed_bytes``
-    (default: the same); states, decays and the loss's terms are f32, and
-    the logits in the activations' dtype.
+    (default: the same); states, decays, softmax partials and the loss's
+    terms are f32, and the logits in the activations' dtype.
     Training runs each layer's forward twice (remat) and its backward
     once; the recompute stops after the last op that saves a tensor, so
-    it skips each MLP's ``scatter_seq``.  The FSDP gathers and reductions
-    are not counted here (:mod:`repro_torch.analysis.analytic`)."""
-    out = dict.fromkeys(("kv_allgather", "sp_allgather", "sp_reducescatter",
-                         "conv_halo", "ssd_state_allgather",
-                         "tp_allreduce", "vocab_allgather"), 0.0)
+    it skips each MLP's ``scatter_seq`` (the experts' combine saves its
+    inputs, so both all-to-alls run again).  The FSDP gathers and
+    reductions are not counted here (:mod:`repro_torch.analysis.
+    analytic`)."""
+    out = dict.fromkeys(MECHANISMS, 0.0)
     if M == 1:
         return out
-    if kind not in ("train", "prefill"):
-        raise NotImplementedError(DECODE_NEXT)
     embed_bytes = act_bytes if embed_bytes is None else embed_bytes
+    if kind == "decode":
+        return _decode_bytes(out, cfg, batch, seq, M, act_bytes,
+                             embed_bytes)
+    if kind not in ("train", "prefill"):
+        raise ValueError(f"unknown step kind {kind!r}")
+    # imported here: the models import this module
+    from repro_torch.models.moe import capacity_of
     f = (M - 1) / M
     train = kind == "train"
+    passes = 3 if train else 1          # forward, recompute, backward
     T, d = batch * seq, cfg.d_model
     x = T * d * act_bytes * f
-    kinds = cfg.layer_kinds()
-    has_ffn = cfg.d_ff > 0
-    for kind_l in kinds:
+    moe = _moe_mask(cfg)
+    for kind_l, has_moe in zip(cfg.layer_kinds(), moe):
         if kind_l == "attn":
             kv = 2 * T * cfg.n_kv_heads * cfg.head_dim * act_bytes * f
-            out["kv_allgather"] += kv * (3 if train else 1)
+            out["kv_allgather"] += kv * passes
+        elif short_block(cfg.ssm, seq // M):
+            out["sp_allgather"] += x * passes     # the mixer's input
         else:
             s = cfg.ssm
             C = s.d_inner(d) + 2 * s.n_groups * s.d_state
             nh = s.n_heads(d)
-            passes = 3 if train else 1
             out["conv_halo"] += (passes * (M - 1) * batch
                                  * (s.conv_width - 1) * C * act_bytes)
             out["ssd_state_allgather"] += (passes * (M - 1) * batch
                                            * (nh * s.head_dim * s.d_state
                                               + nh) * 4)
-        if has_ffn:
-            out["sp_allgather"] += x * (3 if train else 1)
+        if (cfg.d_ff > 0 and not has_moe) or (has_moe
+                                               and cfg.moe.shared_expert):
+            out["sp_allgather"] += x * passes
             out["sp_reducescatter"] += x * (2 if train else 1)
+        if has_moe:
+            # the (E, C, d) buffer out and back, C over the rank's tokens
+            C = capacity_of(batch * seq // M, cfg.moe)
+            buf = cfg.moe.n_experts * C * d * act_bytes
+            out["moe_alltoall"] += 2 * passes * buf * f
     vocab_split = cfg.vocab % M == 0
     if vocab_split and cfg.family != "audio":
         out["sp_reducescatter"] += (T * d * embed_bytes * f
@@ -347,6 +445,8 @@ def sp_bytes(cfg, batch: int, seq: int, kind: str, M: int, act_bytes: int,
             out["tp_allreduce"] += 3 * scored * 4 * 2 * f
         else:
             out["tp_allreduce"] += 2 * 4 * 2 * f      # the loss's sums
+        if any(moe):
+            out["tp_allreduce"] += 4 * 2 * f          # the aux loss's
     else:
         out["sp_allgather"] += x                      # the last position's
         if vocab_split:
@@ -354,4 +454,46 @@ def sp_bytes(cfg, batch: int, seq: int, kind: str, M: int, act_bytes: int,
             # forward: of every position)
             rows = T if cfg.family == "audio" else batch
             out["vocab_allgather"] += rows * cfg.vocab * act_bytes * f
+    return out
+
+
+def _moe_mask(cfg) -> list:
+    return (cfg.moe_layer_mask() if cfg.moe is not None
+            else [False] * cfg.n_layers)
+
+
+def _decode_bytes(out: dict, cfg, batch: int, cache_len: int, M: int,
+                  act_bytes: int, embed_bytes: int) -> Dict[str, float]:
+    """:func:`sp_bytes` of one decode step: the lookup's partial rows and
+    each MLP's, expert block's and SSD head block's partial sums
+    all-reduced (the SSD step's gated-norm sums too, f32), each
+    attention layer's softmax partials gathered where the cache is split
+    (``(max, sum, P·V)``: ``head_dim + 2`` f32 a head and row), each SSD
+    layer's post-conv row gathered where its channels are, and the last
+    logits' columns."""
+    f = (M - 1) / M
+    B, d = batch, cfg.d_model
+    ar = 2 * f * B * d * act_bytes      # an all-reduce of (B, d)
+    if cfg.vocab % M == 0:
+        out["tp_allreduce"] += 2 * f * B * d * embed_bytes
+        out["vocab_allgather"] += f * B * cfg.vocab * act_bytes
+    slots = (cache_len if cfg.sliding_window is None
+             else min(cache_len, cfg.sliding_window))
+    for kind_l, has_moe in zip(cfg.layer_kinds(), _moe_mask(cfg)):
+        if kind_l == "attn":
+            if slots % M == 0:
+                out["softmax_combine"] += ((M - 1) * B * cfg.n_heads
+                                           * (cfg.head_dim + 2) * 4)
+        else:
+            s = cfg.ssm
+            if (s.d_inner(d) + 2 * s.n_groups * s.d_state) % M == 0:
+                out["conv_allgather"] += (f * B * act_bytes
+                                          * (s.d_inner(d)
+                                             + 2 * s.n_groups * s.d_state))
+            if s.n_heads(d) % M == 0:
+                out["tp_allreduce"] += 2 * f * B * 4 + ar
+        if cfg.d_ff > 0 and not has_moe:
+            out["tp_allreduce"] += ar
+        if has_moe:
+            out["tp_allreduce"] += ar * (2 if cfg.moe.shared_expert else 1)
     return out

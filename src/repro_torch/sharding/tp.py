@@ -264,22 +264,23 @@ class Vocab:
         return nll.sum(), mask.sum()
 
 
-class TP:
-    """A rank's tensor-parallel context on ``grid``'s model axis for the
-    arch ``cfg``: its model group, its coordinate ``m`` of ``M`` and its
-    :class:`Plan`, and its :class:`Vocab`."""
+class ModelAxis:
+    """A rank's place on ``grid``'s model axis: its model group, its
+    coordinate ``m`` of ``M``, and the Megatron operators over the group
+    (what :class:`TP` computes with, and :class:`repro_torch.sharding.
+    sp.SP` in a decode step, whose one token is replicated over the
+    axis).  A subclass sets :attr:`plan` and :attr:`vocab`."""
 
-    def __init__(self, grid, cfg):
+    plan: Plan
+    vocab: Vocab
+
+    def __init__(self, grid):
         self.grid = grid
         self.dist = grid.dist
         self.group = grid.group("model")
         self.M = grid.extent("model")
         self.m = grid.coord("model")
-        self.plan = Plan.of(cfg, self.M, self.m)
-        self.vocab = Vocab(self.dist, self.group, self.M, self.m,
-                           self.plan.vocab)
 
-    # ------------------------------------------------------- collectives
     def allreduce(self, t: torch.Tensor, mechanism: str) -> torch.Tensor:
         return self.dist.all_reduce(t, mechanism, self.group)
 
@@ -292,6 +293,25 @@ class TP:
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
         return _PSum.apply(x, self)
+
+    def embed(self, w: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+        """The ranks' lookups in a sharded embedding summed (exact: one
+        rank's row and zeros)."""
+        return self.exit(self.vocab.lookup(w, tokens))
+
+
+class TP(ModelAxis):
+    """A rank's tensor-parallel context on ``grid``'s model axis for the
+    arch ``cfg``: its model group, its coordinate ``m`` of ``M`` and its
+    :class:`Plan`, and its :class:`Vocab`."""
+
+    def __init__(self, grid, cfg):
+        super().__init__(grid)
+        self.plan = Plan.of(cfg, self.M, self.m)
+        self.vocab = Vocab(self.dist, self.group, self.M, self.m,
+                           self.plan.vocab)
+
+    # ------------------------------------------------------- collectives
 
     def take(self, w: torch.Tensor, dim: int, full: int, lo: int,
              hi: int) -> torch.Tensor:
@@ -356,12 +376,6 @@ class TP:
                 whole.narrow(dim, di + g0 * N, (g1 - g0) * N),
                 whole.narrow(dim, di + gN + g0 * N, (g1 - g0) * N)], dim)
         return local, h1 - h0, g1 - g0
-
-    # -------------------------------------------------------- vocabulary
-    def embed(self, w: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-        """The ranks' lookups in a sharded embedding summed (exact: one
-        rank's row and zeros)."""
-        return self.exit(self.vocab.lookup(w, tokens))
 
     # ----------------------------------------------------- decode state
     @torch.no_grad()

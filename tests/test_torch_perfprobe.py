@@ -66,12 +66,13 @@ def test_probe_on_the_cpu(arch, shape):
     assert terms["flops"] == rec["analytic"]["flops_per_chip"]
 
 
-def _gang_probe(layout: str, tmp_path, *extra) -> dict:
+def _gang_probe(layout: str, tmp_path, *extra, arch="stablelm-1.6b",
+                shape="train_4k") -> dict:
     src = str(ROOT / "src")
     path = os.environ.get("PYTHONPATH", "")
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch", "run", "perfprobe",
-         "--arch", "stablelm-1.6b", "--shape", "train_4k", "--layout",
+         "--arch", arch, "--shape", shape, "--layout",
          layout, "--world_size=2", "--device=cpu", "--reduced=true",
          "--batch=4", "--seq=32", *extra], cwd=tmp_path, capture_output=True,
         text=True, timeout=240, env={**os.environ, **ONE_THREAD,
@@ -158,7 +159,35 @@ def test_the_sequence_parallel_probe(tmp_path):
         assert d["sp_vs_analytic"] == {
             "analytic_tp_allreduce": met["analytic_collective_bytes"][
                 "tp_allreduce"],
-            "kv_allgather + ssd_state_allgather": want["kv_allgather"]}
+            "kv_allgather + ssd_state_allgather": want["kv_allgather"],
+            "analytic_moe_alltoall": 0.0, "moe_alltoall": 0.0}
+
+
+@pytest.mark.parametrize("arch,shape,mechanism", [
+    ("stablelm-1.6b", "decode_32k", "softmax_combine"),
+    ("mamba2-2.7b", "decode_32k", "conv_allgather"),
+    ("qwen3-moe-30b-a3b", "train_4k", "moe_alltoall")])
+def test_the_sequence_parallel_probe_decodes_and_routes(arch, shape,
+                                                        mechanism,
+                                                        tmp_path):
+    """``--layout fsdp_sp --model 2`` on a decode cell (one token against
+    a cache of 32 slots, 16 a rank) and on an MoE arch's train cell: each
+    rank's bytes by mechanism are ``sp_shape_bytes`` (the decode step's
+    distributed softmax or post-conv gather, the experts' all-to-all),
+    and ``sp_vs_analytic`` sets the measured ``moe_alltoall`` beside the
+    analytic model's."""
+    met = _gang_probe("fsdp_sp", tmp_path, "--model=2", arch=arch,
+                      shape=shape)
+    analytic = met["analytic_collective_bytes"]
+    for d in met["gang"]["ranks"]:
+        want = d["sp_shape_bytes"]
+        assert {k: d["collective_bytes"].get(k, 0.0) for k in want} == want
+        assert want[mechanism] > 0
+        assert d["sp_vs_analytic"]["moe_alltoall"] == want["moe_alltoall"]
+        assert (d["sp_vs_analytic"]["analytic_moe_alltoall"]
+                == analytic["moe_alltoall"])
+    if shape == "train_4k":
+        assert np.all(np.isfinite(met["losses"]))
 
 
 def test_the_dry_run_picks_the_batch():

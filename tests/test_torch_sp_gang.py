@@ -19,7 +19,7 @@ a LAMB step, the flat-key round trip and a prefill.  Held against:
 * the reference's own ``build_train(cfg, mesh, "fsdp_sp")`` on a host
   mesh ``(data 1, model 2)`` of two CPU devices, in a subprocess
   (``jax_sp_step.py``): its loss and ``grad_norm`` before its update;
-* and what the layout does not run yet raises, naming its ROADMAP step.
+* and a ragged prefill, which the layout does not take, raises.
 """
 import json
 
@@ -33,7 +33,6 @@ from repro_torch.configs import get_reduced  # noqa: E402
 from repro_torch.convert import params_from_flat  # noqa: E402
 from repro_torch.data.inputs import make_batch  # noqa: E402
 from repro_torch.distributed import DistContext  # noqa: E402
-from repro_torch.launch.steps import build_decode, build_train  # noqa: E402
 from repro_torch.models.model import (init_decode_state,  # noqa: E402
                                       init_params, prefill)
 from repro_torch.sharding import rules  # noqa: E402
@@ -49,9 +48,6 @@ import tp_gang_common as TC  # noqa: E402
 
 CASES = W.CASES["model2"]
 IDS = [a for a, _, _ in CASES]
-# what the FSDP storage itself moves, beside sp_bytes' mechanisms
-FSDP_MECHANISMS = {"fsdp_allgather", "grad_reducescatter",
-                   "replicated_allreduce", "norm_allreduce"}
 
 
 @pytest.fixture(scope="module")
@@ -142,7 +138,7 @@ def test_bytes_are_the_shape_count(gang, arch, mesh, serve):
                           ("prefill", info["prefill_bytes"])):
             want = sp_bytes(cfg, W.B, W.S, kind, 2, 4)
             assert {k: got.get(k, 0.0) for k in want} == want, kind
-            assert set(got) <= set(want) | FSDP_MECHANISMS, kind
+            assert set(got) <= set(want) | C.FSDP_MECHANISMS, kind
         if cfg.has_attention:
             assert info["bytes"]["kv_allgather"] > 0
         else:
@@ -167,29 +163,18 @@ def _grid():
         backend=None))
 
 
-@pytest.mark.parametrize("case", ["moe", "decode", "short_block", "ragged"])
+@pytest.mark.parametrize("case", ["ragged"])
 def test_what_fsdp_sp_does_not_run_raises(case):
-    """An MoE FFN slot (the experts' all-to-all, step 5.2), decode (step
-    5.1b), a sequence block under the SSM chunk and a prefill with
-    ragged lengths (step 5.1) raise before any collective, each naming
-    its ROADMAP step; nothing falls back to another layout."""
+    """A prefill with ragged lengths raises before any collective (the
+    reference's sharded ``build_prefill`` passes none); nothing falls
+    back to another layout.  Decode, the experts and a block under the
+    SSM chunk run: ``test_torch_sp_decode.py``, ``test_torch_sp_moe.py``."""
     kw = dict(device="cpu", layout="fsdp_sp", grid=_grid())
-    if case == "moe":
-        with pytest.raises(NotImplementedError, match=r"step 5\.2"):
-            build_train(get_reduced("qwen3-moe-30b-a3b"), 2, 64, **kw)
-    elif case == "decode":
-        with pytest.raises(NotImplementedError, match=r"step 5\.1b"):
-            build_decode(get_reduced("stablelm-1.6b"), 2, 64, **kw)
-    elif case == "short_block":
-        # blocks of 16 under mamba2's chunk of 32
-        with pytest.raises(NotImplementedError, match=r"step 5\.1"):
-            build_train(get_reduced("mamba2-2.7b"), 2, 32, **kw)
-    else:
-        cfg = get_reduced("stablelm-1.6b")
-        params = init_params(cfg, torch.Generator().manual_seed(0),
-                             device="cpu")
-        fsdp = FSDP(kw["grid"], params, "fsdp_sp", cfg)
-        with pytest.raises(NotImplementedError, match=r"step 5\.1"):
-            prefill(fsdp.shard_tree(params), cfg,
-                    make_batch(cfg, 2, 64, 0, device="cpu"), 64,
-                    lengths=torch.tensor([64, 40]), fsdp=fsdp)
+    cfg = get_reduced("stablelm-1.6b")
+    params = init_params(cfg, torch.Generator().manual_seed(0),
+                         device="cpu")
+    fsdp = FSDP(kw["grid"], params, "fsdp_sp", cfg)
+    with pytest.raises(NotImplementedError, match="ragged"):
+        prefill(fsdp.shard_tree(params), cfg,
+                make_batch(cfg, 2, 64, 0, device="cpu"), 64,
+                lengths=torch.tensor([64, 40]), fsdp=fsdp)

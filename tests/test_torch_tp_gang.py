@@ -31,9 +31,12 @@ import numpy as np  # noqa: E402
 
 from repro_torch.configs import get_reduced  # noqa: E402
 from repro_torch.convert import params_from_flat  # noqa: E402
+from repro_torch.data.inputs import make_batch  # noqa: E402
 from repro_torch.distributed import init_distributed  # noqa: E402
 from repro_torch.launch.steps import build_train  # noqa: E402
+from repro_torch.models.model import init_params, prefill  # noqa: E402
 from repro_torch.sharding import rules  # noqa: E402
+from repro_torch.sharding.fsdp import FSDP  # noqa: E402
 from repro_torch.sharding.grid import RankGrid  # noqa: E402
 from repro_torch.sharding.tp import Plan, tp_allreduce_bytes  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
@@ -171,16 +174,24 @@ def _dist(world, rank):
 @pytest.mark.parametrize("layout,error", [("fsdp_sp", NotImplementedError),
                                           ("dp", ValueError)])
 def test_a_model_axis_runs_only_fsdp_tp(layout, error):
-    """``fsdp_sp`` on a model axis raises for an MoE arch, naming the next
-    step (its experts' all-to-all; a dense arch runs it, see
-    ``test_torch_sp_gang.py``); ``dp`` would run duplicated ranks and
-    raises too; a grid of one rank is still the ``dp`` step."""
+    """What a model axis does not run raises: ``fsdp_sp``'s prefill with
+    ragged lengths (its train, prefill and decode steps run every arch,
+    see ``test_torch_sp_*.py``), and ``dp``, which would run duplicated
+    ranks; a grid of one rank is still the ``dp`` step."""
     grid = RankGrid({"data": 1, "model": 2}, _dist(2, 1))
-    arch = "qwen3-moe-30b-a3b" if layout == "fsdp_sp" else "stablelm-1.6b"
-    with pytest.raises(error, match="step 5" if layout == "fsdp_sp"
-                       else "duplicated"):
-        build_train(get_reduced(arch), 2, 16, device="cpu",
-                    layout=layout, grid=grid)
+    if layout == "fsdp_sp":
+        cfg = get_reduced("qwen3-moe-30b-a3b")
+        params = init_params(cfg, torch.Generator().manual_seed(0),
+                             device="cpu")
+        fsdp = FSDP(grid, params, layout, cfg)
+        with pytest.raises(error, match="ragged"):
+            prefill(fsdp.shard_tree(params), cfg,
+                    make_batch(cfg, 2, 16, 0, device="cpu"), 16,
+                    lengths=torch.tensor([16, 9]), fsdp=fsdp)
+    else:
+        with pytest.raises(error, match="duplicated"):
+            build_train(get_reduced("stablelm-1.6b"), 2, 16, device="cpu",
+                        layout=layout, grid=grid)
     one = RankGrid({"data": 1}, init_distributed(1, device="cpu"))
     step, (state, batch) = build_train(get_reduced("stablelm-1.6b"), 2, 16,
                                        device="cpu", layout=layout,

@@ -23,13 +23,23 @@ line (:data:`CASES`):
 
     python tests/torch_sp_worker.py CASES RANK WORLD COORDINATOR WORKDIR
 
+The serving lists (:data:`RUNS`: decode, and the MoE archs) take a
+:class:`Run` each instead: a train step as above where it says so (its
+bytes and its arch optimizer's step), then a prefill of ``seq`` tokens
+into a cache of ``cache`` slots and ``decode`` steps fed
+:func:`decode_tokens`: every step's logits, the rank's blocks of the
+decode state after the last step, and the bytes of the prefill and of
+each decode step.
+
 ``WORKDIR`` holds ``<arch>.params.npz`` (the reference's weights in
-checkpoint layout) and ``<arch>.batch.npz`` (the global batch); it
-receives ``rank{r}.<tag>.npz`` and ``rank{r}.<tag>.json``.
+checkpoint layout) and ``<arch>.batch.npz`` (the global batch; a run's
+``<tag>.batch.npz``); it receives ``rank{r}.<tag>.npz`` and
+``rank{r}.<tag>.json``.
 """
 import json
 import sys
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -40,7 +50,7 @@ from repro_torch.convert import (params_from_flat, params_to_flat,
                                  sharded_params_to_flat)
 from repro_torch.distributed.context import init_distributed
 from repro_torch.distributed.data import shard_rows
-from repro_torch.models.model import forward, period_len, prefill
+from repro_torch.models.model import decode_step, forward, period_len, prefill
 from repro_torch.optim import get_optimizer
 from repro_torch.sharding.fsdp import FSDP
 from repro_torch.sharding.grid import RankGrid
@@ -64,6 +74,50 @@ CASES = {
 # the cases the reference's own fsdp_sp step runs (jax_sp_step.py)
 REF = {"model2": [c for c in CASES["model2"]
                   if c[0] in ("stablelm-1.6b", "mamba2-2.7b")]}
+DECODE = 4
+
+
+class Run(NamedTuple):
+    """A serving case of the ``{data: 1, model: 2}`` gang: a train step
+    where ``train``, then a prefill of ``seq`` tokens into a cache of
+    ``cache`` slots and ``decode`` steps."""
+
+    arch: str
+    seq: int
+    train: bool
+    cache: int
+    decode: int = DECODE
+    mesh: dict = D1M2
+
+    @property
+    def tag(self) -> str:
+        return f"{tag(self.arch, self.mesh)}.s{self.seq}.c{self.cache}"
+
+
+RUNS = {
+    "decode": [
+        Run("stablelm-1.6b", S, False, S + DECODE),
+        Run("mamba2-2.7b", S, False, S + DECODE),
+        # a cache of 64 slots after an 8-token prompt: rank 1's 32 slots
+        # are all masked in every step
+        Run("stablelm-1.6b", 8, False, 64),
+        # blocks of 16 under mamba2's chunk of 32: the whole-sequence
+        # fallback
+        Run("mamba2-2.7b", 32, True, 32 + DECODE),
+    ],
+    "moe": [
+        Run("qwen3-moe-30b-a3b", S, True, S + DECODE),
+        Run("jamba-1.5-large-398b", S, True, S + DECODE),
+    ],
+}
+
+
+def decode_tokens(arch: str, steps: int = DECODE) -> np.ndarray:
+    """The (steps, B, 1) int32 tokens each decode step takes."""
+    return np.random.default_rng(7).integers(
+        0, get_reduced(arch).vocab, size=(steps, B, 1)).astype(np.int32)
+
+
 # the init's A = -exp(A_log) of -1 .. -16 forgets a state within a few
 # tokens, so a block's incoming state would add nothing: the SSD archs
 # take A of -1e-3 .. -1e-2 (a state carries across a block of 64)
@@ -166,13 +220,63 @@ def run_case(ctx, work: Path, arch: str, mesh: dict, serve: bool) -> None:
     (work / f"{name}.json").write_text(json.dumps(info))
 
 
+def run_serving(ctx, work: Path, run: Run) -> None:
+    """One :class:`Run` on this rank."""
+    cfg = get_reduced(run.arch)
+    grid = RankGrid(run.mesh, ctx)
+    flat = dict(np.load(work / f"{run.arch}.params.npz"))
+    fsdp = FSDP(grid, params_from_flat(flat, cfg, device="cpu"), "fsdp_sp",
+                cfg)
+    rows = {k: torch.from_numpy(v) for k, v in
+            np.load(work / f"{run.tag}.batch.npz").items()}
+    out, info = {}, {}
+    if run.train:
+        shards = fsdp.shard_tree(params_from_flat(flat, cfg, device="cpu"))
+        before = dict(ctx.collective_bytes)
+        loss, grads = make_loss_and_grads(cfg, loss_chunk=CHUNK, dist=ctx,
+                                          fsdp=fsdp)(shards, rows)
+        info["bytes"] = _since(ctx, before)
+        out["loss"] = loss.numpy()
+        out.update(_flat(fsdp.full_tree(tree_unflatten(shards, grads)),
+                         cfg, "grad"))
+        opt = get_optimizer(cfg.optimizer)
+        step = make_train_step(cfg, opt, lr_schedule=lambda s: LR,
+                               loss_chunk=CHUNK, dist=ctx, fsdp=fsdp)
+        p = fsdp.shard_tree(params_from_flat(flat, cfg, device="cpu"))
+        _, metrics = step(TrainState(p, opt.init(p), 0), rows)
+        info["step"] = {k: float(metrics[k]) for k in ("loss", "grad_norm")}
+    shards = fsdp.shard_tree(params_from_flat(flat, cfg, device="cpu"))
+    before = dict(ctx.collective_bytes)
+    logits, state = prefill(shards, cfg, rows, cache_len=run.cache,
+                            fsdp=fsdp)
+    info["prefill_bytes"] = _since(ctx, before)
+    steps, info["decode_bytes"] = [logits], []
+    for i, tok in enumerate(decode_tokens(run.arch, run.decode)):
+        pos = torch.full((B,), run.seq + i, dtype=torch.int32)
+        before = dict(ctx.collective_bytes)
+        logits, state = decode_step(shards, cfg, state, torch.from_numpy(tok),
+                                    pos, fsdp=fsdp, cache_len=run.cache)
+        info["decode_bytes"].append(_since(ctx, before))
+        steps.append(logits)
+    out["logits"] = torch.stack(steps).numpy()
+    out.update({f"state/{k}": v.numpy() for k, v in state.items()})
+    info["state_shapes"] = {k: list(v.shape) for k, v in state.items()}
+    name = f"rank{ctx.rank}.{run.tag}"
+    np.savez(work / f"{name}.npz", **out)
+    (work / f"{name}.json").write_text(json.dumps(info))
+
+
 def main(cases: str, rank: int, world: int, coordinator: str,
          work: Path) -> None:
     torch.set_num_threads(1)
     ctx = init_distributed(world, rank, coordinator, "cpu")
     try:
-        for arch, mesh, serve in CASES[cases]:
-            run_case(ctx, work, arch, mesh, serve)
+        if cases in RUNS:
+            for run in RUNS[cases]:
+                run_serving(ctx, work, run)
+        else:
+            for arch, mesh, serve in CASES[cases]:
+                run_case(ctx, work, arch, mesh, serve)
     finally:
         ctx.close()
 

@@ -222,16 +222,23 @@ Phases, each of which fails the run if it fails:
     step, its losses within ``GANG_LOSS_RTOL`` of an uninterrupted
     world-1 run; the log replays consistent; whether its final checkpoint
     equals the world-1 run's bit for bit (not gated: the sums differ);
-27. (started before phase 1, read after it) ``python -m
-    repro_torch.launch run dryrun --arch all --shape train_4k`` as a
-    subprocess on the host, beside the kernels' build and under no timed
-    phase:
-    every arch's train step built and run on the meta device (the
+27. (started before phase 1, read after phase 28) ``python -m
+    repro_torch.launch run dryrun --arch all --shape train_4k --mesh
+    both --layout fsdp_tp`` as a subprocess on the host, under no timed
+    phase: every arch's train step built and run on the meta device (the
     kernels' meta formulas; the card's host has no JAX, so this also
-    proves the import graph), every cell ``ok``; one line per arch with
-    the traced / analytic FLOPs, the bytes by kind, the traced peak,
-    ``fits_one_card``, ``max_batch_one_card`` and its peak; then one cell
-    (granite-3-2b x prefill_32k) in this process, which must leave
+    proves the import graph), once for one card and once as the last
+    rank of each production mesh (16x16 and 2x16x16, llama4-maverick's
+    40 query heads on a model axis of 16 included), every cell ``ok``;
+    one line per arch with the traced / analytic FLOPs, the bytes by
+    kind, the traced peak, ``fits_one_card``, ``max_batch_one_card`` and
+    its peak, and one per arch and mesh with the rank's peak,
+    ``fits_one_card`` and collective bytes by mechanism, gated: its
+    parameters, gradients, optimizer state and decode state the rules'
+    per-device bytes (``sharded_bytes``) to the byte, a finite positive
+    traced / analytic FLOPs, and on 2x16x16 its ``pod_gradsync`` the
+    count from the shapes to the byte; then one cell (granite-3-2b x
+    prefill_32k) in this process, which must leave
     ``torch.cuda.memory_allocated()`` as it was;
 28. K1 at granite-3-2b x prefill_32k's one-card shape (B 2, S 32 768,
     its window of 8192) against the plain forward on every row of two kv
@@ -308,9 +315,24 @@ Phases, each of which fails the run if it fails:
     the byte, its peak memory under world 1's and its host step time
     beside world 1's.
 
-The subprocesses of phases 29-33 (the ``--sharded-rank`` gang, then
-phase 29's probe gang) and phase 21 run beside phase 20, whose reduced
-jobs leave the card nearly idle; each phase's checks run in its place.
+34. the ``pod`` axis on ``{pod: 2, data: 1, model: 2}``: a second gang
+    of this script's ranks (``--pod-rank``, four processes on the card,
+    gloo; ``POD_JOBS``), two replicas of ``{model: 2}``, each on half the
+    global batch: (a) stablelm-1.6b ``fsdp_tp`` training (4 layers, 4 x
+    2048; K1 8, K2 4, K3 4 a rank a step on the tensor cores) against
+    world 1 (first loss, ``grad_norm`` and second loss within
+    ``GANG_LOSS_RTOL``, the ranks' losses equal), the two pods'
+    parameter blocks bit for bit equal after each step, every rank's
+    ``tp_allreduce`` and ``pod_gradsync`` the counts from the shapes, to
+    the byte, beside the analytic model's; (b) granite-3-2b ``fsdp_sp``,
+    a prefill of 4 x 2048 and 8 decode steps, each rank on its rows and
+    its half of the sequence and the cache, judged as phase 33's serve
+    jobs; each rank's peak and host times beside world 1's.
+
+The subprocesses of phases 29-34 (the ``--sharded-rank`` gang, then
+phase 29's probe gang; the ``--pod-rank`` gang) and phase 21 run beside
+phase 20, whose reduced jobs leave the card nearly idle; each phase's
+checks run in its place.
 
 Phases 2 and 3 time each kernel and SDPA as the median of five windows
 and print the least and most beside it.
@@ -326,8 +348,9 @@ and 23 as ``launches_train_hubert``, ``launches_run_api_hubert``,
 ``launches_prefill_llava`` and ``launches_train_llava``, each rank's
 of phase 25's gang as ``launches_train_gang``, each rank's of phase 29's
 (K1-K3) or phase 30's (K4) measured step as ``launches_sharded_gang``,
-each rank's of phase 32's jobs by job as ``launches_tp_gang`` and of
-phase 33's by job and part as ``launches_sp_gang``,
+each rank's of phase 32's jobs by job as ``launches_tp_gang``, of
+phase 33's by job and part as ``launches_sp_gang`` and of phase 34's as
+``launches_pod_gang``,
 phase 31's K4 launch as ``launches_seq_parallel``, and phase 28's by cell as
 ``launches_perfprobe``, with each cell's profiled ms as
 ``perfprobe_profiled``), K1-K4's route
@@ -3204,7 +3227,12 @@ def dist_gang_chaos(torch, m) -> None:
 # device in a subprocess (the card's host has no JAX: this also proves the
 # import graph), and one cell in this process
 DRYRUN_SHAPE = "train_4k"
-DRYRUN_TIMEOUT = 300
+# phase 27's sweep: both production meshes under the reference's default
+# layout, one rank of each traced on meta beside the one-card trace; it
+# runs on the host from before phase 1 and is read after phase 28, with
+# this long to finish from there
+DRYRUN_MESH, DRYRUN_LAYOUT = "both", "fsdp_tp"
+DRYRUN_TIMEOUT = 900
 DRYRUN_CELL = ("granite-3-2b", "prefill_32k")
 # phase 28: the probe's cells, each run on the card through `run
 # perfprobe` in this process at the dry run's one-card batch
@@ -3386,13 +3414,15 @@ def _kill_group(proc) -> None:
 
 def dryrun_start():
     """Start phase 27's sweep, ``python -m repro_torch.launch run dryrun
-    --arch all --shape train_4k``, in a process group of its own, writing
-    its records to a temporary directory.  It needs no card, so it runs
-    on the host beside the kernels' build, where no phase is timed; the
-    group is killed when this script exits, whatever the exit."""
+    --arch all --shape train_4k --mesh both --layout fsdp_tp``, in a
+    process group of its own, writing its records to a temporary
+    directory.  It needs no card, so it runs on the host from before the
+    kernels' build; the group is killed when this script exits, whatever
+    the exit."""
     out_dir = tempfile.mkdtemp()
     argv = [sys.executable, "-m", "repro_torch.launch", "run", "dryrun",
-            "--arch", "all", "--shape", DRYRUN_SHAPE, "--out", out_dir]
+            "--arch", "all", "--shape", DRYRUN_SHAPE, "--mesh", DRYRUN_MESH,
+            "--layout", DRYRUN_LAYOUT, "--out", out_dir]
     proc = subprocess.Popen(argv, env=dict(os.environ, PYTHONPATH=str(SRC)),
                             cwd=out_dir, text=True, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, start_new_session=True)
@@ -3403,9 +3433,16 @@ def dryrun_start():
 
 def dryrun_finish(torch, m, proc, t0: float) -> dict:
     """Phase 27: the sweep's report (every cell ``ok``, or a structural
-    skip), one line per arch (traced / analytic FLOPs, bytes by kind, the
-    one-card fit), then one cell in this process, which must leave the
-    card's allocated memory as it was."""
+    skip: one a mesh for every arch, llama4-maverick's 40 query heads on
+    a model axis of 16 included), one line per arch (traced / analytic
+    FLOPs, bytes by kind, the one-card fit) and per arch and mesh (the
+    rank of the production mesh traced on meta: its peak and whether it
+    fits one card, its collective bytes), with the rank's gates: its
+    parameters, gradients, optimizer state and decode state the rules'
+    per-device bytes (``sharded_bytes``) to the byte, a finite positive
+    traced / analytic FLOPs, and on 2x16x16 its ``pod_gradsync`` the
+    count from the shapes to the byte; then one cell in this process,
+    which must leave the card's allocated memory as it was."""
     try:
         out, err = proc.communicate(timeout=DRYRUN_TIMEOUT)
     finally:
@@ -3417,20 +3454,48 @@ def dryrun_finish(torch, m, proc, t0: float) -> dict:
     bad = [r for r in results if r["status"] != "ok"
            and (r["arch"], r["shape"]) not in skips]
     if proc.returncode != 0 or report["status"] != "succeeded" or bad \
-            or len(results) != len(m["list_archs"]()):
+            or len(results) != 2 * len(m["list_archs"]()):
         raise AssertionError(f"run dryrun: exit {proc.returncode}, "
                              f"{report['status']}, cells {bad}: "
                              f"{err[-2000:]}")
     for r in results:
-        emit(phase="dryrun", arch=r["arch"], shape=r["shape"],
-             status=r["status"], traced=r["traced"],
-             traced_flops=r["traced_flops"],
-             traced_over_analytic=r["traced_over_analytic"],
-             bytes_gb={k: v / 1e9 for k, v in (r["bytes"] or {}).items()},
-             peak_gb=r["peak_bytes"] / 1e9,
-             fits_one_card=r["fits_one_card"],
-             max_batch_one_card=r["max_batch_one_card"],
-             peak_gb_one_card=(r["peak_bytes_one_card"] or 0) / 1e9)
+        if r["mesh"] == "16x16":
+            emit(phase="dryrun", arch=r["arch"], shape=r["shape"],
+                 status=r["status"], traced=r["traced"],
+                 traced_flops=r["traced_flops"],
+                 traced_over_analytic=r["traced_over_analytic"],
+                 bytes_gb={k: v / 1e9 for k, v in (r["bytes"] or {}).items()},
+                 peak_gb=r["peak_bytes"] / 1e9,
+                 fits_one_card=r["fits_one_card"],
+                 max_batch_one_card=r["max_batch_one_card"],
+                 peak_gb_one_card=(r["peak_bytes_one_card"] or 0) / 1e9)
+        rank = r["rank"]
+        coll = rank["collective_bytes"]
+        fails = [k for k, v in rank["resident_minus_sharded"].items() if v]
+        ratio = rank["traced_over_analytic"]
+        if not (np.isfinite(ratio) and ratio > 0):
+            fails.append("traced_over_analytic")
+        if r["mesh"] == "2x16x16" and (
+                coll.get("pod_gradsync", 0.0)
+                != rank["shape_counts"].get("pod_gradsync")
+                or not coll.get("pod_gradsync")):
+            fails.append("pod_gradsync")
+        emit(phase="dryrun_rank", arch=r["arch"], shape=r["shape"],
+             mesh=r["mesh"], layout=r["layout"], grid=rank["grid"],
+             rank=rank["rank"], peak_gb=rank["peak_bytes"] / 1e9,
+             fits_one_card=rank["fits_one_card"],
+             traced_over_analytic=ratio,
+             bytes_gb={k: v / 1e9 for k, v in rank["bytes"].items()},
+             collective_gb={k: v / 1e9 for k, v in coll.items()},
+             analytic_collective_gb={
+                 k: v / 1e9 for k, v in
+                 rank["analytic_collective_bytes"].items()},
+             shape_counts=rank["shape_counts"],
+             resident_minus_sharded=rank["resident_minus_sharded"],
+             trace_s=rank["trace_s"])
+        if fails:
+            raise AssertionError(f"dryrun {r['arch']} x {r['mesh']}: the "
+                                 f"rank fails {fails}: {rank}")
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
     t1 = time.perf_counter()
@@ -3599,6 +3664,25 @@ RANK_JOBS = {
                      "seq_groups": True, "judged_on": ("state",)},
 }
 MODEL_JOBS = tuple(k for k, j in RANK_JOBS.items() if j.get("model", 1) > 1)
+# phase 34: the pod axis, run by a second gang of this script's ranks
+# (POD_FLAG), four processes on {pod: 2, data: 1, model: 2}, all on the
+# card with gloo: the pods are replicas (parameters replicated, the batch
+# split over (pod, data), every gradient summed over the pods once:
+# pod_gradsync).  Each job is a RANK_JOBS-style job at full width, depth
+# cut; "pod_hash": each rank hashes its parameter blocks after each step,
+# and the two pods' hashes must be equal
+POD_WORLD = 4
+POD_JOBS = {
+    "stablelm_pod_tp": {"arch": "stablelm-1.6b", "layers": 4, "batch": 4,
+                        "seq": 2048, "layout": "fsdp_tp", "model": 2,
+                        "pod": 2, "pod_hash": True},
+    "granite_pod_sp": {"arch": "granite-3-2b", "layers": 4, "batch": 4,
+                       "seq": 2048, "layout": "fsdp_sp", "model": 2,
+                       "pod": 2, "prefill": True, "decode": 8,
+                       "judged_on": ("prefill_logits", "state",
+                                     "decode_logits")},
+}
+POD_FLAG = "--pod-rank"
 # a model-axis train job's gate: its first loss, first grad_norm and
 # second loss against world 1's.  fsdp_tp: GANG_LOSS_RTOL for all three.
 # fsdp_sp: a bf16 gradient summed from two blocks' bf16 partials is ~1%
@@ -3686,6 +3770,7 @@ def _port_of_rank() -> dict:
     from repro_torch.sharding.grid import model_grid
     from repro_torch.sharding.sp import sp_bytes
     from repro_torch.sharding.tp import tp_allreduce_bytes
+    from repro_torch.tree import tree_leaves
     return dict(collective_bytes_per_chip=collective_bytes_per_chip,
                 mesh_dims=mesh_dims, get_config=get_config,
                 make_batch=make_batch, init_distributed=init_distributed,
@@ -3693,7 +3778,8 @@ def _port_of_rank() -> dict:
                 shard_ctx_for=shard_ctx_for, use_ctx=use_ctx,
                 init_params=init_params, decode_step=decode_step,
                 prefill=prefill, FSDP=FSDP, model_grid=model_grid,
-                tp_allreduce_bytes=tp_allreduce_bytes, sp_bytes=sp_bytes)
+                tp_allreduce_bytes=tp_allreduce_bytes, sp_bytes=sp_bytes,
+                tree_leaves=tree_leaves)
 
 
 def _world1_ctx(P, job: dict, grid):
@@ -3737,14 +3823,38 @@ def _shape_bytes(torch, P, cfg, job: dict, grid, kind: str, batch: int,
         for k, s, part in ((1, seq, "prefill"), (decode, 1, "decode")))}
 
 
+def _params_hash(torch, P, tree) -> str:
+    """A sha256 of every parameter block's bytes, leaf by leaf: equal on
+    two ranks that hold bit-for-bit equal blocks."""
+    import hashlib
+    h = hashlib.sha256()
+    for t in P["tree_leaves"](tree):
+        h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy()
+                 .tobytes())
+    return h.hexdigest()
+
+
+def _job_mesh(grid) -> dict:
+    """A job's grid as the record states it (the pod axis where it has
+    one)."""
+    mesh = {"data": grid.extent("data"), "model": grid.extent("model")}
+    return ({"pod": grid.extent("pod"), **mesh} if grid.extent("pod") > 1
+            else mesh)
+
+
 def _rank_train_job(torch, P, cfg, job: dict, grid) -> dict:
     """A train job on one rank: a warm-up and a measured step through
     ``steps.build_train`` on ``grid``; on a model axis, rank 0 then runs
     world 1 of the same cut, weights and batch (two steps, the peak of
-    the second), and the job's ``readings`` and ``fault`` runs follow."""
+    the second), and the job's ``readings`` and ``fault`` runs follow.
+    On a pod axis the rank's rows are its block over (pod, data), the
+    record holds the count from the shapes of ``pod_gradsync`` and, where
+    the job says ``pod_hash``, its parameter blocks' hash after each
+    step."""
     ctx, dev = grid.dist, grid.device
     B, S = job["batch"], job["seq"]
-    mesh = {"data": grid.extent("data"), "model": grid.extent("model")}
+    mesh = _job_mesh(grid)
+    rows = B // grid.group("batch").size
 
     def two_steps(layout, g, seed=0):
         fn, (state, batch) = P["build_train"](cfg, B, S, device=dev,
@@ -3752,8 +3862,11 @@ def _rank_train_job(torch, P, cfg, job: dict, grid) -> dict:
                                               seed=seed)
         if job.get("slow_decay"):
             _slow_decay(torch, state.params)
+        hashes = []
         state, met = fn(state, batch)
         losses, norms = [float(met["loss"])], [float(met["grad_norm"])]
+        if job.get("pod_hash") and g is not None:
+            hashes.append(_params_hash(torch, P, state.params))
         if g is not None and g.world_size > 1:
             torch.distributed.barrier()
         torch.cuda.reset_peak_memory_stats(dev)
@@ -3769,6 +3882,13 @@ def _rank_train_job(torch, P, cfg, job: dict, grid) -> dict:
                "collective_bytes": {k: v - sent.get(k, 0.0) for k, v in
                                     ctx.collective_bytes.items()},
                "kernel_launches": _since(_routes(P), launched)}
+        if hashes:
+            rec["params_hash"] = hashes + [_params_hash(torch, P,
+                                                        state.params)]
+        fsdp = getattr(fn, "fsdp", None)
+        if g is not None and fsdp is not None and g.extent("pod") > 1:
+            rec["pod_gradsync_shape"] = fsdp.pod_gradsync_bytes(
+                state.params)
         del fn, state, batch, met
         torch.cuda.empty_cache()
         return rec
@@ -3782,7 +3902,9 @@ def _rank_train_job(torch, P, cfg, job: dict, grid) -> dict:
                cfg, B, S, "train", P["mesh_dims"](mesh), job["layout"])}
     if mesh["model"] > 1:
         rec["shape_bytes"] = _shape_bytes(torch, P, cfg, job, grid, "train",
-                                          B // mesh["data"], S)
+                                          rows, S)
+        if "pod_gradsync_shape" in rec:
+            rec["shape_bytes"]["pod_gradsync"] = rec["pod_gradsync_shape"]
         if grid.rank == 0:
             with _world1_ctx(P, job, grid):
                 one = two_steps("dp", None)
@@ -3819,6 +3941,9 @@ def _rank_serve_job(torch, P, cfg, job: dict, grid) -> dict:
     import dataclasses as dc
     dev, ctx = grid.device, grid.dist
     B, S, n = job["batch"], job["seq"], job.get("decode", 0)
+    # the rank's rows: its block over (pod, data); world 1 runs them all
+    index, count = grid.batch_block(B)
+    mine = slice(index * B // count, (index + 1) * B // count)
 
     def weights():
         params = P["init_params"](
@@ -3834,11 +3959,15 @@ def _rank_serve_job(torch, P, cfg, job: dict, grid) -> dict:
     def serve(p, c, fsdp):
         """(logits of the prefill and each step, the prefill's decode
         state whole, the rank's block shapes of it, prefill s, decode s
-        a step) on the host clock, a gang's from a barrier."""
+        a step) on the host clock, a gang's from a barrier; a gang's of
+        the rank's rows."""
+        rows = slice(None) if fsdp is None else mine
         if fsdp is not None:
             torch.distributed.barrier()
         t0 = time.perf_counter()
-        logits, state = P["prefill"](p, c, batch, S + n, fsdp=fsdp)
+        logits, state = P["prefill"](p, c, {k: v[rows] for k, v in
+                                            batch.items()}, S + n,
+                                     fsdp=fsdp)
         torch.cuda.synchronize(dev)
         prefill_s = time.perf_counter() - t0
         shapes = {k: list(v.shape) for k, v in state.items()}
@@ -3851,8 +3980,10 @@ def _rank_serve_job(torch, P, cfg, job: dict, grid) -> dict:
         torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
         for i in range(n):
-            pos = torch.full((B,), S + i, dtype=torch.int32, device=dev)
-            logits, state = P["decode_step"](p, c, state, toks[i], pos,
+            tok = toks[i][rows]
+            pos = torch.full((tok.shape[0],), S + i, dtype=torch.int32,
+                             device=dev)
+            logits, state = P["decode_step"](p, c, state, tok, pos,
                                              fsdp=fsdp, cache_len=S + n)
             outs.append(logits.float())
         torch.cuda.synchronize(dev)
@@ -3868,7 +3999,7 @@ def _rank_serve_job(torch, P, cfg, job: dict, grid) -> dict:
     launched, sent = _routes(P), dict(ctx.collective_bytes)
     logits, st, shapes, prefill_s, decode_s = serve(shards, cfg, fsdp)
     rec = {"rank": grid.rank, "backend": ctx.backend, "device": str(dev),
-           "grid": {"data": 1, "model": grid.extent("model")},
+           "grid": _job_mesh(grid), "rows": [mine.start, mine.stop],
            "prefill_s": prefill_s, "decode_s_per_step": decode_s,
            "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
            "kernel_launches": _since(_routes(P), launched),
@@ -3876,7 +4007,7 @@ def _rank_serve_job(torch, P, cfg, job: dict, grid) -> dict:
                                 ctx.collective_bytes.items()},
            "state_shapes": shapes,
            "shape_bytes": _shape_bytes(torch, P, cfg, job, grid, "prefill",
-                                       B, S, n)}
+                                       mine.stop - mine.start, S, n)}
     del shards, fsdp
     torch.cuda.empty_cache()
     if grid.rank == 0:
@@ -3890,6 +4021,10 @@ def _rank_serve_job(torch, P, cfg, job: dict, grid) -> dict:
             peak = torch.cuda.max_memory_allocated(dev) / 1e9
             ref, ref_st, _, _, _ = serve(_map(params, lambda t: t.float()),
                                          c32, None)
+        # the gang's rank holds its rows: world 1 is judged on the same
+        one, ref = one[:, mine], ref[:, mine]
+        one_st = {k: v[:, mine] for k, v in one_st.items()}
+        ref_st = {k: v[:, mine] for k, v in ref_st.items()}
 
         def rels(x, st):
             out = {"logits": _rel(x, ref), "prefill_logits": _rel(x[0],
@@ -3918,24 +4053,28 @@ def _rank_serve_job(torch, P, cfg, job: dict, grid) -> dict:
     return rec
 
 
-def sharded_rank(rank: int, coordinator: str) -> int:
-    """One rank of the gang of ``RANK_JOBS`` (this script run with
-    ``RANK_FLAG RANK COORDINATOR``), both ranks on ``cuda:0`` with gloo:
-    each job on its grid (a data grid of two ranks, or ``{model: 2}``),
-    its memory freed before the next.  Prints, as its last line, each
-    job's record: the losses (train) or the serve times, the collective
-    bytes by mechanism, K1-K4's launches by route, step time and peak
-    memory, and on a model axis the port's count from the shapes
-    (``tp_allreduce`` under fsdp_tp, every sequence-parallel mechanism
-    under fsdp_sp) and, in rank 0's, world 1's numbers."""
+def sharded_rank(rank: int, coordinator: str, world: int = 2,
+                 jobs: dict = RANK_JOBS) -> int:
+    """One rank of a gang of this script's ranks (run with ``RANK_FLAG
+    RANK COORDINATOR``: ``RANK_JOBS`` by two ranks; with ``POD_FLAG``:
+    ``POD_JOBS`` by ``POD_WORLD``), every rank on ``cuda:0`` with gloo:
+    each job on its grid (a data grid, ``{model: 2}``, or ``{pod: 2,
+    data: 1, model: 2}``), its memory freed before the next.  Prints, as
+    its last line, each job's record: the losses (train) or the serve
+    times, the collective bytes by mechanism, K1-K4's launches by route,
+    step time and peak memory, and on a model axis the port's count from
+    the shapes (``tp_allreduce`` under fsdp_tp, every sequence-parallel
+    mechanism under fsdp_sp, ``pod_gradsync`` on a pod axis) and, in rank
+    0's, world 1's numbers."""
     import torch
     P = _port_of_rank()
-    ctx = P["init_distributed"](2, rank, coordinator)
+    ctx = P["init_distributed"](world, rank, coordinator)
     out = {}
     try:
-        for name, job in RANK_JOBS.items():
+        for name, job in jobs.items():
             cfg = _job_config(P["get_config"], job)
-            grid = P["model_grid"](ctx, job.get("model", 1))
+            grid = P["model_grid"](ctx, job.get("model", 1),
+                                   job.get("pod", 1))
             trains, serves = _job_parts(job)
             rec = (_rank_train_job(torch, P, cfg, job, grid) if trains
                    else {})
@@ -3949,12 +4088,14 @@ def sharded_rank(rank: int, coordinator: str) -> int:
     return 0
 
 
-def rank_jobs_gang(torch, timeout: int = 600) -> dict:
-    """The gang of ``RANK_JOBS``: two processes of this script with
-    ``RANK_FLAG``, each in a process group of its own, killed whole when
-    the gang ends; their output in files.  Returns each job's rank
-    records (both on ``cuda:0`` with gloo, a finite loss at each step)
-    and the gang's wall seconds under ``"wall_s"``."""
+def rank_jobs_gang(torch, timeout: int = 600, flag: str = RANK_FLAG,
+                   world: int = 2, jobs: dict = RANK_JOBS) -> dict:
+    """A gang of this script's ranks: ``world`` processes with ``flag``
+    (``RANK_JOBS`` by two; ``POD_FLAG``: ``POD_JOBS`` by ``POD_WORLD``),
+    each in a process group of its own, killed whole when the gang ends;
+    their output in files.  Returns each job's rank records (all on
+    ``cuda:0`` with gloo, a finite loss at each step) and the gang's wall
+    seconds under ``"wall_s"``."""
     from repro_torch.distributed.gang import free_port
     torch.cuda.empty_cache()
     coordinator = f"127.0.0.1:{free_port()}"
@@ -3963,12 +4104,12 @@ def rank_jobs_gang(torch, timeout: int = 600) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         procs = []
         try:
-            for r in range(2):
+            for r in range(world):
                 with open(os.path.join(tmp, f"{r}.out"), "w") as out, \
                         open(os.path.join(tmp, f"{r}.err"), "w") as err:
                     procs.append(subprocess.Popen(
                         [sys.executable, str(Path(__file__).resolve()),
-                         RANK_FLAG, str(r), coordinator], env=env, cwd=tmp,
+                         flag, str(r), coordinator], env=env, cwd=tmp,
                         stdout=out, stderr=err, start_new_session=True))
             deadline = time.monotonic() + timeout
             while (any(p.poll() is None for p in procs)
@@ -3981,23 +4122,30 @@ def rank_jobs_gang(torch, timeout: int = 600) -> dict:
                     os.killpg(p.pid, signal.SIGKILL)
                 p.wait()
         logs = [(Path(tmp, f"{r}.out").read_text(),
-                 Path(tmp, f"{r}.err").read_text()) for r in range(2)]
+                 Path(tmp, f"{r}.err").read_text()) for r in range(world)]
     rcs = [p.returncode for p in procs]
     if any(rcs):
-        raise AssertionError(f"{RANK_FLAG} gang: exit codes {rcs}: " + "".join(
+        raise AssertionError(f"{flag} gang: exit codes {rcs}: " + "".join(
             f"rank {r}: {err[-3000:]}{out[-2000:]}"
             for r, (out, err) in enumerate(logs)))
     ranks = [json.loads(out.strip().splitlines()[-1]) for out, _ in logs]
-    jobs = {name: [rk[name] for rk in ranks] for name in RANK_JOBS}
-    for name, recs in jobs.items():
-        _check_gang_ranks(recs, recs[0].get("losses"), f"{RANK_FLAG} {name}")
-    return dict(jobs, wall_s=time.perf_counter() - t0)
+    got = {name: [rk[name] for rk in ranks] for name in jobs}
+    for name, recs in got.items():
+        _check_gang_ranks(recs, recs[0].get("losses"), f"{flag} {name}")
+    return dict(got, wall_s=time.perf_counter() - t0)
+
+
+def pod_gang(torch) -> dict:
+    """Phase 34's subprocesses: the gang of ``POD_JOBS``, ``POD_WORLD``
+    ranks of this script with ``POD_FLAG`` (beside phase 20)."""
+    return rank_jobs_gang(torch, flag=POD_FLAG, world=POD_WORLD,
+                          jobs=POD_JOBS)
 
 
 def _check_gang_ranks(ranks: list, losses, what: str) -> None:
-    """Both ranks on ``cuda:0`` with gloo, a finite loss at every step
-    (``losses`` None: a serve job, which has none)."""
-    if ([d["rank"] for d in ranks] != [0, 1]
+    """Every rank on ``cuda:0`` with gloo, in rank order, a finite loss
+    at every step (``losses`` None: a serve job, which has none)."""
+    if ([d["rank"] for d in ranks] != list(range(len(ranks)))
             or any(d["device"] != "cuda:0" or d["backend"] != "gloo"
                    for d in ranks)
             or (losses is not None and (len(losses) != SHARDED_STEPS
@@ -4292,6 +4440,90 @@ def model_axis_gangs(torch, m, jobs: dict) -> dict:
     return launches
 
 
+def pod_axis_gang(torch, m, jobs: dict) -> dict:
+    """Phase 34: the pod axis, ``POD_JOBS`` run by the ``POD_FLAG`` gang
+    (``POD_WORLD`` ranks on ``cuda:0``, gloo) on ``{pod: 2, data: 1,
+    model: 2}``: each pod a replica of the other, its rows half the global
+    batch.  (a) stablelm-1.6b ``fsdp_tp`` training (4 layers, 4 x 2048,
+    two rows a pod): every rank's first loss, first ``grad_norm`` and
+    second loss within ``GANG_LOSS_RTOL`` of world 1 (rank 0), the ranks'
+    losses equal, the two pods' parameter blocks bit for bit equal after
+    each step (ranks ``r`` and ``r + 2``), every rank's bytes by
+    mechanism the counts from the shapes (``tp_allreduce`` and
+    ``pod_gradsync``) to the byte, beside the analytic model's; (b)
+    granite-3-2b ``fsdp_sp``, a prefill of 4 x 2048 and 8 decode steps,
+    each rank on its rows and its half of the sequence and the cache,
+    judged as phase 33 judges its serve jobs (rank 0's rows no more than
+    twice as far from an f32 run as world 1's bf16 run).  K1-K4 as one
+    step or one prefill predicts, on the tensor cores.  Reports each
+    rank's peak and host times beside world 1's.  Returns the launches by
+    job, per rank and part."""
+    launches = {}
+    for name, job in POD_JOBS.items():
+        ranks = jobs[name]
+        cfg = _job_config(m["get_config"], job)
+        what = (f"{name} ({cfg.name}, {job['layers']} layers, "
+                f"{job['layout']}, pod 2 x model 2)")
+        got = launches[name] = _gang_launches(cfg, job, ranks, what)
+        rec, bad = {"job": job, "launches": got,
+                    "grid": ranks[0]["grid"]}, []
+        trains, serves = _job_parts(job)
+        if trains:
+            one = ranks[0]["world1"]
+            rel = {"first": _max_rel([d["losses"][0] for d in ranks],
+                                     [one["losses"][0]] * len(ranks)),
+                   "grad_norm": _max_rel(
+                       [d["grad_norms"][0] for d in ranks],
+                       [one["grad_norms"][0]] * len(ranks)),
+                   "second": _max_rel([d["losses"][1] for d in ranks],
+                                      [one["losses"][1]] * len(ranks))}
+            bad += [k for k, v in rel.items() if v > GANG_LOSS_RTOL]
+            if any(d["losses"] != ranks[0]["losses"] for d in ranks):
+                bad.append("ranks' losses")
+            half = len(ranks) // 2
+            pods_equal = [ranks[r]["params_hash"] == ranks[r + half][
+                "params_hash"] for r in range(half)]
+            if not all(pods_equal):
+                bad.append("pods' parameters")
+            bad += [f"train bytes {k}" for d in ranks
+                    for k in _shape_bytes_differ(d)]
+            rec.update(losses=ranks[0]["losses"],
+                       grad_norms=ranks[0]["grad_norms"],
+                       world1_losses=one["losses"],
+                       world1_grad_norms=one["grad_norms"],
+                       rel_err_vs_world1=rel, pods_equal=pods_equal,
+                       step_s=[d["step_s"] for d in ranks],
+                       world1_step_s=one["step_s"],
+                       peak_mem_gb=[d["peak_mem_gb"] for d in ranks],
+                       world1_peak_mem_gb=one["peak_mem_gb"],
+                       collective_bytes=[d["collective_bytes"]
+                                         for d in ranks],
+                       shape_bytes=ranks[0]["shape_bytes"],
+                       analytic_collective_bytes=ranks[0][
+                           "analytic_collective_bytes"])
+        if serves:
+            pre = [d["serve"] if trains else d for d in ranks]
+            one = pre[0]["world1"]
+            gang, w1 = one["gang_rel_err_vs_f32"], one["rel_err_vs_f32"]
+            rec["serve"] = {
+                "rows": [d["rows"] for d in pre],
+                "prefill_s": [d["prefill_s"] for d in pre],
+                "decode_s_per_step": [d["decode_s_per_step"] for d in pre],
+                "peak_mem_gb": [d["peak_mem_gb"] for d in pre],
+                "collective_bytes": [d["collective_bytes"] for d in pre],
+                "shape_bytes": pre[0]["shape_bytes"],
+                "state_shapes": [d["state_shapes"] for d in pre],
+                "world1": one}
+            bad += [k for k in job["judged_on"] if gang[k] > 2 * w1[k]]
+            bad += [] if one["finite"] else ["finite"]
+            bad += [f"serve bytes {k}" for d in pre
+                    for k in _shape_bytes_differ(d)]
+        emit(phase="pod_gang", name=name, card=card_line(), **rec)
+        if bad:
+            raise AssertionError(f"{what}: {bad}: {rec}")
+    return launches
+
+
 def seq_parallel_vs_plain(torch, m, counts) -> int:
     """Phase 31: ``ssd_seq_parallel`` at mamba2-2.7b's widths (80 heads of
     64, N 128, chunk 256), 8 x 2048 in 4 segments (bf16 x, B and C as
@@ -4527,7 +4759,6 @@ def main() -> int:
          tensor_core=flash_ptxas(ptxas_report(ptxas_bwd, "_wgmma"),
                                  ("K2", "K3")))
     shutil.rmtree(ptxas_dir)
-    dryrun_finish(torch, m, *sweep)
 
     k1_recs = kernel_vs_plain(torch, F, fa, ref)
     kb_recs = bwd_vs_plain(torch, F, fa, ref)
@@ -4591,7 +4822,7 @@ def main() -> int:
     # subprocesses; the checks stay in place below) run beside phase 20
     torch.cuda.empty_cache()
     beside = [_Background(campaign_scheduler_sigkill_resume, m),
-              _Background(sharded_gangs, torch)]
+              _Background(sharded_gangs, torch), _Background(pod_gang, torch)]
     try:
         campaign_chaos_resume(torch, m)
     finally:
@@ -4599,6 +4830,7 @@ def main() -> int:
             job.thread.join()
     beside[0].result()
     rank_jobs, probe_gang = beside[1].result()
+    pod_jobs = beside[2].result()
 
     # data-parallel training: world 1 is the single process, a full-width
     # world-2 gang shares the card, and a gang under the executor's chaos
@@ -4610,6 +4842,8 @@ def main() -> int:
     long_recs = long_sequence_vs_plain(torch, F, fa, ref)
     probes = perfprobe_cells(torch, m, counts)
     torch.cuda.empty_cache()
+    # phase 27's sweep has run on the host since before the build
+    dryrun_finish(torch, m, *sweep)
 
     # the parameter-sharded layouts on the data axis: world-2 gangs that
     # share the card, then the sequence-parallel scan through K4
@@ -4623,6 +4857,8 @@ def main() -> int:
     axis_launches = model_axis_gangs(torch, m, rank_jobs)
     tp_launches, sp_launches = (axis_launches["fsdp_tp"],
                                 axis_launches["fsdp_sp"])
+    # the pod axis: two replicas of {model: 2}, the batch over the pods
+    pod_launches = pod_axis_gang(torch, m, pod_jobs)
 
     # the vision paths: both studies normalize every scene through K5
     k5 = k5_vs_plain(torch, pn, pn_ref)
@@ -4663,6 +4899,7 @@ def main() -> int:
         rec["launches_sharded_gang"] = [r[name] for r in sharded_launches]
         rec["launches_tp_gang"] = _by_job(tp_launches, name)
         rec["launches_sp_gang"] = _by_job(sp_launches, name)
+        rec["launches_pod_gang"] = _by_job(pod_launches, name)
         rec["shapes"].update({s[0]: {
             "ms": kb_recs[(s[0], "bfloat16")][f"{what}_kernel_ms"],
             "bound_ms": kb_recs[(s[0], "bfloat16")][f"{what}_bound_ms"],
@@ -4696,6 +4933,8 @@ def main() -> int:
                                      for r in sharded_launches],
               launches_tp_gang=_by_job(tp_launches, "flash_attention_fwd"),
               launches_sp_gang=_by_job(sp_launches, "flash_attention_fwd"),
+              launches_pod_gang=_by_job(pod_launches,
+                                        "flash_attention_fwd"),
               shapes={name: {k: k1_recs[(name, "bfloat16")][k] for k in (
                   "kernel_ms", "bound_ms", "bound_by", "plain_ms",
                   "library_ms", "max_abs_err_o", "route", "q_offset")}
@@ -4724,6 +4963,7 @@ def main() -> int:
                  "launches_sharded_gang": sharded_k4,
                  "launches_tp_gang": _by_job(tp_launches, "ssd_scan"),
                  "launches_sp_gang": _by_job(sp_launches, "ssd_scan"),
+                 "launches_pod_gang": _by_job(pod_launches, "ssd_scan"),
                  "launches_seq_parallel": seq_parallel_k4,
                  "max_abs_err": max(k4["max_abs_err_y"], k4["max_abs_err_h"]),
                  "ms": k4["kernel_ms"], "plain_ms": k4["plain_ms"],
@@ -4759,4 +4999,7 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == [RANK_FLAG]:
         sys.exit(sharded_rank(int(sys.argv[2]), sys.argv[3]))
+    if sys.argv[1:2] == [POD_FLAG]:
+        sys.exit(sharded_rank(int(sys.argv[2]), sys.argv[3], POD_WORLD,
+                              POD_JOBS))
     sys.exit(main())

@@ -1,13 +1,15 @@
-"""dryrun runner: the one-card dry run on the ``meta`` device as a Runner
+"""dryrun runner: the dry run on the ``meta`` device as a Runner
 (the port's copy of ``repro.api.runners.dryrun``).
 
 ``spec.arch`` may be a single arch, a comma list, or ``"all"``.  Each
 (arch x shape) step is built and run on ``meta``
 (:func:`repro_torch.launch.dryrun.run_one`): nothing is allocated on any
-device.  ``layout`` and ``mesh`` choose the reference mesh of each
-record's analytic roofline (default ``fsdp_tp`` on one pod, as in the
-reference); the traced fields always describe one card, world 1 under
-``dp``.
+device.  ``layout`` and ``mesh`` choose the reference mesh (default
+``fsdp_tp`` on one pod, as in the reference): each record's analytic
+roofline and its ``rank`` section, one rank of that mesh traced under
+the layout.  The one-card fields describe world 1 under ``dp``.  The
+report's ``results`` carry each record's rank section but its FLOPs by
+operator.
 """
 from __future__ import annotations
 
@@ -54,7 +56,9 @@ def run_dryrun(spec: RunSpec) -> RunReport:
             "arch", "shape", "mesh", "layout", "status", "traced",
             "traced_flops", "traced_over_analytic", "bytes",
             "peak_bytes", "fits_one_card", "max_batch_one_card",
-            "peak_bytes_one_card")}
+            "peak_bytes_one_card")} | {"rank": {
+                k: v for k, v in (r.get("rank") or {}).items()
+                if k != "traced_flops_by_op"} or None}
             for r in results],
     }
     if counts["error"]:

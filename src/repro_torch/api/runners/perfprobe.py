@@ -8,15 +8,17 @@ without ``dist_rank`` self-gangs (:func:`repro_torch.distributed.gang.
 run_gang_local` spawns one ``run perfprobe`` process per rank and adopts
 rank 0's report, every rank's ``dist`` section under ``gang``); with
 ``dist_rank`` (and ``coordinator``) this process is one rank of the
-grid ``{data: world_size / model, model: model}`` (:func:`repro_torch.
-sharding.grid.model_grid`); otherwise world 1, where every layout is
-the ``dp`` step.  The port's own overrides: ``device`` (default
+grid ``{pod: pod, data: world_size / (pod * model), model: model}``
+(:func:`repro_torch.sharding.grid.model_grid`); otherwise world 1, where
+every layout is the ``dp`` step.  ``multi_pod`` traces one rank of the
+reference's two-pod mesh on ``meta`` and runs nothing (no card needed).
+The port's own overrides: ``device`` (default
 ``None``: ``cuda``, which must exist), ``reduced``, ``batch`` and
 ``seq`` for a cut of the cell (the CPU tests run the reduced config;
 ``chip_smoke.py`` a gang at phase 25's batch), and ``model``, the
-grid's model extent (``fsdp_tp``, and ``fsdp_sp``'s train and prefill
-cells of an arch without an MoE FFN slot; ``dp`` on a model axis
-raises).
+grid's model extent (``fsdp_tp`` and ``fsdp_sp``; ``dp`` on a model axis
+raises), and ``pod``, its pod extent (the pods are replicas: the batch
+splits over ``(pod, data)``).
 """
 from __future__ import annotations
 
@@ -40,6 +42,7 @@ DEFAULTS = {
     "seq": None,            # None = the shape's sequence
     "world_size": 1,        # >1 = a gang of ranks on a {data, model} grid
     "model": 1,             # the grid's model extent (divides world_size)
+    "pod": 1,               # the grid's pod extent (divides world_size)
     "dist_rank": None,      # set per rank by the gang launcher
     "coordinator": None,    # rank 0's host:port
 }
@@ -56,9 +59,9 @@ def run_perfprobe(spec: RunSpec) -> RunReport:
         raise ValueError("perfprobe requires a --shape override")
     t0 = time.time()
     world = int(o["world_size"] or 1)
-    if world % int(o["model"]):
-        raise ValueError(f"model {o['model']} does not divide world_size "
-                         f"{world}")
+    if world % (int(o["model"]) * int(o["pod"])):
+        raise ValueError(f"model {o['model']} x pod {o['pod']} does not "
+                         f"divide world_size {world}")
     if world > 1 and o["dist_rank"] is None:
         from repro_torch.distributed.gang import run_gang_local
         rec = run_gang_local(spec, world)
@@ -82,6 +85,8 @@ def _one_rank(spec: RunSpec, o: dict, world: int) -> dict:
               seed=spec.seed, reduced=bool(o["reduced"]),
               batch=_int(o["batch"]), seq=_int(o["seq"]))
     if o["dist_rank"] is None:
+        if kw["multi_pod"]:      # traced on meta: no device
+            return probe(spec.arch, o["shape"], o["layout"], **kw)
         return probe(spec.arch, o["shape"], o["layout"], device=o["device"],
                      **kw)
     from repro_torch.distributed.context import init_distributed
@@ -90,6 +95,7 @@ def _one_rank(spec: RunSpec, o: dict, world: int) -> dict:
                            o["device"])
     try:
         return probe(spec.arch, o["shape"], o["layout"],
-                     grid=model_grid(ctx, int(o["model"])), **kw)
+                     grid=model_grid(ctx, int(o["model"]), int(o["pod"])),
+                     **kw)
     finally:
         ctx.close()

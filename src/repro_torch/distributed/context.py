@@ -34,11 +34,21 @@ its ring convention over the N ranks of its group: a gather or a
 reduce-scatter of F full bytes moves ``(N-1)/N * F`` a rank, an
 all-reduce twice that.
 
-* **Groups**: each collective takes a :class:`Group` (a grid's data row
-  or model column, :class:`repro_torch.sharding.grid.RankGrid`), by
-  default the whole world.  A group of one rank is the identity; the
-  grid makes one ``torch.distributed`` subgroup per row and column, on
-  the world's backend (gloo on CUDA tensors where ranks share a card).
+* **Groups**: each collective takes a :class:`Group` (a grid's data,
+  model, pod, batch or plane group, :class:`repro_torch.sharding.grid.
+  RankGrid`), by default the whole world.  A group of one rank is the
+  identity; the grid makes one ``torch.distributed`` subgroup per set of
+  ranks, on the world's backend (gloo on CUDA tensors where ranks share
+  a card).  ``collective_groups`` keeps each mechanism's bytes by the
+  ranks of the group it ran over.
+
+* **One rank on meta** (:func:`meta_context`): a :class:`MetaDistContext`
+  stands for rank r of an N-rank job with no process group.  Its
+  collectives return ``meta`` tensors of the shapes the real ones give
+  and count the same bytes, calls and groups, calling nothing in
+  ``torch.distributed``; what reads a value (:meth:`DistContext.agree`)
+  raises.  The dry run traces one rank of the production mesh through
+  it (:mod:`repro_torch.launch.dryrun`).
 """
 from __future__ import annotations
 
@@ -146,6 +156,9 @@ class DistContext:
         default_factory=dict)
     collective_calls: Dict[str, int] = dataclasses.field(
         default_factory=dict)
+    # per mechanism: ring-convention bytes by the ranks of the group
+    collective_groups: Dict[str, Dict[Tuple[int, ...], float]] = (
+        dataclasses.field(default_factory=dict))
 
     @property
     def is_coordinator(self) -> bool:
@@ -197,13 +210,16 @@ class DistContext:
         return value
 
     def _count(self, mechanism: str, full_bytes: int, passes: int,
-               n: Optional[int] = None) -> None:
-        n = self.world_size if n is None else n
+               group: Optional[Group] = None) -> None:
+        group = group or self.world
+        n = group.size
+        moved = passes * full_bytes * (n - 1) / n
         self.collective_bytes[mechanism] = (
-            self.collective_bytes.get(mechanism, 0.0)
-            + passes * full_bytes * (n - 1) / n)
+            self.collective_bytes.get(mechanism, 0.0) + moved)
         self.collective_calls[mechanism] = (
             self.collective_calls.get(mechanism, 0) + 1)
+        by_group = self.collective_groups.setdefault(mechanism, {})
+        by_group[group.ranks] = by_group.get(group.ranks, 0.0) + moved
 
     def all_gather(self, shard: torch.Tensor, dim: int,
                    mechanism: str = "fsdp_allgather",
@@ -218,8 +234,7 @@ class DistContext:
         x = shard.movedim(dim, 0).contiguous()
         out = x.new_empty((group.size * x.shape[0],) + x.shape[1:])
         torch.distributed.all_gather_into_tensor(out, x, group=group.pg)
-        self._count(mechanism, out.numel() * out.element_size(), 1,
-                    group.size)
+        self._count(mechanism, out.numel() * out.element_size(), 1, group)
         return out.movedim(0, dim)
 
     def reduce_scatter(self, full: torch.Tensor, dim: int,
@@ -234,8 +249,7 @@ class DistContext:
         x = full.movedim(dim, 0).contiguous()
         out = x.new_empty((x.shape[0] // group.size,) + x.shape[1:])
         torch.distributed.reduce_scatter_tensor(out, x, group=group.pg)
-        self._count(mechanism, x.numel() * x.element_size(), 1,
-                    group.size)
+        self._count(mechanism, x.numel() * x.element_size(), 1, group)
         return out.movedim(0, dim)
 
     def all_to_all(self, t: torch.Tensor, mechanism: str,
@@ -249,7 +263,7 @@ class DistContext:
         x = t.contiguous()
         out = torch.empty_like(x)
         torch.distributed.all_to_all_single(out, x, group=group.pg)
-        self._count(mechanism, x.numel() * x.element_size(), 1, group.size)
+        self._count(mechanism, x.numel() * x.element_size(), 1, group)
         return out
 
     def all_reduce(self, t: torch.Tensor, mechanism: str,
@@ -264,8 +278,7 @@ class DistContext:
         red = (torch.distributed.ReduceOp.SUM if op == "sum"
                else torch.distributed.ReduceOp.MAX)
         torch.distributed.all_reduce(out, op=red, group=group.pg)
-        self._count(mechanism, out.numel() * out.element_size(), 2,
-                    group.size)
+        self._count(mechanism, out.numel() * out.element_size(), 2, group)
         return out
 
     def allreduce_(self, tensors: List[torch.Tensor],
@@ -301,7 +314,7 @@ class DistContext:
             self.allreduce_calls += 1
             self.allreduce_bytes += flat.numel() * flat.element_size()
             self._count(mechanism, flat.numel() * flat.element_size(), 2,
-                        group.size)
+                        group)
         if cuda:
             torch.cuda.synchronize(self.device)
         self.allreduce_s += time.perf_counter() - t0
@@ -311,6 +324,91 @@ class DistContext:
         """Leave the process group (nothing at world 1)."""
         if self.world_size > 1 and torch.distributed.is_initialized():
             torch.distributed.destroy_process_group()
+
+
+class MetaDistContext(DistContext):
+    """Rank ``rank`` of a ``world_size``-rank job traced on ``meta``: no
+    process group, the collectives of :class:`DistContext` on shapes
+    alone.  Each returns what the real one returns, a ``meta`` tensor of
+    its shape (an all-gather's blocks concatenated, a reduce-scatter's
+    block, an all-reduce's clone, an all-to-all's like its input), and
+    counts the same bytes and calls by mechanism and group; an in-place
+    sum leaves its tensors as they are.  What reads a value raises."""
+
+    def allgather(self, value, group: Optional[Group] = None
+                  ) -> torch.Tensor:
+        group = group or self.world
+        t = torch.as_tensor(value, device=self.device)
+        return t.new_empty((group.size,) + tuple(t.shape))
+
+    def agree(self, value, what: str = "value"):
+        raise RuntimeError(f"a rank traced on meta holds no {what} to "
+                           f"agree on")
+
+    def all_gather(self, shard: torch.Tensor, dim: int,
+                   mechanism: str = "fsdp_allgather",
+                   group: Optional[Group] = None) -> torch.Tensor:
+        group = group or self.world
+        if group.size == 1:
+            return shard
+        shape = list(shard.shape)
+        shape[dim] *= group.size
+        out = shard.new_empty(shape)
+        self._count(mechanism, out.numel() * out.element_size(), 1, group)
+        return out
+
+    def reduce_scatter(self, full: torch.Tensor, dim: int,
+                       mechanism: str = "grad_reducescatter",
+                       group: Optional[Group] = None) -> torch.Tensor:
+        group = group or self.world
+        if group.size == 1:
+            return full
+        shape = list(full.shape)
+        shape[dim] //= group.size
+        self._count(mechanism, full.numel() * full.element_size(), 1,
+                    group)
+        return full.new_empty(shape)
+
+    def all_to_all(self, t: torch.Tensor, mechanism: str,
+                   group: Group) -> torch.Tensor:
+        if group.size == 1:
+            return t
+        self._count(mechanism, t.numel() * t.element_size(), 1, group)
+        return torch.empty_like(t)
+
+    def all_reduce(self, t: torch.Tensor, mechanism: str,
+                   group: Group, op: str = "sum") -> torch.Tensor:
+        out = t.contiguous().clone()
+        if group.size > 1:
+            self._count(mechanism, out.numel() * out.element_size(), 2,
+                        group)
+        return out
+
+    def allreduce_(self, tensors: List[torch.Tensor],
+                   mechanism: str = "grad_reducescatter",
+                   group: Optional[Group] = None) -> List[torch.Tensor]:
+        group = group or self.world
+        if group.size == 1 or not tensors:
+            return tensors
+        for bucket in _buckets(tensors):
+            nbytes = sum(t.numel() * t.element_size() for t in bucket)
+            self.allreduce_calls += 1
+            self.allreduce_bytes += nbytes
+            self._count(mechanism, nbytes, 2, group)
+        return tensors
+
+    def close(self) -> None:
+        pass
+
+
+def meta_context(world_size: int, rank: int) -> MetaDistContext:
+    """Rank ``rank`` of a ``world_size``-rank job on the ``meta`` device
+    (see :class:`MetaDistContext`)."""
+    if not 0 <= rank < world_size:
+        raise ValueError(f"rank {rank} outside world of {world_size}")
+    return MetaDistContext(world_size=world_size, rank=rank,
+                           coordinator=None, device=torch.device("meta"),
+                           backend="meta")
 
 
 def _buckets(tensors: List[torch.Tensor]) -> List[List[torch.Tensor]]:

@@ -23,12 +23,15 @@ otherwise.  The per-kind module entry points
 same registry.
 
 ``dryrun`` builds each (arch x shape) step on the ``meta`` device and
-counts its FLOPs and bytes for one card (nothing is allocated, no card is
-needed; each record adds the per-device bytes of its layout on the
-production mesh); ``perfprobe`` runs one cell on the card at the batch
-the dry run says fits it (``--device cpu`` for a CPU run), and with
-``--world_size N`` self-gangs N ranks on a data grid: ``fsdp_tp`` (the
-default) and ``fsdp_sp`` shard the parameters, ``dp`` replicates them.
+counts its FLOPs and bytes for one card, and traces one rank of the
+production mesh (``--mesh single|multi|both``: 16x16 or 2x16x16) under
+``--layout`` (nothing is allocated, no card is needed); ``perfprobe``
+runs one cell on the card at the batch the dry run says fits it
+(``--device cpu`` for a CPU run), with ``--world_size N`` self-gangs N
+ranks on a grid of ``--pod`` pods and a ``--model`` axis: ``fsdp_tp``
+(the default) and ``fsdp_sp`` shard the parameters, ``dp`` replicates
+them; ``--multi-pod`` traces one rank of the two-pod mesh on ``meta``
+and runs nothing.
 
 ``campaign run`` drives a whole campaign from a jobs file (a JSON list
 of RunSpec dicts): it submits every spec to an Orchestrator and executes

@@ -1,19 +1,22 @@
-"""The (arch x shape) dry run on the ``meta`` device (the port's
+"""The (arch x shape x mesh) dry run on the ``meta`` device (the port's
 counterpart of ``repro.launch.dryrun``).
 
     python -m repro_torch.launch.dryrun --arch stablelm-1.6b --shape train_4k
+    python -m repro_torch.launch run dryrun --arch qwen3-moe-30b-a3b \
+        --shape train_4k --mesh multi
 
-The reference lowers and compiles each step for a 256- or 512-chip TPU
-mesh and records XLA's memory and cost analyses.  The port builds each
-step on ``meta`` (:mod:`repro_torch.launch.steps`) and runs it there:
-every tensor has a shape and a dtype and no data, so nothing is allocated
-on any device.  The kernels take their meta route
+The reference lowers and compiles each step for one device of a 256- or
+512-chip TPU mesh and records XLA's memory and cost analyses.  The port
+builds each step on ``meta`` (:mod:`repro_torch.launch.steps`) and runs
+it there: every tensor has a shape and a dtype and no data, so nothing
+is allocated on any device.  The kernels take their meta route
 (``kernels/*/meta.py``): their output shapes, and their own operations
 counted.  Each record keeps the reference's keys where they mean the same
 thing (``arch``, ``shape``, ``kind``, ``mesh``, ``layout``, ``seq``,
-``batch``, ``status``, ``roofline``, ``total_s``) and adds what the trace
-measures for one card, world 1 under ``dp``, at the shape's global
-batch:
+``batch``, ``status``, ``roofline``, ``total_s``) and adds two traces.
+
+**One card**, world 1 under ``dp`` at the shape's global batch, made once
+per (arch, shape) and shared by both meshes' records:
 
 * ``traced_flops``: ``FlopCounterMode``'s count of the step, by operator
   too, and its ratio to the analytic count for one chip (a train step's
@@ -23,8 +26,7 @@ batch:
 * ``bytes``: parameters, gradients, optimizer state (``pick_optimizer``'s
   dtype), inputs, decode state, and the activations autograd saves for the
   backward (summed over distinct storages with ``saved_tensors_hooks``,
-  under remat as the trainer runs it: each layer's input and what is saved
-  outside the checkpointed layers);
+  under remat as the trainer runs it);
 * ``peak_bytes``: the most bytes of storage alive at once in the step
   (:class:`LivePeak`): the kinds above at their highest point plus the
   transient working set (a layer's recompute in the backward, the chunked
@@ -33,23 +35,38 @@ batch:
   what ``torch.cuda.max_memory_allocated`` reads on the card;
 * ``fits_one_card``: whether that peak fits 80 GB less
   :class:`repro_torch.core.autobatch.MemoryBudget`'s reserve;
-* ``max_batch_one_card``: the largest batch, halving from the shape's
-  batch over the reference's data axis (16), whose peak fits, and
-  ``peak_bytes_one_card``, that peak (:func:`peak_at`: parameters,
-  gradients and optimizer state stay, the rest scales with the batch).
+* ``max_batch_one_card`` and ``peak_bytes_one_card``: the largest batch,
+  halving from the shape's batch over the reference's data axis (16),
+  whose peak fits (:func:`peak_at`).
 
-``sharded_bytes`` is what one device of the reference's production mesh
-holds under the record's layout: parameters, gradients (a train step's,
-sharded like the parameters), optimizer state and decode state, each
-leaf's shard from the rules' specs (:func:`repro_torch.sharding.rules.
-per_device_bytes`): the counterpart of the reference's
-``memory_analysis`` argument sizes.  The traced step and the one-card
-fields stay world 1 under ``dp``.
+**One rank of the production mesh** (``rank``, :func:`rank_section`):
+the grid's last rank of ``production_dims(multi_pod)`` (16x16 or
+2x16x16; under ``dp`` its pod and data axes), its step built through
+``steps.build`` over a :func:`repro_torch.distributed.context.
+meta_context` under the record's layout: its blocks of the parameters
+and moments, its rows of the batch over ``(pod, data)``, its own loss
+with its gathers, reductions and model-axis collectives, counted and
+not run.  The section holds ``grid``, ``rank``, ``coords``, ``rows``,
+``traced_flops`` (and by operator) against ``analytic_flops_per_chip``,
+``bytes`` by kind, ``peak_bytes`` and ``fits_one_card`` (the same
+budget), ``collective_bytes``, ``collective_calls`` and the group sizes
+by mechanism against ``analytic_collective_bytes``
+(``collective_bytes_per_chip`` on the mesh), the port's counts from the
+shapes (``tp_allreduce``, the whole attention's ``tp_weights``,
+``sp_bytes``, ``pod_gradsync``), and ``resident_minus_sharded``: its
+parameters, gradients, optimizer state and decode state less
+``sharded_bytes``, 0 where it holds the rules' blocks.
 
+``sharded_bytes`` is what one device of the mesh holds by the rules'
+specs (:func:`repro_torch.sharding.rules.per_device_bytes`): the
+counterpart of the reference's ``memory_analysis`` argument sizes.
 ``roofline`` is :func:`repro_torch.analysis.analytic.analytic_roofline`
-on the reference's production mesh for ``layout``, with the H100's
-figures.  The probe (:mod:`repro_torch.launch.perfprobe`) runs a cell at
-its one-card batch and measures the peak on the card.
+on the mesh for ``layout``, with the H100's figures.  A cell that cannot
+be traced is recorded as ``status: "error"`` with the port's message, as
+the reference records a failed lowering; it is never traced at another
+layout or another mesh under its name.  The probe
+(:mod:`repro_torch.launch.perfprobe`) runs a cell at its one-card batch
+and measures the peak on the card.
 """
 from __future__ import annotations
 
@@ -61,7 +78,8 @@ import os
 import time
 import traceback
 import weakref
-from typing import Dict, List, Tuple
+import math
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -69,15 +87,20 @@ from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.analysis.analytic import (MeshDims, analytic_roofline,
-                                           flops_per_chip)
+                                           collective_bytes_per_chip,
+                                           flops_per_chip, mesh_dims)
 from repro_torch.configs import get_config, list_archs
 from repro_torch.core.autobatch import MemoryBudget
+from repro_torch.distributed.context import meta_context
 from repro_torch.kernels.ssd_scan.ops import plain_backward
 from repro_torch.launch.mesh import INPUT_SHAPES, mesh_tag, production_dims
 from repro_torch.launch.steps import build, effective_config, pick_optimizer
 from repro_torch.models.model import init_decode_state, param_specs
 from repro_torch.sharding import rules
-from repro_torch.train.step import _global_sq_norm, make_loss_and_grads
+from repro_torch.sharding.grid import RankGrid
+from repro_torch.sharding.sp import sp_bytes
+from repro_torch.sharding.tp import tp_allreduce_bytes, tp_weights_bytes
+from repro_torch.train.step import _global_sq_norm
 from repro_torch.tree import tree_leaves
 
 # (arch, shape) pairs that are structurally skipped (encoder-only has no
@@ -178,22 +201,39 @@ class LivePeak(TorchDispatchMode):
 
 
 def trace_step(kind: str, cfg, batch: int, seq: int,
-               microbatches: int = 1) -> Dict:
+               microbatches: int = 1, layout: str = "dp",
+               grid=None) -> Dict:
     """Build the step on ``meta`` and run it once under ``FlopCounterMode``,
     a saved-tensor hook and :class:`LivePeak`.  Returns the traced FLOPs
     (in all and by operator), the bytes by kind and the peak of live
     bytes (``peak_bytes``: what the step holds at its highest point, the
     transient working set included, and what an operator of the meta
-    route holds on the card beyond its inputs, ``CARD_WORKSPACE``)."""
+    route holds on the card beyond its inputs, ``CARD_WORKSPACE``).
+
+    ``grid`` (over a :func:`repro_torch.distributed.context.
+    meta_context`): one rank of it under ``layout``, its own step with
+    its gathers and reductions (a train step's gradient norm included),
+    its blocks and rows; the result adds the rank's collective bytes
+    and calls by mechanism and the group sizes each ran over, and
+    ``fsdp`` (the step's storage, or None)."""
     kw = {"microbatches": microbatches} if kind == "train" else {}
-    fn, args = build(kind, cfg, batch, seq, device="meta", **kw)
+    fn, args = build(kind, cfg, batch, seq, device="meta", layout=layout,
+                     grid=grid, **kw)
+    fsdp = None
     if kind == "train":
         # the trainer's forward and backward; the update after them counts
         # no FLOPs, saves nothing and adds to the peak only one leaf's
         # temporaries at a time (update_transient)
         state, inputs = args
         params, opt = state.params, state.opt_state
-        fn = make_loss_and_grads(cfg, remat=True, microbatches=microbatches)
+        step, fsdp = fn, fn.fsdp
+
+        def fn(params, inputs):
+            loss, grads = step.loss_and_grads(params, inputs)
+            if grid is not None:
+                step.sq_norm(grads)
+            return loss, grads
+
         args = (params, inputs)
     elif kind == "prefill":
         (params, inputs), opt = args, None
@@ -238,9 +278,19 @@ def trace_step(kind: str, cfg, batch: int, seq: int,
         # what the step holds once the gradients are out, plus the update
         peak = max(peak, live.now + update_transient(cfg, param_leaves,
                                                      out[1]))
-    return {"traced_flops": int(counter.get_total_flops()),
-            "traced_flops_by_op": by_op, "bytes": nbytes,
-            "peak_bytes": peak}
+    traced = {"traced_flops": int(counter.get_total_flops()),
+              "traced_flops_by_op": by_op, "bytes": nbytes,
+              "peak_bytes": peak}
+    if grid is not None:
+        dist = grid.dist
+        traced.update(
+            collective_bytes=dict(dist.collective_bytes),
+            collective_calls=dict(dist.collective_calls),
+            collective_group_sizes={
+                mech: sorted({len(r) for r in groups})
+                for mech, groups in dist.collective_groups.items()},
+            fsdp=fsdp, params=params, rows=next(iter(inputs.values())))
+    return traced
 
 
 def update_transient(cfg, param_leaves: list, grads: list) -> int:
@@ -307,6 +357,75 @@ def sharded_bytes(cfg, kind: str, batch: int, seq: int, mesh,
     return out
 
 
+RESIDENT = ("params", "grads", "optimizer_state", "decode_state")
+
+
+def rank_grid(mesh, layout: str) -> RankGrid:
+    """One rank of ``mesh`` (an axis dict) under ``layout`` on ``meta``:
+    the grid's last rank, every coordinate at its last index (under
+    ``fsdp_sp`` its sequence block holds the most causal pairs).  Under
+    ``dp`` the grid is the mesh's pod and data axes: the port's ``dp``
+    refuses a model axis, and the reference's model ranks repeat the
+    same step."""
+    dims = {a: n for a, n in mesh.items()
+            if not (layout == "dp" and a == "model")}
+    world = math.prod(dims.values())
+    return RankGrid(dims, meta_context(world, world - 1))
+
+
+def rank_section(cfg, kind: str, batch: int, seq: int, mesh, layout: str,
+                 microbatches: int = 1) -> Dict:
+    """One rank of ``mesh`` traced on ``meta`` (:func:`rank_grid`): its
+    FLOPs against ``flops_per_chip`` on the rank's grid, its bytes by
+    kind, its peak and whether it fits one card, its collective bytes
+    and calls by mechanism against ``collective_bytes_per_chip`` on
+    ``mesh``, the port's counts from the shapes, and its resident bytes
+    against :func:`sharded_bytes` (``resident_minus_sharded``, by kind;
+    0 where the rank holds the rules' blocks)."""
+    grid = rank_grid(mesh, layout)
+    t = trace_step(kind, cfg, batch, seq, microbatches, layout, grid)
+    analytic = flops_per_chip(cfg, batch, seq, kind, mesh_dims(grid.mesh))
+    rows = t["rows"].shape[0]
+    M = grid.extent("model")
+    esize = getattr(torch, cfg.param_dtype).itemsize
+    shape_counts = {}
+    if layout == "fsdp_tp" and M > 1:
+        shape_counts["tp_allreduce"] = tp_allreduce_bytes(
+            cfg, rows, seq, kind, M, esize)
+        shape_counts["tp_weights_whole_attention"] = tp_weights_bytes(
+            cfg, kind, M, esize)
+    if layout == "fsdp_sp" and M > 1:
+        shape_counts["sp_bytes"] = sp_bytes(cfg, rows, seq, kind, M, esize)
+    if t["fsdp"] is not None:
+        shape_counts["pod_gradsync"] = t["fsdp"].pod_gradsync_bytes(
+            t["params"])
+    sharded = sharded_bytes(cfg, kind, batch, seq, mesh, layout)
+    out = {
+        "grid": grid.mesh, "rank": grid.rank, "coords": grid.coords,
+        "rows": rows, "layout": layout,
+        "traced": f"meta: kernel formulas; rank {grid.rank} of "
+                  f"{grid.world_size}, {layout}",
+        "traced_flops": t["traced_flops"],
+        "traced_flops_by_op": t["traced_flops_by_op"],
+        "analytic_flops_per_chip": analytic,
+        "traced_over_analytic": t["traced_flops"] / analytic,
+        "bytes": t["bytes"], "peak_bytes": t["peak_bytes"],
+        "fits_one_card": t["peak_bytes"] <= one_card_budget(),
+        "collective_bytes": t["collective_bytes"],
+        "collective_calls": t["collective_calls"],
+        "collective_group_sizes": t["collective_group_sizes"],
+        "analytic_collective_bytes": collective_bytes_per_chip(
+            cfg, batch, seq, kind, mesh_dims(mesh), layout),
+        "shape_counts": shape_counts,
+        "resident_minus_sharded": {k: t["bytes"][k] - sharded[k]
+                                   for k in RESIDENT}}
+    if layout == "dp" and "model" in mesh:
+        out["note"] = (f"dp: the rank sits on the pod and data axes of "
+                       f"{mesh}; the reference's {mesh['model']} model "
+                       f"ranks repeat the same step")
+    return out
+
+
 def _write(rec: dict, out_dir: str) -> None:
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
@@ -316,7 +435,12 @@ def _write(rec: dict, out_dir: str) -> None:
 
 
 def run_one(arch: str, shape_name: str, multi_pod: bool, layout: str,
-            out_dir: str, microbatches: int = 1) -> dict:
+            out_dir: str, microbatches: int = 1,
+            one_card: Optional[Dict] = None) -> dict:
+    """One (arch x shape x mesh) record: the one-card trace (world 1,
+    ``dp``; taken from ``one_card``, a dict shared by the meshes of one
+    (arch, shape), where an earlier record made it) and the ``rank``
+    section of the mesh under ``layout``."""
     seq, batch, kind = INPUT_SHAPES[shape_name]
     rec = {
         "arch": arch, "shape": shape_name, "kind": kind,
@@ -330,15 +454,19 @@ def run_one(arch: str, shape_name: str, multi_pod: bool, layout: str,
         return rec
 
     t0 = time.time()
+    one_card = {} if one_card is None else one_card
     try:
         cfg = effective_config(get_config(arch), shape_name)
-        rec["roofline"] = analytic_roofline(
-            cfg, batch, seq, kind, production_dims(multi_pod), layout)
         mesh = production_dims(multi_pod)
+        rec["roofline"] = analytic_roofline(cfg, batch, seq, kind, mesh,
+                                            layout)
         rec["sharded_bytes"] = dict(
             sharded_bytes(cfg, kind, batch, seq, mesh, layout),
             mesh=mesh_tag(multi_pod), layout=layout)
-        traced = trace_step(kind, cfg, batch, seq, microbatches)
+        if "traced" not in one_card:
+            one_card["traced"] = trace_step(kind, cfg, batch, seq,
+                                            microbatches)
+        traced = one_card["traced"]
         analytic = flops_per_chip(cfg, batch, seq, kind, ONE_CHIP)
         fits, max_batch = one_card_fit(traced, batch)
         rec.update(
@@ -354,8 +482,12 @@ def run_one(arch: str, shape_name: str, multi_pod: bool, layout: str,
             peak_bytes_one_card=(peak_at(traced, batch, max_batch)
                                  if max_batch else None),
             one_card_budget_bytes=one_card_budget(),
-            fits_one_card=fits, max_batch_one_card=max_batch,
-            trace_s=round(time.time() - t0, 2))
+            fits_one_card=fits, max_batch_one_card=max_batch)
+        t1 = time.time()
+        rec["rank"] = rank_section(cfg, kind, batch, seq, mesh, layout,
+                                   microbatches)
+        rec["rank"]["trace_s"] = round(time.time() - t1, 2)
+        rec["trace_s"] = round(time.time() - t0, 2)
         rec["status"] = "ok"
         r = rec["roofline"]
         print(f"  analytic: compute={r['compute_s']*1e3:.2f}ms "
@@ -368,6 +500,13 @@ def run_one(arch: str, shape_name: str, multi_pod: bool, layout: str,
               f"{rec['traced_over_analytic']:.4f} bytes={gb} GB "
               f"peak={rec['peak_bytes'] / 1e9:.2f} GB fits={fits} "
               f"max_batch={max_batch}")
+        rk = rec["rank"]
+        print(f"  rank {rk['rank']} of {rk['grid']}: traced/analytic="
+              f"{rk['traced_over_analytic']:.4f} "
+              f"peak={rk['peak_bytes'] / 1e9:.2f} GB "
+              f"fits={rk['fits_one_card']} collective="
+              f"{sum(rk['collective_bytes'].values()) / 1e9:.3f} GB "
+              f"resident-sharded={rk['resident_minus_sharded']}")
     except Exception as e:  # noqa: BLE001 — a dry-run failure is a bug report
         rec["status"] = "error"
         rec["error"] = f"{type(e).__name__}: {e}"
@@ -391,10 +530,12 @@ def dryrun_sweep(archs="all", shapes="all", meshes="single",
     results = []
     for arch in arch_list:
         for shape in shape_list:
+            one_card: Dict = {}        # the meshes share its trace
             for mp in mesh_list:
                 print(f"[dryrun] {arch} x {shape} x {mesh_tag(mp)} x "
                       f"{layout}", flush=True)
-                rec = run_one(arch, shape, mp, layout, out, microbatches)
+                rec = run_one(arch, shape, mp, layout, out, microbatches,
+                              one_card)
                 results.append(rec)
                 print(f"  -> {rec['status']} ({rec.get('total_s', 0)}s)",
                       flush=True)
@@ -412,7 +553,8 @@ def dryrun_sweep(archs="all", shapes="all", meshes="single",
 
 def main():
     # thin shim over the repro_torch.api registry (RunSpec in, RunReport out)
-    ap = argparse.ArgumentParser(description="one-card dry run on meta")
+    ap = argparse.ArgumentParser(
+        description="the dry run on meta: one card, and one rank of the mesh")
     ap.add_argument("--arch", default="all")
     ap.add_argument("--shape", default="all",
                     choices=["all", *INPUT_SHAPES])

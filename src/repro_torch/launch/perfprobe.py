@@ -21,8 +21,11 @@ measured step, the all-reduce bytes (0: world 1 issues no collective),
 measured device time against the analytic FLOPs and bytes.
 
 A grid of ranks (``grid``, a :class:`repro_torch.sharding.grid.RankGrid`
-on ``{data: D, model: M}``: the runner's ``world_size`` self-gangs as
-``run train`` does, and its ``model`` is M) runs the cell as a gang:
+on ``{pod: P, data: D, model: M}``: the runner's ``world_size`` self-gangs
+as ``run train`` does, its ``model`` is M and its ``pod`` P) runs the
+cell as a gang, the global batch split over the grid's batch group
+(``(pod, data)``; the pods are replicas whose gradients are summed, the
+mechanism ``pod_gradsync``):
 ``fsdp_tp`` and ``fsdp_sp`` keep each rank's shards of the parameters
 and moments and gather each layer where it runs (on the data axis the
 reference's rules make both ZeRO-3), ``fsdp_tp`` on a model axis
@@ -45,11 +48,18 @@ mechanism, and ``sp_vs_analytic``: the analytic model's ``fsdp_sp``
 ``tp_allreduce``, one K/V gather an attention layer and one state
 exchange an SSM layer, beside the measured ``kv_allgather +
 ssd_state_allgather``, and its ``moe_alltoall`` beside the measured),
-its peak memory, launches and losses; the record
-holds :func:`collective_bytes_per_chip` for ``{data: D, model: M}``
+its peak memory, launches and losses, and in a train step on a pod
+axis ``pod_gradsync_shape_bytes``; the record holds
+:func:`collective_bytes_per_chip` for ``{pod: P, data: D, model: M}``
 beside them.  On a grid of one rank every layout is the ``dp`` step.
-The reference's two-pod mesh (``multi_pod``) is 512 cards, not one host:
-it raises.
+
+The reference's two-pod mesh (``multi_pod``) is 512 cards, which no host
+holds; the reference's probe compiles a cell for it and runs nothing.
+So does the port's: ``multi_pod`` without a grid traces one rank of that
+mesh on ``meta`` (:func:`repro_torch.launch.dryrun.rank_section`) at
+the cell's global batch and returns the per-chip fields, its collective
+bytes by mechanism and in all, the bytes it holds and its peak, with
+``"measured_on": "meta"``.
 """
 from __future__ import annotations
 
@@ -72,8 +82,8 @@ from repro_torch.kernels.common import resolve_device
 from repro_torch.kernels.flash_attention import kernel as fa
 from repro_torch.kernels.ssd_scan import kernel as ssd
 from repro_torch.launch.dryrun import (one_card_budget, one_card_fit,
-                                       peak_at, trace_step)
-from repro_torch.launch.mesh import INPUT_SHAPES
+                                       peak_at, rank_section, trace_step)
+from repro_torch.launch.mesh import INPUT_SHAPES, mesh_tag, production_dims
 from repro_torch.launch.steps import build, effective_config
 from repro_torch.sharding.sp import sp_bytes
 from repro_torch.sharding.tp import tp_allreduce_bytes
@@ -144,16 +154,21 @@ def probe(arch: str, shape: str, layout: str = "dp", *,
     ``batch`` (the GLOBAL batch of a gang) and ``seq`` default to the dry
     run's one-card batch and the shape's sequence; ``reduced`` takes the
     arch's reduced config.  The record names whatever cut was taken.
-    ``multi_pod`` (the reference's two-pod mesh) raises.
+    ``multi_pod`` (the reference's two-pod mesh) traces one rank of it
+    on ``meta`` (:func:`meta_rank_probe`) and runs nothing.
     """
     if layout not in LAYOUTS:
         raise ValueError(f"unknown layout {layout!r} (have {LAYOUTS})")
     if multi_pod:
-        raise ValueError("the two-pod mesh is 2 x 16 x 16 = 512 cards; the "
-                         "probe runs one card or a gang on one host")
+        if grid is not None:
+            raise ValueError("a gang runs on its own grid; multi_pod traces "
+                             "one rank of the two-pod mesh on meta")
+        return meta_rank_probe(arch, shape, layout, microbatches=microbatches,
+                               save=save, reduced=reduced, batch=batch,
+                               seq=seq)
     seq_of, batch_of, kind = INPUT_SHAPES[shape]
     world = 1 if grid is None else grid.world_size
-    rows_of = 1 if grid is None else grid.extent("data")
+    rows_of = 1 if grid is None else grid.group("batch").size
     step_layout = layout if world > 1 else "dp"
     device = grid.device if grid is not None else resolve_device(device)
     cfg = effective_config(get_reduced(arch) if reduced else get_config(arch),
@@ -176,7 +191,7 @@ def probe(arch: str, shape: str, layout: str = "dp", *,
                     "budget_bytes": one_card_budget()}
     if batch % rows_of:
         raise ValueError(f"global batch {batch} does not divide over "
-                         f"{rows_of} data ranks")
+                         f"{rows_of} ranks of (pod, data)")
     kw = {"microbatches": microbatches} if kind == "train" else {}
     t0 = time.time()
     fn, args = build(kind, cfg, batch, seq, device=device, seed=seed,
@@ -212,14 +227,19 @@ def probe(arch: str, shape: str, layout: str = "dp", *,
     launches = {name: {r: after[name][r] - before[name][r]
                        for r in after[name]} for name in KERNELS}
     dist = None
-    mesh = ONE_CARD if world == 1 else {"data": rows_of,
-                                        "model": grid.extent("model")}
+    mesh = ONE_CARD if world == 1 else {
+        "pod": grid.extent("pod"), "data": grid.extent("data"),
+        "model": grid.extent("model")}
     if world > 1:
         dist = _dist_record(grid, bytes_before, launches, step_s, losses)
         esize = getattr(torch, cfg.param_dtype).itemsize
         dist["tp_allreduce_shape_bytes"] = (tp_allreduce_bytes(
             cfg, batch // rows_of, seq, kind, mesh["model"], esize)
             if step_layout == "fsdp_tp" else 0.0)
+        fsdp = getattr(fn, "fsdp", None)
+        if fsdp is not None and mesh["pod"] > 1:
+            dist["pod_gradsync_shape_bytes"] = fsdp.pod_gradsync_bytes(
+                args[0].params)
         if step_layout == "fsdp_sp" and mesh["model"] > 1:
             dist["sp_shape_bytes"] = sp_bytes(cfg, batch // rows_of, seq,
                                               kind, mesh["model"], esize)
@@ -251,8 +271,10 @@ def probe(arch: str, shape: str, layout: str = "dp", *,
     rec = {
         "arch": cfg.name, "shape": shape, "kind": kind, "layout": layout,
         "step_layout": step_layout,
-        "mesh": ("1 card" if world == 1 else f"data {mesh['data']} x "
-                 f"model {mesh['model']} (one host)"),
+        "mesh": ("1 card" if world == 1 else
+                 ("" if mesh["pod"] == 1 else f"pod {mesh['pod']} x ")
+                 + f"data {mesh['data']} x model {mesh['model']} "
+                 f"(one host)"),
         "world_size": world, "microbatches": microbatches,
         "device": device.type,
         "device_name": (torch.cuda.get_device_name(device)
@@ -299,6 +321,49 @@ def probe(arch: str, shape: str, layout: str = "dp", *,
     return rec
 
 
+def meta_rank_probe(arch: str, shape: str, layout: str = "fsdp_tp", *,
+                    microbatches: int = 1, save: Optional[str] = None,
+                    reduced: bool = False, batch: Optional[int] = None,
+                    seq: Optional[int] = None) -> dict:
+    """The reference's two-pod probe: one rank of ``production_dims(
+    multi_pod=True)`` traced on ``meta`` at the cell's global ``batch``
+    and ``seq`` (by default the shape's), nothing run on any device.
+    Returns the per-chip fields (collective bytes by mechanism and in
+    all, the bytes held, the peak) and the rank section."""
+    seq_of, batch_of, kind = INPUT_SHAPES[shape]
+    cfg = effective_config(get_reduced(arch) if reduced else get_config(arch),
+                           shape)
+    batch, seq = batch or batch_of, seq or seq_of
+    mesh = production_dims(multi_pod=True)
+    rank = rank_section(cfg, kind, batch, seq, mesh, layout, microbatches)
+    rec = {
+        "arch": cfg.name, "shape": shape, "kind": kind, "layout": layout,
+        "multi_pod": True, "mesh": mesh_tag(True), "measured_on": "meta",
+        "ran": "nothing: one rank of the two-pod mesh traced on meta, as "
+               "the reference's probe compiles and runs nothing",
+        "reduced": reduced, "seq": seq, "batch": batch,
+        "collective_bytes_per_chip": rank["collective_bytes"],
+        "collective_bytes_total": sum(rank["collective_bytes"].values()),
+        "analytic_collective_bytes": rank["analytic_collective_bytes"],
+        "bytes": rank["bytes"], "bytes_held": sum(
+            rank["bytes"][k] for k in ("params", "grads", "optimizer_state",
+                                       "inputs", "decode_state")),
+        "peak_bytes": rank["peak_bytes"],
+        "fits_one_card": rank["fits_one_card"],
+        "rank": rank,
+        "analytic": analytic_roofline(cfg, batch, seq, kind, mesh, layout),
+    }
+    print(f"[{cfg.name} x {shape} x {layout}] rank {rank['rank']} of "
+          f"{mesh_tag(True)} on meta: collective "
+          f"{rec['collective_bytes_total'] / 1e9:.3f} GB, peak "
+          f"{rec['peak_bytes'] / 1e9:.2f} GB")
+    if save:
+        os.makedirs(os.path.dirname(save) or ".", exist_ok=True)
+        with open(save, "w") as f:
+            json.dump(rec, f, indent=1, default=str)
+    return rec
+
+
 def main():
     # thin shim over the repro_torch.api registry (RunSpec in, RunReport out)
     ap = argparse.ArgumentParser()
@@ -311,13 +376,15 @@ def main():
     ap.add_argument("--device", default=None)
     ap.add_argument("--world-size", type=int, default=1)
     ap.add_argument("--model", type=int, default=1)
+    ap.add_argument("--pod", type=int, default=1)
     args = ap.parse_args()
 
     from repro_torch.api import RunSpec, run
     overrides = {"shape": args.shape, "layout": args.layout,
                  "multi_pod": args.multi_pod,
                  "microbatches": args.microbatches,
-                 "world_size": args.world_size, "model": args.model}
+                 "world_size": args.world_size, "model": args.model,
+                 "pod": args.pod}
     if args.save:
         overrides["save"] = args.save
     if args.device:

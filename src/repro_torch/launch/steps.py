@@ -29,16 +29,32 @@ ctx.  The port returns a plain callable over one rank's tensors:
   the rules' ``decode_state_shardings``), with a softmax distributed
   over the cache.
 
+* any of them on a grid with a ``pod`` axis: the pods are replicas (the
+  reference's pod axis is pure data parallelism); each rank keeps the
+  blocks its ``(data, model)`` coordinates give it, the batch splits
+  over ``(pod, data)``, and the step sums every gradient over the pods
+  once (:mod:`repro_torch.sharding.fsdp`, ``pod_gradsync``).
+
 Every rank draws the full parameters and the global batch from the seed
-and keeps its blocks and its data row's rows (:func:`_rows` splits over
-data only: under ``fsdp_sp`` the model splits the sequence), so a gang
-computes the world-1 step's numbers.  A rank's rows are its MoE dispatch
-group and, but under ``fsdp_sp``'s model axis, its sequence one segment,
-as with no :class:`repro_torch.sharding.ShardCtx`, so a step runs under
-none (:func:`shard_ctx_for` is the reference's ctx of the whole mesh).
-On a ``model`` extent above 1 ``dp`` raises (it would run duplicated
-ranks), and so does ``fsdp_sp`` at a sequence the axis does not split
-into equal blocks (:func:`repro_torch.sharding.sp.check_config`).
+and keeps its blocks and its rows: :func:`_rows` splits the batch over
+the grid's batch group as the reference's ``batch_sharding`` does, over
+``(pod, data)`` or over the axes of it whose extent divides the batch,
+the rest of the ranks holding the same rows (``long_500k``'s one row is
+replicated); under ``fsdp_sp`` the model axis splits the sequence.  A
+decode step's cache holds the rank's rows (``decode_state_shardings``
+puts the batch over the same axes at every ``INPUT_SHAPES`` cell).  A
+train step takes rows that split over the whole batch group: replicated
+rows would be counted twice in the loss.  So a gang computes the
+world-1 step's numbers.  A rank's rows are its MoE dispatch group and,
+but under ``fsdp_sp``'s model axis, its sequence one segment, as with
+no :class:`repro_torch.sharding.ShardCtx`, so a step runs under none
+(:func:`shard_ctx_for` is the reference's ctx of the whole mesh).  On a
+``model`` extent above 1 ``dp`` raises (it would run duplicated ranks),
+and so does ``fsdp_sp`` at a sequence the axis does not split into
+equal blocks (:func:`repro_torch.sharding.sp.check_config`).  A ``meta``
+device with a grid over :func:`repro_torch.distributed.context.
+meta_context` builds one rank of a mesh no host holds: the dry run's
+rank trace.
 ``lower_step`` has no counterpart: nothing is lowered.
 """
 from __future__ import annotations
@@ -115,11 +131,20 @@ def _sharding(cfg: ArchConfig, layout: str, grid, params, seq: int,
     return grid.dist, FSDP(grid, params, layout, cfg)
 
 
-def _rows(inputs, grid):
-    """The rank's rows of the global batch: its data row's share."""
-    if grid is None or grid.extent("data") == 1:
+def _rows(inputs, grid, kind: str = "prefill"):
+    """The rank's rows of the global batch: its block over the batch
+    group (:meth:`RankGrid.batch_block`); a train step's rows must split
+    over the whole group."""
+    if grid is None or grid.world_size == 1:
         return inputs
-    return shard_rows(inputs, grid.coord("data"), grid.extent("data"))
+    rows = next(iter(inputs.values())).shape[0]
+    index, count = grid.batch_block(rows)
+    if kind == "train" and count != grid.group("batch").size:
+        raise NotImplementedError(
+            f"grid {grid.mesh}: a train batch of {rows} does not split "
+            f"over the {grid.group('batch').size} ranks of (pod, data); "
+            f"replicated rows would count twice in the loss")
+    return inputs if count == 1 else shard_rows(inputs, index, count)
 
 
 def _is_meta(device) -> bool:
@@ -157,7 +182,7 @@ def build_train(cfg: ArchConfig, batch: int, seq: int, *, device,
         params = fsdp.shard_tree(params)
     state = TrainState(params, optimizer.init(params), 0)
     return step_fn, (state, _rows(_inputs(cfg, batch, seq, device, seed),
-                                  grid))
+                                  grid, "train"))
 
 
 def build_prefill(cfg: ArchConfig, batch: int, seq: int, *, device,

@@ -227,7 +227,7 @@ def attn_apply(params: dict, x: torch.Tensor, spec: AttnSpec,
     q_offset, whole = (0, S) if sp is None else sp.block(S)
     if tp is not None:
         params, spec = tp.attn(params, spec)
-        x = tp.enter(x)
+        x = tp.attn_enter(x)
     q = _split_heads(dense(params["wq"], x), spec.n_heads, spec.head_dim)
     k = _split_heads(dense(params["wk"], x), spec.n_kv_heads, spec.head_dim)
     v = _split_heads(dense(params["wv"], x), spec.n_kv_heads, spec.head_dim)
@@ -244,7 +244,7 @@ def attn_apply(params: dict, x: torch.Tensor, spec: AttnSpec,
     out = out.reshape(B, S, spec.n_heads * spec.head_dim)
     out = dense(params["wo"], out)
     if tp is not None:
-        out = tp.exit(out)
+        out = tp.attn_exit(out)
     if return_kv:
         return out, (k, v)
     return out
@@ -312,7 +312,7 @@ def attn_decode(params: dict, cache: dict, x: torch.Tensor, spec: AttnSpec,
         return _decode_sp(params, cache, x, spec, position, sp, cache_len)
     if tp is not None:
         params, spec = tp.attn(params, spec)
-        x = tp.enter(x)
+        x = tp.attn_enter(x)
     cache_len = cache["k"].shape[1]
     q, k, v = _qkv_decode(params, x, spec, position)
 
@@ -329,7 +329,7 @@ def attn_decode(params: dict, cache: dict, x: torch.Tensor, spec: AttnSpec,
     out = torch.einsum("bgrqk,bkgd->bqgrd", probs, cache["v"].float())
     out = out.reshape(B, 1, spec.n_heads * spec.head_dim).to(x.dtype)
     out = dense(params["wo"], out)
-    return (out if tp is None else tp.exit(out)), cache
+    return (out if tp is None else tp.attn_exit(out)), cache
 
 
 def _qkv_decode(params, x, spec: AttnSpec, position):

@@ -6,16 +6,18 @@ as :func:`repro_torch.sharding.rules.param_shardings` gives it: a spec
 may split one dim over ``data`` and another over ``model`` (``fsdp_tp``'s
 ``(fsdp, tp)`` and ``(tp, fsdp)``), or one dim over both (``fsdp_sp``'s
 ``fsdp2``, ``("data", "model")``: D*M blocks, the rank holding block
-``d*M + m``, JAX's order for a tuple axis and the rank itself), and the
-rank holds the block at its coordinates.  The model gathers a leaf where
-it is used (:meth:`FSDP.gather`): a ``torch.autograd.Function``
-all-gathers the storage shards in the forward and reduce-scatters the
-gradient in the backward, over the **data** group for a dim split over
-data, over the **world** for one split over both axes (over the model
-group where the data extent is 1), so each rank's gradient comes back as
-its block, already summed over that group.  A dim split over ``model``
-alone (a ``tp`` entry) stays local: the layers compute on it
-(:mod:`repro_torch.sharding.tp`, and the MLP and vocabulary under
+``d*M + m``, JAX's order for a tuple axis and the rank's index in its
+pod), and the rank holds the block at its coordinates.  The rules name
+no ``pod``: every leaf is replicated across the pods.  The model
+gathers a leaf where it is used (:meth:`FSDP.gather`): a
+``torch.autograd.Function`` all-gathers the storage shards in the
+forward and reduce-scatters the gradient in the backward, over the
+**data** group for a dim split over data, over the **plane** (the
+rank's pod; the world with one pod) for one split over both axes (over
+the model group where the data extent is 1), so each rank's gradient
+comes back as its block, already summed over that group.  A dim split
+over ``model`` alone (a ``tp`` entry) stays local: the layers compute
+on it (:mod:`repro_torch.sharding.tp`, and the MLP and vocabulary under
 :mod:`repro_torch.sharding.sp`).  The backbone gathers a layer's leaves
 inside its checkpointed forward, so the recompute of the backward
 gathers them again (the analytic model's "fwd + bwd gathers") and no
@@ -83,7 +85,7 @@ class FSDP:
     shapes give the specs (:func:`rules.param_shardings` on the grid's
     mesh).  ``dims`` is the tree of each leaf's gathered dim (or None)
     and ``axes`` of the group it is gathered over (``"data"``,
-    ``"model"`` or ``"world"``), ``model_dims`` of its model block's dim
+    ``"model"`` or ``"plane"``), ``model_dims`` of its model block's dim
     (a ``tp`` entry).  ``cfg`` (the arch config, needed where the grid
     has a model axis) gives the tensor- or sequence-parallel plan."""
 
@@ -96,7 +98,7 @@ class FSDP:
         self.model_dims = tree_map(lambda s, e: e[2], self.specs, each)
         # the axes each leaf is split over
         split = [frozenset(() if a is None else
-                           ("data", "model") if a == "world" else (a,))
+                           ("data", "model") if a == "plane" else (a,))
                  | (frozenset() if md is None else {"model"})
                  for a, md in zip(tree_leaves(self.axes),
                                   tree_leaves(self.model_dims))]
@@ -107,6 +109,10 @@ class FSDP:
             frozenset(a for a in ("data", "model")
                       if a not in s and (a == "data" or seq))
             for s in split]
+        # the leaves whose gradient the pods sum by pod_gradsync: all but
+        # those the loss's all-reduce over the batch group sums
+        self.pod_sync: List[bool] = [
+            grid.extent("pod") > 1 and r != {"data"} for r in self.reduce]
         self.tp = self.sp = None
         if grid.extent("model") > 1:
             if cfg is None:
@@ -137,7 +143,7 @@ class FSDP:
                 if gathered is not None:
                     raise NotImplementedError(f"spec {spec} gathers two "
                                               f"dims")
-                gathered, axis = i, split[0] if len(split) == 1 else "world"
+                gathered, axis = i, split[0] if len(split) == 1 else "plane"
             elif model is None:
                 model = i
             else:
@@ -211,6 +217,24 @@ class FSDP:
         return tree_map(whole, tree, self.dims, self.axes, self.model_dims)
 
     # --------------------------------------------------------- reductions
+    def pod_gradsync_bytes(self, tree) -> float:
+        """A rank's ``pod_gradsync`` bytes in one step from the shapes:
+        an all-reduce over the P pods of each :attr:`pod_sync` leaf's
+        block of ``tree`` (the rank's blocks, gradients' dtype), ``2 (P -
+        1) / P`` of its bytes in the ring convention."""
+        P = self.grid.extent("pod")
+        held = sum(t.numel() * t.element_size()
+                   for t, s in zip(tree_leaves(tree), self.pod_sync) if s)
+        return 2.0 * held * (P - 1) / P
+
+    def sync_pods(self, grads: list) -> None:
+        """Sum the :attr:`pod_sync` gradient blocks over the rank's pod
+        group, in place (nothing with one pod)."""
+        part = [g for g, s in zip(grads, self.pod_sync) if s]
+        if part:
+            self.grid.dist.allreduce_(part, mechanism="pod_gradsync",
+                                      group=self.grid.group("pod"))
+
     def reduce_sq(self, i: int, sq: torch.Tensor) -> torch.Tensor:
         """Leaf ``i``'s (in ``tree_leaves`` order) squared-norm partial
         sums over the ranks that hold its blocks: its data group if it

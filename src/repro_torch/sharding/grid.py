@@ -5,27 +5,37 @@ The reference lays its devices out as a JAX mesh with named axes
 gang is N processes (:mod:`repro_torch.distributed`), one tensor of its
 own each; :class:`RankGrid` names them: rank r sits at the row-major
 coordinates of r over the mesh's axes in the reference's order, so on
-``{data: D, model: M}`` rank ``r = d*M + m``.
+``{pod: P, data: D, model: M}`` rank ``r = p*D*M + d*M + m``.
 
-Each axis gives every rank a :class:`repro_torch.distributed.context.
-Group`: its **data** group is the D ranks of its model column (the ranks
-that hold the same model block and split the batch), its **model** group
-the M ranks of its data row (the ranks that hold the same rows and split
-the heads, experts and vocabulary, or under ``fsdp_sp`` the sequence).
-The **world** group is every rank, the default group: a leaf split over
-both axes (``fsdp_sp``'s ``fsdp2``) is gathered over it, its block index
-``d*M + m`` being the rank.  An axis that spans the world takes
-the default group, which every collective of :class:`repro_torch.
-distributed.DistContext` takes by default (so a data grid's are);
-between 1 and the world, the grid makes one ``torch.distributed``
-subgroup per row and per column, every rank calling ``new_group`` for
-all of them in the same order (data columns, then model rows) before any
-collective.  An axis of one is a group of one: its collectives are the
-identity.
+Each rank has a :class:`repro_torch.distributed.context.Group` for each
+of these sets of ranks:
 
-The ``pod`` axis is not run: a grid whose ``pod`` extent is above 1
-raises, since running pod ranks as duplicates of data ranks would
-compute the same numbers twice and call it data parallelism over pods.
+* **data**: the D ranks of its pod and model column (the ranks that hold
+  the same model block and split the pod's rows and the FSDP storage);
+* **model**: the M ranks of its pod and data row (the ranks that hold
+  the same rows and split the heads, experts and vocabulary, or under
+  ``fsdp_sp`` the sequence);
+* **pod**: the P ranks that share ``(d, m)``, the replicas of its blocks
+  across the pods (the reference's pod axis is pure data parallelism:
+  parameters replicated across pods);
+* **batch**: the P*D ranks that share ``m``, in ``p*D + d`` order, the
+  ranks that split the global batch (the reference's ``batch_axes``);
+  :meth:`RankGrid.batch_block` is the rank's block of a batch, by the
+  reference's ``batch_sharding``;
+* **plane**: the D*M ranks of its pod, in ``d*M + m`` order: a leaf
+  split over both axes (``fsdp_sp``'s ``fsdp2``) is gathered over it,
+  its block index ``d*M + m``;
+* **world**: every rank, the default group.
+
+With one pod the plane is the world and the batch group the data group.
+A set of ranks that spans the world takes the default group, which every
+collective of :class:`repro_torch.distributed.DistContext` takes by
+default; between 1 and the world, the grid makes one
+``torch.distributed`` subgroup per set, every rank calling ``new_group``
+for all of them in the same order (data, model, pod, batch, plane; a set
+already made is not made again) before any collective.  A set of one
+rank is the identity.  A grid over a :func:`repro_torch.distributed.
+context.meta_context` makes no subgroup: its collectives are traced.
 """
 from __future__ import annotations
 
@@ -35,11 +45,12 @@ from typing import Dict, Mapping
 import torch
 
 from repro_torch.distributed.context import Group
+from repro_torch.sharding import rules
 from repro_torch.sharding.rules import AxisVal
 
 AXIS_ORDER = ("pod", "data", "model")
-NEXT_STEP = ("the multi-pod mesh's pod axis is not ported yet (ROADMAP.md "
-             "Queue 1 item 1 step 5, its last part)")
+# the rank groups, in the order every rank creates them
+GROUPS = ("data", "model", "pod", "batch", "plane")
 
 
 class RankGrid:
@@ -47,7 +58,7 @@ class RankGrid:
 
     ``mesh`` is an axis-size dict whose product is the world size;
     ``dist`` the rank's :class:`repro_torch.distributed.DistContext`.
-    :meth:`group` gives the rank's data or model group."""
+    :meth:`group` gives the rank's groups (the module's docstring)."""
 
     def __init__(self, mesh: Mapping[str, int], dist):
         unknown = set(mesh) - set(AXIS_ORDER)
@@ -60,10 +71,6 @@ class RankGrid:
             raise ValueError(f"grid {self.mesh} has "
                              f"{math.prod(self.mesh.values())} ranks, the "
                              f"world {dist.world_size}")
-        if self.mesh.get("pod", 1) > 1:
-            raise NotImplementedError(
-                f"grid {self.mesh}: a pod axis of {self.mesh['pod']}; "
-                f"{NEXT_STEP}")
         self.dist = dist
         self.coords: Dict[str, int] = {}
         rest = dist.rank
@@ -71,26 +78,43 @@ class RankGrid:
             rest, self.coords[axis] = divmod(rest, self.mesh[axis])
         self._groups = self._make_groups()
 
+    def _members(self) -> Dict[str, list]:
+        """Each kind of group's rank sets, in creation order."""
+        P, D, M = (self.extent(a) for a in AXIS_ORDER)
+
+        def r(p, d, m):
+            return p * D * M + d * M + m
+
+        return {
+            "data": [tuple(r(p, d, m) for d in range(D))
+                     for p in range(P) for m in range(M)],
+            "model": [tuple(r(p, d, m) for m in range(M))
+                      for p in range(P) for d in range(D)],
+            "pod": [tuple(r(p, d, m) for p in range(P))
+                    for d in range(D) for m in range(M)],
+            "batch": [tuple(r(p, d, m) for p in range(P) for d in range(D))
+                      for m in range(M)],
+            "plane": [tuple(r(p, d, m) for d in range(D) for m in range(M))
+                      for p in range(P)]}
+
     def _make_groups(self) -> Dict[str, Group]:
-        D, M = self.extent("data"), self.extent("model")
         world, rank = self.dist.world_size, self.dist.rank
-        # the ranks of each data group (a model column) and each model
-        # group (a data row), in the order every rank creates them
-        members = {"data": [tuple(d * M + m for d in range(D))
-                            for m in range(M)],
-                   "model": [tuple(d * M + m for m in range(M))
-                             for d in range(D)]}
-        live = (self.dist.backend is not None
+        live = (self.dist.backend not in (None, "meta")
                 and torch.distributed.is_initialized())
+        members = self._members()
+        made: Dict[tuple, object] = {}
         groups = {"world": self.dist.world}
-        for axis in ("data", "model"):
-            for ranks in members[axis]:
-                pg = None
-                if live and 1 < len(ranks) < world:
-                    # every rank calls new_group for every group
-                    pg = torch.distributed.new_group(list(ranks))
+        for kind in GROUPS:
+            for ranks in members[kind]:
+                if ranks not in made:
+                    made[ranks] = None
+                    if live and 1 < len(ranks) < world:
+                        # every rank calls new_group for every set
+                        made[ranks] = torch.distributed.new_group(
+                            list(ranks))
                 if rank in ranks:
-                    groups[axis] = Group(ranks, ranks.index(rank), pg)
+                    groups[kind] = Group(ranks, ranks.index(rank),
+                                         made[ranks])
         return groups
 
     @property
@@ -113,8 +137,17 @@ class RankGrid:
         return self.coords.get(axis, 0)
 
     def group(self, axis: str) -> Group:
-        """The rank's ``"data"``, ``"model"`` or ``"world"`` group."""
+        """The rank's ``"data"``, ``"model"``, ``"pod"``, ``"batch"``,
+        ``"plane"`` or ``"world"`` group."""
         return self._groups[axis]
+
+    def batch_block(self, batch: int) -> tuple:
+        """``(index, count)``: the rank's block of a global batch of
+        ``batch`` rows, by the reference's ``batch_sharding``: the batch
+        over ``(pod, data)``, or over the axes of it whose running
+        extent divides ``batch`` (a batch of 1 is replicated)."""
+        spec = rules.batch_sharding(self.mesh, 1, 0, batch)
+        return self.shard_of(spec[0])
 
     def shard_of(self, entry: AxisVal) -> tuple:
         """``(index, count)``: which of the ``count`` blocks of a dim
@@ -135,13 +168,17 @@ def data_grid(dist) -> RankGrid:
     return RankGrid({"data": dist.world_size}, dist)
 
 
-def model_grid(dist, model: int) -> RankGrid:
-    """The gang's ranks on ``{"data": world_size / model, "model":
-    model}`` (a model extent of 1 is :func:`data_grid`)."""
-    if model < 1 or dist.world_size % model:
-        raise ValueError(f"a model extent of {model} does not divide the "
-                         f"world of {dist.world_size}")
-    if model == 1:
+def model_grid(dist, model: int, pod: int = 1) -> RankGrid:
+    """The gang's ranks on ``{"pod": pod, "data": world_size / (pod *
+    model), "model": model}`` (an axis of 1 left out; a model and pod
+    extent of 1 is :func:`data_grid`)."""
+    if model < 1 or pod < 1 or dist.world_size % (model * pod):
+        raise ValueError(f"a model extent of {model} and a pod extent of "
+                         f"{pod} do not divide the world of "
+                         f"{dist.world_size}")
+    if model == pod == 1:
         return data_grid(dist)
-    return RankGrid({"data": dist.world_size // model, "model": model},
-                    dist)
+    mesh = {"pod": pod, "data": dist.world_size // (model * pod),
+            "model": model}
+    return RankGrid({a: n for a, n in mesh.items()
+                     if n > 1 or a == "data"}, dist)

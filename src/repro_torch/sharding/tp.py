@@ -46,11 +46,23 @@ the whole logits on every rank (``vocab_allgather``), and
 ``tp`` (a vocabulary the extent does not divide, e.g. granite's 49 155)
 the embedding and head are replicated and used whole.
 
+Query heads the axis does not divide (llama4-maverick's 40 at 16) are
+computed whole on every rank, as the reference does: its ``attn/wq/w``
+still splits over ``model``, but the ``heads`` constraint drops the axis
+where it does not divide the heads, so XLA computes that attention
+replicated.  Such a layer's ``wq``, ``wk``, ``wv`` and ``wo`` blocks are
+gathered over ``model`` (``tp_weights``; the backward keeps the rank's
+own block of the whole gradient, which every rank computes alike), the
+attention and its o-projection run whole, and the mixer takes no
+``tp_allreduce``.
+
 :class:`Plan` says from the config which heads, kv heads, SSM heads and
-groups, experts and vocabulary rows rank ``m`` of ``M`` computes, and
-raises for a config the axis does not split evenly: no compute is
-replicated where the rules shard it.  :func:`tp_allreduce_bytes` counts
-a step's ``tp_allreduce`` bytes from the shapes.
+groups, experts and vocabulary rows rank ``m`` of ``M`` computes
+(``q_heads`` None: the attention whole), and raises for any other count
+the axis does not split evenly: no compute is replicated where the rules
+shard it and the reference does not replicate it.
+:func:`tp_allreduce_bytes` counts a step's ``tp_allreduce`` bytes from
+the shapes, :func:`tp_weights_bytes` the whole attention's gathers.
 """
 from __future__ import annotations
 
@@ -88,11 +100,20 @@ def _grouped(name: str, groups: int, M: int, what: str) -> None:
             f"model axis of {M}; {NEXT}")
 
 
+def heads_whole(cfg, M: int) -> bool:
+    """Whether a model axis of ``M`` leaves the attention whole on every
+    rank: it does not divide the query heads (the reference's
+    ``heads`` constraint drops the axis there)."""
+    return cfg.has_attention and cfg.n_heads % M != 0
+
+
 @dataclasses.dataclass(frozen=True)
 class Plan:
     """What rank ``m`` of a model axis of ``M`` computes: half-open
-    global index ranges.  ``vocab`` is None where the rules replicate
-    the embedding and head (a vocabulary ``M`` does not divide)."""
+    global index ranges.  ``q_heads`` and ``kv_heads`` are None where
+    ``M`` does not divide the query heads (the attention computed whole
+    on every rank), ``vocab`` where the rules replicate the embedding
+    and head (a vocabulary ``M`` does not divide)."""
 
     M: int
     m: int
@@ -106,8 +127,7 @@ class Plan:
     @classmethod
     def of(cls, cfg, M: int, m: int) -> "Plan":
         kw: Dict[str, Range] = {}
-        if cfg.has_attention:
-            _evenly(cfg.name, cfg.n_heads, M, "n_heads")
+        if cfg.has_attention and not heads_whole(cfg, M):
             _grouped(cfg.name, cfg.n_kv_heads, M, "n_kv_heads")
             kw["q_heads"] = _split(cfg.n_heads, M, m)
             kw["kv_heads"] = _covering(*kw["q_heads"],
@@ -192,6 +212,22 @@ class _GatherWeight(torch.autograd.Function):
     def backward(ctx, grad):
         return (ctx.tp.dist.reduce_scatter(grad, ctx.dim, "tp_weights",
                                            ctx.tp.group), None, None)
+
+
+class _GatherWhole(torch.autograd.Function):
+    """A weight's model blocks all-gathered along ``dim`` forward; the
+    rank's own block of the gradient backward.  Every rank computes with
+    the whole leaf on the same replicated input, so each holds the whole
+    gradient already: nothing is summed over the axis."""
+
+    @staticmethod
+    def forward(ctx, block, dim, tp):
+        ctx.dim, ctx.m, ctx.n = dim, tp.m, block.shape[dim]
+        return tp.dist.all_gather(block, dim, "tp_weights", tp.group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.narrow(ctx.dim, ctx.m * ctx.n, ctx.n), None, None
 
 
 class _GatherVocab(torch.autograd.Function):
@@ -334,11 +370,38 @@ class TP(ModelAxis):
         return w.narrow(dim, lo, hi - lo)
 
     # ------------------------------------------------------------ layers
+    @property
+    def heads_whole(self) -> bool:
+        """The attention runs whole on every rank (:func:`heads_whole`)."""
+        return self.plan.q_heads is None
+
+    def attn_enter(self, x: torch.Tensor) -> torch.Tensor:
+        """The attention's input: entered into the tensor-parallel
+        region, or as it is where the attention runs whole."""
+        return x if self.heads_whole else self.enter(x)
+
+    def attn_exit(self, out: torch.Tensor) -> torch.Tensor:
+        """The o-projection's output: partial sums all-reduced, or as it
+        is where the attention runs whole."""
+        return out if self.heads_whole else self.exit(out)
+
+    def _whole(self, w: torch.Tensor, dim: int, full: int) -> torch.Tensor:
+        if w.shape[dim] == full:
+            return w
+        return _GatherWhole.apply(w, dim, self)
+
     def attn(self, params: dict, spec):
         """The rank's query heads' and their kv heads' weights, and the
-        spec of those local heads."""
-        (q0, q1), (k0, k1) = self.plan.q_heads, self.plan.kv_heads
+        spec of those local heads; where the attention runs whole, the
+        whole weights (their model blocks gathered) and ``spec``."""
         hd = spec.head_dim
+        if self.heads_whole:
+            H, Kh = spec.n_heads * hd, spec.n_kv_heads * hd
+            return {"wq": {"w": self._whole(params["wq"]["w"], 1, H)},
+                    "wk": {"w": self._whole(params["wk"]["w"], 1, Kh)},
+                    "wv": {"w": self._whole(params["wv"]["w"], 1, Kh)},
+                    "wo": {"w": self._whole(params["wo"]["w"], 0, H)}}, spec
+        (q0, q1), (k0, k1) = self.plan.q_heads, self.plan.kv_heads
         H, Kh = spec.n_heads * hd, spec.n_kv_heads * hd
         local = {
             "wq": {"w": self.take(params["wq"]["w"], 1, H, q0 * hd,
@@ -401,8 +464,9 @@ class TP(ModelAxis):
 
         for name in ("k", "v"):
             if name in state:
-                out[name] = assemble(pieces(state[name], 3),
-                                     [p.kv_heads for p in plans], 3, 1)
+                out[name] = (state[name] if self.heads_whole else assemble(
+                    pieces(state[name], 3), [p.kv_heads for p in plans],
+                    3, 1))
         if "h" in state:
             out["h"] = torch.cat(pieces(state["h"], 2), 2)
         if "conv" in state:
@@ -435,36 +499,45 @@ def tp_allreduce_bytes(cfg, batch: int, seq: int, kind: str, M: int,
     cross entropy's terms are f32.  Training runs each layer's forward
     twice (remat) and its backward once; the recompute stops after the
     last op that saves a tensor for the backward, so it skips each
-    layer's last all-reduce (its output's).  Counts the text and audio
-    families (a vlm's patches take no lookup)."""
+    layer's last all-reduce (its output's).  An attention the axis
+    leaves whole (:func:`heads_whole`) takes none.  Counts the text and
+    audio families (a vlm's patches take no lookup)."""
     if M == 1:
         return 0.0
     embed_bytes = act_bytes if embed_bytes is None else embed_bytes
     T = batch * (1 if kind == "decode" else seq)
     d = cfg.d_model
     x = T * d * act_bytes
-    fwd = bwd = 0.0
+    fwd = bwd = last = 0.0
     kinds = cfg.layer_kinds()
     moe_mask = (cfg.moe_layer_mask() if cfg.moe is not None
                 else [False] * cfg.n_layers)
+    whole = heads_whole(cfg, M)
     for kind_l, has_moe in zip(kinds, moe_mask):
-        fwd += x                      # the mixer's output
-        bwd += x                      # its input's gradient
+        # the layer's last all-reduce, which remat's recompute skips
+        end = 0.0
+        if kind_l != "attn" or not whole:
+            fwd += x                  # the mixer's output
+            bwd += x                  # its input's gradient
+            end = x
         if kind_l == "ssm":
             fwd += T * 4              # the gated norm's sum of squares
             bwd += T * 4
         if has_moe:
             fwd += x                  # the experts' combine
             bwd += x + T * cfg.moe.top_k * 4     # the tokens, the gates
+            end = x
             if cfg.moe.shared_expert:
                 fwd += x
                 bwd += x
         elif cfg.d_ff > 0:
             fwd += x
             bwd += x
+            end = x
+        last += end
     total = fwd
     if kind == "train":
-        total = 2 * fwd - cfg.n_layers * x + bwd
+        total = 2 * fwd - last + bwd
     if cfg.vocab % M == 0:
         if cfg.family != "audio":
             total += T * d * embed_bytes          # the sharded lookup
@@ -472,3 +545,22 @@ def tp_allreduce_bytes(cfg, batch: int, seq: int, kind: str, M: int,
             scored = batch * (seq if cfg.family == "audio" else seq - 1)
             total += x + 3 * scored * 4   # the head's input; max, sum, gold
     return total * 2 * (M - 1) / M
+
+
+def tp_weights_bytes(cfg, kind: str, M: int, esize: int) -> float:
+    """A rank's ``tp_weights`` bytes in one step of ``kind`` from the
+    attention weights gathered over ``model`` where the attention runs
+    whole (:func:`heads_whole`; 0 elsewhere): each layer's ``wq``,
+    ``wk``, ``wv`` and ``wo`` whose width the axis splits, gathered in
+    the forward and again in a train step's recompute (the backward
+    sends nothing), ``(M-1)/M`` of the whole leaf in the ring
+    convention.  ``esize``: the weights' bytes an element."""
+    if M == 1 or not heads_whole(cfg, M):
+        return 0.0
+    d, hd = cfg.d_model, cfg.head_dim
+    widths = (cfg.n_heads * hd, cfg.n_kv_heads * hd, cfg.n_kv_heads * hd,
+              cfg.n_heads * hd)
+    per_layer = sum(d * w * esize for w in widths if w % M == 0)
+    n_attn = cfg.layer_kinds().count("attn")
+    passes = 2 if kind == "train" else 1
+    return n_attn * passes * per_layer * (M - 1) / M

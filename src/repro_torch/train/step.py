@@ -21,17 +21,23 @@ with optional microbatch gradient accumulation (port of
   state holds the rank's shards: the model gathers each leaf where it
   is used, the gradients come back as shards already reduce-scattered
   over the ranks, only the replicated leaves' gradients and the loss are
-  all-reduced, and the norm adds the shards' squares over the ranks.  On
-  a grid with a ``model`` axis the loss and the count are the rank's
-  **data** group's: the ranks of a model group hold the same rows and
-  the same loss, and each leaf's square counts once across both axes.
-  A leaf's gradient is all-reduced over the axes of ``fsdp.reduce``:
-  data for a leaf replicated over data, and under ``fsdp_sp`` model too
-  for one replicated over model (each model rank saw another block of
-  the sequence), the world for both.
+  all-reduced, and the norm adds the shards' squares over the ranks.
+  The loss and the count are the rank's **batch** group's (its data
+  group with one pod; with several, the ranks of every pod that split
+  the batch): the ranks of a model group hold the same rows and the
+  same loss.  A leaf's gradient is all-reduced over the axes of
+  ``fsdp.reduce``: data for a leaf replicated over data (with the loss,
+  over the batch group), and under ``fsdp_sp`` model too for one
+  replicated over model (each model rank saw another block of the
+  sequence), the plane for both; then every gradient not yet summed
+  over the pods is all-reduced over the pod group (``pod_gradsync``,
+  :meth:`repro_torch.sharding.fsdp.FSDP.sync_pods`).  The norm is taken
+  within the pod, whose gradients are the pods' sum by then, each
+  leaf's square counted once across both axes.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, Dict, NamedTuple, Optional, Union
 
 import torch
@@ -72,9 +78,10 @@ def _split_microbatches(batch: Dict[str, torch.Tensor], n: int):
 
 def _global_sq_norm(grads, fsdp=None) -> torch.Tensor:
     """Single global reduction: sum of squared gradient entries (f32).
-    Under ``fsdp`` each leaf's squares are summed over the ranks that
-    split it (one all-reduce of a scalar for each kind of split: over
-    data, over model, over both) and each replicated leaf counts once."""
+    Under ``fsdp`` each leaf's squares are summed over the ranks of the
+    pod that split it (one all-reduce of a scalar for each kind of
+    split: over data, over model, over both: the plane) and each
+    replicated leaf counts once; the pods hold equal gradients."""
     sq = [g.float().square().sum() for g in tree_leaves(grads)]
     if fsdp is None:
         return sum(sq)
@@ -84,7 +91,7 @@ def _global_sq_norm(grads, fsdp=None) -> torch.Tensor:
     # data only (a data grid's one reduction), model only, both
     for key, group in (((False, False), grid.group("data")),
                        ((True, True), grid.group("model")),
-                       ((False, True), grid.dist.world)):
+                       ((False, True), grid.group("plane"))):
         if any(s == key for s in split):
             part = sum((q for q, s in zip(sq, split) if s == key),
                        sq[0].new_zeros(()))
@@ -142,7 +149,7 @@ def make_loss_and_grads(cfg: ArchConfig, *, remat: bool = True,
     grad_dtype = getattr(torch, prec.grad_dtype)
     compute_dtype = prec.compute_dtype if prec.casts_compute else None
     group = (None if dist is None else dist.world if fsdp is None
-             else fsdp.grid.group("data"))
+             else fsdp.grid.group("batch"))
     world = 1 if dist is None else group.size
 
     def objective(params, mb, count):
@@ -203,12 +210,13 @@ def make_loss_and_grads(cfg: ArchConfig, *, remat: bool = True,
             # fsdp_sp on a model axis: the partial sums over the sequence
             # blocks of the leaves replicated over model
             for axis, key in (("model", {"model"}),
-                              ("world", {"data", "model"})):
+                              ("plane", {"data", "model"})):
                 part = [g for g, r in zip(grads, fsdp.reduce) if r == key]
                 if part:
                     fsdp.grid.dist.allreduce_(
                         part, mechanism="replicated_allreduce",
                         group=fsdp.grid.group(axis))
+            fsdp.sync_pods(grads)
         return loss, grads
 
     return loss_and_grads
@@ -256,6 +264,11 @@ def make_train_step(cfg: ArchConfig, optimizer: Optional[Optimizer] = None,
         metrics = {"loss": loss, "lr": lr, "grad_norm": gnorm}
         return state._replace(step=state.step + 1), metrics
 
+    # the forward and backward alone, and the norm's reduction, for a
+    # trace of them (the dry run)
+    train_step.loss_and_grads = loss_and_grads
+    train_step.sq_norm = functools.partial(_global_sq_norm, fsdp=fsdp)
+    train_step.fsdp = fsdp
     return train_step
 
 

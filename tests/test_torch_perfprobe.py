@@ -2,9 +2,10 @@
 at an explicit tiny cut, since the cell's own batch and sequence are the
 card's.  Its record has the documented fields, names its cut and its
 path, holds the analytic roofline for one chip, and never falls back:
-the two-pod mesh raises, and ``cuda`` without a card fails.  The sharded
-layouts run as a world-2 gang of ``run perfprobe`` processes (gloo, one
-thread a rank) whose losses are the world-1 step's."""
+the two-pod mesh is traced on meta (nothing runs), and ``cuda`` without
+a card fails.  The sharded layouts run as a world-2 gang of ``run
+perfprobe`` processes (gloo, one thread a rank) whose losses are the
+world-1 step's."""
 import math
 import os
 import subprocess
@@ -91,11 +92,21 @@ def test_sharded_layouts_raise(layout, multi_pod, tmp_path):
     """The sharded layouts run on the CPU as a world-2 gang, their losses
     those of world 1 (the ``dp`` step) within the gang's f32 tolerance,
     each rank's collective bytes beside the analytic model's; the two-pod
-    mesh raises."""
+    mesh traces its last rank on meta and runs nothing: under ``dp`` the
+    rank of ``{pod: 2, data: 16}`` sums its gradients over the 32 ranks
+    that split the batch."""
     if multi_pod:
-        with pytest.raises(ValueError, match="512 cards"):
-            probe("stablelm-1.6b", "train_4k", layout, multi_pod=True,
-                  device="cpu", reduced=True, batch=2, seq=32)
+        rec = probe("stablelm-1.6b", "train_4k", layout, multi_pod=True,
+                    reduced=True, batch=64, seq=32)
+        assert rec["measured_on"] == "meta" and rec["mesh"] == "2x16x16"
+        rank = rec["rank"]
+        assert rank["grid"] == {"pod": 2, "data": 16}
+        assert rank["rank"] == 31 and rank["rows"] == 2
+        grads = rank["bytes"]["params"] + 4           # and the loss
+        assert rec["collective_bytes_per_chip"] == {
+            "grad_reducescatter": 2 * grads * 31 / 32}
+        assert rank["collective_group_sizes"] == {"grad_reducescatter": [32]}
+        assert set(rank["resident_minus_sharded"].values()) == {0}
         return
     met = _gang_probe(layout, tmp_path)
     one = probe("stablelm-1.6b", "train_4k", layout, device="cpu",
@@ -211,7 +222,10 @@ def test_the_runner_fails_without_a_card(monkeypatch):
     r = run(RunSpec(kind="perfprobe", arch="stablelm-1.6b",
                     overrides={"shape": "decode_32k"}))
     assert r.status == "failed" and "no CUDA device" in r.error
+    # the two-pod mesh is traced on meta, with no card
     r = run(RunSpec(kind="perfprobe", arch="stablelm-1.6b",
                     overrides={"shape": "decode_32k", "multi_pod": True,
                                "device": "cpu"}))
-    assert r.status == "failed" and r.error.startswith("ValueError")
+    assert r.status == "succeeded", r.error
+    assert r.metrics["measured_on"] == "meta"
+    assert r.metrics["rank"]["grid"] == {"pod": 2, "data": 16, "model": 16}

@@ -205,8 +205,14 @@ def test_grid_coordinates_and_the_missing_axes():
     assert with_model.shard_of(("data", "model")) == (2, 4)
     for mesh in ({"data": 2, "model": 2}, {"pod": 2, "data": 2}):
         if "pod" in mesh:
-            with pytest.raises(NotImplementedError, match="step 5"):
-                RankGrid(mesh, _dist(4, 0))
+            # the pod axis runs: rank 3 = p 1, d 1; its pod group the
+            # ranks of its data coordinate, its batch group every rank
+            pod = RankGrid(mesh, _dist(4, 3))
+            assert pod.coords == {"pod": 1, "data": 1}
+            assert (pod.group("pod").ranks, pod.group("pod").index) == (
+                (1, 3), 1)
+            assert pod.group("batch").ranks == (0, 1, 2, 3)
+            assert pod.group("plane").ranks == (2, 3)
             continue
         # rank 3 = d 1, m 1 (row-major); its data group is its model
         # column, its model group its data row

@@ -84,13 +84,13 @@ def test_fsdp2_blocks_in_rank_order(gang, arch, mesh, serve):
         assert info["groups"]["world"] == [0, 1, 2, 3]
         i = info["fsdp2_leaf"]
         dim = specs[i].index(("data", "model"))
-        assert info["axes"][i] == "world"
+        assert info["axes"][i] == "plane"
         whole = leaves[i].numpy()
         size = whole.shape[dim] // 4
         np.testing.assert_array_equal(
             got["fsdp2_block"],
             np.take(whole, range(rank * size, (rank + 1) * size), axis=dim))
-        assert all((a == "world") == (("data", "model") in s)
+        assert all((a == "plane") == (("data", "model") in s)
                    for a, s in zip(info["axes"], specs))
 
 

@@ -167,7 +167,7 @@ def run_case(ctx, work: Path, arch: str, mesh: dict, serve: bool) -> None:
     shards = fsdp.shard_tree(full)
     # the first leaf split over both axes: its block, by leaf index
     axes = tree_leaves(fsdp.axes)
-    first = next((i for i, a in enumerate(axes) if a in ("world", "model")
+    first = next((i for i, a in enumerate(axes) if a in ("plane", "model")
                   and tree_leaves(fsdp.model_dims)[i] is None), None)
     info["fsdp2_leaf"] = first
     info["axes"] = axes

@@ -69,6 +69,15 @@ Phases, each of which fails the run if it fails:
    the same prompts served unevicted); (b)
    the reduced granite in f32 on the card resumes evicted requests token
    for token;
+5g. (after phase 6's CLI) ``LegacyServeEngine``, the reference's plain
+   engine (one prefill a request at its own length, the whole logits
+   sampled on the host, the state copied every step) on the full-width
+   granite of phase 5 (bf16): the first 4 of phase 5's requests, 16 new
+   tokens each, 4 slots: K1 40 x 4 launches, all on the tensor cores;
+   beside it ``ServeEngine`` on the same requests: both walls and the
+   share of tokens alike (printed); then the reduced granite in f32: the
+   legacy engine's greedy tokens equal ``ServeEngine``'s on
+   ``tests/test_serve.py``'s case;
 6. run ``serve_main("granite-3-2b")`` (the reduced serve CLI) on the card,
    then (6b) its continuous mode for granite-3-2b and mamba2-2.7b;
 5f. serve full-width qwen3-moe-30b-a3b (48 layers, 128 experts top-8,
@@ -130,13 +139,20 @@ Phases, each of which fails the run if it fails:
     batch 16), then U-Net++, DeepLabV3 and DeepLabV3+ one epoch each
     (LAMB); losses, steps/s, chips/s, peak memory, val metrics;
     ``torch.profiler`` over one U-Net step; each model's and ChangeFormer's
-    forward on the card against the same weights on the CPU;
+    forward on the card against the same weights on the CPU; (11b) the
+    burned-area grid (``vision_grid.run_grid``) on the same split,
+    U-Net at width 16, batch 16, 2 epochs a job: the example's six jobs
+    through ``Orchestrator.run_local`` on ``cuda``, each ``Succeeded``
+    with F1 and IoU in [0, 1]; each job's F1, IoU and wall, the best
+    config, the simulated makespan;
 12. the deforestation study: ``build_pairs`` makes six 256 x 256 NIR-R-G
     composite pairs through K5 (12 launches), held against numpy's
     ``nir_rg``; ChangeFormer trains 60 full-batch AdamW steps on four and
     is scored on two;
 13. the reduced vision CLI (``repro_torch.launch.vision.main``) on the
-    card.
+    card; (13b) ``python -m repro_torch.launch.vision_grid`` (a
+    subprocess, run beside phase 20, read here) at the example's size:
+    six jobs ``Succeeded`` on ``cuda``, K5 4 launches.
 14. (run between phases 23 and 10) the run API's front door in this
     process:
     ``repro_torch.launch.__main__.main(["run", "train", "--full", ...])``
@@ -222,10 +238,11 @@ Phases, each of which fails the run if it fails:
     step, its losses within ``GANG_LOSS_RTOL`` of an uninterrupted
     world-1 run; the log replays consistent; whether its final checkpoint
     equals the world-1 run's bit for bit (not gated: the sums differ);
-27. (started before phase 1, read after phase 28) ``python -m
-    repro_torch.launch run dryrun --arch all --shape train_4k --mesh
-    both --layout fsdp_tp`` as a subprocess on the host, under no timed
-    phase: every arch's train step built and run on the meta device (the
+27. (started before phase 1 and after it, read after phase 28) ``python -m
+    repro_torch.launch run dryrun --arch all --shape SHAPE --mesh both
+    --layout fsdp_tp`` for ``train_4k`` and ``decode_32k``, two
+    subprocesses on the host, under no timed phase: every arch's train
+    and decode step built and run on the meta device (the
     kernels' meta formulas; the card's host has no JAX, so this also
     proves the import graph), once for one card and once as the last
     rank of each production mesh (16x16 and 2x16x16, llama4-maverick's
@@ -235,9 +252,11 @@ Phases, each of which fails the run if it fails:
     its peak, and one per arch and mesh with the rank's peak,
     ``fits_one_card`` and collective bytes by mechanism, gated: its
     parameters, gradients, optimizer state and decode state the rules'
-    per-device bytes (``sharded_bytes``) to the byte, a finite positive
-    traced / analytic FLOPs, and on 2x16x16 its ``pod_gradsync`` the
-    count from the shapes to the byte; then one cell (granite-3-2b x
+    per-device bytes (``sharded_bytes``) to the byte (a decode rank's
+    ``fsdp_tp`` cache slots of every kv head, SSM heads and conv
+    channels), a finite positive traced / analytic FLOPs, and on
+    2x16x16 a train rank's ``pod_gradsync`` the count from the shapes
+    to the byte; then one cell (granite-3-2b x
     prefill_32k) in this process, which must leave
     ``torch.cuda.memory_allocated()`` as it was;
 28. K1 at granite-3-2b x prefill_32k's one-card shape (B 2, S 32 768,
@@ -286,8 +305,17 @@ Phases, each of which fails the run if it fails:
     (4 layers, 2 x 2048 + 8; K4 at 40 heads a rank; its prefill's logits
     and decode state) and qwen3-moe (2 layers, 64 experts a rank; its
     prefill's decode state) no more than twice as far from an f32 run as
-    world 1's bf16 run; every rank's ``tp_allreduce`` bytes the port's
-    count from the shapes, beside the analytic model's;
+    world 1's bf16 run, their decode state the rules' block (each rank's
+    half of the cache slots of every kv head, half the SSM heads and
+    conv channels: its bytes the rules' per-device bytes after the
+    prefill and after the last step), the prefill resharding the state
+    to it (``state_reshard``), a decode step gathering the token's q, k
+    and v (``qkv_allgather``) and ``[x, B, C]`` row (``xbc_allgather``),
+    the softmax over the slots combined (``softmax_combine``) and the
+    post-conv row gathered (``conv_allgather``); every rank's
+    ``tp_allreduce`` and decode-state bytes the port's count from the
+    shapes (``tp_allreduce_bytes``, ``tp_state_bytes``), beside the
+    analytic model's, which has no term for the decode state's;
 33. ``fsdp_sp`` on the grid ``{model: 2}``: four more ``RANK_JOBS`` of
     the same gang at full width, depth cut, each rank on its half of the
     sequence (K1-K3 its 1024 queries against the 2048 gathered keys at
@@ -358,7 +386,9 @@ phase 31's K4 launch as ``launches_seq_parallel``, and phase 28's by cell as
 granite's prefill shape (K1, with glm4's, codeqwen's and qwen3's beside
 it; K1-K3 with hubert's, the non-causal hd-64 shape's, the two hd-80
 edge shapes' and ``SP_SHAPES``'), mamba2's prefill shape (K4) or the 4-band Sentinel-2 tile
-(K5); the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the repository beside
+(K5, its launches in phase 13b as ``launches_vision_grid``; K1's in
+phase 5g as ``launches_legacy``); the last line is ``{"ok": true,
+"device": {...}}``.  Without a CUDA card, or without the repository beside
 it, the script exits non-zero and prints no result.
 """
 from __future__ import annotations
@@ -1447,6 +1477,13 @@ def _check_prefill_launches(cfg, launches: dict, routes: dict,
     return want
 
 
+def serve_prompts(cfg) -> list:
+    """The 16 prompts of 16-1500 tokens the full-width serve phases take."""
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, cfg.vocab, size=int(n))
+            for n in rng.integers(16, 1501, size=16)]
+
+
 def serve_full_width(torch, m, counts, cfg):
     """Phases 5, 5c, 5f, 9 and 9c: a full-width config through the engine.
     Returns the prefill kernels' launches over the engine's run, the
@@ -1464,9 +1501,7 @@ def serve_full_width(torch, m, counts, cfg):
         raise AssertionError(f"{n_params} params, config says "
                              f"{cfg.param_count()}")
 
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, cfg.vocab, size=int(n))
-               for n in rng.integers(16, 1501, size=16)]
+    prompts = serve_prompts(cfg)
 
     # warm-up: cuBLAS handles and allocator pools, outside the timed run
     warm = ServeEngine(cfg, params, slots=8, cache_len=2048, device="cuda")
@@ -1751,6 +1786,98 @@ def serve_path(torch, m, counts, arch: str, cfg=None,
          routes={k: counts.routes()[k] for k in prefill_launches(rcfg)},
          **out)
     return launches
+
+
+# phase 5g: the legacy engine on the first LEGACY_REQUESTS of phase 5's
+# prompts, LEGACY_TOKENS new tokens each, a slot a request
+LEGACY_REQUESTS, LEGACY_TOKENS = 4, 16
+
+
+def _drain(torch, engine, requests) -> float:
+    """Submit ``requests``, run ``engine`` to the end; the wall seconds."""
+    for r in requests:
+        engine.submit(r)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.run()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def legacy_full_width(torch, m, counts, arch: str) -> int:
+    """Phase 5g (a): ``LegacyServeEngine`` on phase 5's full-width config,
+    weights and prompts (bf16): one prefill a request at its own length,
+    K1 launched once a layer a request, all on the tensor cores (gated);
+    beside it ``ServeEngine`` on the same requests and slots: both walls
+    and tokens/s, and the share of tokens the two engines give alike
+    (printed: bf16 prefills of other shapes may flip a near tie).
+    Returns K1's launches."""
+    cfg = m["get_config"](arch)
+    params = m["init_params"](
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    prompts = serve_prompts(cfg)
+    reqs = {name: [m["Request"](rid=i, prompt=p, max_tokens=LEGACY_TOKENS)
+                   for i, p in enumerate(prompts[:LEGACY_REQUESTS])]
+            for name in ("legacy", "engine")}
+    kw = dict(slots=LEGACY_REQUESTS, cache_len=2048, device="cuda")
+    counts.zero()
+    legacy_s = _drain(torch, m["LegacyServeEngine"](cfg, params, **kw),
+                      reqs["legacy"])
+    launches, routes = counts.read(), counts.routes()
+    engine_s = _drain(torch, m["ServeEngine"](cfg, params, **kw),
+                      reqs["engine"])
+    del params
+    torch.cuda.empty_cache()
+    want = cfg.layer_kinds().count("attn") * LEGACY_REQUESTS
+    others = {k: v for k, v in launches.items()
+              if k != "flash_attention_fwd" and v}
+    if (launches["flash_attention_fwd"] != want or others
+            or routes["flash_attention_fwd"] != {"tensor_core": want,
+                                                  "cuda_core": 0}):
+        raise AssertionError(f"legacy engine: launches {launches}, routes "
+                             f"{routes}, want K1 {want} on the tensor cores")
+    got = [r.generated for r in reqs["legacy"]]
+    ref = [r.generated for r in reqs["engine"]]
+    if any(len(g) != LEGACY_TOKENS for g in got + ref):
+        raise AssertionError(f"legacy engine: tokens {got} / {ref}")
+    alike = sum(a == b for x, y in zip(got, ref) for a, b in zip(x, y))
+    tokens = LEGACY_REQUESTS * LEGACY_TOKENS
+    emit(phase="legacy_engine_full_width", arch=cfg.name,
+         requests=LEGACY_REQUESTS, new_tokens=LEGACY_TOKENS,
+         prompt_tokens=[len(p) for p in prompts[:LEGACY_REQUESTS]],
+         launches=launches, routes=routes["flash_attention_fwd"],
+         legacy_wall_s=legacy_s, legacy_tokens_per_s=tokens / legacy_s,
+         engine_wall_s=engine_s, engine_tokens_per_s=tokens / engine_s,
+         tokens_alike=alike, tokens=tokens, share_alike=alike / tokens)
+    return launches["flash_attention_fwd"]
+
+
+def legacy_reduced(torch, m, counts, arch: str) -> None:
+    """Phase 5g (b): the reduced config in f32 on the card, the reference's
+    equivalence case (``tests/test_serve.py``: 7 requests of 4-11 tokens,
+    3 slots, a cache of 64, 8 new tokens): ``LegacyServeEngine``'s
+    greedy tokens equal ``ServeEngine``'s, every one (gated)."""
+    cfg = m["get_reduced"](arch)
+    params = m["init_params"](
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, cfg.vocab, size=int(rng.integers(4, 12)))
+               for _ in range(7)]
+    out, walls, k1 = {}, {}, {}
+    for name in ("LegacyServeEngine", "ServeEngine"):
+        reqs = [m["Request"](rid=i, prompt=p, max_tokens=8)
+                for i, p in enumerate(prompts)]
+        counts.zero()
+        walls[name] = _drain(torch, m[name](cfg, params, slots=3,
+                                            cache_len=64, device="cuda"),
+                             reqs)
+        out[name] = [list(r.generated) for r in reqs]
+        k1[name] = counts.read()["flash_attention_fwd"]
+    emit(phase="legacy_engine_reduced", arch=cfg.name, requests=7,
+         tokens=out["LegacyServeEngine"], wall_s=walls, k1_launches=k1,
+         equal=out["LegacyServeEngine"] == out["ServeEngine"])
+    if out["LegacyServeEngine"] != out["ServeEngine"]:
+        raise AssertionError(f"legacy engine, reduced f32: {out}")
 
 
 # phase 5d: granite at full width under live traffic (a Poisson trace at
@@ -2140,6 +2267,7 @@ def burned_area(torch, m, counts) -> int:
              **_seg_record(torch, res, 16, 16, "lamb", 1e-2))
     launches = counts.read()
     _k5_only(launches, 4, "the burned-area path")
+    vision_grid_run(torch, m, counts, split)
 
     # the scenes the path normalized, against numpy and the plain stretch
     errs = []
@@ -2175,6 +2303,75 @@ def burned_area(torch, m, counts) -> int:
     device_profile(torch, step, model="unet", what="train_step", batch=16,
                    chip=256, steps=1)
     return launches["percentile_norm"]
+
+
+# phase 11b: the burned-area grid on phase 11's split, its U-Net
+# at phase 11's width and batch, this many epochs a job
+GRID_EPOCHS = 2
+
+
+def vision_grid_run(torch, m, counts, split) -> None:
+    """Phase 11b: ``vision_grid.run_grid`` on phase 11's split (U-Net of
+    width 16, batch 16, ``GRID_EPOCHS``): the six jobs of the example's
+    grid through ``Orchestrator.run_local`` on ``cuda``, every one
+    ``Succeeded`` with F1 and IoU in [0, 1] (gated); each job's F1, IoU
+    and wall time, the best config and the simulated makespan.  The
+    chips are normalized already: no kernel launches."""
+    counts.zero()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as td:
+        got = m["run_grid"](split, device="cuda", width=16, batch=16,
+                            epochs=GRID_EPOCHS, workdir=td)
+    wall = time.perf_counter() - t0
+    _k5_only(counts.read(), 0, "the grid on phase 11's split")
+    jobs = {n: {k: r[k] for k in ("f1", "iou", "wall_s", "train_s", "steps",
+                                  "final_loss")}
+            for n, r in got["results"].items() if r is not None}
+    emit(phase="vision_grid", epochs=GRID_EPOCHS, width=16, batch=16,
+         states=got["states"], jobs=jobs, best=got["best"],
+         ranking=got["ranking"], makespan_h=got["makespan_h"],
+         speedup_vs_serial=got["speedup_vs_serial"],
+         summary=got["summary"], wall_s=wall)
+    if (set(got["states"].values()) != {"Succeeded"} or len(jobs) != 6
+            or not all(0.0 <= j["f1"] <= 1.0 and 0.0 <= j["iou"] <= 1.0
+                       for j in jobs.values())):
+        raise AssertionError(f"vision grid: {got['states']} {jobs}")
+
+
+def vision_grid_cli() -> dict:
+    """Phase 13b's subprocess (run beside phase 20, whose reduced jobs
+    leave the card nearly idle): ``python -m
+    repro_torch.launch.vision_grid`` on the card at the example's size;
+    its exit code, output and wall seconds."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.vision_grid"],
+        env=dict(os.environ, PYTHONPATH=str(SRC)), capture_output=True,
+        text=True, timeout=600)
+    return {"rc": proc.returncode, "out": proc.stdout, "err": proc.stderr,
+            "wall_s": time.perf_counter() - t0}
+
+
+def vision_grid_cli_check(got: dict) -> int:
+    """Phase 13b: the grid CLI exited 0 on ``cuda``, its six jobs
+    ``Succeeded``, and its four scenes launched K5 four times (the
+    subprocess's own count).  Returns K5's launches."""
+    if got["rc"] != 0:
+        raise AssertionError(f"vision_grid CLI: exit {got['rc']}: "
+                             f"{got['err'][-3000:]}")
+    out = json.loads(got["out"])
+    launches = out["percentile_norm_launches"]
+    emit(phase="vision_grid_cli", device=out["device"], chips=out["chips"],
+         states=out["states"], best=out["best"],
+         f1={n: r["f1"] for n, r in out["results"].items()},
+         makespan_h=out["makespan_h"],
+         speedup_vs_serial=out["speedup_vs_serial"],
+         launches_vision_grid=launches, wall_s=got["wall_s"])
+    if (not out["device"].startswith("cuda") or launches != 4
+            or set(out["states"].values()) != {"Succeeded"}
+            or len(out["states"]) != 6):
+        raise AssertionError(f"vision_grid CLI: {out}")
+    return launches
 
 
 def forward_vs_cpu(torch, m):
@@ -3223,10 +3420,11 @@ def dist_gang_chaos(torch, m) -> None:
          phase_wall_s=time.perf_counter() - t0)
 
 
-# phase 27: the dry run's sweep over every arch at one shape, on the meta
-# device in a subprocess (the card's host has no JAX: this also proves the
-# import graph), and one cell in this process
-DRYRUN_SHAPE = "train_4k"
+# phase 27: the dry run's sweeps over every arch at these shapes, each on
+# the meta device in a subprocess of its own (the card's host has no JAX:
+# this also proves the import graph), and one cell in this process; the
+# decode cells hold fsdp_tp's decode state to the rules' blocks
+DRYRUN_SHAPES = ("train_4k", "decode_32k")
 # phase 27's sweep: both production meshes under the reference's default
 # layout, one rank of each traced on meta beside the one-card trace; it
 # runs on the host from before phase 1 and is read after phase 28, with
@@ -3412,37 +3610,73 @@ def _kill_group(proc) -> None:
     proc.wait()
 
 
-def dryrun_start():
-    """Start phase 27's sweep, ``python -m repro_torch.launch run dryrun
-    --arch all --shape train_4k --mesh both --layout fsdp_tp``, in a
-    process group of its own, writing its records to a temporary
-    directory.  It needs no card, so it runs on the host from before the
-    kernels' build; the group is killed when this script exits, whatever
-    the exit."""
-    out_dir = tempfile.mkdtemp()
-    argv = [sys.executable, "-m", "repro_torch.launch", "run", "dryrun",
-            "--arch", "all", "--shape", DRYRUN_SHAPE, "--mesh", DRYRUN_MESH,
-            "--layout", DRYRUN_LAYOUT, "--out", out_dir]
-    proc = subprocess.Popen(argv, env=dict(os.environ, PYTHONPATH=str(SRC)),
-                            cwd=out_dir, text=True, stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, start_new_session=True)
-    atexit.register(_kill_group, proc)
-    atexit.register(shutil.rmtree, out_dir, True)
-    return proc, time.perf_counter()
+def dryrun_start(shapes) -> list:
+    """Start phase 27's sweeps, ``python -m repro_torch.launch run dryrun
+    --arch all --shape SHAPE --mesh both --layout fsdp_tp`` for each of
+    ``shapes``, each in a process group of its own, writing its records
+    to a temporary directory.  They need no card, so they run on the
+    host beside the timed phases; the groups are killed when this script
+    exits, whatever the exit.  Returns ``[(proc, t0)]``."""
+    started = []
+    for shape in shapes:
+        out_dir = tempfile.mkdtemp()
+        argv = [sys.executable, "-m", "repro_torch.launch", "run", "dryrun",
+                "--arch", "all", "--shape", shape, "--mesh", DRYRUN_MESH,
+                "--layout", DRYRUN_LAYOUT, "--out", out_dir]
+        proc = subprocess.Popen(argv,
+                                env=dict(os.environ, PYTHONPATH=str(SRC)),
+                                cwd=out_dir, text=True,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE,
+                                start_new_session=True)
+        atexit.register(_kill_group, proc)
+        atexit.register(shutil.rmtree, out_dir, True)
+        started.append((proc, time.perf_counter()))
+    return started
 
 
-def dryrun_finish(torch, m, proc, t0: float) -> dict:
-    """Phase 27: the sweep's report (every cell ``ok``, or a structural
+def dryrun_finish(torch, m, sweeps: list) -> dict:
+    """Phase 27: each sweep's report (every cell ``ok``, or a structural
     skip: one a mesh for every arch, llama4-maverick's 40 query heads on
     a model axis of 16 included), one line per arch (traced / analytic
     FLOPs, bytes by kind, the one-card fit) and per arch and mesh (the
     rank of the production mesh traced on meta: its peak and whether it
     fits one card, its collective bytes), with the rank's gates: its
     parameters, gradients, optimizer state and decode state the rules'
-    per-device bytes (``sharded_bytes``) to the byte, a finite positive
-    traced / analytic FLOPs, and on 2x16x16 its ``pod_gradsync`` the
-    count from the shapes to the byte; then one cell in this process,
-    which must leave the card's allocated memory as it was."""
+    per-device bytes (``sharded_bytes``) to the byte (a decode cell's
+    ``fsdp_tp`` cache slots of every kv head, SSM heads and conv
+    channels), a finite positive traced / analytic FLOPs, and on 2x16x16
+    a train cell's ``pod_gradsync`` the count from the shapes to the
+    byte; then one cell in this process, which must leave the card's
+    allocated memory as it was.  Returns the train sweep's report."""
+    reports = [_dryrun_read(m, proc, t0) for proc, t0 in sweeps]
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t1 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        cell = m["dryrun_run_one"](*DRYRUN_CELL, False, "fsdp_tp", None)
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    if cell["status"] != "ok" or after != before:
+        raise AssertionError(f"dryrun {DRYRUN_CELL} in process: "
+                             f"{cell['status']} {cell.get('error')}, card "
+                             f"memory {before} -> {after}")
+    for (proc, _), (report, wall) in zip(sweeps, reports):
+        emit(phase="dryrun_sweep", argv=proc.args[2:],
+             cells=len(report["metrics"]["results"]),
+             ok=report["metrics"]["ok"],
+             skipped=report["metrics"]["skipped"],
+             sweep_s=report["wall_s"], started_to_read_s=wall,
+             in_process_cell=list(DRYRUN_CELL),
+             in_process_s=time.perf_counter() - t1,
+             in_process_traced_flops=cell["traced_flops"],
+             card_memory_allocated=[before, after])
+    return reports[0][0]
+
+
+def _dryrun_read(m, proc, t0: float) -> tuple:
+    """One sweep of phase 27, read and gated: ``(report, seconds from its
+    start)``."""
     try:
         out, err = proc.communicate(timeout=DRYRUN_TIMEOUT)
     finally:
@@ -3459,6 +3693,8 @@ def dryrun_finish(torch, m, proc, t0: float) -> dict:
                              f"{report['status']}, cells {bad}: "
                              f"{err[-2000:]}")
     for r in results:
+        if r["status"] == "skipped":
+            continue
         if r["mesh"] == "16x16":
             emit(phase="dryrun", arch=r["arch"], shape=r["shape"],
                  status=r["status"], traced=r["traced"],
@@ -3475,7 +3711,7 @@ def dryrun_finish(torch, m, proc, t0: float) -> dict:
         ratio = rank["traced_over_analytic"]
         if not (np.isfinite(ratio) and ratio > 0):
             fails.append("traced_over_analytic")
-        if r["mesh"] == "2x16x16" and (
+        if r["mesh"] == "2x16x16" and rank["bytes"]["grads"] and (
                 coll.get("pod_gradsync", 0.0)
                 != rank["shape_counts"].get("pod_gradsync")
                 or not coll.get("pod_gradsync")):
@@ -3494,27 +3730,10 @@ def dryrun_finish(torch, m, proc, t0: float) -> dict:
              resident_minus_sharded=rank["resident_minus_sharded"],
              trace_s=rank["trace_s"])
         if fails:
-            raise AssertionError(f"dryrun {r['arch']} x {r['mesh']}: the "
-                                 f"rank fails {fails}: {rank}")
-    torch.cuda.synchronize()
-    before = torch.cuda.memory_allocated()
-    t1 = time.perf_counter()
-    with contextlib.redirect_stdout(io.StringIO()):
-        cell = m["dryrun_run_one"](*DRYRUN_CELL, False, "fsdp_tp", None)
-    torch.cuda.synchronize()
-    after = torch.cuda.memory_allocated()
-    if cell["status"] != "ok" or after != before:
-        raise AssertionError(f"dryrun {DRYRUN_CELL} in process: "
-                             f"{cell['status']} {cell.get('error')}, card "
-                             f"memory {before} -> {after}")
-    emit(phase="dryrun_sweep", argv=proc.args[2:], cells=len(results),
-         ok=report["metrics"]["ok"], skipped=report["metrics"]["skipped"],
-         sweep_s=report["wall_s"], started_to_read_s=wall,
-         in_process_cell=list(DRYRUN_CELL),
-         in_process_s=time.perf_counter() - t1,
-         in_process_traced_flops=cell["traced_flops"],
-         card_memory_allocated=[before, after])
-    return report
+            raise AssertionError(f"dryrun {r['arch']} x {r['shape']} x "
+                                 f"{r['mesh']}: the rank fails {fails}: "
+                                 f"{rank}")
+    return report, wall
 
 
 def probe_launches(cfg, kind: str) -> dict:
@@ -3764,12 +3983,13 @@ def _port_of_rank() -> dict:
     from repro_torch.launch.perfprobe import KERNELS as PROBED
     from repro_torch.launch.steps import build_train, shard_ctx_for
     from repro_torch.models import init_params
-    from repro_torch.models.model import decode_step, prefill
-    from repro_torch.sharding import use_ctx
+    from repro_torch.models.model import (decode_step, init_decode_state,
+                                          prefill)
+    from repro_torch.sharding import rules, use_ctx
     from repro_torch.sharding.fsdp import FSDP
     from repro_torch.sharding.grid import model_grid
     from repro_torch.sharding.sp import sp_bytes
-    from repro_torch.sharding.tp import tp_allreduce_bytes
+    from repro_torch.sharding.tp import tp_allreduce_bytes, tp_state_bytes
     from repro_torch.tree import tree_leaves
     return dict(collective_bytes_per_chip=collective_bytes_per_chip,
                 mesh_dims=mesh_dims, get_config=get_config,
@@ -3777,8 +3997,10 @@ def _port_of_rank() -> dict:
                 PROBED=PROBED, build_train=build_train,
                 shard_ctx_for=shard_ctx_for, use_ctx=use_ctx,
                 init_params=init_params, decode_step=decode_step,
+                init_decode_state=init_decode_state, rules=rules,
                 prefill=prefill, FSDP=FSDP, model_grid=model_grid,
-                tp_allreduce_bytes=tp_allreduce_bytes, sp_bytes=sp_bytes,
+                tp_allreduce_bytes=tp_allreduce_bytes,
+                tp_state_bytes=tp_state_bytes, sp_bytes=sp_bytes,
                 tree_leaves=tree_leaves)
 
 
@@ -3803,7 +4025,8 @@ def _since(now: dict, then: dict) -> dict:
 def _shape_bytes(torch, P, cfg, job: dict, grid, kind: str, batch: int,
                  seq: int, decode: int = 0) -> dict:
     """The port's count from the shapes of a model-axis job's bytes by
-    mechanism: ``tp_allreduce`` under fsdp_tp, every sequence-parallel
+    mechanism: ``tp_allreduce`` under fsdp_tp (and a serve job's decode
+    state mechanisms, ``tp_state_bytes``), every sequence-parallel
     mechanism under fsdp_sp, of a step, or of a prefill and ``decode``
     steps on a cache of ``seq + decode`` slots."""
     M = grid.extent("model")
@@ -3818,9 +4041,17 @@ def _shape_bytes(torch, P, cfg, job: dict, grid, kind: str, batch: int,
     if kind == "train":
         return {"tp_allreduce": P["tp_allreduce_bytes"](
             cfg, batch, seq, "train", M, esize)}
-    return {"tp_allreduce": sum(
+    got = {"tp_allreduce": sum(
         k * P["tp_allreduce_bytes"](cfg, batch, s, part, M, esize)
         for k, s, part in ((1, seq, "prefill"), (decode, 1, "decode")))}
+    pre, step = (P["tp_state_bytes"](cfg, batch, seq + decode, part, M,
+                                     esize) for part in ("prefill", "decode"))
+    got.update({k: pre[k] + decode * step[k] for k in pre})
+    return got
+
+
+def _nbytes(state: dict) -> int:
+    return sum(t.numel() * t.element_size() for t in state.values())
 
 
 def _params_hash(torch, P, tree) -> str:
@@ -3971,10 +4202,9 @@ def _rank_serve_job(torch, P, cfg, job: dict, grid) -> dict:
         torch.cuda.synchronize(dev)
         prefill_s = time.perf_counter() - t0
         shapes = {k: list(v.shape) for k, v in state.items()}
+        held = [_nbytes(state)]
         st = (state if fsdp is None
-              else fsdp.sp.full_decode_state(state, c, S + n)
-              if fsdp.sp is not None
-              else fsdp.tp.full_decode_state(state, c))
+              else (fsdp.sp or fsdp.tp).full_decode_state(state, c, S + n))
         st = {k: v.clone() for k, v in st.items()}
         outs = [logits.float()]
         torch.cuda.synchronize(dev)
@@ -3987,8 +4217,9 @@ def _rank_serve_job(torch, P, cfg, job: dict, grid) -> dict:
                                              fsdp=fsdp, cache_len=S + n)
             outs.append(logits.float())
         torch.cuda.synchronize(dev)
+        held.append(_nbytes(state))
         return (torch.stack(outs), st, shapes, prefill_s,
-                (time.perf_counter() - t0) / n if n else None)
+                (time.perf_counter() - t0) / n if n else None, held)
 
     params = weights()
     fsdp = P["FSDP"](grid, params, job["layout"], cfg)
@@ -3997,17 +4228,32 @@ def _rank_serve_job(torch, P, cfg, job: dict, grid) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     launched, sent = _routes(P), dict(ctx.collective_bytes)
-    logits, st, shapes, prefill_s, decode_s = serve(shards, cfg, fsdp)
+    logits, st, shapes, prefill_s, decode_s, held = serve(shards, cfg, fsdp)
+    mesh = _job_mesh(grid)
+    # the rules' per-device bytes of the whole batch's decode state
+    whole = P["init_decode_state"](cfg, B, S + n, device="meta")
+    rules = P["rules"]
     rec = {"rank": grid.rank, "backend": ctx.backend, "device": str(dev),
-           "grid": _job_mesh(grid), "rows": [mine.start, mine.stop],
+           "grid": mesh, "rows": [mine.start, mine.stop],
            "prefill_s": prefill_s, "decode_s_per_step": decode_s,
            "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
            "kernel_launches": _since(_routes(P), launched),
            "collective_bytes": {k: v - sent.get(k, 0.0) for k, v in
                                 ctx.collective_bytes.items()},
            "state_shapes": shapes,
+           "state_bytes": {"prefill": held[0], "decode": held[1]},
+           "rules_state_bytes": rules.per_device_bytes(
+               whole, rules.decode_state_shardings(whole, mesh,
+                                                   job["layout"]), mesh),
            "shape_bytes": _shape_bytes(torch, P, cfg, job, grid, "prefill",
-                                       mine.stop - mine.start, S, n)}
+                                       mine.stop - mine.start, S, n),
+           # the analytic model has no term for the decode state's
+           # mechanisms (state_reshard, qkv_allgather, softmax_combine,
+           # xbc_allgather, conv_allgather): printed beside the count
+           "analytic_collective_bytes": {
+               part: P["collective_bytes_per_chip"](
+                   cfg, B, seq, part, P["mesh_dims"](mesh), job["layout"])
+               for part, seq in (("prefill", S), ("decode", S + n))}}
     del shards, fsdp
     torch.cuda.empty_cache()
     if grid.rank == 0:
@@ -4016,11 +4262,11 @@ def _rank_serve_job(torch, P, cfg, job: dict, grid) -> dict:
         c32 = dc.replace(cfg, param_dtype="float32",
                          attention_backend="torch", mixer_backend="torch")
         with _world1_ctx(P, job, grid):
-            one, one_st, _, one_prefill_s, one_decode_s = serve(params, cfg,
-                                                                None)
+            one, one_st, _, one_prefill_s, one_decode_s, _ = serve(
+                params, cfg, None)
             peak = torch.cuda.max_memory_allocated(dev) / 1e9
-            ref, ref_st, _, _, _ = serve(_map(params, lambda t: t.float()),
-                                         c32, None)
+            ref, ref_st, _, _, _, _ = serve(
+                _map(params, lambda t: t.float()), c32, None)
         # the gang's rank holds its rows: world 1 is judged on the same
         one, ref = one[:, mine], ref[:, mine]
         one_st = {k: v[:, mine] for k, v in one_st.items()}
@@ -4417,9 +4663,17 @@ def model_axis_gangs(torch, m, jobs: dict) -> dict:
                 "peak_mem_gb": [d["peak_mem_gb"] for d in pre],
                 "collective_bytes": [d["collective_bytes"] for d in pre],
                 "shape_bytes": pre[0]["shape_bytes"],
+                "analytic_collective_bytes": pre[0][
+                    "analytic_collective_bytes"],
                 "state_shapes": [d["state_shapes"] for d in pre],
+                "state_bytes": [d["state_bytes"] for d in pre],
+                "rules_state_bytes": pre[0]["rules_state_bytes"],
                 "world1": one}
             bad += [k for k in job["judged_on"] if gang[k] > 2 * w1[k]]
+            # each rank holds exactly the rules' block of the state
+            bad += [f"rank {d['rank']} state bytes {d['state_bytes']}"
+                    for d in pre if set(d["state_bytes"].values())
+                    != {d["rules_state_bytes"]}]
             bad += [] if one["finite"] else ["finite"]
             if layout == "fsdp_sp":
                 # the K/V cache no farther from world 1's than world 1's
@@ -4661,8 +4915,9 @@ def load_port() -> dict:
     from repro_torch.models.model import (cast_floating, decode_step,
                                           prefill, train_loss, unused_leaves)
     from repro_torch.optim import get_optimizer, warmup_cosine
-    from repro_torch.serve import (Request, ServeEngine, ServeScheduler,
-                                   poisson_trace)
+    from repro_torch.launch.vision_grid import run_grid
+    from repro_torch.serve import (LegacyServeEngine, Request, ServeEngine,
+                                   ServeScheduler, poisson_trace)
     from repro_torch.train import (Preemption, TrainLoop, init_train_state,
                                    make_train_step)
     from repro_torch.tree import tree_leaves, tree_unflatten
@@ -4678,6 +4933,7 @@ def load_port() -> dict:
              load_checkpoint=load_checkpoint,
              list_checkpoints=list_checkpoints, init_params=init_params,
              ServeEngine=ServeEngine, Request=Request, prefill=prefill,
+             LegacyServeEngine=LegacyServeEngine, run_grid=run_grid,
              ServeScheduler=ServeScheduler, poisson_trace=poisson_trace,
              decode_step=decode_step, serve_main=serve_main,
              get_reduced=get_reduced, build_dataset=vision.build_dataset,
@@ -4733,9 +4989,11 @@ def main() -> int:
     card = card_line()
     print(card, flush=True)
 
-    # phase 27's sweep needs no card: it runs on the host beside the
-    # build, where no phase is timed, and is read once the build is done
-    sweep = dryrun_start()
+    # phase 27's sweeps need no card: the train sweep runs on the host
+    # beside the build, where no phase is timed, the shorter decode sweep
+    # from after the build (not beside the nvcc processes); both are read
+    # after phase 28
+    sweep = dryrun_start(DRYRUN_SHAPES[:1])
     # phase 1: one nvcc per source, all started together, and three more
     # for K4's, K1's and K2/K3's ptxas reports
     t0 = time.perf_counter()
@@ -4759,6 +5017,7 @@ def main() -> int:
          tensor_core=flash_ptxas(ptxas_report(ptxas_bwd, "_wgmma"),
                                  ("K2", "K3")))
     shutil.rmtree(ptxas_dir)
+    sweep += dryrun_start(DRYRUN_SHAPES[1:])
 
     k1_recs = kernel_vs_plain(torch, F, fa, ref)
     kb_recs = bwd_vs_plain(torch, F, fa, ref)
@@ -4775,6 +5034,9 @@ def main() -> int:
     # the dense serving path, then the other two dense decoders at full
     # width, then live traffic through the scheduler
     serve_launches = serve_path(torch, m, counts, "granite-3-2b")
+    # the legacy engine on granite: full width, then the reduced f32 case
+    legacy_launches = legacy_full_width(torch, m, counts, "granite-3-2b")
+    legacy_reduced(torch, m, counts, "granite-3-2b")
     wide_launches = {arch: serve_path(torch, m, counts, arch, cli=False)
                      for arch in ("glm4-9b", "codeqwen1.5-7b")}
     live_launches, params, live_reqs = serve_continuous_full_width(
@@ -4822,7 +5084,8 @@ def main() -> int:
     # subprocesses; the checks stay in place below) run beside phase 20
     torch.cuda.empty_cache()
     beside = [_Background(campaign_scheduler_sigkill_resume, m),
-              _Background(sharded_gangs, torch), _Background(pod_gang, torch)]
+              _Background(sharded_gangs, torch), _Background(pod_gang, torch),
+              _Background(vision_grid_cli)]
     try:
         campaign_chaos_resume(torch, m)
     finally:
@@ -4831,6 +5094,7 @@ def main() -> int:
     beside[0].result()
     rank_jobs, probe_gang = beside[1].result()
     pod_jobs = beside[2].result()
+    grid_cli = beside[3].result()
 
     # data-parallel training: world 1 is the single process, a full-width
     # world-2 gang shares the card, and a gang under the executor's chaos
@@ -4843,7 +5107,7 @@ def main() -> int:
     probes = perfprobe_cells(torch, m, counts)
     torch.cuda.empty_cache()
     # phase 27's sweep has run on the host since before the build
-    dryrun_finish(torch, m, *sweep)
+    dryrun_finish(torch, m, sweep)
 
     # the parameter-sharded layouts on the data axis: world-2 gangs that
     # share the card, then the sequence-parallel scan through K4
@@ -4866,6 +5130,7 @@ def main() -> int:
     forward_vs_cpu(torch, m)
     pn_launches += deforestation(torch, m, counts)
     vision_cli(torch, m, counts)
+    grid_launches = vision_grid_cli_check(grid_cli)
 
     emit(phase="done", seconds=time.perf_counter() - t_start)
     k2 = dict(ms=kb["dq_kernel_ms"], bound_ms=kb["dq_bound_ms"],
@@ -4915,6 +5180,7 @@ def main() -> int:
               plain_ms=k1["plain_ms"], library_ms=k1["library_ms"],
               core_route=k1["route"],
               launches_serve=serve_launches["flash_attention_fwd"],
+              launches_legacy=legacy_launches,
               launches_serve_wide={a: n["flash_attention_fwd"]
                                    for a, n in wide_launches.items()},
               launches_serve_continuous=live_launches,
@@ -4973,7 +5239,9 @@ def main() -> int:
     # no single PyTorch call computes the stretch: library_ms is null
     rows.append({"name": "percentile_norm", "route": "cuda",
                  "source": source, "replaces": replaces,
-                 "launches": pn_launches, "max_abs_err": k5["max_abs_err"],
+                 "launches": pn_launches,
+                 "launches_vision_grid": grid_launches,
+                 "max_abs_err": k5["max_abs_err"],
                  "ms": k5["kernel_ms"], "plain_ms": k5["plain_ms"],
                  "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
                  "library_ms": None})

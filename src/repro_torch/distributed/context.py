@@ -29,7 +29,11 @@ their given order; a small gather (:meth:`DistContext.allgather`) is a
 sum of one-hot rank slots, exact for any value.  Every collective's
 bytes are counted per rank by the analytic model's mechanism
 (``collective_bytes``; ``repro_torch.analysis.analytic.
-collective_bytes_per_chip``'s names, ``tp_allreduce`` among them), in
+collective_bytes_per_chip``'s names, ``tp_allreduce`` among them), or by
+the port's own name where that model has no term (the sequence-parallel
+mechanisms of ``sharding/sp.py``; the decode state's ``state_reshard``,
+``qkv_allgather``, ``softmax_combine``, ``xbc_allgather`` and
+``conv_allgather`` of ``sharding/tp.py``), in
 its ring convention over the N ranks of its group: a gather or a
 reduce-scatter of F full bytes moves ``(N-1)/N * F`` a rank, an
 all-reduce twice that.

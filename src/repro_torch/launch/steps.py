@@ -215,8 +215,9 @@ def build_decode(cfg: ArchConfig, batch: int, seq: int, *, device,
     arguments; the token sits at position ``seq - 1``.  On a grid of N
     the rank's params (shards under ``fsdp_*``), its rows of the tokens
     and positions, and a decode state of its rows (the rules' batch
-    axis) and, on a model axis, of its blocks (``fsdp_sp``: the cache's
-    slots, the SSM heads and conv channels)."""
+    axis) and, on a model axis, of its blocks (``fsdp_tp`` and
+    ``fsdp_sp`` alike: the cache's slots, the SSM heads and conv
+    channels)."""
     require_decoder(cfg)
     params = _params(cfg, device, seed)
     _, fsdp = _sharding(cfg, layout, grid, params, seq, "decode")

@@ -10,9 +10,11 @@ family model trained on the chips -> validation metrics) and of
 composites -> ChangeFormer -> change-class test metrics).  Every scene and
 composite is normalized on the device by ``percentile_normalize``, whose
 stretch is the hand-written CUDA kernel K5 on a card, where the examples
-call the numpy ``percentile_stretch``.  The examples' ``ExperimentGrid`` /
-``Orchestrator`` layer waits for the port of api/campaign.  Runs on
-``cuda`` unless ``device`` (``--device``) says otherwise.
+call the numpy ``percentile_stretch``.  The burned-area example's
+``ExperimentGrid`` / ``Orchestrator`` workflow is
+:mod:`repro_torch.launch.vision_grid`, whose jobs run
+:func:`train_segmentation`.  Runs on ``cuda`` unless ``device``
+(``--device``) says otherwise.
 """
 from __future__ import annotations
 

@@ -15,10 +15,12 @@ Under a model axis (``tp``, a :class:`repro_torch.sharding.tp.TP`) the
 attention runs on the rank's ``n_heads / M`` query heads and their kv
 heads, K1-K3 called on those local heads unchanged, and ``wo`` is
 row-parallel; the MLP's ``up``/``gate`` are column-parallel and its
-``down`` row-parallel.  The KV cache holds the rank's kv heads.  The
-reference asks XLA for the cache's sequence split over ``model``
-instead (``decode_state_shardings``); where both divide, a rank holds
-the same bytes either way.
+``down`` row-parallel.  In decode the KV cache holds every kv head over
+the rank's block of the slots, the split the reference asks XLA for
+(``decode_state_shardings``): the prefill sends its kv heads' keys and
+values to the slots' owners, a decode step gathers the token's q, k and
+v from the ranks' heads, and the softmax over the slots is distributed
+as under ``fsdp_sp`` (:func:`attn_decode`).
 
 Under the sequence split of ``fsdp_sp`` (``sp``, a
 :class:`repro_torch.sharding.sp.SP`) the attention computes q, k and v
@@ -300,19 +302,16 @@ def attn_decode(params: dict, cache: dict, x: torch.Tensor, spec: AttnSpec,
     position p is ``p % cache_len``, and slots further than ``window`` back
     (or not yet written) are masked out.  The new key and value are written
     into ``cache`` **in place** (the reference donates the cache to get the
-    same effect); the updated cache is also returned.  Under ``tp`` the
-    cache holds the rank's kv heads.  Under ``sp`` it holds the rank's
-    block of the ``cache_len`` slots (all of them where the model axis
-    does not divide ``cache_len``), the token is replicated and the
-    heads whole: the slot's owner writes it, and the softmax over the
-    slots is distributed (:func:`_decode_sp`).
+    same effect); the updated cache is also returned.  On a model axis
+    (``tp`` or ``sp``) the cache holds the rank's block of the
+    ``cache_len`` slots (all of them where the axis does not divide
+    ``cache_len``) and every kv head, and the softmax over the slots is
+    distributed (:func:`_decode_split`).
     """
     B = x.shape[0]
-    if sp is not None:
-        return _decode_sp(params, cache, x, spec, position, sp, cache_len)
-    if tp is not None:
-        params, spec = tp.attn(params, spec)
-        x = tp.attn_enter(x)
+    if sp is not None or tp is not None:
+        return _decode_split(params, cache, x, spec, position, tp, sp,
+                             cache_len)
     cache_len = cache["k"].shape[1]
     q, k, v = _qkv_decode(params, x, spec, position)
 
@@ -328,8 +327,7 @@ def attn_decode(params: dict, cache: dict, x: torch.Tensor, spec: AttnSpec,
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bgrqk,bkgd->bqgrd", probs, cache["v"].float())
     out = out.reshape(B, 1, spec.n_heads * spec.head_dim).to(x.dtype)
-    out = dense(params["wo"], out)
-    return (out if tp is None else tp.attn_exit(out)), cache
+    return dense(params["wo"], out), cache
 
 
 def _qkv_decode(params, x, spec: AttnSpec, position):
@@ -365,31 +363,43 @@ def _valid_slots(position, lo: int, n: int, cache_len: int, window):
     return valid
 
 
-def _decode_sp(params, cache, x, spec: AttnSpec, position, sp,
-               cache_len: Optional[int]):
+def _decode_split(params, cache, x, spec: AttnSpec, position, tp, sp,
+                  cache_len: Optional[int]):
     """:func:`attn_decode` on the rank's slots ``[lo, hi)`` of the
-    ``cache_len``-slot ring (``sp.span``).  Every rank computes the
-    token's q, k and v with the whole weights; the owner of slot ``p %
-    cache_len`` writes it (the others write their slot back unchanged:
-    no branch on the data).  Each rank scores q against its slots under
-    the world-1 mask, in f32, and keeps its row max, its sum of
-    ``exp(s - max)`` over the valid slots and their P·V; a split cache's
-    partials are combined over the model group (``sp.combine_softmax``),
-    a whole one's are the softmax itself."""
+    ``cache_len``-slot ring (``span``), every head whole.  The token's
+    q, k and v: under ``sp`` computed by every rank with the whole
+    weights; under ``tp`` on the rank's heads (column-parallel, as in
+    prefill), then all-gathered whole (``TP.gather_qkv``; where the
+    attention runs whole, computed whole).  The owner of slot ``p %
+    cache_len`` writes k and v (the others write their slot back
+    unchanged: no branch on the data).  Each rank scores every head
+    against its slots under the world-1 mask, in f32, and keeps its row
+    max, its sum of ``exp(s - max)`` over the valid slots and their P·V;
+    a split cache's partials are combined over the model group
+    (``combine_softmax``), a whole one's are the softmax itself.  Under
+    ``sp`` ``wo`` takes every head; under ``tp`` the rank keeps its heads'
+    columns for the row-parallel ``wo``, its partial sums all-reduced."""
     if cache_len is None:
-        raise ValueError("a decode step under fsdp_sp needs the cache's "
+        raise ValueError("a decode step on a model axis needs the cache's "
                          "whole length: a rank holds a block of it")
     B = x.shape[0]
-    q, k, v = _qkv_decode(params, x, spec, position)
-    lo, hi = sp.span(cache_len)
+    axis = sp if tp is None else tp
+    if tp is None:
+        q, k, v = _qkv_decode(params, x, spec, position)
+    else:
+        local, local_spec = tp.attn(params, spec)
+        q, k, v = _qkv_decode(local, tp.attn_enter(x), local_spec, position)
+        if not tp.heads_whole:
+            q, k, v = tp.gather_qkv(q, k, v)
+    lo, hi = axis.span(cache_len)
     n = hi - lo
     if cache["k"].shape[1] != n:
         raise ValueError(f"a cache block of {cache['k'].shape[1]} slots; "
                          f"the rank's block of {cache_len} is {n}")
     position = position.long()
-    local = torch.remainder(position, cache_len) - lo
-    own = ((local >= 0) & (local < n))[:, None, None]
-    idx = local.clamp(0, n - 1)
+    local_slot = torch.remainder(position, cache_len) - lo
+    own = ((local_slot >= 0) & (local_slot < n))[:, None, None]
+    idx = local_slot.clamp(0, n - 1)
     bidx = torch.arange(B, device=x.device)
     for name, new in (("k", k), ("v", v)):
         buf = cache[name]
@@ -407,7 +417,12 @@ def _decode_sp(params, cache, x, spec: AttnSpec, position, sp,
     if n == cache_len:
         out = pv / denom
     else:
-        out = sp.combine_softmax(mx, denom, pv)
+        out = axis.combine_softmax(mx, denom, pv)
     out = out.permute(0, 3, 1, 2, 4).reshape(B, 1, spec.n_heads
-                                             * spec.head_dim)
-    return dense(params["wo"], out.to(x.dtype)), cache
+                                             * spec.head_dim).to(x.dtype)
+    if tp is None:
+        return dense(params["wo"], out), cache
+    if not tp.heads_whole:
+        q0, q1 = tp.plan.q_heads
+        out = out[..., q0 * spec.head_dim:q1 * spec.head_dim]
+    return tp.attn_exit(dense(local["wo"], out)), cache

@@ -44,7 +44,13 @@ lookup where the rules split ``embed/w``'s vocabulary (the plain lookup
 where they drop ``tp``), the loss a vocab-parallel cross entropy, and
 :func:`prefill` and :func:`decode_step` return whole logits on every
 rank.  The backbone hands each checkpointed layer the TP context as it
-hands it the ctx, so the recompute takes the same groups.
+hands it the ctx, so the recompute takes the same groups.  The decode
+state is the rules' block, as under ``fsdp_sp`` below: the prefill
+reshards each layer's state from the rank's kv heads and ``[x, B, C]``
+columns to its cache slots and conv channels (``TP.reshard_kv``,
+``TP.reshard_conv``), and :func:`decode_step` runs attention and the SSD
+step on those blocks, the token's q, k, v and ``[x, B, C]`` row gathered
+from the ranks' heads.
 
 Under ``fsdp_sp`` on a model axis the storage carries a
 :class:`repro_torch.sharding.sp.SP` (``fsdp.sp``) instead, and the
@@ -75,7 +81,6 @@ leaves, whose gradient is zero.
 """
 from __future__ import annotations
 
-import dataclasses
 import math
 from typing import Any, Dict, List, Optional
 
@@ -88,7 +93,8 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.sharding.ctx import current_ctx, use_ctx
-from repro_torch.sharding.sp import RAGGED_NEXT, state_shape
+from repro_torch.sharding.sp import RAGGED_NEXT
+from repro_torch.sharding.tp import state_shape
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -622,6 +628,8 @@ def prefill(params, cfg: ArchConfig, batch, cache_len: int,
             st = L.kv_to_cache(k, v, attn_len, dtype, lengths=lengths)
         if sp is not None:
             st = {name: sp.state_block(name, t) for name, t in st.items()}
+        elif tp is not None:
+            st = _reshard(st, cfg, tp)
         states["ssm" if "ssm" in layer else "attn"].append(st)
         x, _ = _ffn(layer, cfg, x + mix, token_mask, tp, sp)
     x = L.norm_apply(cfg.norm, params["final_norm"], x)
@@ -638,6 +646,18 @@ def prefill(params, cfg: ArchConfig, batch, cache_len: int,
                     for name in STATE_KEYS[kind]}
 
 
+def _reshard(st: dict, cfg: ArchConfig, tp) -> dict:
+    """One layer's prefill state under ``fsdp_tp``, from what the rank
+    computed (its kv heads' K/V over every slot; its SSM heads' ``h`` and
+    its ``[x, B, C]`` columns' conv rows) to the rules' block: every kv
+    head over the rank's slots, its heads' ``h`` as it is, its channel
+    block of ``conv`` (``state_reshard``)."""
+    if "k" in st:
+        k, v = tp.reshard_kv(st["k"], st["v"])
+        return {"k": k, "v": v}
+    return {"h": st["h"], "conv": tp.reshard_conv(st["conv"], cfg.ssm)}
+
+
 # --------------------------------------------------------------------------
 # decode (serve_step)
 # --------------------------------------------------------------------------
@@ -647,26 +667,15 @@ def init_decode_state(cfg: ArchConfig, batch: int, cache_len: int, *,
     """Zeroed decode state: KV caches ``{"k", "v"}`` (n_attn, B, L, Kh, hd)
     over the attention layers and SSM states ``{"h", "conv"}`` (n_ssm,
     ...) over the SSD layers; a stack without one kind has no keys for
-    it.  On a ``grid`` with a ``model`` axis, the rank's blocks: under
-    ``fsdp_tp`` its kv heads, SSM heads and ``[x, B, C]`` channels
-    (:class:`repro_torch.sharding.tp.Plan`); under ``fsdp_sp`` the
-    rules' blocks, its ``L/M`` cache slots, ``nh/M`` SSM heads and
-    ``C/M`` conv channels (whole where ``M`` does not divide).  An
-    encoder-only config has none and raises ``ValueError``."""
+    it.  On a ``grid`` with a ``model`` axis (``fsdp_tp`` or
+    ``fsdp_sp``), the rank's blocks as ``rules.decode_state_shardings``
+    splits them: its ``L/M`` cache slots of every kv head, ``nh/M`` SSM
+    heads and ``C/M`` conv channels (whole where ``M`` does not divide).
+    An encoder-only config has none and raises ``ValueError``."""
     require_decoder(cfg)
     device = resolve_device(device)
-    spec, heads, groups = attn_spec(cfg), None, None
-    M = 1 if grid is None else grid.extent("model")
-    if M > 1 and layout != "fsdp_sp":
-        from repro_torch.sharding.tp import Plan
-        plan = Plan.of(cfg, M, grid.coord("model"))
-        if plan.kv_heads is not None:
-            spec = dataclasses.replace(
-                spec, n_heads=plan.q_heads[1] - plan.q_heads[0],
-                n_kv_heads=plan.kv_heads[1] - plan.kv_heads[0])
-        if plan.ssm_heads is not None:
-            heads = plan.ssm_heads[1] - plan.ssm_heads[0]
-            groups = plan.ssm_groups[1] - plan.ssm_groups[0]
+    spec = attn_spec(cfg)
+    M = 1 if grid is None or layout == "dp" else grid.extent("model")
     kinds = cfg.layer_kinds()
     state = {}
     for kind, n in (("attn", kinds.count("attn")),
@@ -675,14 +684,12 @@ def init_decode_state(cfg: ArchConfig, batch: int, cache_len: int, *,
             continue
         if kind == "ssm":
             one = SSM.ssm_state_init(batch, cfg.d_model, cfg.ssm,
-                                     param_dtype(cfg), "meta", heads,
-                                     groups)
+                                     param_dtype(cfg), "meta")
         else:
             one = L.kv_cache_init(batch, _attn_len(cfg, cache_len), spec,
                                   param_dtype(cfg), "meta")
         for name, t in one.items():
-            shape = (t.shape if M == 1 or layout != "fsdp_sp"
-                     else state_shape(name, t.shape, M))
+            shape = state_shape(name, t.shape, M)
             state[name] = torch.zeros((n,) + tuple(shape), dtype=t.dtype,
                                       device=device)
     return state
@@ -695,9 +702,9 @@ def decode_step(params, cfg: ArchConfig, state, tokens, position,
     Returns (logits (B,V), state); ``state`` is updated in place.  The MoE
     routes with no token mask: every row, idle slots included, claims
     capacity, as in the reference.  An encoder-only config raises
-    ``ValueError``.  Under ``fsdp.sp`` the state is the rank's blocks
-    and ``cache_len`` (the cache's whole length, which a block does not
-    show) is required."""
+    ``ValueError``.  On a model axis (``fsdp.tp`` or ``fsdp.sp``) the
+    state is the rank's blocks and ``cache_len`` (the cache's whole
+    length, which a block does not show) is required for attention."""
     require_decoder(cfg)
     spec = attn_spec(cfg)
     params = _gather_outer(params, cfg, fsdp)

@@ -38,7 +38,7 @@ and the rank keeps its block of the output; the state is the whole
 sequence's.  The decode step (:func:`ssm_decode_step`) runs on the
 rules' blocks of the state: the rank convolves its ``C / M`` channels of
 ``[x, B, C]`` from its columns of the projections, the post-conv row is
-all-gathered (``SP.gather_channels``), and the rank steps its ``nh /
+all-gathered (``gather_channels``), and the rank steps its ``nh /
 M`` heads, the gated norm's sum of squares and ``out``'s partial sums
 all-reduced (a dim ``M`` does not divide is whole on every rank, and
 needs neither).
@@ -50,11 +50,14 @@ on CPU tensors), with the B/C groups those heads read; ``in_z``,
 gated RMSNorm is over the whole ``d_inner``, as in the reference, so its
 sum of squares is all-reduced over ``model``.  The conv weights are
 split over the concatenated ``[x, B, C]`` channels, so a rank gathers
-them and keeps its own channels.  The decode state holds the rank's
-heads (``h``) and its ``[x, B, C]`` channels (``conv``: its x channels
-and the B/C groups it reads, which ranks sharing a group both hold);
-the reference splits ``conv``'s channel dim evenly instead (as
-``fsdp_sp`` does).
+them and keeps its own channels.  The decode state is the rules' block,
+as under ``fsdp_sp``: the rank's heads (``h``) and its ``C / M``
+channels of ``[x, B, C]`` (``conv``).  So a prefill's conv rows of the
+rank's x columns and groups are resharded to that channel block
+(``TP.reshard_conv``), and a decode step (:func:`_decode_tp`) gathers
+the token's whole ``[x, B, C]`` row from the ranks' columns, convolves
+the rank's channel block and gathers the post-conv row before its heads'
+step.
 """
 from __future__ import annotations
 
@@ -321,12 +324,10 @@ def ssm_apply(params: dict, x: torch.Tensor, cfg: SSMConfig,
 
 
 def ssm_state_init(batch: int, d_model: int, cfg: SSMConfig, dtype,
-                   device, heads: int = None, groups: int = None) -> dict:
-    """The zeroed decode state; ``heads`` and ``groups`` (default: the
-    config's) are a model rank's."""
-    nh = cfg.n_heads(d_model) if heads is None else heads
-    groups = cfg.n_groups if groups is None else groups
-    conv_ch = nh * cfg.head_dim + 2 * groups * cfg.d_state
+                   device) -> dict:
+    """The zeroed decode state."""
+    nh = cfg.n_heads(d_model)
+    conv_ch = nh * cfg.head_dim + 2 * cfg.n_groups * cfg.d_state
     return {
         "h": torch.zeros((batch, nh, cfg.head_dim, cfg.d_state),
                          dtype=torch.float32, device=device),
@@ -338,13 +339,14 @@ def ssm_state_init(batch: int, d_model: int, cfg: SSMConfig, dtype,
 def ssm_decode_step(params: dict, state: dict, x: torch.Tensor,
                     cfg: SSMConfig, tp=None, sp=None):
     """One-token decode.  x: (B,1,d) -> (y (B,1,d), new_state); under
-    ``tp`` or ``sp`` the state is the rank's (:func:`_decode_sp`)."""
+    ``tp`` or ``sp`` the state is the rank's block of it (:func:`_decode_sp`,
+    :func:`_decode_tp`)."""
     if sp is not None:
         return _decode_sp(params, state, x, cfg, sp)
-    B, _, d = x.shape
-    params, nh, groups = _local(params, cfg, d, tp)
     if tp is not None:
-        x = tp.enter(x)
+        return _decode_tp(params, state, x, cfg, tp)
+    B, _, d = x.shape
+    nh, groups = cfg.n_heads(d), cfg.n_groups
     di = nh * cfg.head_dim
     gN = groups * cfg.d_state
     xt = x[:, 0, :]
@@ -369,10 +371,8 @@ def ssm_decode_step(params: dict, state: dict, x: torch.Tensor,
 
     y, h_new = ssd_decode(state["h"], xh, dt, A, Bg, Cg)
     y = y + params["D"][None, :, None] * xh
-    y = _gated_norm(params, y.reshape(B, di).to(x.dtype), z, tp)
+    y = _gated_norm(params, y.reshape(B, di).to(x.dtype), z, None)
     out = dense(params["out"], y)
-    if tp is not None:
-        out = tp.exit(out)
     return out[:, None, :], {"h": h_new, "conv": new_conv}
 
 
@@ -388,6 +388,41 @@ def _columns(params, xt, keys, lo: int, hi: int):
     return torch.cat(parts, dim=-1)
 
 
+def _conv_channels(state, row, w, b, axis, C: int):
+    """The decode conv of the rank's block of the ``[x, B, C]`` channels:
+    ``row`` (B, c) the token's, ``w``/``b`` those channels' weights,
+    ``state`` their rows.  Returns the whole post-conv row (B, ``C``),
+    the blocks gathered over ``axis`` where they are split
+    (``gather_channels``), and the new state block."""
+    conv_out, new_conv = _conv_decode(state, row, w, b)
+    conv_out = F.silu(conv_out)
+    if row.shape[-1] < C:
+        conv_out = axis.gather_channels(conv_out)
+    return conv_out, new_conv
+
+
+def _step_heads(conv_out, dt, p: dict, h, cfg: SSMConfig, nh: int,
+                h0: int, h1: int):
+    """The SSD step of heads ``[h0, h1)`` from the token's whole post-conv
+    ``[x, B, C]`` row ``conv_out`` (B, C), their ``dt`` (B, h1-h0) f32
+    before the softplus and ``p``'s ``dt_bias``, ``A_log`` and ``D`` at
+    those heads; ``h`` their state.  Returns ``(y (B, (h1-h0) hp) f32,
+    new h)``."""
+    B = conv_out.shape[0]
+    hp, N, g = cfg.head_dim, cfg.d_state, cfg.n_groups
+    di, gN = nh * hp, g * N
+    xc, Bc, Cc = torch.split(conv_out, [di, gN, gN], dim=-1)
+    dt = F.softplus(dt + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+    xh = xc.reshape(B, nh, hp)[:, h0:h1].float()
+    # each head's group, per head: B and C of the heads
+    Bh = Bc.reshape(B, g, N).repeat_interleave(nh // g, dim=1)[:, h0:h1]
+    Ch = Cc.reshape(B, g, N).repeat_interleave(nh // g, dim=1)[:, h0:h1]
+    y, h_new = ssd_decode(h, xh, dt, A, Bh.float(), Ch.float())
+    y = y + p["D"][None, :, None] * xh
+    return y.reshape(B, -1), h_new
+
+
 def _decode_sp(params, state, x, cfg: SSMConfig, sp):
     """:func:`ssm_decode_step` on the rank's blocks of the state, the
     weights whole: ``conv`` holds channels ``[c0, c1)`` of ``[x, B, C]``
@@ -397,37 +432,61 @@ def _decode_sp(params, state, x, cfg: SSMConfig, sp):
     where they are split the gated norm's sum of squares and ``out``'s
     partial sums are all-reduced."""
     B, _, d = x.shape
-    nh, hp, N, g = cfg.n_heads(d), cfg.head_dim, cfg.d_state, cfg.n_groups
-    di, gN = nh * hp, g * N
+    nh, hp, gN = cfg.n_heads(d), cfg.head_dim, cfg.n_groups * cfg.d_state
+    di = nh * hp
     c0, c1 = sp.span(di + 2 * gN)
     h0, h1 = sp.span(nh)
     xt = x[:, 0, :]
 
     conv_in = _columns(params, xt, (("in_x", di), ("in_B", gN),
                                     ("in_C", gN)), c0, c1)
-    conv_out, new_conv = _conv_decode(state["conv"], conv_in,
-                                      params["conv_w"][:, c0:c1],
-                                      params["conv_b"][c0:c1])
-    conv_out = F.silu(conv_out)
-    if c1 - c0 < di + 2 * gN:
-        conv_out = sp.gather_channels(conv_out)
-    xc, Bc, Cc = torch.split(conv_out, [di, gN, gN], dim=-1)
+    conv_out, new_conv = _conv_channels(state["conv"], conv_in,
+                                        params["conv_w"][:, c0:c1],
+                                        params["conv_b"][c0:c1], sp,
+                                        di + 2 * gN)
 
     z = xt @ params["in_z"]["w"][:, h0 * hp:h1 * hp]
     dt = (xt @ params["in_dt"]["w"][:, h0:h1]).float()
-    dt = F.softplus(dt + params["dt_bias"][h0:h1])
-    A = -torch.exp(params["A_log"][h0:h1])
-    xh = xc.reshape(B, nh, hp)[:, h0:h1].float()
-    # each head's group, per head: B and C of the rank's heads
-    Bh = Bc.reshape(B, g, N).repeat_interleave(nh // g, dim=1)[:, h0:h1]
-    Ch = Cc.reshape(B, g, N).repeat_interleave(nh // g, dim=1)[:, h0:h1]
-
-    y, h_new = ssd_decode(state["h"], xh, dt, A, Bh.float(), Ch.float())
-    y = y + params["D"][h0:h1][None, :, None] * xh
+    y, h_new = _step_heads(conv_out, dt, {k: params[k][h0:h1] for k in
+                                          ("dt_bias", "A_log", "D")},
+                           state["h"], cfg, nh, h0, h1)
     split = h1 - h0 < nh
     y = _gated_norm({"norm_scale": params["norm_scale"][h0 * hp:h1 * hp]},
-                    y.reshape(B, -1).to(x.dtype), z, sp if split else None)
+                    y.to(x.dtype), z, sp if split else None)
     out = y @ params["out"]["w"][h0 * hp:h1 * hp]
     if split:
         out = sp.allreduce(out, "tp_allreduce")
+    return out[:, None, :], {"h": h_new, "conv": new_conv}
+
+
+def _decode_tp(params, state, x, cfg: SSMConfig, tp):
+    """:func:`ssm_decode_step` under ``fsdp_tp``, the state on the rules'
+    blocks: ``h`` the rank's heads ``[h0, h1)`` (its ``Plan``'s), ``conv``
+    channels ``[c0, c1)`` of ``[x, B, C]`` (``tp.span``).  The rank
+    computes its x columns and its groups' B and C (column-parallel, as
+    in prefill), the token's whole ``[x, B, C]`` row is all-gathered
+    (``TP.gather_xbc``), the rank convolves its channel block with its
+    model blocks of ``conv_w``/``conv_b`` (the rules split them over the
+    same channels), the post-conv row is gathered where the channels
+    are split (``conv_allgather``), and the rank steps its heads: the
+    gated norm's sum of squares and ``out``'s partial sums all-reduced."""
+    B, _, d = x.shape
+    local, _, _ = tp.ssm(params, cfg, d, conv=False)
+    nh, hp = cfg.n_heads(d), cfg.head_dim
+    C = nh * hp + 2 * cfg.n_groups * cfg.d_state
+    h0, h1 = tp.plan.ssm_heads
+    c0, c1 = tp.span(C)
+    xt = tp.enter(x)[:, 0, :]
+
+    row = tp.gather_xbc(torch.cat([xt @ local[k]["w"] for k in
+                                   ("in_x", "in_B", "in_C")], -1), cfg)
+    conv_out, new_conv = _conv_channels(state["conv"], row[:, c0:c1],
+                                        local["conv_w"], local["conv_b"], tp,
+                                        C)
+
+    z = xt @ local["in_z"]["w"]
+    dt = (xt @ local["in_dt"]["w"]).float()
+    y, h_new = _step_heads(conv_out, dt, local, state["h"], cfg, nh, h0, h1)
+    y = _gated_norm(local, y.to(x.dtype), z, tp)
+    out = tp.exit(y @ local["out"]["w"])
     return out[:, None, :], {"h": h_new, "conv": new_conv}

@@ -55,9 +55,10 @@ split as ``rules.decode_state_shardings`` splits it (kept whole where
 conv's ``[x, B, C]`` channels.  So attention writes the new key and
 value only on the rank that owns its slot, scores q against the rank's
 slots and combines the ranks' row max, sum and P·V (one all-gather,
-:meth:`SP.combine_softmax`, ``softmax_combine``: a distributed softmax);
+:meth:`ModelAxis.combine_softmax`, ``softmax_combine``: a distributed
+softmax, shared with ``fsdp_tp``);
 the SSD step convolves the rank's channels and all-gathers the post-conv
-row (:meth:`SP.gather_channels`, ``conv_allgather``), then runs the
+row (:meth:`ModelAxis.gather_channels`, ``conv_allgather``), then runs the
 rank's heads; and the MLP, the experts and the vocabulary take
 ``fsdp_tp``'s forms on their blocks, through :class:`SP`'s
 :class:`repro_torch.sharding.tp.ModelAxis` operators (partial sums
@@ -80,10 +81,6 @@ from repro_torch.sharding.tp import ModelAxis, Plan, Vocab, _evenly, _split
 
 RAGGED_NEXT = ("fsdp_sp's prefill takes no ragged lengths (the reference's "
                "sharded build_prefill passes none)")
-# the per-layer decode state's sequence-split dim (the reference's
-# decode_state_shardings, less the stacked layer dim): the cache slots of
-# K/V, the SSM heads of h, the [x, B, C] channels of conv
-STATE_DIM = {"k": 1, "v": 1, "h": 1, "conv": 2}
 # every mechanism sp_bytes counts
 MECHANISMS = ("kv_allgather", "sp_allgather", "sp_reducescatter",
               "conv_halo", "ssd_state_allgather", "moe_alltoall",
@@ -104,17 +101,6 @@ def short_block(cfg, block: int) -> bool:
     sequence block of ``block``: shorter than the chunk, or than the
     conv's ``W - 1`` halo rows."""
     return block < cfg.chunk or block < cfg.conv_width - 1
-
-
-def state_shape(name: str, shape, M: int) -> tuple:
-    """One layer's decode-state leaf ``name`` of whole ``shape`` as a
-    rank holds it: its split dim divided by ``M`` where ``M`` divides
-    it."""
-    shape = list(shape)
-    d = STATE_DIM[name]
-    if shape[d] % M == 0:
-        shape[d] //= M
-    return tuple(shape)
 
 
 # --------------------------------------------------------------------------
@@ -313,63 +299,6 @@ class SP(ModelAxis):
         ``M`` blocks, block ``j`` for rank ``j``'s experts; returns the
         blocks the ranks sent this one, in rank order."""
         return _AllToAll.apply(buf, self)
-
-    # ----------------------------------------------------------- decode
-    def span(self, n: int) -> Tuple[int, int]:
-        """``[lo, hi)`` of the rank's block of a decode-state dim of
-        ``n``: its ``M``-th, or the whole where ``M`` does not divide
-        ``n``."""
-        return _split(n, self.M, self.m) if n % self.M == 0 else (0, n)
-
-    @torch.no_grad()
-    def combine_softmax(self, mx: torch.Tensor, denom: torch.Tensor,
-                        pv: torch.Tensor) -> torch.Tensor:
-        """The softmax-weighted values over the ranks' slots from each
-        rank's row max ``mx`` (..., 1), sum of ``exp(s - mx)`` ``denom``
-        (..., 1) and P·V ``pv`` (..., hd), all f32: one all-gather
-        (``softmax_combine``), then each rank's partials rescaled to the
-        global max and summed in rank order.  A rank whose slots are all
-        masked (its max the mask's -1e30) weighs zero."""
-        got = self.dist.all_gather(torch.cat([mx, denom, pv], -1)[None], 0,
-                                   "softmax_combine", self.group)
-        mxs, denoms, pvs = got[..., :1], got[..., 1:2], got[..., 2:]
-        top = mxs.amax(dim=0)
-        w = torch.where(mxs > -1e29, torch.exp(mxs - top), 0.0)
-        return (w * pvs).sum(dim=0) / (w * denoms).sum(dim=0)
-
-    @torch.no_grad()
-    def gather_channels(self, x: torch.Tensor) -> torch.Tensor:
-        """The ranks' channel blocks of (B, C/M) concatenated
-        (``conv_allgather``)."""
-        return self.dist.all_gather(x, x.dim() - 1, "conv_allgather",
-                                    self.group).contiguous()
-
-    def state_block(self, name: str, t: torch.Tensor) -> torch.Tensor:
-        """The rank's block of one layer's whole decode-state leaf, as
-        ``rules.decode_state_shardings`` splits it over ``model`` (kept
-        whole where ``M`` does not divide the dim)."""
-        d = STATE_DIM[name]
-        if t.shape[d] % self.M:
-            return t
-        return self.narrow(t, d).clone()
-
-    @torch.no_grad()
-    def full_decode_state(self, state: dict, cfg, cache_len: int) -> dict:
-        """The world-1 decode state (stacked over layers) from the ranks'
-        blocks; every rank of the model group must call it."""
-        whole = {"k": cache_len, "v": cache_len}
-        if cfg.sliding_window is not None:
-            whole = {k: min(cache_len, cfg.sliding_window) for k in whole}
-        if cfg.ssm is not None:
-            s, d = cfg.ssm, cfg.d_model
-            whole.update(h=s.n_heads(d),
-                         conv=s.d_inner(d) + 2 * s.n_groups * s.d_state)
-        out = {}
-        for name, t in state.items():
-            dim = STATE_DIM[name] + 1
-            out[name] = (t if whole[name] % self.M else self.dist.all_gather(
-                t, dim, "sp_state_gather", self.group).contiguous())
-        return out
 
 
 # --------------------------------------------------------------------------

@@ -40,9 +40,7 @@ rows and all-reduces the lookups; a sharded head (tied embeddings take
 the embedding's shard) gives each rank its logits' columns, and the
 cross entropy all-reduces the max, the sum of exponentials and the gold
 logit over ``model`` in f32 (:meth:`Vocab.xent_chunk`); serving gathers
-the whole logits on every rank (``vocab_allgather``), and
-:meth:`TP.full_decode_state` the whole decode state
-(``tp_state_gather``).  Where the rule drops
+the whole logits on every rank (``vocab_allgather``).  Where the rule drops
 ``tp`` (a vocabulary the extent does not divide, e.g. granite's 49 155)
 the embedding and head are replicated and used whole.
 
@@ -56,13 +54,31 @@ own block of the whole gradient, which every rank computes alike), the
 attention and its o-projection run whole, and the mixer takes no
 ``tp_allreduce``.
 
+The decode state is not what a rank computes but the rules' block
+(``decode_state_shardings``, as under ``fsdp_sp``): every kv head over
+the rank's ``L/M`` cache slots, its ``nh/M`` SSM heads, its ``C/M``
+channels of the conv state's ``[x, B, C]`` (a dim ``M`` does not divide
+whole on every rank).  A prefill reshards each layer's state to it
+(:meth:`TP.reshard_kv`, an all-to-all of the slot blocks;
+:meth:`TP.reshard_conv`; ``state_reshard``); a decode step gathers the
+token's q, k and v from the ranks' heads (:meth:`TP.gather_qkv`,
+``qkv_allgather``) and scores every head against the rank's slots, the
+softmax combined over the ranks (:meth:`ModelAxis.combine_softmax`,
+``softmax_combine``), and the SSD step gathers the token's ``[x, B, C]``
+row (:meth:`TP.gather_xbc`, ``xbc_allgather``), convolves the rank's
+channels and gathers the post-conv row (``conv_allgather``).
+:class:`ModelAxis` holds what ``fsdp_tp`` and ``fsdp_sp`` share of
+this: the rank's span of a state dim, its block, the distributed
+softmax, the channel gather and the world-1 state from the blocks.
+
 :class:`Plan` says from the config which heads, kv heads, SSM heads and
 groups, experts and vocabulary rows rank ``m`` of ``M`` computes
 (``q_heads`` None: the attention whole), and raises for any other count
 the axis does not split evenly: no compute is replicated where the rules
 shard it and the reference does not replicate it.
 :func:`tp_allreduce_bytes` counts a step's ``tp_allreduce`` bytes from
-the shapes, :func:`tp_weights_bytes` the whole attention's gathers.
+the shapes, :func:`tp_weights_bytes` the whole attention's gathers and
+:func:`tp_state_bytes` the decode state's mechanisms.
 """
 from __future__ import annotations
 
@@ -98,6 +114,35 @@ def _grouped(name: str, groups: int, M: int, what: str) -> None:
         raise NotImplementedError(
             f"{name}: {what} {groups} neither split over nor divide a "
             f"model axis of {M}; {NEXT}")
+
+
+# the per-layer decode state's model-split dim (the reference's
+# decode_state_shardings, less the stacked layer dim): the cache slots of
+# K/V, the SSM heads of h, the [x, B, C] channels of conv
+STATE_DIM = {"k": 1, "v": 1, "h": 1, "conv": 2}
+
+
+def state_shape(name: str, shape, M: int) -> tuple:
+    """One layer's decode-state leaf ``name`` of whole ``shape`` as a
+    model rank holds it: its split dim divided by ``M`` where ``M``
+    divides it."""
+    shape = list(shape)
+    d = STATE_DIM[name]
+    if shape[d] % M == 0:
+        shape[d] //= M
+    return tuple(shape)
+
+
+def _assemble(parts, ranges, dim: int, width: int) -> torch.Tensor:
+    """The whole of a dim whose global units ``ranges[r]`` (half-open)
+    rank ``r`` holds as ``parts[r]``, ``width`` elements a unit along
+    ``dim``: each unit taken from the first rank that holds it (ranks
+    that share a kv head or an SSM group hold the same values)."""
+    got = []
+    for j in range(ranges[-1][1]):
+        r = next(i for i, (a, b) in enumerate(ranges) if a <= j < b)
+        got.append(parts[r].narrow(dim, (j - ranges[r][0]) * width, width))
+    return torch.cat(got, dim)
 
 
 def heads_whole(cfg, M: int) -> bool:
@@ -302,10 +347,11 @@ class Vocab:
 
 class ModelAxis:
     """A rank's place on ``grid``'s model axis: its model group, its
-    coordinate ``m`` of ``M``, and the Megatron operators over the group
+    coordinate ``m`` of ``M``, the Megatron operators over the group
     (what :class:`TP` computes with, and :class:`repro_torch.sharding.
     sp.SP` in a decode step, whose one token is replicated over the
-    axis).  A subclass sets :attr:`plan` and :attr:`vocab`."""
+    axis), and the decode state on the rules' blocks that both layouts
+    hold.  A subclass sets :attr:`plan` and :attr:`vocab`."""
 
     plan: Plan
     vocab: Vocab
@@ -336,6 +382,67 @@ class ModelAxis:
         return self.exit(self.vocab.lookup(w, tokens))
 
 
+    # ----------------------------------------------------- decode state
+    def span(self, n: int) -> Range:
+        """``[lo, hi)`` of the rank's block of a decode-state dim of
+        ``n``: its ``M``-th, or the whole where ``M`` does not divide
+        ``n``."""
+        return _split(n, self.M, self.m) if n % self.M == 0 else (0, n)
+
+    def state_block(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """The rank's block of one layer's whole decode-state leaf, as
+        ``rules.decode_state_shardings`` splits it over ``model`` (kept
+        whole where ``M`` does not divide the dim)."""
+        d = STATE_DIM[name]
+        lo, hi = self.span(t.shape[d])
+        if hi - lo == t.shape[d]:
+            return t
+        return t.narrow(d, lo, hi - lo).clone()
+
+    @torch.no_grad()
+    def combine_softmax(self, mx: torch.Tensor, denom: torch.Tensor,
+                        pv: torch.Tensor) -> torch.Tensor:
+        """The softmax-weighted values over the ranks' slots from each
+        rank's row max ``mx`` (..., 1), sum of ``exp(s - mx)`` ``denom``
+        (..., 1) and P·V ``pv`` (..., hd), all f32: one all-gather
+        (``softmax_combine``), then each rank's partials rescaled to the
+        global max and summed in rank order.  A rank whose slots are all
+        masked (its max the mask's -1e30) weighs zero."""
+        got = self.dist.all_gather(torch.cat([mx, denom, pv], -1)[None], 0,
+                                   "softmax_combine", self.group)
+        mxs, denoms, pvs = got[..., :1], got[..., 1:2], got[..., 2:]
+        top = mxs.amax(dim=0)
+        w = torch.where(mxs > -1e29, torch.exp(mxs - top), 0.0)
+        return (w * pvs).sum(dim=0) / (w * denoms).sum(dim=0)
+
+    @torch.no_grad()
+    def gather_channels(self, x: torch.Tensor) -> torch.Tensor:
+        """The ranks' channel blocks of (B, C/M) concatenated
+        (``conv_allgather``)."""
+        return self.dist.all_gather(x, x.dim() - 1, "conv_allgather",
+                                    self.group).contiguous()
+
+    @torch.no_grad()
+    def full_decode_state(self, state: dict, cfg, cache_len: int) -> dict:
+        """The world-1 decode state (stacked over layers) from the ranks'
+        blocks (``state_gather``), a copy (a leaf the axis leaves whole
+        too); every rank of the model group must call it."""
+        whole = {"k": cache_len, "v": cache_len}
+        if cfg.sliding_window is not None:
+            whole = {k: min(cache_len, cfg.sliding_window) for k in whole}
+        if cfg.ssm is not None:
+            s, d = cfg.ssm, cfg.d_model
+            whole.update(h=s.n_heads(d),
+                         conv=s.d_inner(d) + 2 * s.n_groups * s.d_state)
+        out = {}
+        for name, t in state.items():
+            dim = STATE_DIM[name] + 1
+            out[name] = (t.clone() if whole[name] % self.M
+                         else self.dist.all_gather(
+                             t, dim, "state_gather", self.group).contiguous())
+        return out
+
+
 class TP(ModelAxis):
     """A rank's tensor-parallel context on ``grid``'s model axis for the
     arch ``cfg``: its model group, its coordinate ``m`` of ``M`` and its
@@ -344,6 +451,8 @@ class TP(ModelAxis):
     def __init__(self, grid, cfg):
         super().__init__(grid)
         self.plan = Plan.of(cfg, self.M, self.m)
+        # every rank's plan: which kv heads and SSM groups each computes
+        self.plans = [Plan.of(cfg, self.M, r) for r in range(self.M)]
         self.vocab = Vocab(self.dist, self.group, self.M, self.m,
                            self.plan.vocab)
 
@@ -415,12 +524,13 @@ class TP(ModelAxis):
         return local, dataclasses.replace(spec, n_heads=q1 - q0,
                                           n_kv_heads=k1 - k0)
 
-    def ssm(self, params: dict, cfg, d_model: int):
+    def ssm(self, params: dict, cfg, d_model: int, conv: bool = True):
         """The SSD mixer's weights for the rank's heads and groups: the
         head-split leaves as they are, ``in_B``/``in_C`` at its groups,
-        ``conv_w``/``conv_b`` at its ``[x, B, C]`` channels and the
-        per-head vectors at its heads.  Returns ``(params, heads,
-        groups)``."""
+        ``conv_w``/``conv_b`` at its ``[x, B, C]`` channels (with
+        ``conv`` False: the rank's model blocks as they are, the rules'
+        channel block a decode step convolves) and the per-head vectors
+        at its heads.  Returns ``(params, heads, groups)``."""
         (h0, h1), (g0, g1) = self.plan.ssm_heads, self.plan.ssm_groups
         hp, N = cfg.head_dim, cfg.d_state
         nh, di = cfg.n_heads(d_model), cfg.d_inner(d_model)
@@ -432,7 +542,7 @@ class TP(ModelAxis):
         for k in ("dt_bias", "A_log", "D"):
             local[k] = self.take(params[k], 0, nh, h0, h1)
         C = di + 2 * gN
-        for k, dim in (("conv_w", 1), ("conv_b", 0)):
+        for k, dim in (("conv_w", 1), ("conv_b", 0)) if conv else ():
             whole = self.take(params[k], dim, C, 0, C)
             local[k] = torch.cat([
                 whole.narrow(dim, h0 * hp, (h1 - h0) * hp),
@@ -440,50 +550,80 @@ class TP(ModelAxis):
                 whole.narrow(dim, di + gN + g0 * N, (g1 - g0) * N)], dim)
         return local, h1 - h0, g1 - g0
 
-    # ----------------------------------------------------- decode state
+    # ------------------------------------------------------------ decode
+    def _kv_ranges(self) -> list:
+        return [p.kv_heads for p in self.plans]
+
     @torch.no_grad()
-    def full_decode_state(self, state: dict, cfg) -> dict:
-        """The world-1 decode state from the ranks' (every rank must
-        call it): K/V over the kv heads, ``h`` over the SSM heads and
-        ``conv`` over its ``[x, B, C]`` channels, each global head or
-        group taken from the first rank that holds it."""
-        plans = [Plan.of(cfg, self.M, r) for r in range(self.M)]
-        out = {}
+    def gather_qkv(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+        """A decode token's whole q (B,1,H,hd), k and v (B,1,Kh,hd) from
+        the rank's heads' and kv heads' (one all-gather of the three,
+        ``qkv_allgather``); a kv head that ranks share comes from the
+        first that holds it."""
+        B, _, Hl, hd = q.shape
+        Kl = k.shape[2]
+        parts = self.dist.all_gather(torch.cat([q, k, v], 2)[None], 0,
+                                     "qkv_allgather", self.group)
+        q = parts[..., :Hl, :].permute(1, 2, 0, 3, 4).reshape(
+            B, 1, self.M * Hl, hd)
+        k, v = (_assemble([p[..., Hl + i * Kl:Hl + (i + 1) * Kl, :]
+                           for p in parts], self._kv_ranges(), 2, 1)
+                for i in (0, 1))
+        return q, k, v
 
-        def pieces(t, dim):
-            return torch.chunk(self.dist.all_gather(
-                t, dim, "tp_state_gather", self.group), self.M, dim)
+    @torch.no_grad()
+    def gather_xbc(self, row: torch.Tensor, cfg) -> torch.Tensor:
+        """A decode token's whole ``[x, B, C]`` row (B, C) from the rank's
+        x columns and its groups' B and C (``row``: (B, di/M + 2 g N),
+        ``g`` its groups): one all-gather (``xbc_allgather``).  ``cfg``:
+        the SSM config."""
+        return self._whole_xbc(self.dist.all_gather(
+            row[None], 0, "xbc_allgather", self.group), cfg)
 
-        def assemble(parts, ranges, dim, width):
-            got = []
-            for j in range(ranges[-1][1]):
-                r = next(i for i, (a, b) in enumerate(ranges) if a <= j < b)
-                got.append(parts[r].narrow(dim, (j - ranges[r][0]) * width,
-                                           width))
-            return torch.cat(got, dim)
+    def _whole_xbc(self, parts: torch.Tensor, cfg) -> torch.Tensor:
+        """The whole ``[x, B, C]`` channels (last dim) from every rank's
+        x columns and its groups' B and C (``parts``: dim 0 the ranks)."""
+        (h0, h1), (g0, g1) = self.plan.ssm_heads, self.plan.ssm_groups
+        N = cfg.d_state
+        x_w, g_w = (h1 - h0) * cfg.head_dim, (g1 - g0) * N
+        groups = [p.ssm_groups for p in self.plans]
+        xs = torch.cat([p[..., :x_w] for p in parts], -1)
+        B = _assemble([p[..., x_w:x_w + g_w] for p in parts], groups, -1, N)
+        C = _assemble([p[..., x_w + g_w:] for p in parts], groups, -1, N)
+        return torch.cat([xs, B, C], -1)
 
-        for name in ("k", "v"):
-            if name in state:
-                out[name] = (state[name] if self.heads_whole else assemble(
-                    pieces(state[name], 3), [p.kv_heads for p in plans],
-                    3, 1))
-        if "h" in state:
-            out["h"] = torch.cat(pieces(state["h"], 2), 2)
-        if "conv" in state:
-            s = cfg.ssm
-            hp, N = s.head_dim, s.d_state
-            parts = pieces(state["conv"], 3)
-            x_w = (plans[0].ssm_heads[1] - plans[0].ssm_heads[0]) * hp
-            g_w = (plans[0].ssm_groups[1] - plans[0].ssm_groups[0]) * N
-            xs = torch.cat([p.narrow(3, 0, x_w) for p in parts], 3)
-            groups = [p.ssm_groups for p in plans]
-            B = assemble([p.narrow(3, x_w, g_w) for p in parts], groups,
-                         3, N)
-            C = assemble([p.narrow(3, x_w + g_w, g_w) for p in parts],
-                         groups, 3, N)
-            out["conv"] = torch.cat([xs, B, C], 3)
-        return out
+    @torch.no_grad()
+    def reshard_kv(self, k: torch.Tensor, v: torch.Tensor):
+        """A prefill's cache ``k``, ``v`` (B, L, Kh/M, hd) of the rank's kv
+        heads over every slot, as the rules' block: every kv head over the
+        rank's ``L/M`` slots (``span``).  One all-to-all of the slot blocks
+        (``state_reshard``); where ``M`` does not divide ``L`` the cache
+        is whole on every rank, one all-gather; where the attention runs
+        whole, a narrow with no collective."""
+        if self.heads_whole:
+            return self.state_block("k", k), self.state_block("v", v)
+        B, L, Kl, hd = k.shape
+        kv = torch.stack([k, v])                      # (2, B, L, Kl, hd)
+        if L % self.M:
+            parts = self.dist.all_gather(kv[None], 0, "state_reshard",
+                                         self.group)
+        else:
+            blocks = kv.reshape(2, B, self.M, L // self.M, Kl, hd)
+            parts = self.dist.all_to_all(blocks.movedim(2, 0),
+                                         "state_reshard", self.group)
+        whole = _assemble(list(parts), self._kv_ranges(), 3, 1)
+        return whole[0], whole[1]
 
+    @torch.no_grad()
+    def reshard_conv(self, conv: torch.Tensor, cfg) -> torch.Tensor:
+        """A prefill's conv state (B, W-1, di/M + 2 g N) of the rank's x
+        columns and groups' B and C, as the rules' channel block
+        (``state_block``) of the whole ``[x, B, C]``: one all-gather
+        (``state_reshard``), then the rank's block.  ``cfg``: the SSM
+        config."""
+        parts = self.dist.all_gather(conv[None], 0, "state_reshard",
+                                     self.group)
+        return self.state_block("conv", self._whole_xbc(parts, cfg))
 
 # --------------------------------------------------------------------------
 # the shape count
@@ -564,3 +704,63 @@ def tp_weights_bytes(cfg, kind: str, M: int, esize: int) -> float:
     n_attn = cfg.layer_kinds().count("attn")
     passes = 2 if kind == "train" else 1
     return n_attn * passes * per_layer * (M - 1) / M
+
+
+# the mechanisms of fsdp_tp's decode state on the rules' blocks
+STATE_MECHANISMS = ("state_reshard", "qkv_allgather", "softmax_combine",
+                    "xbc_allgather", "conv_allgather")
+
+
+def tp_state_bytes(cfg, batch: int, cache_len: int, kind: str, M: int,
+                   act_bytes: int) -> Dict[str, float]:
+    """A rank's bytes by :data:`STATE_MECHANISMS` in one ``fsdp_tp``
+    prefill (``kind`` ``"prefill"``) or decode step (``"decode"``) of
+    ``batch`` local rows on a cache of ``cache_len`` slots, the decode
+    state on the rules' blocks, in the ring convention (a gather of F
+    whole bytes or an all-to-all of F bytes moves ``(M-1)/M F`` a rank).
+    The prefill's ``state_reshard``: each attention layer's K/V of the
+    rank's kv heads sent to the slots' owners (an all-to-all; an
+    all-gather where ``M`` does not divide the cache, nothing where the
+    attention runs whole) and each SSD layer's conv rows of the rank's
+    ``[x, B, C]`` columns all-gathered.  A decode step: each attention
+    layer's token q, k and v all-gathered (``qkv_allgather``, not where
+    the attention runs whole) and its softmax partials where the cache
+    is split (``softmax_combine``: ``head_dim + 2`` f32 a head and row),
+    each SSD layer's ``[x, B, C]`` columns (``xbc_allgather``) and its
+    post-conv row where the channels are split (``conv_allgather``).
+    Activations, caches and conv rows are ``act_bytes`` an element."""
+    out = dict.fromkeys(STATE_MECHANISMS, 0.0)
+    if M == 1:
+        return out
+    B, hd = batch, cfg.head_dim
+    whole = heads_whole(cfg, M)
+    L = (cache_len if cfg.sliding_window is None
+         else min(cache_len, cfg.sliding_window))
+    for kind_l in cfg.layer_kinds():
+        if kind_l == "attn":
+            Kl = cfg.n_kv_heads // M if cfg.n_kv_heads % M == 0 else 1
+            if kind == "prefill" and not whole:
+                kv = 2 * B * L * Kl * hd * act_bytes
+                out["state_reshard"] += (kv * (M - 1) / M if L % M == 0
+                                         else kv * (M - 1))
+            elif kind == "decode":
+                if not whole:
+                    out["qkv_allgather"] += ((M - 1) * B * hd * act_bytes
+                                             * (cfg.n_heads // M + 2 * Kl))
+                if L % M == 0:
+                    out["softmax_combine"] += ((M - 1) * B * cfg.n_heads
+                                               * (hd + 2) * 4)
+        else:
+            s = cfg.ssm
+            nh, N = s.n_heads(cfg.d_model), s.d_state
+            groups = (s.n_groups // M if s.n_groups % M == 0 else 1)
+            cols = (nh // M) * s.head_dim + 2 * groups * N
+            C = s.d_inner(cfg.d_model) + 2 * s.n_groups * N
+            if kind == "prefill":
+                out["state_reshard"] += ((M - 1) * B * (s.conv_width - 1)
+                                         * cols * act_bytes)
+            elif kind == "decode":
+                out["xbc_allgather"] += (M - 1) * B * cols * act_bytes
+                if C % M == 0:
+                    out["conv_allgather"] += B * C * act_bytes * (M - 1) / M
+    return out

@@ -26,7 +26,7 @@ from repro_torch.models.model import (decode_step, forward, period_len,
                                       prefill)
 from repro_torch.optim import get_optimizer
 from repro_torch.sharding import use_ctx
-from repro_torch.sharding.sp import STATE_DIM
+from repro_torch.sharding.tp import STATE_DIM
 from repro_torch.train import make_loss_and_grads, make_train_step
 from repro_torch.train.step import TrainState
 from repro_torch.tree import tree_unflatten
@@ -151,7 +151,7 @@ def load_run(work: Path, rank: int, run):
 
 def block_of(t: np.ndarray, name: str, rank: int, M: int) -> np.ndarray:
     """Rank ``rank``'s block of a stacked decode-state leaf as the rules
-    split it (``SP.state_block``'s, a layer dim ahead)."""
+    split it (``ModelAxis.state_block``'s, a layer dim ahead)."""
     d = STATE_DIM[name] + 1
     n = t.shape[d]
     if n % M:

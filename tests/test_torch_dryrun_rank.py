@@ -14,10 +14,12 @@ one rank of a mesh traced on ``meta`` through a meta rank context.
   meshes' axes, each cut to 2 ranks): every layout's rank section holds
   exactly ``sharded_bytes`` (the parameters, gradients, optimizer state
   and decode state of the reference's rules); ``long_500k``'s one row is
-  replicated over ``(pod, data)``.  ``fsdp_tp``'s decode state of an SSM
-  with fewer groups than model ranks holds more than the rules' block
-  (the port keeps each rank's groups whole: ROADMAP Queue 3), and the
-  record shows the excess.
+  replicated over ``(pod, data)``.  ``fsdp_tp``'s decode state is the
+  rules' block too, an SSM with fewer groups than model ranks included.
+* Full-width ``decode_32k`` and ``prefill_32k`` records under
+  ``fsdp_tp`` on 16x16 for the archs whose kv heads or SSM groups the
+  model axis of 16 does not split (granite's 8 kv heads, glm4's 2,
+  mamba2's one group): ``resident_minus_sharded`` all 0.
 * A full-width llama4-maverick x train_4k x 16x16 x ``fsdp_tp`` record
   (40 query heads on a model axis of 16: the attention whole on every
   rank) is ``ok`` on meta and allocates no parameter on the CPU.
@@ -44,7 +46,6 @@ ROOT = Path(__file__).resolve().parent.parent
 # the production meshes' axes, each cut to 2
 SMALL = {False: {"data": 2, "model": 2},
          True: {"pod": 2, "data": 2, "model": 2}}
-RESIDENT = ("params", "grads", "optimizer_state", "decode_state")
 
 
 @pytest.fixture(scope="module")
@@ -112,19 +113,33 @@ def test_both_meshes_hold_the_rules_blocks(monkeypatch, arch, shape,
         assert rank["grid"] == want
         assert rank["rank"] == 2 ** len(want) - 1
         diff = rank["resident_minus_sharded"]
-        ssm_groups_split = layout != "fsdp_tp" or arch != "mamba2-2.7b" \
-            or shape == "train_4k"
-        if ssm_groups_split:
-            assert set(diff.values()) == {0}, diff
-        else:
-            # mamba2's one SSM group on 2 model ranks: each keeps B and C
-            # of the conv state whole
-            assert diff["decode_state"] > 0
-            assert {diff[k] for k in RESIDENT[:3]} == {0}
+        assert set(diff.values()) == {0}, diff
         if shape == "long_500k":
             assert rank["rows"] == 1           # replicated over (pod, data)
         assert rank["traced_over_analytic"] > 0
         assert rank["fits_one_card"]
+
+
+FULL_SERVE = [(arch, shape) for arch in ("granite-3-2b", "glm4-9b",
+                                         "mamba2-2.7b")
+              for shape in ("decode_32k", "prefill_32k")]
+
+
+@pytest.mark.parametrize("arch,shape", FULL_SERVE,
+                         ids=["-".join(c) for c in FULL_SERVE])
+def test_full_width_fsdp_tp_serving_holds_the_rules_blocks(arch, shape):
+    """Rank 255 of 16x16 under ``fsdp_tp`` at full width on meta: where a
+    model rank shares a kv head (granite's 8 on 16 ranks, glm4's 2) or
+    an SSM group (mamba2's one), its decode state is still exactly the
+    rules' block (it held 2x, 8x and the whole B and C before)."""
+    rec = D.run_one(arch, shape, False, "fsdp_tp", None)
+    assert rec["status"] == "ok", rec.get("error")
+    rank = rec["rank"]
+    assert rank["rank"] == 255
+    assert set(rank["resident_minus_sharded"].values()) == {0}, rank[
+        "resident_minus_sharded"]
+    assert rank["bytes"]["decode_state"] == rec["sharded_bytes"][
+        "decode_state"] > 0
 
 
 def test_full_width_llama4_rank_on_meta():

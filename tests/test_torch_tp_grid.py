@@ -24,7 +24,9 @@ import numpy as np  # noqa: E402
 from repro_torch.configs import get_reduced  # noqa: E402
 from repro_torch.convert import params_from_flat  # noqa: E402
 from repro_torch.sharding import rules  # noqa: E402
-from repro_torch.sharding.tp import tp_allreduce_bytes  # noqa: E402
+from repro_torch.models.model import init_decode_state  # noqa: E402
+from repro_torch.sharding.tp import (tp_allreduce_bytes,  # noqa: E402
+                                     tp_state_bytes)
 from repro_torch.tree import tree_leaves  # noqa: E402
 
 from torch_one_thread import one_thread  # noqa: E402,F401
@@ -104,6 +106,21 @@ def test_blocks_groups_and_bytes(gang, arch, mesh, serve):
         if serve:
             assert info["decode_bytes"]["tp_allreduce"] == \
                 tp_allreduce_bytes(cfg, W.B, 1, "decode", M, 4)
+            # the decode state: the rules' block, its bytes by mechanism
+            # the shape count
+            whole = init_decode_state(cfg, W.B, W.S + W.DECODE,
+                                      device="meta")
+            specs = rules.decode_state_shardings(whole, mesh, "fsdp_tp")
+            assert info["state_shapes"] == {
+                k: list(rules.shard_shape(t.shape, specs[k], mesh))
+                for k, t in whole.items()}
+            assert info["state_bytes"]["decode"] == \
+                rules.per_device_bytes(whole, specs, mesh)
+            for kind in ("prefill", "decode"):
+                count = tp_state_bytes(cfg, W.B, W.S + W.DECODE, kind, M,
+                                       4)
+                assert {k: info[f"{kind}_bytes"].get(k, 0.0)
+                        for k in count} == count
             # the straddling leaves, gathered over model
             assert info["bytes"]["tp_weights"] > 0
 

@@ -16,19 +16,25 @@ For each ``(arch, mesh)`` of the case list named on the command line
 * where asked, a prefill of the rank's rows (``cache_len`` ``S +
   DECODE``) and ``DECODE`` greedy decode steps: each step's whole
   logits, the decode state gathered whole after the prefill and after
-  the last step, and the bytes by mechanism of the prefill and of one
-  decode step.
+  the last step, the rank's decode-state bytes after each, and the
+  bytes by mechanism of the prefill and of one decode step.
+
+Then each serve-only case of :data:`SERVE` (a reduced config with its
+heads replaced, a cache of its own length): the same prefill and decode
+steps, without training.
 
     python tests/torch_tp_worker.py CASES RANK WORLD COORDINATOR WORKDIR
 
 ``WORKDIR`` holds ``<arch>.params.npz`` (the reference's weights in
-checkpoint layout) and ``<arch>.tokens.npy``; it receives
-``rank{r}.<tag>.npz`` and ``rank{r}.<tag>.json``, ``tag`` being
-:func:`tag`.
+checkpoint layout) and ``<arch>.tokens.npy`` (a serve-only case's under
+its name); it receives ``rank{r}.<tag>.npz`` and ``rank{r}.<tag>.json``,
+``tag`` being :func:`tag`.
 """
+import dataclasses
 import json
 import sys
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -68,6 +74,49 @@ CASES = {
 REF = {"model2": CASES["model2"][:3], "world4": CASES["world4"][:2]}
 
 
+class Serve(NamedTuple):
+    """A serve-only case: the reduced ``arch`` with ``heads`` replaced,
+    a prefill into a cache of ``cache`` slots and ``DECODE`` greedy
+    steps on ``mesh``; its files go by ``name``."""
+    name: str
+    arch: str
+    heads: dict
+    cache: int
+    mesh: dict = M2
+
+
+# the decode branches the cases above leave: a kv head both ranks share
+# (granite with one kv head: each rank's two query heads read it), the
+# attention whole (3 query heads on 2 ranks, as llama4's 40 on 16), and
+# a cache the model axis does not divide (kept whole on every rank)
+SERVE = {"model2": [
+    Serve("granite-kv1", "granite-3-2b", {"n_kv_heads": 1}, S + DECODE),
+    Serve("llama4-whole", "llama4-maverick-400b-a17b",
+          {"n_heads": 3, "n_kv_heads": 1, "d_head": 64}, S + DECODE),
+    Serve("stablelm-odd-cache", "stablelm-1.6b", {}, S + DECODE + 1)],
+    "world4": []}
+
+
+def serve_cases(cases: str) -> list:
+    """``(name, arch, heads, cache, mesh)`` of every case of ``cases``
+    that serves: the train cases' at a cache of ``S + DECODE``, then
+    :data:`SERVE`'s."""
+    return [Serve(a, a, {}, S + DECODE, m) for a, m, serve in CASES[cases]
+            if serve] + SERVE[cases]
+
+
+# the serving cases the reference's own fsdp_tp prefill and decode run:
+# one for each decode branch (M dividing the kv heads, an SSM with fewer
+# groups than ranks, then SERVE's three); world 1 holds the others
+REF_SERVE = {"model2": serve_cases("model2")[:2] + SERVE["model2"],
+             "world4": []}
+
+
+def config(get_reduced, arch: str, heads: dict):
+    """Either package's reduced config of ``arch`` with ``heads``."""
+    return dataclasses.replace(get_reduced(arch), **heads)
+
+
 def tag(arch: str, mesh: dict) -> str:
     return arch + "." + "x".join(f"{a}{n}" for a, n in mesh.items())
 
@@ -76,6 +125,10 @@ def global_batch(work: Path, arch: str):
     """The reference's text batch: tokens only, each position scored
     against the next."""
     return {"tokens": torch.from_numpy(np.load(work / f"{arch}.tokens.npy"))}
+
+
+def _nbytes(state: dict) -> int:
+    return sum(t.numel() * t.element_size() for t in state.values())
 
 
 def _flat(params, cfg, prefix):
@@ -126,31 +179,60 @@ def run_case(ctx, work: Path, arch: str, mesh: dict, serve: bool) -> None:
         torch.equal(a, b) and a.dtype == b.dtype
         for a, b in zip(tree_leaves(back), tree_leaves(shards)))
     if serve:
-        tp = fsdp.tp
-        before = dict(ctx.collective_bytes)
-        logits, state = prefill(shards, cfg, rows, cache_len=S + DECODE,
-                                fsdp=fsdp)
-        info["prefill_bytes"] = _since(ctx, before)
-        info["state_shapes"] = {k: list(v.shape) for k, v in state.items()}
-        info["init_state_shapes"] = {
-            k: list(v.shape) for k, v in init_decode_state(
-                cfg, rows["tokens"].shape[0], S + DECODE, device="cpu",
-                grid=grid).items()}
-        out.update({f"prefill_state/{k}": v.numpy() for k, v in
-                    tp.full_decode_state(state, cfg).items()})
-        out["logits/0"] = logits.numpy()
-        tok = logits.argmax(-1)[:, None]
-        for i in range(DECODE):
-            before = dict(ctx.collective_bytes)
-            pos = torch.full((tok.shape[0],), S + i, dtype=torch.int32)
-            logits, state = decode_step(shards, cfg, state, tok, pos,
-                                        fsdp=fsdp)
-            info["decode_bytes"] = _since(ctx, before)
-            out[f"logits/{i + 1}"] = logits.numpy()
-            tok = logits.argmax(-1)[:, None]
-        out.update({f"decode_state/{k}": v.numpy() for k, v in
-                    tp.full_decode_state(state, cfg).items()})
+        _serve(ctx, grid, fsdp, shards, cfg, rows, S + DECODE, out, info)
     name = f"rank{ctx.rank}.{tag(arch, mesh)}"
+    np.savez(work / f"{name}.npz", **out)
+    (work / f"{name}.json").write_text(json.dumps(info))
+
+
+def _serve(ctx, grid, fsdp, shards, cfg, rows, cache: int, out: dict,
+           info: dict) -> None:
+    """A prefill of ``rows`` into ``cache`` slots and ``DECODE`` greedy
+    steps on the rank's blocks: into ``out`` every step's whole logits
+    and the state gathered whole after the prefill and the last step;
+    into ``info`` the rank's state shapes and bytes and the bytes by
+    mechanism of the prefill and of the last decode step."""
+    tp = fsdp.tp
+    before = dict(ctx.collective_bytes)
+    logits, state = prefill(shards, cfg, rows, cache_len=cache, fsdp=fsdp)
+    info["prefill_bytes"] = _since(ctx, before)
+    info["state_shapes"] = {k: list(v.shape) for k, v in state.items()}
+    info["state_bytes"] = {"prefill": _nbytes(state)}
+    info["init_state_shapes"] = {
+        k: list(v.shape) for k, v in init_decode_state(
+            cfg, rows["tokens"].shape[0], cache, device="cpu",
+            grid=grid).items()}
+    out.update({f"prefill_state/{k}": v.numpy() for k, v in
+                tp.full_decode_state(state, cfg, cache).items()})
+    out["logits/0"] = logits.numpy()
+    tok = logits.argmax(-1)[:, None]
+    for i in range(DECODE):
+        before = dict(ctx.collective_bytes)
+        pos = torch.full((tok.shape[0],), S + i, dtype=torch.int32)
+        logits, state = decode_step(shards, cfg, state, tok, pos,
+                                    fsdp=fsdp, cache_len=cache)
+        info["decode_bytes"] = _since(ctx, before)
+        out[f"logits/{i + 1}"] = logits.numpy()
+        tok = logits.argmax(-1)[:, None]
+    info["state_bytes"]["decode"] = _nbytes(state)
+    out.update({f"decode_state/{k}": v.numpy() for k, v in
+                tp.full_decode_state(state, cfg, cache).items()})
+
+
+def serve_case(ctx, work: Path, case: Serve) -> None:
+    """A serve-only case: the prefill and decode steps of :func:`_serve`
+    on the case's config, weights and tokens."""
+    cfg = config(get_reduced, case.arch, case.heads)
+    grid = RankGrid(case.mesh, ctx)
+    full = params_from_flat(dict(np.load(work / f"{case.name}.params.npz")),
+                            cfg, device="cpu")
+    fsdp = FSDP(grid, full, "fsdp_tp", cfg)
+    rows = shard_rows(global_batch(work, case.name), grid.coord("data"),
+                      grid.extent("data"))
+    out, info = {}, {"coords": grid.coords}
+    _serve(ctx, grid, fsdp, fsdp.shard_tree(full), cfg, rows, case.cache,
+           out, info)
+    name = f"rank{ctx.rank}.{tag(case.name, case.mesh)}"
     np.savez(work / f"{name}.npz", **out)
     (work / f"{name}.json").write_text(json.dumps(info))
 
@@ -162,6 +244,8 @@ def main(cases: str, rank: int, world: int, coordinator: str,
     try:
         for arch, mesh, serve in CASES[cases]:
             run_case(ctx, work, arch, mesh, serve)
+        for case in SERVE[cases]:
+            serve_case(ctx, work, case)
     finally:
         ctx.close()
 

@@ -46,13 +46,18 @@ def _env(**extra):
 def start(work: Path, cases: str, world: int, ref_devices: int) -> None:
     """Write the weights and tokens of every arch of ``cases``, run the
     gang of ``world`` ranks and the reference's sharded steps on a host
-    mesh of ``ref_devices`` CPU devices side by side, and raise unless
+    mesh of ``ref_devices`` CPU devices (its training and its serving
+    cases, each in a process of its own) side by side, and raise unless
     all exit 0."""
-    for arch in {a for a, _, _ in W.CASES[cases]}:
-        np.savez(work / f"{arch}.params.npz",
-                 **_flatten(JM.init_params(jax.random.PRNGKey(KEY),
-                                           jax_reduced(arch))))
-        np.save(work / f"{arch}.tokens.npy", np.random.default_rng(5)
+    files = {(a, a, ()) for a, _, _ in W.CASES[cases]}
+    files |= {(c.name, c.arch, tuple(c.heads.items()))
+              for c in W.SERVE[cases]}
+    for name, arch, heads in files:
+        np.savez(work / f"{name}.params.npz",
+                 **_flatten(JM.init_params(
+                     jax.random.PRNGKey(KEY),
+                     W.config(jax_reduced, arch, dict(heads)))))
+        np.save(work / f"{name}.tokens.npy", np.random.default_rng(5)
                 .integers(0, get_reduced(arch).vocab, size=(W.B, W.S))
                 .astype(np.int32))
     coordinator = f"127.0.0.1:{free_port()}"
@@ -61,14 +66,16 @@ def start(work: Path, cases: str, world: int, ref_devices: int) -> None:
          str(r), str(world), coordinator, str(work)], env=_env(),
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for r in range(world)]
-    ref = subprocess.Popen(
+    refs = [subprocess.Popen(
         [sys.executable, str(ROOT / "tests" / "jax_tp_step.py"), cases,
-         str(work), str(KEY)],
+         str(work), str(KEY), part],
         env=_env(XLA_FLAGS=f"--xla_force_host_platform_device_count="
                            f"{ref_devices}"),
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    outs = [p.communicate(timeout=400)[0] for p in procs + [ref]]
-    assert [p.returncode for p in procs + [ref]] == [0] * (world + 1), outs
+        for part, todo in (("train", W.REF), ("serve", W.REF_SERVE))
+        if todo[cases]]
+    outs = [p.communicate(timeout=400)[0] for p in procs + refs]
+    assert [p.returncode for p in procs + refs] == [0] * len(outs), outs
 
 
 def load(work: Path, rank: int, arch: str, mesh: dict):
@@ -101,18 +108,34 @@ def world1(work: Path, arch: str, mesh: dict, serve: bool) -> dict:
             out[name] = {k: float(metrics[k]) for k in ("loss",
                                                         "grad_norm")}
     if serve:
-        logits, state = prefill(params, cfg, batch,
-                                cache_len=W.S + W.DECODE)
-        out["prefill_state"] = {k: v.clone() for k, v in state.items()}
-        out["logits"] = [logits]
-        tok = logits.argmax(-1)[:, None]
-        for i in range(W.DECODE):
-            pos = torch.full((tok.shape[0],), W.S + i, dtype=torch.int32)
-            logits, state = decode_step(params, cfg, state, tok, pos)
-            out["logits"].append(logits)
-            tok = logits.argmax(-1)[:, None]
-        out["decode_state"] = state
+        out.update(world1_serve(params, cfg, batch, W.S + W.DECODE))
     return out
+
+
+def world1_serve(params, cfg, batch, cache: int) -> dict:
+    """The port's world-1 prefill into ``cache`` slots and ``DECODE``
+    greedy steps: every step's logits, the state after the prefill and
+    after the last step."""
+    logits, state = prefill(params, cfg, batch, cache_len=cache)
+    out = {"prefill_state": {k: v.clone() for k, v in state.items()},
+           "logits": [logits]}
+    tok = logits.argmax(-1)[:, None]
+    for i in range(W.DECODE):
+        pos = torch.full((tok.shape[0],), W.S + i, dtype=torch.int32)
+        logits, state = decode_step(params, cfg, state, tok, pos)
+        out["logits"].append(logits)
+        tok = logits.argmax(-1)[:, None]
+    out["decode_state"] = state
+    return out
+
+
+def world1_serve_case(work: Path, case) -> dict:
+    """:func:`world1_serve` of a serve-only case (``W.Serve``)."""
+    cfg = W.config(get_reduced, case.arch, case.heads)
+    params = params_from_flat(dict(np.load(work / f"{case.name}.params.npz")),
+                              cfg, device="cpu")
+    return world1_serve(params, cfg, W.global_batch(work, case.name),
+                        case.cache)
 
 
 def update(work: Path, arch: str, name: str, grads_flat) -> dict:

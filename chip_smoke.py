@@ -10,8 +10,9 @@ Phases, each of which fails the run if it fails:
    started together: the flash-attention forward (K1) and backward (K2
    dQ, K3 dK/dV), the SSD chunk scan (K4) and the percentile stretch (K5);
    beside them three more with ``-Xptxas -v``, for the registers and
-   spills of K4's tensor-core entries and of K1's, K2's and K3's at hd 64,
-   80 and 128 (the hd-80 ones must not spill);
+   spills of K4's tensor-core entry (``tc::ssd_scan_wgmma``, which must not
+   spill) and of K1's, K2's and K3's at hd 64, 80 and 128 (the hd-80 ones
+   must not spill);
 2. hold K1 against its plain PyTorch version on the card, in bf16 and f32,
    at the prefill shapes of granite-3-2b, glm4-9b (GQA 16 at hd 128),
    codeqwen1.5-7b (MHA at hd 128) and qwen3-moe-30b-a3b (GQA 8 at hd 128,
@@ -104,8 +105,10 @@ Phases, each of which fails the run if it fails:
    S 2048, 64 heads of 128, g 8) and its ragged S 1000, Q 64 at S 4096,
    and phase 28's mamba2 prefill (Bs 2, S 32 768); each shape's route
    (tensor cores for bf16, CUDA cores for f32, checked by the route
-   counters) and two launches bitwise equal; ptxas's registers and spills
-   of the tensor-core entries (a second nvcc, ``-Xptxas -v``, in phase 1);
+   counters) and two launches bitwise equal; each shape's kernel ms, the
+   least time the card could take and TFLOP/s; ptxas's registers and
+   spills of the tensor-core entry (a second nvcc, ``-Xptxas -v``, in
+   phase 1);
 9. serve full-width mamba2-2.7b (64 layers, bf16, random weights from a
    seed) through ``ServeEngine`` with phase 5's traffic; K4 must launch
    64 x prefill calls, every launch on the tensor cores; the prefill batch
@@ -791,6 +794,17 @@ def spills(rec: dict) -> bool:
     found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       rec["spill"] or "")
     return found is None or found.groups() != ("0", "0")
+
+
+def ssd_ptxas(report: list) -> list:
+    """K4's tensor-core entry from :func:`ptxas_report`: one
+    ``tc::ssd_scan_wgmma`` (a 64-column slab of any head dim), which must
+    not spill."""
+    if len(report) != 1:
+        raise AssertionError(f"K4's tensor-core entries: {report}")
+    if spills(report[0]):
+        raise AssertionError(f"K4's tensor-core entry spills: {report}")
+    return report
 
 
 # the flash kernels' tensor-core entries (tc::<entry><HD>) by kernel
@@ -5010,7 +5024,7 @@ def main() -> int:
     emit(phase="build", sources=sorted({v[0] for v in KERNELS.values()}),
          seconds=time.perf_counter() - t0)
     emit(phase="ptxas", source=KERNELS["ssd_scan"][0],
-         tensor_core=ptxas_report(ptxas, "ssd_scan_mma"))
+         tensor_core=ssd_ptxas(ptxas_report(ptxas, "ssd_scan_wgmma")))
     emit(phase="ptxas", source=KERNELS["flash_attention_fwd"][0],
          tensor_core=flash_ptxas(ptxas_report(ptxas_fwd, "_wgmma"), ("K1",)))
     emit(phase="ptxas", source=KERNELS["flash_attention_bwd_dq"][0],

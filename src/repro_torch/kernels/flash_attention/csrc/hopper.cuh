@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core routes of the
-// flash-attention forward (flash_fwd.cu) and backward (flash_bwd.cu):
+// flash-attention forward (flash_fwd.cu) and backward (flash_bwd.cu) and
+// of the SSD chunk scan (ssd_scan/csrc/ssd_scan.cu):
 // mbarriers, TMA loads through 4-D tensor maps over strided (B, S, heads,
 // hd) bf16 tensors with the 128-byte swizzle, wgmma shared-memory
 // descriptors and the bf16 wgmma products with f32 accumulators.

@@ -12,7 +12,7 @@
 //        + exp(la_i) C_i . h                                     (inter)
 //   h   <- exp(la_last) h + sum_j x_j exp(la_last - la_j) dt_j B_j^T
 // It returns y in x's dtype and the final state h (Bs,nh,hp,N) in f32.  The
-// exponent is masked, never the product: exp(la_i - la_j) is evaluated only
+// exponent is masked, never the product: exp(la_i - la_j) is taken only
 // for j <= i, since the upper triangle overflows to inf and inf * 0 is NaN.
 // A chunk shorter than Q (the tail of a ragged S) is handled in the kernel:
 // its missing rows are zeros and la_last is taken at its last row, which is
@@ -23,74 +23,111 @@
 // What bounds it on this card.  At the serving prefill shape (Bs 8, S 2048,
 // nh 80, hp 64, g 1, N 128, Q 256) the function needs ~65 GFLOP against
 // ~0.37 GB of x, dt, B, C, y and h_final: it is bound by bytes (~0.11 ms at
-// 3.35 TB/s).  Both routes run far from that: the tensor-core route is
-// bound by the latency of each tile's chain (C B^T, the masked decay, the
-// products) with two blocks of eight warps an SM, and by its 640 blocks
-// filling 2.4 waves of the card at that shape; the CUDA-core route by
-// shared-memory bandwidth and the one block an SM its f32 tiles allow.
+// 3.35 TB/s).  Neither route gets near that.  The tensor-core route does
+// ~3x the function's operations (the hi/lo products below, and C B^T once
+// a head and a 64-column slab of it) and is bound by the chain of each
+// (batch, head, slab) through its chunks: each chunk's inter term waits
+// for the last chunk's state, each 64-row tile's products wait for its
+// decay matrix, and that math (an exponential an entry, the hi/lo splits)
+// runs on two consumer warps a scheduler, far from the tensor cores' rate;
+// with one item a block and one block an SM, 640 items fill 4.8 waves of
+// the card at that shape, and 160 (Bs 2) or 80 (Bs 1) leave SMs idle.
+// The CUDA-core route is bound by shared-memory bandwidth and the one
+// block an SM its f32 tiles allow.
 //
 // What the design does about it.  The TPU kernel walks a sequential grid
 // (batch, head block, chunk) and carries h in VMEM scratch between grid
-// steps.  On the GPU one block owns one (batch, head) and loops over the
-// chunks in order itself, keeping h (hp x N f32, 32 KB at 64 x 128) in
-// shared memory.  The TPU kernel holds a whole chunk's Q x Q matrix in
-// VMEM; at Q = 256 that is 256 KB of f32, more than a block's 227 KB, so
-// here the chunk is cut into row tiles of 64: each row tile stages its C
-// rows once, takes the inter term from h, then walks only the column tiles
-// at or below the diagonal (C B^T, the masked decay, the product with x).
-// The state update follows in a second walk over the chunk's column tiles,
-// after every row tile has read the old h.  Inputs are read through their
-// strides (x, B and C are views of the mixer's convolution output), so no
-// contiguous or per-head copy of B and C is made.
+// steps.  On the GPU one block owns one (batch, head) -- on the tensor-core
+// route one 64-column slab of its head dim -- and loops over the chunks in
+// order itself, keeping h in shared memory as f32.  The TPU kernel holds a
+// whole chunk's Q x Q matrix in VMEM; at Q = 256 that is 256 KB of f32,
+// more than a block's 227 KB, so here the chunk is cut into 64-row tiles
+// and only the column tiles at or below the diagonal are multiplied.
+// Inputs are read through their strides (x, B and C are views of the
+// mixer's convolution output), so no contiguous or per-head copy of B and
+// C is made.
 //
 // Two routes, chosen by an explicit table on (dtype, hp, N) (route_of
 // below), never after a failure:
 //
 // * tensor cores, bf16 at hp 64 and 128 with N a multiple of 16 up to 128
-//   (tc::ssd_scan_mma).  The same structure, with every product on
-//   warp-level mma.sync.m16n8k16 (bf16 in, f32 sums): eight warps, each 16
-//   rows and half the columns of a 64 x 64 tile (the two halves' y summed
-//   once a row tile, through shared memory), and in the state update each a
-//   16-column block of h.  C, B and x tiles are staged as bf16 by 16-byte
-//   cp.async (the next column tile's B and x in flight under this one's
-//   products; rows past a ragged tail zero-filled) and read into fragments
-//   by ldmatrix; h stays f32 in shared memory.  About 105 KB a block at
-//   hp 64, N 128, Q 256: two blocks share an SM.  Numerics, since h_final
-//   is held to an f32 tolerance:
-//   - G = C B^T multiplies bf16 inputs as stored: exact products, f32 sums;
-//   - M = G exp(la_i - la_j) dt_j is made in G's accumulator registers,
-//     split into bf16 hi + lo parts and used in place as the A fragments of
-//     M x (the m16n8k16 accumulator of two n8 tiles is the A layout of one
-//     k16 step); x is the B fragment, by ldmatrix.trans.  M rounded once
-//     to bf16 misses y's tolerance ~4-5x where cancellation leaves y small:
-//     unlike softmax's P, M is not normalised, and its rounding errors
-//     scale with |M| |x|;
-//   - inter multiplies C by h split into bf16 hi + lo parts (a single
-//     rounding of h would repeat one error in every row of the chunk); the
-//     row scale exp(la_i) is applied in f32 to the product;
-//   - the state update multiplies x^T (exact bf16, ldmatrix.trans) by
-//     w_j B_j, w_j = exp(la_last - la_j) dt_j, split into bf16 hi + lo;
-//     each 64-row column tile's product goes to a fresh accumulator and is
-//     added to h by f32 adds (the tensor cores' f32 sums do not round to
-//     nearest, and h's chain runs over every row of every chunk).
+//   (tc::ssd_scan_wgmma): wgmma fed by TMA, the shape of the flash
+//   forward's (flash_fwd.cu).  A work item is one 64-column slab of one
+//   (batch, head): hp 128 is two items, each with the whole of C B^T and
+//   the decay matrix (y and h of a slab need x of that slab alone), so
+//   every item has the same registers and shared memory.  A block is two
+//   consumer warpgroups and a producer warpgroup (setmaxnreg: 232 and 40
+//   registers).  The producer's first warp keeps TMA loads in flight: each
+//   pass's C row tiles (two slots a consumer) and a 3-stage ring of B and
+//   x column tiles, all by 4-D maps over the strided tensors, (N, g, S, Bs)
+//   and (hp, nh, S, Bs), 128-byte swizzled, rows past S zero-filled, each
+//   completed on an mbarrier.  Its second warp reads dt and takes the
+//   chunk's la and the state update's weights w a chunk ahead into a
+//   2-slot ring.  A chunk of nt row tiles
+//   runs in ceil(nt / 2) passes: pass p gives row tiles 2p and 2p + 1 to
+//   the two consumers (the longer one to warpgroup p % 2, so each does
+//   about half of the chunk) and streams column tiles 0 .. 2p + 1 past
+//   both; the last pass streams them all, for the state update.  Per row
+//   tile i, each consumer:
+//   - inter, with G of the first column tile: y = exp(la_i) (C_i h_hi^T +
+//     C_i h_lo^T), wgmma m64n64k16 with C K-major and h^T's bf16 hi and lo
+//     parts MN-major in shared memory (a single rounding of h would repeat
+//     one error in every row of the chunk); the row scale is applied in
+//     f32.  h^T's parts start at zero, so the first chunk's term is 0;
+//   - intra, per column tile j <= i: G = C_i B_j^T, wgmma with C and B
+//     K-major, the bf16 inputs as stored: exact products, f32 sums.  M =
+//     G exp(la_i - la_j) dt_j is made in G's accumulator registers, split
+//     into bf16 hi + lo (M rounded once to bf16 misses y's tolerance ~4-5x
+//     where cancellation leaves y small: unlike softmax's P it is not
+//     normalised) and used as the A fragments of y += M_hi x + M_lo x
+//     (wgmma from registers, x MN-major).  A tile off the diagonal and
+//     inside the chunk skips the mask; elsewhere the exponent is masked to
+//     -inf by selects.
+//   A column tile's math comes first (M; the state update's fragments),
+//   then its products go to the tensor cores in one batch -- y += M x, G
+//   of the next tile, the state product -- which the consumer waits for;
+//   the other consumer's math runs under it.  No wgmma is in flight while
+//   other instructions write registers, and every branch around a wgmma is
+//   on values the compiler sees as warp-uniform: otherwise ptxas
+//   serializes every wgmma of the kernel (C7515, C7520).  G of tile j + 1
+//   issued before M_j's exponentials needs a second G accumulator, which
+//   spills at 232 registers and measured 1.4x slower on an H100.
+//   The state update runs in the last pass, as each column tile passes:
+//   the consumer that owns a 64-row box of h^T (rows n, columns p) makes
+//   h^T += (w B)^T x with w_j = exp(la_last - la_j) dt_j, (w B)^T read from
+//   the staged B tile by ldmatrix.trans and split into bf16 hi + lo A
+//   fragments, x MN-major; each column tile's product goes to a fresh
+//   accumulator and is added to h by f32 adds (the tensor cores' f32 sums
+//   do not round to nearest, and h's chain runs over every row of every
+//   chunk).  After the chunk both consumers meet at a named barrier, the
+//   owners rebuild h^T's bf16 hi and lo boxes, and meet again.  A column
+//   tile's rows past the chunk (Q not a multiple of 64) meet zero weights
+//   in both products.  About 207 KB of shared memory at Q 256: one block
+//   an SM.
 // * CUDA cores, f32 and every other shape (ssd_scan_kernel): the products
-//   as f32 FMAs, tiles staged as f32.  C B^T is computed once per head
-//   instead of once per group on both routes.
+//   as f32 FMAs, tiles staged as f32, h, B, C, x and the decay tile in
+//   shared memory, 16 x 16 threads a block; the state update in a second
+//   walk over the chunk's column tiles, after every row tile has read the
+//   old h.  C B^T is computed once per head instead of once per group on
+//   both routes.
 //
 // No atomics and a fixed order on both routes: two launches are bitwise
-// equal.  Wgmma with TMA, one C B^T shared by a group's heads and the
-// chunk-parallel split (chunk states, a state pass, outputs) are left for
-// later work.
+// equal.  One C B^T shared by a group's heads and the chunk-parallel split
+// (chunk states, a state pass, outputs) are left for later work.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
-//        -Xcompiler -fPIC
+//        -Xcompiler -fPIC (no -lcuda: cuTensorMapEncodeTiled is fetched
+//        from the driver at run time)
 // C interface (loaded with ctypes): ssd_scan(...) returns cudaGetLastError()
-// after the launch; ssd_scan_error_string(code) names it;
-// ssd_scan_route(dtype, hp, N) says which route a call takes.
+// after the launch, or a code >= 10000 if a tensor map could not be made;
+// ssd_scan_error_string(code) names it; ssd_scan_route(dtype, hp, N) says
+// which route a call takes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "../../flash_attention/csrc/hopper.cuh"
 
 namespace {
 
@@ -131,11 +168,10 @@ __device__ __forceinline__ void stage(float* dst, int ld, int cols,
 }
 
 // la = cumsum(dt * A) over the Qc rows of a chunk, dt in ws; called by
-// warp 0: each lane a run of rows, then an exclusive shuffle scan of the
+// one warp: each lane a run of rows, then an exclusive shuffle scan of the
 // runs' sums.
 __device__ __forceinline__ void log_decay(const float* ws, float* la, int Qc,
-                                          float Ah) {
-  const int lane = threadIdx.x;
+                                          float Ah, int lane) {
   const int per = (Qc + 31) / 32;
   const int lo = lane * per;
   const int hi = min(lo + per, Qc);
@@ -200,7 +236,7 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
     __syncthreads();   // the previous chunk is done with la and ws
     for (int i = tid; i < Qc; i += NT) ws[i] = db[(int64_t)(c0 + i) * dss];
     __syncthreads();
-    if (tid < 32) log_decay(ws, la, Qc, Ah);
+    if (tid < 32) log_decay(ws, la, Qc, Ah, tid);
 
     for (int it = 0; it < ntiles; ++it) {
       const int i0 = it * TR;
@@ -403,439 +439,546 @@ int route_of(int dtype, int hp, int N) {
 }
 
 // ---------------------------------------------------------------------------
-// The tensor-core route: bf16 at hp 64 and 128, N a multiple of 16.
+// The tensor-core route: bf16 at hp 64 and 128, N a multiple of 16 up to 128.
 // ---------------------------------------------------------------------------
 namespace tc {
 
+using namespace hopper;
 using bf16 = __nv_bfloat16;
-constexpr int NWARP = 8;  // warps: 16 rows and half the columns of a tile
-constexpr int NTH = 32 * NWARP;
-constexpr int PAD = 8;             // row padding, elements: 16 bytes of bf16
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+constexpr int STAGES = 3;        // B and x column tiles in flight
+constexpr int NTH = 384;         // consumer warpgroups 0 and 1, producer 2
+constexpr int CONSUMERS = 256;
+constexpr int TILE = TR * BOX;   // bytes of one box: 64 rows x 64 bf16
 
-// 16 bytes global -> shared, zero-filled when !valid (src is not read)
-__device__ __forceinline__ void cp16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+// The f32 h^T: N rows of the slab's 64 columns, element (n, p) at n * 64 +
+// (p ^ 8 (n % 4)), so that the float2 accesses of the accumulator layout
+// (four rows of eight columns a half-warp) hit 32 different banks.
+__device__ __forceinline__ int hf_at(int n, int p) {
+  return n * TR + (p ^ ((n & 3) << 3));
 }
 
-// four 8 x 8 b16 matrices; lane l gives the address of row l % 8 of
-// matrix l / 8, and register m receives matrix m (transposed with .trans)
-__device__ __forceinline__ void ldsm(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
+// Shared memory from a 1024-byte aligned base (the 128-byte swizzle repeats
+// every 8 rows of 128 bytes): the ring of column tiles (per stage two boxes
+// of B's N columns, then one box of x's slab), four C row tiles of two
+// boxes (two slots a consumer), h^T's bf16 hi and lo parts (N rows of the
+// slab's 64 columns, one box each), the f32 h^T (N rows of 64), the ring
+// of la, dt and the state update's weights w (two chunks, Q rounded up to
+// 64 each), then the barriers.
+struct Layout {
+  static constexpr int STAGE = 3 * TILE;
+  static constexpr int C_OFF = STAGES * STAGE;
+  static constexpr int H_HI = C_OFF + 4 * 2 * TILE;
+  static constexpr int H_LO = H_HI + NMAX * BOX;
+  static constexpr int H_F32 = H_LO + NMAX * BOX;
+  static constexpr int LA = H_F32 + NMAX * TR * 4;
+  static constexpr int N_BARS = 2 * STAGES + 4 + 4 + 2 + 2;
+  static __host__ __device__ int qr(int Q) { return (Q + TR - 1) / TR * TR; }
+  static __host__ __device__ int bars(int Q) { return LA + 2 * 3 * qr(Q) * 4; }
+  static int alloc(int Q) { return bars(Q) + 8 * N_BARS + 1024; }
+};
+
+// Row tile of consumer w in pass p: pass p takes the pair 2p, 2p + 1, and
+// the longer (2p + 1, one more column tile) goes to consumer p % 2.
+__device__ __forceinline__ int row_tile(int p, int w) {
+  return 2 * p + (w == (p & 1));
 }
-__device__ __forceinline__ void ldsm_t(uint32_t (&r)[4], const bf16* p) {
+
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
+
+// generic-proxy writes to shared memory, made visible to wgmma's reads
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// four 8 x 8 b16 matrices, transposed: lane l gives the address of row
+// l % 8 of matrix l / 8, and register m receives matrix m
+__device__ __forceinline__ void ldsm_t(uint32_t (&r)[4], uint32_t addr) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
+      : "r"(addr)
+      : "memory");
 }
 
-// d += a b: a 16 x 16 (row), b 16 x 8 (col), bf16 in, f32 sums
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-// two f32 values as one bf16x2 register, the first in the low half
-__device__ __forceinline__ uint32_t pack(float a, float b) {
-  return as_u32(__floats2bfloat162_rn(a, b));
-}
 __device__ __forceinline__ float2 unpack(uint32_t r) {
   return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&r));
 }
-// bf16 hi and lo parts of two f32 values: v = hi + lo to ~2**-17 of v
+
+// bf16 hi and lo parts of two f32 values, packed pairwise (the first in
+// the low half): a = hi + lo to ~2**-17 of a
 __device__ __forceinline__ void split(float a, float b, uint32_t& hi,
                                       uint32_t& lo) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
   const float2 hf = __bfloat1622float2(h);
-  hi = as_u32(h);
-  lo = pack(a - hf.x, b - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(a - hf.x, b - hf.y);
 }
 
-// Stage TR rows of `width` bf16 (a multiple of 8; row stride `rs`) into a
-// tile with row stride `ld`, 16 bytes a copy; rows at or past `valid` are
-// zero-filled.
-__device__ __forceinline__ void stage(bf16* dst, int ld, const bf16* src,
-                                      int64_t rs, int width, int valid) {
-  const int per = width / 8;
-  for (int idx = threadIdx.x; idx < TR * per; idx += NTH) {
-    const int r = idx / per;
-    const int c = (idx - r * per) * 8;
-    const bool ok = r < valid;
-    cp16(dst + r * ld + c, src + (ok ? (int64_t)r * rs : 0) + c, ok);
+// D (64 x 64) (+)= A (64 x 16) * B (16 x 64): A in shared memory K-major,
+// B in shared memory MN-major (the transpose bit set); f32 accumulate; D is
+// zeroed when !accumulate
+__device__ __forceinline__ void wgmma_ss_tb_n64(float (&d)[32], uint64_t da,
+                                                uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// Register fragments of one consumer thread (m64n64 accumulator layout):
+// element e of a 64 x 64 tile is row 16 warp + lane / 4 + 8 ((e % 4) / 2),
+// column 8 (e / 4) + 2 (lane % 4) + (e % 2); pairs (e, e + 1), e even,
+// share a row.  Columns 16 kk .. 16 kk + 15 are the A fragments 4 kk ..
+// 4 kk + 3 of a product over them.
+__device__ __forceinline__ int frag_half(int e) { return (e >> 1) & 1; }
+__device__ __forceinline__ int frag_col(int e, int t4) {
+  return 8 * (e >> 2) + 2 * t4;
+}
+
+// M = G exp(la_i - la_j) dt_j on j <= i < Qc, else 0, split into bf16 hi +
+// lo A fragments.  Where `edge` (a tile on the diagonal or crossing the
+// chunk's end) the exponent is masked to -inf, as the reference masks it,
+// by selects: a branch a element would serialize the chains.  r0: this
+// thread's first row (and r0 + 8) in the chunk; j0: the column tile's
+// first row.
+__device__ __forceinline__ void decay_matrix(const float (&gc)[32],
+                                             const float* la, const float* ds,
+                                             int r0, int j0, int Qc, int t4,
+                                             bool edge, uint32_t (&mh)[16],
+                                             uint32_t (&ml)[16]) {
+  const float l0 = la[r0], l1 = la[r0 + 8];
+#pragma unroll
+  for (int e = 0; e < 32; e += 2) {
+    const int ir = r0 + 8 * frag_half(e);
+    const int jc = j0 + frag_col(e, t4);
+    const float li = frag_half(e) ? l1 : l0;
+    const float2 lj = *reinterpret_cast<const float2*>(la + jc);
+    const float2 dj = *reinterpret_cast<const float2*>(ds + jc);
+    float a0 = li - lj.x, a1 = li - lj.y;
+    if (edge) {
+      a0 = jc <= ir && ir < Qc ? a0 : -__builtin_huge_valf();
+      a1 = jc + 1 <= ir && ir < Qc ? a1 : -__builtin_huge_valf();
+    }
+    split(gc[e] * __expf(a0) * dj.x, gc[e + 1] * __expf(a1) * dj.y,
+          mh[e >> 1], ml[e >> 1]);
   }
 }
 
-// h (hp x N' f32), la and the weights (Q f32 each), one C tile and two
-// buffers each of B and x tiles (bf16); N' = N + 8 and hp + 8 row strides
-size_t smem_bytes(int hp, int N, int Q) {
-  const size_t ldk = N + PAD, ldx = hp + PAD;
-  return sizeof(float) * ((size_t)hp * ldk + 2 * (size_t)Q) +
-         sizeof(bf16) * (3 * TR * ldk + 2 * TR * ldx);
+// The A fragments of (w B)^T over one column tile for the state update:
+// rows n = 16 warp .. 16 warp + 15 of the B box at `box` (shared address),
+// columns j (k16 step ks: rows 16 ks .. 16 ks + 15 of the tile) read by
+// ldmatrix.trans through the 128-byte swizzle, each scaled by w_j =
+// exp(la_last - la_j) dt_j (0 past the chunk) and split into hi + lo.
+__device__ __forceinline__ void state_fragments(uint32_t box, const float* ws,
+                                                int j0, int warp, int lane,
+                                                uint32_t (&fh)[16],
+                                                uint32_t (&fl)[16]) {
+  const int jr = (lane & 7) + ((lane >> 4) << 3);
+  const int ch = 2 * warp + ((lane >> 3) & 1);
+  const int t4 = lane & 3;
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    const int row = 16 * ks + jr;
+    uint32_t r[4];
+    ldsm_t(r, box + row * BOX + ((ch ^ (row & 7)) << 4));
+    // the weights of rows j0 + 16 ks + 2 t4 + {0, 1, 8, 9}
+    const float2 w01 =
+        *reinterpret_cast<const float2*>(ws + j0 + 16 * ks + 2 * t4);
+    const float2 w89 =
+        *reinterpret_cast<const float2*>(ws + j0 + 16 * ks + 2 * t4 + 8);
+    const float w[4] = {w01.x, w01.y, w89.x, w89.y};
+    // registers 0 and 1 hold columns j 2 t4, 2 t4 + 1; 2 and 3 those + 8
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float2 v = unpack(r[q]);
+      const int k = (q >> 1) * 2;
+      split(v.x * w[k], v.y * w[k + 1], fh[4 * ks + q], fl[4 * ks + q]);
+    }
+  }
 }
 
-template <int HP>
-__global__ void __launch_bounds__(NTH, HP == 64 ? 2 : 1)
-ssd_scan_mma(const bf16* __restrict__ x, const float* __restrict__ dt,
-             const float* __restrict__ A, const bf16* __restrict__ Bm,
-             const bf16* __restrict__ Cm, bf16* __restrict__ y,
-             float* __restrict__ hout, int S, int nh, int g, int N, int Q,
-             int64_t xsb, int64_t xss, int64_t xsh,
-             int64_t dsb, int64_t dss, int64_t dsh,
-             int64_t bsb, int64_t bss, int64_t bsg,
-             int64_t csb, int64_t css, int64_t csg) {
-  constexpr int NP = HP / 8;        // n8 tiles of a row's y
-  constexpr int NPH = NP / 2;       // n8 tiles of half a row's y
-  constexpr int LDX = HP + PAD;     // row stride of the x tiles
-  constexpr int LDR = HP + PAD;     // row stride of the y partial sums
-  constexpr int SLABS = HP / 64;    // 64-row h slabs of the state update
-  const int nk = N / 16;            // k16 steps over the state
-  const int LDK = N + PAD;          // row stride of the C, B tiles and h
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* hs = reinterpret_cast<float*>(smem_raw);      // HP x LDK: h[p][n]
-  bf16* Cs = reinterpret_cast<bf16*>(hs + HP * LDK);   // TR x LDK
-  bf16* Bs = Cs + TR * LDK;                            // 2 x TR x LDK
-  bf16* Xs = Bs + 2 * TR * LDK;                        // 2 x TR x LDX
-  float* la = reinterpret_cast<float*>(Xs + 2 * TR * LDX);  // Q
-  float* ws = la + Q;  // Q: dt, then the state-update weights
-  // TR x LDR f32 over the B and x buffers, once a row tile's are read
-  float* red = reinterpret_cast<float*>(Bs);
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int rg = warp & 3;          // the warp's 16 rows of a row tile
-  const int kh = warp >> 2;         // and its half of a tile's 64 columns
-  const int qr = lane >> 2;         // accumulator row within 8
-  const int qc = 2 * (lane & 3);    // accumulator column pair
-  // ldmatrix addresses of this lane in a 16 x 16 block: (lrow, lcol) reads
-  // the four 8 x 8 quarters in the order (0,0) (8,0) (0,8) (8,8); the
-  // swapped (lrow_t, lcol_t) in the order (0,0) (0,8) (8,0) (8,8)
-  const int lrow = (lane & 7) + ((lane >> 3) & 1) * 8;
-  const int lcol = (lane >> 4) * 8;
-  const int lrow_t = (lane & 7) + (lane >> 4) * 8;
-  const int lcol_t = ((lane >> 3) & 1) * 8;
-  const int b = blockIdx.x / nh;
-  const int h = blockIdx.x % nh;
+// One block per work item (batch, head, 64-column slab of the head dim);
+// see the header for the design.
+__global__ void __launch_bounds__(NTH, 1)
+ssd_scan_wgmma(const __grid_constant__ CUtensorMap xmap,
+               const __grid_constant__ CUtensorMap bmap,
+               const __grid_constant__ CUtensorMap cmap,
+               const float* __restrict__ dt, const float* __restrict__ A,
+               bf16* __restrict__ y, float* __restrict__ hout, int S, int nh,
+               int hp, int g, int N, int Q, int64_t dsb, int64_t dss,
+               int64_t dsh) {
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* sm = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  const uint32_t base = smem_addr(sm);
+  const int slabs = hp / TR;
+  const int slab = blockIdx.x % slabs;
+  const int bh = blockIdx.x / slabs;   // batch * nh + head
+  const int b = bh / nh, h = bh % nh;
   const int grp = h / (nh / g);
-  const float Ah = A[h];
-  const bf16* xb = x + b * xsb + h * xsh;
-  const float* db = dt + b * dsb + h * dsh;
-  const bf16* Bb = Bm + b * bsb + grp * bsg;
-  const bf16* Cb = Cm + b * csb + grp * csg;
-  const int64_t yss = (int64_t)nh * HP;            // y is contiguous
-  bf16* yb = y + (int64_t)b * S * yss + (int64_t)h * HP;
+  const int nbn = (N + TR - 1) / TR;   // boxes of a B or C row
+  const int nk = N / 16;               // k16 steps over the state
+  const int QR = Layout::qr(Q);
+  float* la_ring = reinterpret_cast<float*>(sm + Layout::LA);
+  float* hf = reinterpret_cast<float*>(sm + Layout::H_F32);
+  const uint32_t bar0 = base + Layout::bars(Q);
+  auto full = [&](int s) { return bar0 + 8 * s; };
+  auto empty = [&](int s) { return bar0 + 8 * (STAGES + s); };
+  auto c_full = [&](int k) { return bar0 + 8 * (2 * STAGES + k); };
+  auto c_empty = [&](int k) { return bar0 + 8 * (2 * STAGES + 4 + k); };
+  auto la_full = [&](int k) { return bar0 + 8 * (2 * STAGES + 8 + k); };
+  auto la_empty = [&](int k) { return bar0 + 8 * (2 * STAGES + 10 + k); };
+  auto ring = [&](int s) { return base + s * Layout::STAGE; };
+  // warpgroup and warp, broadcast so that the compiler sees them uniform
+  // (a branch on a value it takes for divergent makes ptxas serialize the
+  // wgmmas under it)
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  const int warp = __shfl_sync(0xffffffffu, (threadIdx.x / 32) % 4, 0);
+  const int lane = threadIdx.x % 32;
 
-  for (int i = tid; i < HP * LDK; i += NTH) hs[i] = 0.f;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), CONSUMERS);
+    }
+    for (int k = 0; k < 4; ++k) {
+      mbar_init(c_full(k), 1);
+      mbar_init(c_empty(k), 128);
+    }
+    for (int k = 0; k < 2; ++k) {
+      mbar_init(la_full(k), 32);
+      mbar_init(la_empty(k), CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  for (int c0 = 0; c0 < S; c0 += Q) {
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (warp == 0 && lane == 0) {
+      // the loads, in the order the consumers take them: per pass the C
+      // row tiles of both consumers, then the column tiles
+      int t = 0;              // column tiles loaded: the ring position
+      int cn[2] = {0, 0};     // C tiles loaded for each consumer
+      for (int c0 = 0; c0 < S; c0 += Q) {
+        const int nt = (min(Q, S - c0) + TR - 1) / TR;
+        for (int p = 0; p < (nt + 1) / 2; ++p) {
+          for (int w = 0; w < 2; ++w) {
+            const int i = row_tile(p, w);
+            if (i >= nt) continue;
+            const int k = 2 * w + (cn[w] & 1);
+            mbar_wait(c_empty(k), ((cn[w] >> 1) & 1) ^ 1);
+            mbar_expect_tx(c_full(k), nbn * TILE);
+            for (int bx = 0; bx < nbn; ++bx)
+              tma_load(base + Layout::C_OFF + (2 * k + bx) * TILE, &cmap,
+                       c_full(k), TR * bx, grp, c0 + TR * i, b);
+            ++cn[w];
+          }
+          const int ncols = min(2 * p + 2, nt);
+          for (int j = 0; j < ncols; ++j, ++t) {
+            const int s = t % STAGES;
+            mbar_wait(empty(s), ((t / STAGES) & 1) ^ 1);
+            mbar_expect_tx(full(s), (nbn + 1) * TILE);
+            for (int bx = 0; bx < nbn; ++bx)
+              tma_load(ring(s) + bx * TILE, &bmap, full(s), TR * bx, grp,
+                       c0 + TR * j, b);
+            tma_load(ring(s) + 2 * TILE, &xmap, full(s), TR * slab, h,
+                     c0 + TR * j, b);
+          }
+        }
+      }
+    } else if (warp == 1) {
+      // dt, la = cumsum(dt A) and w = exp(la_last - la) dt of each chunk,
+      // a chunk ahead; zeros to the end of the last row tile
+      const float Ah = A[h];
+      const float* db = dt + b * dsb + h * dsh;
+      int n = 0;
+      for (int c0 = 0; c0 < S; c0 += Q, ++n) {
+        const int Qc = min(Q, S - c0);
+        const int R = (Qc + TR - 1) / TR * TR;
+        const int k = n & 1;
+        mbar_wait(la_empty(k), ((n >> 1) & 1) ^ 1);
+        float* la = la_ring + 3 * k * QR;
+        float* ds = la + QR;
+        float* ws = ds + QR;
+        for (int i = lane; i < Qc; i += 32)
+          ds[i] = db[(int64_t)(c0 + i) * dss];
+        __syncwarp();
+        log_decay(ds, la, Qc, Ah, lane);
+        __syncwarp();
+        const float la_last = la[Qc - 1];
+        for (int i = lane; i < R; i += 32) {
+          if (i < Qc) {
+            ws[i] = expf(la_last - la[i]) * ds[i];
+          } else {
+            la[i] = 0.f;
+            ds[i] = 0.f;
+            ws[i] = 0.f;
+          }
+        }
+        mbar_arrive(la_full(k));
+      }
+    }
+    return;
+  }
+
+  // consumers
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int gr = lane / 4, t4 = lane % 4;
+  // the consumer owns h^T rows 64 wg .. 64 wg + 63 (those at or past N stay
+  // zeros: TMA fills B's columns past N with zeros): its entries (nrow0 + 8
+  // frag_half(e), frag_col(e)) in the accumulator layout
+  const bool own = TR * wg < N;
+  const int nrow0 = TR * wg + 16 * warp + gr;
+  const uint32_t sh_hi = base + Layout::H_HI, sh_lo = base + Layout::H_LO;
+  const int64_t yss = (int64_t)nh * hp;   // y is contiguous
+  bf16* yb = y + (int64_t)b * S * yss + (int64_t)h * hp + TR * slab;
+  if (own) {
+#pragma unroll
+    for (int e = 0; e < 32; e += 2)
+      *reinterpret_cast<float2*>(
+          hf + hf_at(nrow0 + 8 * frag_half(e), frag_col(e, t4))) =
+          make_float2(0.f, 0.f);
+  }
+  // h^T's bf16 parts start at zero too: the first chunk's inter term is
+  // C 0 = 0, so y's accumulator is only ever written by wgmma and the
+  // scale (a branch that zeroed it instead would make the compiler move
+  // it between registers, and ptxas serialize every wgmma)
+  for (int i = threadIdx.x; i < 2 * NMAX * BOX / 16; i += CONSUMERS)
+    reinterpret_cast<uint4*>(sm + Layout::H_HI)[i] = make_uint4(0, 0, 0, 0);
+  fence_proxy_async();
+  consumers_sync();
+  float yacc[32], gn[32], pacc[32];
+  uint32_t mh[16], ml[16], fh[16], fl[16];
+#pragma unroll
+  for (int e = 0; e < 32; ++e) yacc[e] = gn[e] = pacc[e] = 0.f;
+#pragma unroll
+  for (int e = 0; e < 16; ++e) mh[e] = ml[e] = fh[e] = fl[e] = 0u;
+  int t = 0;    // column tiles consumed: the ring position
+  int cn = 0;   // C tiles consumed
+  int n = 0;    // chunks
+  for (int c0 = 0; c0 < S; c0 += Q, ++n) {
     const int Qc = min(Q, S - c0);
-    const int ntiles = (Qc + TR - 1) / TR;
-    __syncthreads();   // the previous chunk is done with la, ws and h
-    for (int i = tid; i < Qc; i += NTH) ws[i] = db[(int64_t)(c0 + i) * dss];
-    __syncthreads();
-    if (tid < 32) log_decay(ws, la, Qc, Ah);
-
-    for (int it = 0; it < ntiles; ++it) {
-      const int i0 = it * TR;
-      __syncthreads();   // la is ready; the last row tile's tiles are read
-      stage(Cs, LDK, Cb + (int64_t)(c0 + i0) * css, css, N, Qc - i0);
-      stage(Bs, LDK, Bb + (int64_t)c0 * bss, bss, N, Qc);
-      stage(Xs, LDX, xb + (int64_t)c0 * xss, xss, HP, Qc);
-      cp_commit();
-      const int r0 = i0 + rg * 16 + qr;   // this lane's rows r0, r0 + 8
-      const int r1 = r0 + 8;
-      const bf16* Cw = Cs + (rg * 16 + lrow) * LDK + lcol;   // A fragments
-      // the warp's rows over all HP columns: its half of the inter term and
-      // of M x, the other half's warp holding the rest
-      float yacc[NP][4];
+    const int nt = (Qc + TR - 1) / TR;
+    const int P = (nt + 1) / 2;
+    const int lk = n & 1;
+    mbar_wait(la_full(lk), (n >> 1) & 1);
+    const float* la = la_ring + 3 * lk * QR;
+    const float* ds = la + QR;
+    const float* ws = ds + QR;
+    const float decay = expf(la[Qc - 1]);
+    for (int p = 0; p < P; ++p) {
+      const int i = row_tile(p, wg);
+      const bool has = i < nt;
+      const bool last = p == P - 1;
+      const int ncols = min(2 * p + 2, nt);
+      const int r0 = TR * i + 16 * warp + gr;   // rows r0 and r0 + 8
+      int ck = 0;
+      uint32_t ct = 0;
+      if (has) {
+        ck = 2 * wg + (cn & 1);
+        ct = base + Layout::C_OFF + 2 * ck * TILE;
+        mbar_wait(c_full(ck), (cn >> 1) & 1);
+        ++cn;
+        // inter, (C h_hi^T + C h_lo^T) exp(la_i), and G of the first
+        // column tile
+        const int s = t % STAGES;
+        mbar_wait(full(s), (t / STAGES) & 1);
+        pin(yacc);
+        pin(gn);
+        wgmma_fence();
+        for (int kk = 0; kk < nk; ++kk)
+          wgmma_ss_tb_n64(yacc, desc_k(ct, TR, 0, kk),
+                          desc_mn(sh_hi, N, kk), kk > 0);
+        for (int kk = 0; kk < nk; ++kk)
+          wgmma_ss_tb_n64(yacc, desc_k(ct, TR, 0, kk),
+                          desc_mn(sh_lo, N, kk), 1);
+        for (int kk = 0; kk < nk; ++kk)
+          wgmma_ss_n64(gn, desc_k(ct, TR, 0, kk), desc_k(ring(s), TR, 0, kk),
+                       kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        pin(yacc);
+        pin(gn);
+        const float e0 = r0 < Qc ? expf(la[r0]) : 0.f;
+        const float e1 = r0 + 8 < Qc ? expf(la[r0 + 8]) : 0.f;
 #pragma unroll
-      for (int t = 0; t < NP; ++t)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) yacc[t][e] = 0.f;
-
-      for (int jt = 0; jt <= it; ++jt) {
-        const int j0 = jt * TR;
-        const int buf = jt & 1;
-        if (jt < it) {   // the next column tile's B and x under this one
-          const int nb = buf ^ 1;
-          stage(Bs + nb * TR * LDK, LDK, Bb + (int64_t)(c0 + j0 + TR) * bss,
-                bss, N, Qc - j0 - TR);
-          stage(Xs + nb * TR * LDX, LDX, xb + (int64_t)(c0 + j0 + TR) * xss,
-                xss, HP, Qc - j0 - TR);
-          cp_commit();
-          cp_wait<1>();
-        } else {
-          cp_wait<0>();
-        }
-        __syncthreads();
-        const bf16* Bt = Bs + buf * TR * LDK;
-        const bf16* Xt = Xs + buf * TR * LDX;
-
-        if (jt == 0 && c0 > 0) {
-          // inter, the warp's half of the columns: (C h^T) exp(la_i), h as
-          // bf16 hi + lo
-          for (int kk = 0; kk < nk; ++kk) {
-            uint32_t af[4];
-            ldsm(af, Cw + kk * 16);
-#pragma unroll
-            for (int t = 0; t < NP; ++t) {
-              if ((t >= NPH) != kh) continue;
-              const float* hr = hs + (t * 8 + qr) * LDK + kk * 16 + qc;
-              const float2 v0 = *reinterpret_cast<const float2*>(hr);
-              const float2 v1 = *reinterpret_cast<const float2*>(hr + 8);
-              uint32_t h0, l0, h1, l1;
-              split(v0.x, v0.y, h0, l0);
-              split(v1.x, v1.y, h1, l1);
-              mma(yacc[t], af, h0, h1);
-              mma(yacc[t], af, l0, l1);
-            }
-          }
-          const float e0 = r0 < Qc ? expf(la[r0]) : 0.f;
-          const float e1 = r1 < Qc ? expf(la[r1]) : 0.f;
-#pragma unroll
-          for (int t = 0; t < NP; ++t) {
-            yacc[t][0] *= e0;
-            yacc[t][1] *= e0;
-            yacc[t][2] *= e1;
-            yacc[t][3] *= e1;
-          }
-        }
-
-        // the warp's 16-column blocks of the tile, kb = 2 kh + q; on the
-        // diagonal tile those past the warp's rows (kb > rg) are 0
-        const int qmax = jt == it ? min(rg - 2 * kh, 1) : 1;
-        if (qmax >= 0) {
-          // G = C B^T over the warp's 16 rows and 32 columns
-          float gacc[4][4];
-#pragma unroll
-          for (int t = 0; t < 4; ++t)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) gacc[t][e] = 0.f;
-          for (int kk = 0; kk < nk; ++kk) {
-            uint32_t af[4];
-            ldsm(af, Cw + kk * 16);
-#pragma unroll
-            for (int q = 0; q < 2; ++q) {
-              if (q > qmax) continue;
-              uint32_t bf[4];
-              ldsm(bf, Bt + ((2 * kh + q) * 16 + lrow_t) * LDK + kk * 16 +
-                           lcol_t);
-              mma(gacc[2 * q], af, bf[0], bf[1]);
-              mma(gacc[2 * q + 1], af, bf[2], bf[3]);
-            }
-          }
-          // M = G exp(la_i - la_j) dt_j on j <= i < Qc, else 0 (masked
-          // before the exponent is taken), split into bf16 hi + lo and used
-          // in place as the A fragments of yacc += M x
-          const float la0 = r0 < Qc ? la[r0] : 0.f;
-          const float la1 = r1 < Qc ? la[r1] : 0.f;
-#pragma unroll
-          for (int q = 0; q < 2; ++q) {
-            if (q > qmax) continue;
-            const int kb = 2 * kh + q;
-            uint32_t mh[4], ml[4];
-#pragma unroll
-            for (int half = 0; half < 2; ++half) {
-              const int t = 2 * q + half;
-              float m[4];
-#pragma unroll
-              for (int e = 0; e < 4; ++e) {
-                const int i = e < 2 ? r0 : r1;
-                const int j = j0 + kb * 16 + half * 8 + qc + (e & 1);
-                const float li = e < 2 ? la0 : la1;
-                m[e] = (j <= i && i < Qc)
-                           ? gacc[t][e] * __expf(li - la[j]) * ws[j] : 0.f;
-              }
-              split(m[0], m[1], mh[2 * half], ml[2 * half]);
-              split(m[2], m[3], mh[2 * half + 1], ml[2 * half + 1]);
-            }
-#pragma unroll
-            for (int np = 0; np < HP / 16; ++np) {
-              uint32_t bf[4];
-              ldsm_t(bf, Xt + (kb * 16 + lrow) * LDX + np * 16 + lcol);
-              mma(yacc[2 * np], mh, bf[0], bf[1]);
-              mma(yacc[2 * np], ml, bf[0], bf[1]);
-              mma(yacc[2 * np + 1], mh, bf[2], bf[3]);
-              mma(yacc[2 * np + 1], ml, bf[2], bf[3]);
-            }
-          }
-        }
-        __syncthreads();   // this column tile's buffer may be refilled
+        for (int e = 0; e < 32; ++e) yacc[e] *= frag_half(e) ? e1 : e0;
       }
-      // y = the two halves' sums, in f32 and in a fixed order, as bf16
-      if (kh == 1) {
-#pragma unroll
-        for (int t = 0; t < NP; ++t) {
-          float* rr = red + (rg * 16 + qr) * LDR + t * 8 + qc;
-          *reinterpret_cast<float2*>(rr) = make_float2(yacc[t][0], yacc[t][1]);
-          *reinterpret_cast<float2*>(rr + 8 * LDR) =
-              make_float2(yacc[t][2], yacc[t][3]);
+      for (int j = 0; j < ncols; ++j, ++t) {
+        // the tile's math, then its products in one batch, waited for
+        const int s = t % STAGES;
+        mbar_wait(full(s), (t / STAGES) & 1);
+        const uint32_t xt = ring(s) + 2 * TILE;
+        const bool intra = has && j <= i;
+        const bool state = last && own;
+        if (intra)
+          decay_matrix(gn, la, ds, r0, TR * j, Qc, t4,
+                       j == i || TR * i + TR > Qc, mh, ml);
+        if (state)
+          state_fragments(ring(s) + wg * TILE, ws, TR * j, warp, lane, fh,
+                          fl);
+        if (intra && j < i) {
+          const int s1 = (t + 1) % STAGES;
+          mbar_wait(full(s1), ((t + 1) / STAGES) & 1);
         }
-      }
-      __syncthreads();
-      if (kh == 0) {
+        pin(mh);
+        pin(ml);
+        pin(fh);
+        pin(fl);
+        pin(yacc);
+        pin(gn);
+        wgmma_fence();
+        if (intra) {
 #pragma unroll
-        for (int t = 0; t < NP; ++t) {
-          const int col = t * 8 + qc;
-          const float* rr = red + (rg * 16 + qr) * LDR + col;
-          const float2 o0 = *reinterpret_cast<const float2*>(rr);
-          const float2 o1 = *reinterpret_cast<const float2*>(rr + 8 * LDR);
-          if (r0 < Qc)
-            *reinterpret_cast<uint32_t*>(yb + (int64_t)(c0 + r0) * yss +
-                                         col) =
-                pack(yacc[t][0] + o0.x, yacc[t][1] + o0.y);
-          if (r1 < Qc)
-            *reinterpret_cast<uint32_t*>(yb + (int64_t)(c0 + r1) * yss +
-                                         col) =
-                pack(yacc[t][2] + o1.x, yacc[t][3] + o1.y);
+          for (int kk = 0; kk < 4; ++kk) {
+            wgmma_rs<64>(yacc, &mh[4 * kk], desc_mn(xt, TR, kk));
+            wgmma_rs<64>(yacc, &ml[4 * kk], desc_mn(xt, TR, kk));
+          }
+          if (j < i) {
+            const uint32_t bt1 = ring((t + 1) % STAGES);
+            for (int kk = 0; kk < nk; ++kk)
+              wgmma_ss_n64(gn, desc_k(ct, TR, 0, kk), desc_k(bt1, TR, 0, kk),
+                           kk > 0);
+          }
+        }
+        if (state) {
+#pragma unroll
+          for (int ks = 0; ks < 4; ++ks) {
+            wgmma_rs<64>(pacc, &fh[4 * ks], desc_mn(xt, TR, ks), ks > 0);
+            wgmma_rs<64>(pacc, &fl[4 * ks], desc_mn(xt, TR, ks));
+          }
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        pin(yacc);
+        pin(gn);
+        pin(mh);
+        pin(ml);
+        pin(pacc);
+        pin(fh);
+        pin(fl);
+        // C's last product (G of this tile) was done a tile ago
+        if (intra && j == i) mbar_arrive(c_empty(ck));
+        if (state) {
+          // h = exp(la_last) h + the first tile's product, then + each
+          // later tile's, by f32 adds (all loads before the stores, which
+          // the compiler cannot tell apart)
+          const float scale = j == 0 ? decay : 1.f;
+          float2 v[16];
+#pragma unroll
+          for (int e = 0; e < 32; e += 2)
+            v[e >> 1] = *reinterpret_cast<const float2*>(
+                hf + hf_at(nrow0 + 8 * frag_half(e), frag_col(e, t4)));
+#pragma unroll
+          for (int e = 0; e < 32; e += 2)
+            *reinterpret_cast<float2*>(
+                hf + hf_at(nrow0 + 8 * frag_half(e), frag_col(e, t4))) =
+                make_float2(v[e >> 1].x * scale + pacc[e],
+                            v[e >> 1].y * scale + pacc[e + 1]);
+        }
+        mbar_arrive(empty(s));
+      }
+      if (has) {
+#pragma unroll
+        for (int e = 0; e < 32; e += 2) {
+          const int ir = r0 + 8 * frag_half(e);
+          if (ir < Qc)
+            *reinterpret_cast<uint32_t*>(yb + (int64_t)(c0 + ir) * yss +
+                                         frag_col(e, t4)) =
+                pack_bf16(yacc[e], yacc[e + 1]);
         }
       }
     }
-
-    // state update, after every row tile has read the old h
-    __syncthreads();
-    stage(Bs, LDK, Bb + (int64_t)c0 * bss, bss, N, Qc);
-    stage(Xs, LDX, xb + (int64_t)c0 * xss, xss, HP, Qc);
-    cp_commit();
-    const float la_last = la[Qc - 1];
-    const float decay = expf(la_last);
-    for (int j = tid; j < Qc; j += NTH) ws[j] = expf(la_last - la[j]) * ws[j];
-    for (int jt = 0; jt < ntiles; ++jt) {
-      const int j0 = jt * TR;
-      const int buf = jt & 1;
-      if (jt + 1 < ntiles) {
-        const int nb = buf ^ 1;
-        stage(Bs + nb * TR * LDK, LDK, Bb + (int64_t)(c0 + j0 + TR) * bss,
-              bss, N, Qc - j0 - TR);
-        stage(Xs + nb * TR * LDX, LDX, xb + (int64_t)(c0 + j0 + TR) * xss,
-              xss, HP, Qc - j0 - TR);
-        cp_commit();
-        cp_wait<1>();
-      } else {
-        cp_wait<0>();
-      }
-      __syncthreads();   // the tile has landed; ws holds the weights
-      const bf16* Bt = Bs + buf * TR * LDK;
-      const bf16* Xt = Xs + buf * TR * LDX;
-      // sacc = x^T (w B) over the tile's 64 rows, fresh for each tile; a
-      // warp owns (16-column block nb, 64-row slab sl) units of h, so each
-      // w B entry is split once per slab
-      for (int u = warp; u < nk * SLABS; u += NWARP) {
-        const int nb = u % nk;
-        const int sl = u / nk;
-        float sacc[4][2][4];   // [m16 tile of h rows][n8 tile][.]
+    mbar_arrive(la_empty(lk));
+    if (c0 + Q < S) {
+      // every inter term of this chunk has read h^T's bf16 parts: rebuild
+      // them from the new h, then let the next chunk read them
+      consumers_sync();
+      if (own) {
+        float2 v[16];
 #pragma unroll
-        for (int mt = 0; mt < 4; ++mt)
+        for (int e = 0; e < 32; e += 2)
+          v[e >> 1] = *reinterpret_cast<const float2*>(
+              hf + hf_at(nrow0 + 8 * frag_half(e), frag_col(e, t4)));
 #pragma unroll
-          for (int t = 0; t < 2; ++t)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) sacc[mt][t][e] = 0.f;
-#pragma unroll
-        for (int ks = 0; ks < 4; ++ks) {
-          // the weights of this lane's rows j: qc, qc + 1, qc + 8, qc + 9
-          float w[4];
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int j = j0 + ks * 16 + qc + (e & 1) + (e >> 1) * 8;
-            w[e] = j < Qc ? ws[j] : 0.f;
-          }
-          uint32_t bf[4], bh[4], bl[4];   // [n8 tile][k half], hi and lo
-          ldsm_t(bf, Bt + (ks * 16 + lrow) * LDK + nb * 16 + lcol);
-#pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            const float2 v = unpack(bf[r]);
-            const int k = (r & 1) * 2;
-            split(v.x * w[k], v.y * w[k + 1], bh[r], bl[r]);
-          }
-#pragma unroll
-          for (int mt = 0; mt < 4; ++mt) {
-            uint32_t af[4];
-            ldsm_t(af, Xt + (ks * 16 + lrow_t) * LDX + sl * 64 + mt * 16 +
-                           lcol_t);
-#pragma unroll
-            for (int t = 0; t < 2; ++t) {
-              mma(sacc[mt][t], af, bh[2 * t], bh[2 * t + 1]);
-              mma(sacc[mt][t], af, bl[2 * t], bl[2 * t + 1]);
-            }
-          }
+        for (int e = 0; e < 32; e += 2) {
+          const int nn = nrow0 + 8 * frag_half(e);
+          const int pp = frag_col(e, t4);
+          uint32_t hi, lo;
+          split(v[e >> 1].x, v[e >> 1].y, hi, lo);
+          const int off = nn * BOX + (((pp >> 3) ^ (nn & 7)) << 4) +
+                          (pp & 7) * 2;
+          *reinterpret_cast<uint32_t*>(sm + Layout::H_HI + off) = hi;
+          *reinterpret_cast<uint32_t*>(sm + Layout::H_LO + off) = lo;
         }
-        // h = exp(la_last) h + the first tile's product, then + each later
-        // tile's, by f32 adds; a lane owns the h entries of its accumulator
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-          for (int t = 0; t < 2; ++t)
-#pragma unroll
-            for (int hh = 0; hh < 2; ++hh) {
-              float2* hp_ = reinterpret_cast<float2*>(
-                  hs + (sl * 64 + mt * 16 + qr + 8 * hh) * LDK + nb * 16 +
-                  t * 8 + qc);
-              float2 v = *hp_;
-              if (jt == 0) {
-                v.x *= decay;
-                v.y *= decay;
-              }
-              v.x += sacc[mt][t][2 * hh];
-              v.y += sacc[mt][t][2 * hh + 1];
-              *hp_ = v;
-            }
       }
-      __syncthreads();   // this tile's buffer may be refilled
+      fence_proxy_async();
+      consumers_sync();
     }
   }
 
-  __syncthreads();
-  float* hb = hout + ((int64_t)b * nh + h) * HP * N;
-  for (int idx = tid; idx < HP * N; idx += NTH)
-    hb[idx] = hs[(idx / N) * LDK + idx % N];
+  if (own) {
+    float* hb = hout + ((int64_t)bh * hp + TR * slab) * N;
+#pragma unroll
+    for (int e = 0; e < 32; e += 2) {
+      const int nn = nrow0 + 8 * frag_half(e);
+      if (nn >= N) continue;
+      const int pp = frag_col(e, t4);
+      const float2 v = *reinterpret_cast<const float2*>(hf + hf_at(nn, pp));
+      hb[(int64_t)pp * N + nn] = v.x;
+      hb[(int64_t)(pp + 1) * N + nn] = v.y;
+    }
+  }
 }
 
-template <int HP>
-cudaError_t launch(const void* x, const float* dt, const float* A,
-                   const void* B, const void* C, void* y, float* hout,
-                   int Bs, int S, int nh, int g, int N, int Q,
-                   const int64_t* st, cudaStream_t stream) {
-  // 16-byte cp.async of every row of x, B and C
+int launch(const void* x, const float* dt, const float* A, const void* B,
+           const void* C, void* y, float* hout, int Bs, int S, int nh,
+           int hp, int g, int N, int Q, const int64_t* st,
+           cudaStream_t stream) {
+  // TMA reads x, B and C: 16-byte aligned bases, and strides of whole 16
+  // bytes on every dim longer than 1 (make_map gives a dim of size 1 the
+  // packed stride)
   const uintptr_t addr = reinterpret_cast<uintptr_t>(x) |
                          reinterpret_cast<uintptr_t>(B) |
                          reinterpret_cast<uintptr_t>(C);
   if (addr % 16) return cudaErrorMisalignedAddress;
-  static const int rows[] = {0, 1, 2, 6, 7, 8, 9, 10, 11};
-  for (int i : rows)
-    if (st[i] % 8) return cudaErrorMisalignedAddress;
-  const size_t smem = smem_bytes(HP, N, Q);
-  auto kern = ssd_scan_mma<HP>;
+  const int dims[12] = {Bs, S, nh, 0, 0, 0, Bs, S, g, Bs, S, g};
+  for (int i = 0; i < 12; ++i)
+    if (dims[i] > 1 && st[i] % 8) return cudaErrorMisalignedAddress;
+  if (hp % TR || (int64_t)Bs * nh * (hp / TR) > 0x7fffffff)
+    return cudaErrorInvalidValue;
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return ENCODER_MISSING;
+  CUtensorMap xm, bm, cm;
+  CUresult r = make_map(enc, &xm, x, hp, nh, S, Bs, st[0], st[1], st[2], TR);
+  if (r == CUDA_SUCCESS)
+    r = make_map(enc, &bm, B, N, g, S, Bs, st[6], st[7], st[8], TR);
+  if (r == CUDA_SUCCESS)
+    r = make_map(enc, &cm, C, N, g, S, Bs, st[9], st[10], st[11], TR);
+  if (r != CUDA_SUCCESS) return ENCODE_FAILED + static_cast<int>(r);
+  const int smem = Layout::alloc(Q);
   cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      ssd_scan_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  kern<<<Bs * nh, NTH, smem, stream>>>(
-      static_cast<const bf16*>(x), dt, A, static_cast<const bf16*>(B),
-      static_cast<const bf16*>(C), static_cast<bf16*>(y), hout, S, nh, g, N,
-      Q, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
-      st[9], st[10], st[11]);
+  ssd_scan_wgmma<<<Bs * nh * (hp / TR), NTH, smem, stream>>>(
+      xm, bm, cm, dt, A, static_cast<bf16*>(y), hout, S, nh, hp, g, N, Q,
+      st[3], st[4], st[5]);
   return cudaGetLastError();
 }
 
@@ -850,8 +993,9 @@ extern "C" {
 // (batch, seq, group) for B and C; the last dim of x, B and C is contiguous.
 // y (Bs,S,nh,hp) and h_final (Bs,nh,hp,N) are contiguous.  The route is
 // route_of's; the tensor-core route needs x, B and C 16-byte aligned with
-// row strides of whole 16 bytes (else cudaErrorMisalignedAddress).  Returns
-// a cudaError_t code.
+// strides of whole 16 bytes on every dim longer than 1 (else
+// cudaErrorMisalignedAddress).  Returns a cudaError_t code, or
+// hopper::ENCODER_MISSING / ENCODE_FAILED + CUresult.
 int ssd_scan(const void* x, const void* dt, const void* A, const void* B,
              const void* C, void* y, void* h_final, int dtype, int Bs, int S,
              int nh, int hp, int g, int N, int Q, const int64_t* strides,
@@ -864,10 +1008,8 @@ int ssd_scan(const void* x, const void* dt, const void* A, const void* B,
   const float* a = static_cast<const float*>(A);
   float* hf = static_cast<float*>(h_final);
   if (route_of(dtype, hp, N))
-    return hp == 64 ? tc::launch<64>(x, d, a, B, C, y, hf, Bs, S, nh, g, N,
-                                     Q, strides, s)
-                    : tc::launch<128>(x, d, a, B, C, y, hf, Bs, S, nh, g, N,
-                                      Q, strides, s);
+    return tc::launch(x, d, a, B, C, y, hf, Bs, S, nh, hp, g, N, Q, strides,
+                      s);
   if (dtype == 0)
     return dispatch<float>(hp, x, d, a, B, C, y, hf, Bs, S, nh, g, N, Q,
                            strides, s);
@@ -882,7 +1024,7 @@ int ssd_scan_route(int dtype, int hp, int N) {
 }
 
 const char* ssd_scan_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+  return hopper::error_string(code);
 }
 
 }  // extern "C"

@@ -3,9 +3,10 @@
 ``repro.kernels.ssd_scan.kernel._ssd_kernel``.
 
 Each call takes one of two routes by :func:`route`: ``"tensor_core"``
-(warp-level ``mma.sync``, bf16 tiles staged by ``cp.async``) for bf16 at
-head dims 64 and 128 with a state width N that is a multiple of 16 up to
-128, ``"cuda_core"`` (f32 FMAs) for the rest.
+(``wgmma`` fed by TMA, the Hopper building blocks of
+``flash_attention/csrc/hopper.cuh``) for bf16 at head dims 64 and 128 with a
+state width N that is a multiple of 16 up to 128, ``"cuda_core"`` (f32
+FMAs) for the rest.
 
 The library is compiled with nvcc for ``sm_90a`` at first use (see
 :func:`repro_torch.kernels.common.build_library`).  The wrapper checks its
@@ -64,17 +65,35 @@ def library() -> ctypes.CDLL:
 
 
 def smem_bytes(hp: int, N: int, Q: int, route_: str = ROUTES[1]) -> int:
-    """Shared memory of one block, as ``ssd_scan.cu``'s ``smem_bytes`` of
-    each route.  CUDA cores: the state (hp x N'), C and B tiles (64 x N'),
-    an x tile (64 x hp), the 64 x 65 decay tile and two chunk-long vectors,
-    N' = N rounded up to 16, plus one, all f32.  Tensor cores: the f32
-    state (hp x (N + 8)) and two chunk-long f32 vectors, a bf16 C tile and
-    two bf16 buffers each of B and x tiles (64 x (N + 8), 64 x (hp + 8))."""
+    """Shared memory of one block, as ``ssd_scan.cu`` allocates it on each
+    route.  CUDA cores (``smem_bytes``): the state (hp x N'), C and B tiles
+    (64 x N'), an x tile (64 x hp), the 64 x 65 decay tile and two
+    chunk-long vectors, N' = N rounded up to 16, plus one, all f32.  Tensor
+    cores (``tc::Layout::alloc``, the same for every hp and N, since a
+    block owns one 64-column slab of a head and N <= 128): a 3-stage ring of
+    B and x column tiles (three 8 KB boxes a stage), four C row tiles of
+    two boxes, h^T's bf16 hi and lo parts (128 rows of 128 bytes each), the
+    f32 h^T (128 x 64), la, dt and the state update's weights of two chunks
+    (Q rounded up to 64), 18 mbarriers and 1 KB to align the base to 1024
+    bytes."""
     if route_ == ROUTES[0]:
-        return 4 * (hp * (N + 8) + 2 * Q) + 2 * 64 * (3 * (N + 8)
-                                                     + 2 * (hp + 8))
+        box = 64 * 128
+        qr = -(-Q // 64) * 64
+        return (3 * 3 * box + 4 * 2 * box + 2 * 128 * 128 + 128 * 64 * 4
+                + 2 * 3 * qr * 4 + 8 * 18 + 1024)
     nw = -(-N // 16) * 16
     return 4 * (hp * (nw + 1) + 2 * 64 * (nw + 1) + 64 * hp + 64 * 65 + 2 * Q)
+
+
+def tma_misaligned(t: torch.Tensor) -> bool:
+    """Whether TMA cannot read ``t`` (x, B or C, 4-D with a contiguous last
+    dim) on the tensor-core route: its base must be 16-byte aligned, and
+    the strides of its first three dims whole 16 bytes wherever the dim is
+    longer than 1 (``make_map`` gives a dim of size 1 the packed
+    stride)."""
+    step = 16 // t.element_size()
+    return t.data_ptr() % 16 != 0 or any(
+        n > 1 and s % step for n, s in zip(t.shape[:3], t.stride()[:3]))
 
 
 def _check(x, dt, A, B, C, chunk):
@@ -111,22 +130,19 @@ def _check(x, dt, A, B, C, chunk):
     if dt.dtype != torch.float32 or A.dtype != torch.float32:
         raise TypeError(f"dt and A must be float32; got {dt.dtype}, "
                         f"{A.dtype}")
-    for name, t in (("x", x), ("dt", dt), ("A", A), ("B", B), ("C", C)):
-        if not t.is_cuda or t.device != x.device:
-            raise ValueError(f"{name} must be a CUDA tensor on {x.device}")
     for name, t in (("x", x), ("B", B), ("C", C)):
         if t.stride(3) != 1:
             raise ValueError(f"{name}: the last dim must be contiguous; got "
                              f"strides {t.stride()}")
+        if path == ROUTES[0] and tma_misaligned(t):
+            raise ValueError(f"{name}: the tensor-core route reads it by "
+                             f"TMA, which needs a 16-byte aligned base and "
+                             f"16-byte strides; got strides {t.stride()}")
+    for name, t in (("x", x), ("dt", dt), ("A", A), ("B", B), ("C", C)):
+        if not t.is_cuda or t.device != x.device:
+            raise ValueError(f"{name} must be a CUDA tensor on {x.device}")
     if A.stride(0) != 1:
         raise ValueError("A must be contiguous")
-    if path == ROUTES[0]:
-        # 16-byte cp.async of every row of x, B and C
-        for name, t in (("x", x), ("B", B), ("C", C)):
-            if t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3]):
-                raise ValueError(f"{name}: the tensor-core route needs "
-                                 f"every row start 16-byte aligned; got "
-                                 f"strides {t.stride()}")
 
 
 def ssd_scan_kernel(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,

@@ -336,6 +336,15 @@ SSD_CASES = [
     (1, 300, 8, 64, 1, 128, 256),    # one short chunk after a full one
     (2, 200, 16, 128, 8, 128, 256),  # jamba's widths, g 8
     (1, 513, 4, 64, 2, 64, 64),      # Q 64, a one-row tail chunk
+    # the tensor-core route's edges: N 16 and 48 (B and C boxes mostly
+    # TMA's zero fill), hp 128 with g 8 (two 64-column slabs a head) over
+    # a ragged tail inside a box, a chunk that is not a multiple of 64,
+    # and N 80 across two boxes
+    (2, 300, 8, 64, 2, 16, 256),
+    (1, 333, 4, 64, 1, 48, 128),
+    (2, 520, 16, 128, 8, 128, 256),
+    (1, 450, 4, 64, 1, 64, 100),
+    (1, 300, 4, 64, 1, 80, 256),
 ]
 # K4 against the plain chunked scan: both compute in f32 from the same
 # inputs, so y and h_final differ by summation order (and, in bf16, by
@@ -414,6 +423,21 @@ def test_ssd_kernel_freezes_the_state_on_zero_dt(dev):
     torch.testing.assert_close(h_pad, h_cut, atol=5e-4, rtol=5e-4)
 
 
+def test_ssd_tensor_core_route_freezes_the_state_on_zero_dt(dev):
+    """The same on the tensor-core route (bf16 x, B, C): rows with dt 0,
+    inside the first chunk's last box and over the whole second chunk,
+    leave the state as the cut sequence's."""
+    from repro_torch.kernels.ssd_scan.kernel import route, ssd_scan_kernel
+    x, dt, A, B, C = _ssd_inputs((2, 300, 8, 64, 1, 128, 256),
+                                 torch.bfloat16, dev)
+    assert route(x.dtype, 64, 128) == "tensor_core"
+    dt[:, 141:] = 0
+    _, h_pad = ssd_scan_kernel(x, dt, A, B, C, chunk=256)
+    _, h_cut = ssd_scan_kernel(x[:, :141], dt[:, :141], A, B[:, :141],
+                               C[:, :141], chunk=256)
+    torch.testing.assert_close(h_pad, h_cut, atol=5e-4, rtol=5e-4)
+
+
 def test_ssd_ops_routes_cuda_tensors_to_the_kernel_and_trains(dev):
     from repro_torch.kernels.ssd_scan import ssd_scan
     from repro_torch.kernels.ssd_scan.kernel import ssd_scan_kernel
@@ -443,8 +467,8 @@ def test_ssd_unsupported_inputs_raise(dev):
         ssd_scan_kernel(x.half(), dt, A, B.half(), C.half(), chunk=16)
     with pytest.raises(ValueError, match="must be a CUDA tensor"):
         ssd_scan_kernel(x, dt.cpu(), A, B, C, chunk=16)
-    # the tensor-core route reads rows by 16-byte cp.async: a row stride of
-    # 68 bf16 (136 bytes) is refused, never sent to the CUDA cores
+    # the tensor-core route reads x, B and C by TMA: a row stride of 68
+    # bf16 (136 bytes) is refused, never sent to the CUDA cores
     x, dt, A, B, C = _ssd_inputs((1, 64, 2, 64, 1, 16, 16), torch.bfloat16,
                                  dev)
     wide = torch.zeros((1, 64, 2, 68), device=dev, dtype=torch.bfloat16)

@@ -4,7 +4,8 @@ its tensor-core route.
 * Which (dtype, head_dim, d_state) inputs K4 sends to the tensor-core kernel
   (bf16 at hp 64 and 128 with N a multiple of 16 up to 128), that
   ``ssd_scan.cu`` dispatches on the same table and exports it, that the
-  wrapper counts launches by route, and that the CPU path launches nothing.
+  wrapper counts launches by route, and that the CPU path launches nothing;
+  the tensor-core kernel's shared memory (``tc::Layout``) and its build key.
 * The tensor-core kernel's arithmetic, emulated here: G = C B^T multiplies
   bf16 inputs exactly and sums in f32; M = G exp(la_i - la_j) dt_j, C h^T's
   h and the state update's w B (w_j = exp(la_last - la_j) dt_j) are each
@@ -64,12 +65,52 @@ def test_the_cuda_source_dispatches_on_the_same_table():
     assert "int ssd_scan_route(int dtype, int hp, int N)" in src
 
 
-def test_the_tensor_core_route_fits_two_blocks_an_sm_at_mamba2s_shape():
-    # mamba2-2.7b: hp 64, N 128, chunk 256; Hopper's SM has 228 KB, 1 KB of
-    # it reserved per block
-    assert 2 * (K.smem_bytes(64, 128, 256, "tensor_core") + 1024) \
-        <= 228 * 1024
-    assert K.smem_bytes(128, 128, 1024, "tensor_core") <= K.MAX_SMEM
+@pytest.mark.parametrize("Q", [64, 100, 256, 1024])
+def test_the_tensor_core_route_fits_one_block_an_sm_at_every_chunk(Q):
+    # a block owns one 64-column slab of a head, so its shared memory is
+    # the same at hp 64 and 128 and every N up to 128; it fits a block's
+    # 227 KB at the longest chunk taken, and one block fills an SM (Hopper's
+    # SM has 228 KB, 1 KB of it reserved per block)
+    sizes = {K.smem_bytes(hp, N, Q, "tensor_core")
+             for hp in (64, 128) for N in (16, 48, 128)}
+    assert len(sizes) == 1
+    smem = sizes.pop()
+    assert smem <= K.MAX_SMEM
+    assert 2 * (smem + 1024) > 228 * 1024
+    # mamba2-2.7b's shape (hp 64, N 128, chunk 256): ~207 KB
+    assert K.smem_bytes(64, 128, 256, "tensor_core") == 212112
+
+
+def test_smem_bytes_follows_the_kernels_layout():
+    """``kernel.smem_bytes`` of the tensor-core route is
+    ``tc::Layout::alloc`` in ssd_scan.cu: its stages, C slots, state boxes
+    and barriers, read from the source."""
+    src = Path(K.SOURCE).read_text()
+    tc = src[src.index("namespace tc {"):]
+    stages = int(re.search(r"constexpr int STAGES = (\d+);", tc).group(1))
+    assert "static constexpr int STAGE = 3 * TILE;" in tc
+    assert "static constexpr int C_OFF = STAGES * STAGE;" in tc
+    assert "static constexpr int H_HI = C_OFF + 4 * 2 * TILE;" in tc
+    assert "static constexpr int H_F32 = H_LO + NMAX * BOX;" in tc
+    assert "static constexpr int LA = H_F32 + NMAX * TR * 4;" in tc
+    assert "return LA + 2 * 3 * qr(Q) * 4;" in tc
+    bars = re.search(r"N_BARS = 2 \* STAGES \+ 4 \+ 4 \+ 2 \+ 2;", tc)
+    assert bars and "return bars(Q) + 8 * N_BARS + 1024;" in tc
+    box, nmax = 64 * 128, K.MAX_STATE
+    for Q in (1, 64, 256, 1000):
+        qr = -(-Q // 64) * 64
+        want = (stages * 3 * box + 4 * 2 * box + 2 * nmax * 128
+                + nmax * 64 * 4 + 2 * 3 * qr * 4
+                + 8 * (2 * stages + 12) + 1024)
+        assert K.smem_bytes(64, 128, Q, "tensor_core") == want
+
+
+def test_the_build_key_covers_the_shared_hopper_header():
+    # ssd_scan.cu includes the flash kernels' Hopper building blocks
+    from repro_torch.kernels.common import _included
+    seen = set()
+    _included(Path(K.SOURCE), seen)
+    assert {p.name for p in seen} == {"ssd_scan.cu", "hopper.cuh"}
 
 
 def _inputs(case, seed=0):

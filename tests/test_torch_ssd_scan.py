@@ -238,6 +238,46 @@ def test_kernel_wrapper_checks_before_building():
         K.ssd_scan_kernel(x, dt.double(), A, B, C, chunk=16)
 
 
+def test_kernel_wrapper_checks_tma_alignment_before_building():
+    """On the tensor-core route (bf16 at hp 64 or 128, N a multiple of 16)
+    TMA reads x, B and C: a base off 16 bytes, or a stride that is not
+    whole 16 bytes on a dim longer than 1, is refused before the device
+    check and without a card or a build.  A dim of size 1 may have any
+    stride (its map takes the packed one), and the CUDA-core route takes
+    the same misaligned views."""
+    case = (1, 40, 4, 64, 1, 16, 16)
+    _, (x, dt, A, B, C) = _both(_inputs(case), "bfloat16")
+    assert K.route(x.dtype, 64, 16) == "tensor_core"
+    assert not any(K.tma_misaligned(t) for t in (x, B, C))
+    # a base 2 bytes past 16-byte alignment, and a head stride of 68 bf16
+    # (136 bytes)
+    shifted = torch.zeros(1, 40, 4, 72, dtype=torch.bfloat16)[..., 1:65]
+    wide = torch.zeros(1, 40, 4, 68, dtype=torch.bfloat16)[..., :64]
+    # a row stride of 20 bf16 (40 bytes) for B
+    rows = torch.zeros(1, 40, 1, 20, dtype=torch.bfloat16)[..., :16]
+    for name, args in (("x", (shifted, dt, A, B, C)),
+                       ("x", (wide, dt, A, B, C)),
+                       ("B", (x, dt, A, rows, C)),
+                       ("C", (x, dt, A, B, rows))):
+        assert K.tma_misaligned(args[0 if name == "x" else
+                                     3 if name == "B" else 4])
+        with pytest.raises(ValueError, match=f"{name}: the tensor-core "
+                                             f"route reads it by TMA"):
+            K.ssd_scan_kernel(*args, chunk=16)
+    # size-1 dims (batch, group) with odd strides pass to the device check
+    odd = torch.zeros(40 * 16, dtype=torch.bfloat16).as_strided(
+        (1, 40, 1, 16), (999, 16, 7, 1))
+    assert not K.tma_misaligned(odd)
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        K.ssd_scan_kernel(x, dt, A, odd, odd, chunk=16)
+    # f32 takes the CUDA cores, where a head stride of 66 floats (264
+    # bytes) is no fault
+    wide32 = torch.zeros(1, 40, 4, 66)[..., :64]
+    assert K.tma_misaligned(wide32)
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        K.ssd_scan_kernel(wide32, dt, A, B.float(), C.float(), chunk=16)
+
+
 @pytest.mark.parametrize("hp,N,Q", [(64, 128, 256), (128, 128, 256),
                                     (32, 32, 32), (64, 128, 64)])
 def test_shared_memory_fits_a_block(hp, N, Q):
